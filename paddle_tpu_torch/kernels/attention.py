@@ -4,10 +4,11 @@ paddle_tpu/kernels/attention.py).
 Two entry points, each with the reference's kernel envelope and its own
 eager composition:
 
-- `dot_product_attention` (prefill / full forward): K1 when the tensors
-  lie on a CUDA device and the call is inside the envelope (no mask, no
-  training dropout, self-attention, seq % 128 == 0, head_dim in
-  64/128/256); else `_eager_attention`, the port of `_xla_attention`
+- `dot_product_attention` (prefill, full forward, training): the flash
+  Function (K1 forward, K2 + K3 backward) when the tensors lie on a
+  CUDA device and the call is inside the envelope (no mask, no training
+  dropout, self-attention, seq % 128 == 0, head_dim in 64/128/256);
+  else `_eager_attention`, the port of `_xla_attention`
   (-1e9 causal mask, logits in the input dtype, f32 softmax cast back).
 - `decode_attention` (one query row over a KV cache): K6 on a CUDA
   device inside its envelope (no explicit mask, one query row,

@@ -39,7 +39,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # every csrc/*.cu source, one shared library each
-SOURCES = ("flash_attention", "flash_decode")
+SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode")
 
 LAUNCHES = collections.Counter()
 # compiler output (ptxas register / shared-memory / spill report) per

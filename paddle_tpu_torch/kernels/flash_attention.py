@@ -1,4 +1,5 @@
-"""Flash attention for Hopper: K1 (forward) and K6 (single-query decode).
+"""Flash attention for Hopper: K1 (forward), K2/K3 (backward) and K6
+(single-query decode).
 
 Port of paddle_tpu/kernels/flash_attention.py.  The kernels are CUDA C++
 in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
@@ -8,6 +9,15 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
   with an optional causal mask, f32 statistics, O in the input dtype
   and the row logsumexp in f32.  See csrc/flash_attention.cu for the
   design and what bounds it on the H100.
+- K2 and K3 replace the Pallas `_bwd_dq_kernel` and `_bwd_dkv_kernel`
+  (`_bwd_core`): the FA-2 backward, P recomputed from the saved lse,
+  dQ in one kernel and dK/dV in the other.  `flash_attention` and
+  `flash_attention_with_lse` are `torch.autograd.Function`s (`_Flash`,
+  `_FlashLse`, the counterparts of the reference's custom-VJP `_flash`
+  and `_flash_lse`): forward K1, backward K2 + K3.  delta = rowsum(dO *
+  O) in f32 is computed with torch outside the kernels, as the
+  reference's `_bwd` does, and the lse cotangent folds into delta -
+  dlse.  See csrc/flash_attention_bwd.cu.
 - K6 `flash_decode` replaces the Pallas `_decode_kernel`: one query row
   per (b, h) against a KV cache, keys past `lengths[b]` never read.
   See csrc/flash_decode.cu.
@@ -19,10 +29,6 @@ which the CPU tests hold against the Pallas kernels; on CUDA tensors it
 launches the kernel or raises.  The TPU tile sizes (`DEFAULT_BLOCK_Q/K`,
 `PADDLE_TPU_FLASH_BLOCK`) do not carry over: the CUDA kernels fix their
 own tiles.
-
-The backward kernels (K2, K3) are not ported yet, so a CUDA launch with
-autograd recording raises instead of returning an output without a
-gradient.
 """
 
 import ctypes
@@ -38,6 +44,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SIGS = {"pt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]}
+_BWD_SIGS = {
+    "pt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _P],
+    "pt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _P],
+}
 _DECODE_SIGS = {"pt_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _F, _P]}
 
@@ -59,10 +71,6 @@ def _check_launch(name, tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "
                              "inputs")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the backward kernels (K2/K3) are not ported yet; "
-            "run under torch.no_grad() or torch.inference_mode()")
 
 
 # --------------------------------------------------------------------------
@@ -117,20 +125,162 @@ def _launch_fwd(q, k, v, causal, sm_scale):
     return out, lse
 
 
+def _fwd(q, k, v, causal, sm_scale):
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, sm_scale)
+    return _launch_fwd(q, k, v, causal, sm_scale)
+
+
+# --------------------------------------------------------------------------
+# K2 / K3: backward
+# --------------------------------------------------------------------------
+
+def flash_attention_bwd_ref(q, k, v, do, lse, delta, causal=False,
+                            sm_scale=None):
+    """Plain version of K2/K3: the FA-2 backward in f32, P recomputed
+    from the forward's lse (p = exp(s - lse), the same -1e30 causal
+    mask), ds = p * (dp - delta) * sm_scale.  Returns (dq, dk, dv) in the
+    inputs' dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    if causal:
+        n = s.shape[-1]
+        live = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check_launch("flash_attention_bwd", (q, k, v, do, lse, delta))
+    b, h, s, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s):
+            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
+                             f"[{b}, {h}, {s}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, sm_scale):
+    b, h, s, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dims = (b * h, s, d, _DTYPE_CODES[q.dtype], int(causal), float(sm_scale))
+    return ptrs, dims
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
+    """K2 alone: dq."""
+    _check_bwd(q, k, v, do, lse, delta)
+    lib = backend.load("flash_attention_bwd", _BWD_SIGS)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = lib.pt_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims,
+                                     backend.stream_handle(q.device))
+    backend.check(status, "flash_attention_bwd_dq")
+    backend.LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
+    """K3 alone: (dk, dv)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    lib = backend.load("flash_attention_bwd", _BWD_SIGS)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        status = lib.pt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                      *dims, backend.stream_handle(q.device))
+    backend.check(status, "flash_attention_bwd_dkv")
+    backend.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, do, lse, delta, causal, sm_scale):
+    """K2 then K3: (dq, dk, dv)."""
+    args = (q, k, v, do, lse, delta, causal, sm_scale)
+    return (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+
+
+def _bwd(ctx, do, dlse):
+    """Shared backward of `_Flash` and `_FlashLse`: delta in f32 with
+    torch, the lse cotangent folded in as delta - dlse (the reference's
+    `_flash_lse_bwd`), then K2 + K3 (or the plain version on the CPU)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    # MHA hands dO over as a transpose view; the kernels take it dense
+    do = torch.zeros_like(out) if do is None else do.contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, do, lse, delta, ctx.causal,
+                                       ctx.sm_scale)
+    return _launch_bwd(q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
+
+
+class _Flash(torch.autograd.Function):
+    """out = attention(q, k, v): forward K1, backward K2 + K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = _fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_bwd(ctx, do, None), None, None)
+
+
+class _FlashLse(torch.autograd.Function):
+    """(out, lse) = attention(q, k, v), differentiable through both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = _fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_bwd(ctx, do, dlse), None, None)
+
+
+def _records_grad(tensors):
+    # a call that records no gradient skips the Function's bookkeeping
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
     """Tiled attention over [B, H, S, D] that also returns the per-row
-    logsumexp [B, H, S] (f32)."""
+    logsumexp [B, H, S] (f32), differentiable through both outputs."""
     _check_fwd(q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, sm_scale)
-    return _launch_fwd(q, k, v, bool(causal), sm_scale)
+    if _records_grad((q, k, v)):
+        return _FlashLse.apply(q, k, v, bool(causal), float(sm_scale))
+    return _fwd(q, k, v, bool(causal), float(sm_scale))
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None):
     """Tiled attention over [B, H, S, D]; returns q's shape and dtype."""
-    return flash_attention_with_lse(q, k, v, causal, sm_scale)[0]
+    _check_fwd(q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _records_grad((q, k, v)):
+        return _Flash.apply(q, k, v, bool(causal), float(sm_scale))
+    return _fwd(q, k, v, bool(causal), float(sm_scale))[0]
 
 
 # --------------------------------------------------------------------------

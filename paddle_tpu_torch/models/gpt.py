@@ -3,12 +3,14 @@
 `GPTConfig` keeps the reference's defaults: GPT-2 small geometry
 (vocab 50304, hidden 768, 12 layers, 12 heads, max_seq_len 1024).
 Parameter names equal the reference's `param_dict` keys.  On the card
-the prefill attention runs through K1 and every LayerNorm through K4.
+attention runs through the flash kernels (K1 forward, K2/K3 backward)
+and every LayerNorm through K4 (forward) and K5 (backward).
 """
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from .. import nn
 
@@ -22,9 +24,11 @@ class GPTConfig:
     max_seq_len: int = 1024
     dropout: float = 0.0
     dtype: str = "float32"
-    # streamed vocab-chunked CE and MoE are not ported yet (ROADMAP
-    # queue 1 items 2 and 8); non-default values raise
+    # > 0: stream the CE over vocab chunks of this size (must divide
+    # vocab_size) so the full [B, S, V] logits never persist to the
+    # backward (`streaming_softmax_ce`); a memory lever, not a speed one
     ce_vocab_chunk: int = 0
+    # MoE is not ported yet (ROADMAP queue 1 item 8); > 0 raises
     num_experts: int = 0
 
 
@@ -56,10 +60,6 @@ class GPT(nn.Layer):
             raise NotImplementedError(
                 "GPT MoE (num_experts > 0) is not ported yet: ROADMAP "
                 "queue 1 item 8 (distributed/moe.py with MoEFFN)")
-        if cfg.ce_vocab_chunk > 0:
-            raise NotImplementedError(
-                "streaming_softmax_ce (ce_vocab_chunk > 0) is not ported "
-                "yet: ROADMAP queue 1 item 2")
         super().__init__(dtype=cfg.dtype, device=device, generator=generator)
         self.cfg = cfg
         sub = self.sub_kwargs()
@@ -77,7 +77,12 @@ class GPT(nn.Layer):
 
     def loss(self, input_ids, labels):
         """Mean token cross-entropy: per-token logsumexp (f32) minus the
-        gathered label logit."""
+        gathered label logit; streamed over vocab chunks when
+        `ce_vocab_chunk > 0`."""
+        if self.cfg.ce_vocab_chunk > 0:
+            return streaming_softmax_ce(self._final_hidden(input_ids),
+                                        self.wte.weight, labels,
+                                        self.cfg.ce_vocab_chunk)
         logits = self.forward(input_ids)
         lse = torch.logsumexp(logits.float(), dim=-1)
         lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -96,3 +101,43 @@ class GPT(nn.Layer):
         for blk in self.blocks:
             x = blk(x)
         return self.norm_f(x)
+
+
+def _ce_chunk(hs, wc, lab, base, m, s, zlab):
+    """One vocab chunk of `streaming_softmax_ce`: the chunk's logits in
+    f32, the online logsumexp update, and the label logits that fall in
+    the chunk."""
+    z = torch.matmul(hs, wc.t()).float()                  # [N, chunk]
+    m_new = torch.maximum(m, z.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(z - m_new[:, None]).sum(dim=-1)
+    chunk = wc.shape[0]
+    in_c = (lab >= base) & (lab < base + chunk)
+    zl = torch.gather(z, 1, (lab - base).clamp(0, chunk - 1)[:, None])[:, 0]
+    return m_new, s, torch.where(in_c, zl, zlab)
+
+
+def streaming_softmax_ce(h, wte, labels, chunk):
+    """Fused CE streamed over vocab chunks: mean(lse - z_label) where
+    z = h @ wte^T, computed chunk by chunk with an online logsumexp so the
+    [N, V] logits never exist at once; each chunk runs under
+    `torch.utils.checkpoint`, so its logits are recomputed from h and its
+    wte rows in the backward instead of being kept (the reference's
+    `lax.scan` over a `jax.checkpoint` body).  In bf16 the chunk's logits
+    are rounded to bf16 before the f32 reduction (the reference
+    accumulates the einsum straight into f32).
+
+    h: [B, S, H] (or [N, H]); wte: [V, H]; labels int [B, S] / [N]."""
+    v, hidden = wte.shape
+    if v % chunk != 0:
+        raise ValueError(f"ce_vocab_chunk {chunk} must divide vocab {v}")
+    hs = h.reshape(-1, hidden)
+    lab = labels.reshape(-1).to(device=hs.device, dtype=torch.long)
+    n = hs.shape[0]
+    m = torch.full((n,), float("-inf"), dtype=torch.float32, device=hs.device)
+    s = torch.zeros((n,), dtype=torch.float32, device=hs.device)
+    zlab = torch.zeros((n,), dtype=torch.float32, device=hs.device)
+    for base in range(0, v, chunk):
+        m, s, zlab = torch.utils.checkpoint.checkpoint(
+            _ce_chunk, hs, wte[base:base + chunk], lab, base, m, s, zlab,
+            use_reentrant=False)
+    return (m + torch.log(s) - zlab).mean()

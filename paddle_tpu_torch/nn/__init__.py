@@ -6,12 +6,16 @@ Every layer takes `dtype`, `device` (default `cuda`) and `generator`
 
 from . import functional as F
 from .functional import scaled_dot_product_attention
-from .layers import Layer, functional_call, load_param_dict, param_dict
-from .parameter import make_generator
+from .layers import (
+    Layer, buffer_dict, functional_call, functional_call_with_state,
+    load_param_dict, param_dict,
+)
+from .parameter import default_rng, make_generator, seed
 
 __all__ = [
-    "Layer", "functional_call", "param_dict",
-    "load_param_dict", "make_generator", "functional", "Linear",
+    "Layer", "functional_call", "functional_call_with_state", "param_dict",
+    "buffer_dict", "load_param_dict", "make_generator", "default_rng",
+    "seed", "functional", "Linear",
     "LayerNorm", "Embedding", "Dropout", "LayerList",
     "MultiHeadAttention", "scaled_dot_product_attention",
 ]
@@ -70,6 +74,9 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
+    """Draws its mask from `default_rng`: the train step's generator
+    inside its key context, else the per-device default generator."""
+
     def __init__(self, p=0.5, mode="upscale_in_train", **kw):
         super().__init__(**kw)
         self._p = p

@@ -9,6 +9,7 @@ are not ported.
 import torch
 
 from ..ops import nn_ops as _n
+from .parameter import default_rng
 
 
 def gelu(x, approximate=False):
@@ -39,8 +40,12 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None, epsilon=1e-5):
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",
             generator=None):
+    """Dropout drawing from `generator`, or, when None, from
+    `default_rng` (the train step's generator inside its key context)."""
     if p == 0.0 or (not training and mode == "upscale_in_train"):
         return x
+    if generator is None:
+        generator = default_rng.generator(x.device)
     return _n.dropout({"X": x},
                       {"dropout_prob": p, "is_test": not training,
                        "dropout_implementation": mode,
@@ -56,12 +61,16 @@ def embedding(ids, weight, padding_idx=None):
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, scale=None, training=True,
                                  generator=None):
-    """Fused attention entry point: the K1 kernel on a CUDA device when
-    the call is inside its envelope, else the eager composition.
+    """Fused attention entry point: the flash kernels (K1 forward, K2/K3
+    backward) on a CUDA device when the call is inside their envelope,
+    else the eager composition.  Training dropout draws from `generator`
+    or, when None, from `default_rng` (the train step's generator).
 
     q/k/v: [batch, heads, seq, head_dim]."""
     from ..kernels import attention as _attn
 
+    if generator is None and dropout_p > 0.0 and training:
+        generator = default_rng.generator(q.device)
     return _attn.dot_product_attention(
         q, k, v, mask=attn_mask, dropout_p=dropout_p, is_causal=is_causal,
         scale=scale, training=training, generator=generator)

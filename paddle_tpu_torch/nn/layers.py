@@ -7,6 +7,8 @@ module tree exactly as the reference's `named_parameters` builds them
 both packages.
 """
 
+import contextlib
+
 import torch
 
 from ..core.place import resolve_device
@@ -42,7 +44,57 @@ def functional_call(layer, params, *args, **kwargs):
     return torch.func.functional_call(layer, params, args, kwargs)
 
 
+@contextlib.contextmanager
+def _swap_tensors(layer, values):
+    """Put `values` (dotted name -> tensor) in place of the layer tree's
+    parameters and buffers of those names; the originals come back on
+    exit, whatever the call did to the slots in between."""
+    owners = dict(layer.named_modules())
+    saved = []
+    try:
+        for path, v in values.items():
+            owner_path, _, leaf = path.rpartition(".")
+            owner = owners[owner_path]
+            store = (owner._parameters if leaf in owner._parameters
+                     else owner._buffers)
+            if leaf not in store:
+                raise KeyError(f"{path}: no such parameter or buffer")
+            saved.append((store, leaf, store[leaf]))
+            store[leaf] = v
+        yield owners
+    finally:
+        for store, leaf, old in reversed(saved):
+            store[leaf] = old
+
+
+def functional_call_with_state(layer, params, buffers, *args, _method=None,
+                               **kwargs):
+    """Forward with params AND mutable buffers (batch-norm running stats)
+    substituted; returns (output, new_buffers), where new_buffers holds
+    what the call left in each buffer slot.  The layer's own tensors are
+    left untouched.
+
+    _method: optional fn(layer, *args, **kwargs) to call instead of
+    layer.__call__ (e.g. a loss method)."""
+    call = _method if _method is not None else (
+        lambda l, *a, **kw: l(*a, **kw))
+    with _swap_tensors(layer, {**params, **buffers}) as owners:
+        out = call(layer, *args, **kwargs)
+        new_buffers = {}
+        for path in buffers:
+            owner_path, _, leaf = path.rpartition(".")
+            new_buffers[path] = owners[owner_path]._buffers[leaf]
+    return out, new_buffers
+
+
+def buffer_dict(layer):
+    return {n: b for n, b in layer.named_buffers()}
+
+
 def param_dict(layer, trainable_only=False):
+    """name -> parameter (the layer's own tensors); with
+    `trainable_only`, only those that require grad (the reference's
+    `trainable`)."""
     return {n: p for n, p in layer.named_parameters()
             if p.requires_grad or not trainable_only}
 

@@ -9,16 +9,72 @@ torch's generators never agree, which is why the tests carry weights
 across as numpy arrays (`paddle_tpu_torch.interop`).
 """
 
+import contextlib
 import math
+import threading
 
 import torch
 
 from ..core.dtype import to_torch_dtype
 
-def make_generator(seed=0):
-    """A host torch.Generator seeded with `seed` (the port's counterpart
-    of the reference's `seed()` / default_rng stream)."""
-    return torch.Generator().manual_seed(int(seed))
+
+def make_generator(seed=0, device="cpu"):
+    """A torch.Generator on `device` (the host by default) seeded with
+    `seed`: the port's counterpart of a reference PRNG key."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+class _DropoutRng:
+    """Where dropout draws its random bits: the port's counterpart of the
+    reference's `default_rng`.
+
+    Inside `key_context(generator)` (the train step enters it with the
+    generator its TrainState holds, as the reference enters its traced
+    key) every draw on this thread comes from that generator.  Outside
+    it, draws come from one generator per device, seeded by `seed()`
+    (0 until then), never from torch's global RNG."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._seed = 0
+        self._per_device = {}
+        self._local = threading.local()
+
+    def seed(self, s):
+        with self._lock:
+            self._seed = int(s)
+            self._per_device.clear()
+
+    @contextlib.contextmanager
+    def key_context(self, generator):
+        old = getattr(self._local, "override", None)
+        self._local.override = generator
+        try:
+            yield
+        finally:
+            self._local.override = old
+
+    def generator(self, device):
+        """The generator a draw on `device` takes."""
+        override = getattr(self._local, "override", None)
+        if override is not None:
+            return override
+        device = torch.device(device)
+        with self._lock:
+            gen = self._per_device.get(device)
+            if gen is None:
+                gen = make_generator(self._seed, device)
+                self._per_device[device] = gen
+            return gen
+
+
+default_rng = _DropoutRng()
+
+
+def seed(s):
+    """Parity: fluid.dygraph seed / paddle.seed (dropout draws)."""
+    default_rng.seed(s)
+    return default_rng
 
 
 def _fan_in_out(shape):

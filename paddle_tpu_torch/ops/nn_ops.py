@@ -11,16 +11,23 @@ import torch
 from ..kernels.layer_norm import layer_norm_fused
 
 
+def _use_kernel(x):
+    # the port's gate: the tensor lies on the card
+    return x.is_cuda
+
+
 def layer_norm_y(x, scale, bias, eps=1e-5, begin_norm_axis=1):
     """The `Y` output of `layer_norm` alone.  On a CUDA tensor, a
-    last-axis norm with D % 128 == 0 and both scale and bias goes to the
-    K4 kernel (f32 statistics); everything else takes the reference's
-    eager composition, computed in the input dtype.
+    last-axis norm with D % 128 == 0 and both scale and bias goes through
+    the fused LayerNorm Function (K4 forward, K5 backward; f32
+    statistics), so gradients reach x, scale and bias through the
+    kernels; everything else takes the reference's eager composition,
+    computed in the input dtype.
 
     (The reference computes Mean/Variance beside Y and lets XLA drop
     them when unread; eager PyTorch has no such pass, so the hot path
     calls this function and skips them.)"""
-    if (x.is_cuda and begin_norm_axis == x.dim() - 1
+    if (_use_kernel(x) and begin_norm_axis == x.dim() - 1
             and x.shape[-1] % 128 == 0 and scale is not None
             and bias is not None):
         return layer_norm_fused(x.contiguous(), scale.reshape(-1),

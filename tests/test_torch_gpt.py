@@ -154,8 +154,49 @@ def test_seeded_init_is_reproducible():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         GPT(GPTConfig(num_experts=4, **SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming_softmax_ce"):
-        GPT(GPTConfig(ce_vocab_chunk=64, **SMALL), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streaming_softmax_ce_matches_reference(dtype):
+    """ce_vocab_chunk = 64 (4 chunks of the 256 vocab): the streamed CE's
+    loss and its grads w.r.t. h and wte against the reference's
+    `streaming_softmax_ce`, and the chunked model loss against the plain
+    one.  f32 atol = rtol = 1e-5 (one matmul and an online logsumexp);
+    bf16 3e-2 (the port rounds each chunk's logits to bf16 before the f32
+    reduction, the reference accumulates straight into f32)."""
+    from paddle_tpu.models.gpt import streaming_softmax_ce as j_ce
+
+    from paddle_tpu_torch.models.gpt import streaming_softmax_ce
+
+    rng = np.random.default_rng(7)
+    h = rng.normal(size=(2, 16, 128)).astype(np.float32)
+    wte = (rng.normal(size=(256, 128)) * 0.1).astype(np.float32)
+    labels = rng.integers(0, 256, size=(2, 16), dtype=np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want, (dh, dw) = jax.value_and_grad(
+        lambda a, b: j_ce(a, b, jnp.asarray(labels), 64), argnums=(0, 1))(
+            jnp.asarray(h, jdt), jnp.asarray(wte, jdt))
+    th = torch.from_numpy(h).to(tdt).requires_grad_()
+    tw = torch.from_numpy(wte).to(tdt).requires_grad_()
+    got = streaming_softmax_ce(th, tw, torch.from_numpy(labels), 64)
+    gh, gw = torch.autograd.grad(got, (th, tw))
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for a, b in ((got, want), (gh, dh), (gw, dw)):
+        np.testing.assert_allclose(
+            a.detach().float().numpy(),
+            np.asarray(jnp.asarray(b).astype(jnp.float32)),
+            atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="must divide"):
+        streaming_softmax_ce(th, tw, torch.from_numpy(labels), 100)
+    # the model's loss: chunked == plain
+    np.random.seed(8)
+    plain = GPT(GPTConfig(**SMALL), device="cpu")
+    chunked = GPT(GPTConfig(ce_vocab_chunk=64, **SMALL), device="cpu")
+    tnn.load_param_dict(chunked, dict(plain.named_parameters()))
+    ids = torch.from_numpy(_ids(9, shape=(2, 32)))
+    with torch.no_grad():
+        torch.testing.assert_close(chunked.loss(ids, ids), plain.loss(ids, ids),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_sequence_longer_than_max_seq_len_raises(pair):

@@ -9,13 +9,21 @@ Tolerances: float32 atol = rtol = 2e-5 (one kernel, sums taken in another
 order); bfloat16 3e-2 (the two frameworks round to bf16 at different
 places, e.g. the Pallas kernel rounds P to bf16 before P.V).
 
-`test_kernels_on_card` holds the CUDA and Triton kernels against the plain
-versions on the card; it needs a GPU and skips here.
+The backward plain versions (K2/K3, K5) are held against `jax.vjp` of the
+JAX package's custom-VJP functions, whose backward runs the Pallas
+backward kernels in interpret mode: f32 atol = rtol = 2e-5, bf16 3e-2
+(the Pallas kernels round p and ds to bf16 before their matmuls; the
+port keeps them in f32).
+
+`test_kernels_on_card` and `test_kernel_grads_on_card` hold the CUDA and
+Triton kernels against the plain versions on the card; they need a GPU
+and skip here.
 """
 
 import ast
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +31,8 @@ import torch
 
 from paddle_tpu.kernels import attention as JA
 from paddle_tpu.kernels.flash_attention import (
-    flash_attention_with_lse as j_flash_lse, flash_decode as j_decode)
+    flash_attention as j_flash, flash_attention_with_lse as j_flash_lse,
+    flash_decode as j_decode)
 from paddle_tpu.kernels.layer_norm import fused_layer_norm as j_ln
 from paddle_tpu.ops import nn_ops as j_ops
 
@@ -31,6 +40,7 @@ from paddle_tpu_torch.kernels import attention as TA
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import flash_attention as TFA
 from paddle_tpu_torch.kernels import layer_norm as TLN
+from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops import nn_ops as t_ops
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -106,6 +116,129 @@ def test_k6_plain_matches_pallas(dtype):
     # a scalar length broadcasts over the batch
     want1 = j_decode(_j(q), _j(k), _j(v), 100)
     _close(TFA.flash_decode(_t(q), _t(k), _t(v), 100), want1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K2/K3 and K5, and the autograd Functions, against the
+# Pallas backward kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_k2_k3_plain_matches_pallas_vjp(with_lse, causal, dtype):
+    """dq, dk, dv of flash_attention (cotangent dO) and of
+    flash_attention_with_lse (cotangents dO and dlse) against jax.vjp:
+    once through flash_attention_bwd_ref with delta computed as the
+    Function does, once through the Function's own backward."""
+    q, k, v, do = (_rand((1, 2, 128, 64), s) for s in (40, 41, 42, 43))
+    dlse = _rand((1, 2, 128), 44)
+    jq, jk, jv = _j(q, dtype), _j(k, dtype), _j(v, dtype)
+    if with_lse:
+        _, vjp = jax.vjp(lambda a, b, c: j_flash_lse(a, b, c, causal=causal),
+                         jq, jk, jv)
+        want = vjp((_j(do, dtype), jnp.asarray(dlse)))
+    else:
+        _, vjp = jax.vjp(lambda a, b, c: j_flash(a, b, c, causal=causal),
+                         jq, jk, jv)
+        want = vjp(_j(do, dtype))
+    tq, tk, tv, tdo = (_t(a, dtype) for a in (q, k, v, do))
+    out, lse = TFA.flash_attention_ref(tq, tk, tv, causal)
+    delta = (tdo.float() * out.float()).sum(-1)
+    if with_lse:
+        delta = delta - _t(dlse)
+    got = TFA.flash_attention_bwd_ref(tq, tk, tv, tdo, lse, delta, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, dtype)
+        _close(g, w, dtype)
+    # the Function: same grads, the plain versions on CPU tensors
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    before = dict(backend.LAUNCHES)
+    if with_lse:
+        outs = TFA.flash_attention_with_lse(*leaves, causal=causal)
+        grads = torch.autograd.grad(outs, leaves, (tdo, _t(dlse)))
+    else:
+        outs = TFA.flash_attention(*leaves, causal=causal)
+        grads = torch.autograd.grad(outs, leaves, tdo)
+    assert dict(backend.LAUNCHES) == before     # CPU: no kernel launch
+    for g, w in zip(grads, got):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_flash_lse_function_takes_one_sided_cotangents():
+    """Only lse used, or only out: the missing cotangent counts as 0."""
+    q, k, v = (_t(_rand((1, 1, 128, 64), s)).requires_grad_()
+               for s in (45, 46, 47))
+    out, lse = TFA.flash_attention_with_lse(q, k, v, causal=True)
+    g_lse = torch.autograd.grad(lse.sum(), (q, k, v))
+    out, lse = TFA.flash_attention_with_lse(q, k, v, causal=True)
+    g_out = torch.autograd.grad(out.sum(), (q, k, v))
+    with torch.no_grad():
+        ref_out, ref_lse = TFA.flash_attention_ref(q, k, v, True)
+        delta0 = ref_out.sum(-1)
+        want_lse = TFA.flash_attention_bwd_ref(
+            q, k, v, torch.zeros_like(q), ref_lse,
+            torch.zeros_like(ref_lse) - 1.0, True)
+        want_out = TFA.flash_attention_bwd_ref(
+            q, k, v, torch.ones_like(q), ref_lse, delta0, True)
+    for g, w in zip(g_lse + g_out, want_lse + want_out):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_plain_matches_pallas_vjp(dtype):
+    # 300 rows: the Pallas kernel's 256-row blocks leave a partial block
+    x = _rand((300, 128), 48, 1.0)
+    g, b = _rand((128,), 49, 1.0), _rand((128,), 50, 1.0)
+    dy = _rand((300, 128), 51, 1.0)
+    _, vjp = jax.vjp(lambda a, c, e: j_ln(a, c, e), _j(x, dtype),
+                     _j(g, dtype), _j(b, dtype))
+    want = vjp(_j(dy, dtype))
+    tx, tg, tb, tdy = (_t(a, dtype) for a in (x, g, b, dy))
+    dx, dg, db = TLN.layer_norm_bwd_ref(tx, tg, tdy)
+    assert dx.dtype == getattr(torch, dtype)
+    assert dg.dtype == db.dtype == torch.float32
+    for got, w in zip((dx, dg, db), want):
+        _close(got, w, dtype)
+    # the Function: grads to x, gamma and beta in their dtypes
+    leaves = [t.clone().requires_grad_() for t in (tx, tg, tb)]
+    y = TLN.fused_layer_norm(*leaves)
+    grads = torch.autograd.grad(y, leaves, tdy)
+    for got, w in zip(grads, (dx, dg.to(tg.dtype), db.to(tb.dtype))):
+        torch.testing.assert_close(got, w, atol=0, rtol=0)
+
+
+def test_functions_through_the_model_match_eager(monkeypatch):
+    """A small GPT's loss and grads with the dispatch gates forced open
+    (the route a CUDA tensor takes: the flash and LayerNorm Functions,
+    here with their plain versions) against the eager compositions that
+    CPU tensors take.  f32 atol = rtol = 1e-4: two layers, the -1e9
+    eager mask against the kernels' -1e30."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    model = GPT(cfg, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(52).integers(
+        0, 256, size=(2, 128), dtype=np.int32))
+    labels = torch.roll(ids, -1, 1)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss = model.loss(ids, labels)
+        return [loss, *torch.autograd.grad(loss, params)]
+
+    eager = loss_and_grads()
+    calls = []
+    for cls in (TFA._Flash, TLN._LayerNorm):
+        orig = cls.apply
+        monkeypatch.setattr(cls, "apply", staticmethod(
+            lambda *a, _o=orig, _c=cls: (calls.append(_c), _o(*a))[1]))
+    monkeypatch.setattr(TA, "_use_kernel", lambda use_flash, q: True)
+    monkeypatch.setattr(t_ops, "_use_kernel", lambda x: True)
+    routed = loss_and_grads()
+    assert calls.count(TFA._Flash) == 2
+    assert calls.count(TLN._LayerNorm) == 5
+    for got, want in zip(routed, eager):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -309,3 +442,43 @@ def test_kernels_on_card():
     assert backend.LAUNCHES["flash_attention_fwd"] == 4
     assert backend.LAUNCHES["flash_decode"] == 2
     assert backend.LAUNCHES["layer_norm_fwd"] == 2
+
+
+@pytest.mark.cuda
+def test_kernel_grads_on_card():
+    """K1 + K2 + K3 and K4 + K5 through their autograd Functions on the
+    card, against the plain backward versions on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA and Triton kernels have "
+                    "no CPU mode (chip_smoke.py runs them on the card)")
+    dev = torch.device("cuda")
+    backend.reset_launches()
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+        for d, causal in ((64, True), (128, False), (256, True)):
+            q, k, v, do = (_t(_rand((1, 2, 256, d), s)).to(dev, dt)
+                           for s in (53, 54, 55, 56))
+            dlse = _t(_rand((1, 2, 256), 57)).to(dev)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            outs = TFA.flash_attention_with_lse(*leaves, causal=causal)
+            got = torch.autograd.grad(outs, leaves, (do, dlse))
+            out, lse = TFA.flash_attention_ref(q, k, v, causal)
+            delta = (do.float() * out.float()).sum(-1) - dlse
+            want = TFA.flash_attention_bwd_ref(q, k, v, do, lse, delta,
+                                               causal)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(), **tol)
+        x = _t(_rand((300, 768), 58, 2.0)).to(dev, dt)
+        g = _t(_rand((768,), 59)).to(dev, dt)
+        dy = _t(_rand((300, 768), 60)).to(dev, dt)
+        leaves = [t.clone().requires_grad_() for t in (x, g, g)]
+        got = torch.autograd.grad(TLN.fused_layer_norm(*leaves), leaves, dy)
+        dx, dg, db = TLN.layer_norm_bwd_ref(x, g, dy)
+        torch.testing.assert_close(got[0].float(), dx.float(), **tol)
+        for a, w in ((got[1], dg), (got[2], db)):
+            torch.testing.assert_close(a.float(), w.to(dt).float(), **tol)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 6
+    assert backend.LAUNCHES["flash_attention_bwd_dkv"] == 6
+    assert backend.LAUNCHES["layer_norm_bwd"] == 2
