@@ -9,9 +9,10 @@ Phases (any failure makes the script exit non-zero without a result):
    off, build the CUDA kernels (one nvcc per source, in parallel) and
    print the build time and the compiler's register/spill report.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
-   backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton) and K6
-   (flash decode, CUDA) against their plain PyTorch versions on the
-   card, in float32 and bfloat16, and time the kernel, the plain
+   backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
+   (flash decode, CUDA) and K7 (the fused ResNet bottleneck block,
+   forward and backward, CUDA) against their plain PyTorch versions on
+   the card, in float32 and bfloat16, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick only; the port never calls it) and the bound (the larger
    of bytes over 3.35 TB/s and operations over the peak rate of the
@@ -21,7 +22,13 @@ Phases (any failure makes the script exit non-zero without a result):
    and non-causal at head_dim 128 and 256; their library yardstick is
    the backward of `F.scaled_dot_product_attention` / `F.layer_norm`,
    timed as `torch.autograd.grad(out, inputs, dout, retain_graph=True)`.
-3. Train path: the repo's headline training configuration
+   K7 is checked at ResNet-50's four identity-block geometries (56^2
+   256/64, 28^2 512/128, 14^2 1024/256, 7^2 2048/512) and its stage-1
+   block-0 projection geometry (56^2, 64 -> 256, Cm 64), batch 2 in
+   float32 and batch 128 (timed) in bfloat16; its yardstick is the
+   cuDNN composition (three or four `F.conv2d` plus the elementwise
+   tail, through autograd for the backward), several calls, not one.
+3. GPT train path: the repo's headline training configuration
    (`bench.py` `bench_bert`: a GPT of BERT-base geometry, vocab 32768,
    hidden 768, 12 layers, 12 heads, max_seq_len 512, bfloat16) with
    seeded weights takes one warm-up step and 5 timed steps of
@@ -30,7 +37,19 @@ Phases (any failure makes the script exit non-zero without a result):
    over 989 TFLOP/s), peak memory and a torch.profiler breakdown of one
    step.  Fails unless every loss is finite, the last loss is below the
    first, and every step launches exactly K1, K2, K3 x12 and K4, K5 x25.
-4. Serving path: GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
+4. ResNet-50 train path (`bench.py` `resnet50_time_config`, the
+   `bench_resnet50_fused` row): ResNet-50, bfloat16, NHWC, ghost batch
+   norm over 16 samples, `fused=True` under PADDLE_TPU_FUSED_SUBSET=id,
+   seeded weights, one warm-up step and 5 timed steps of
+   `make_train_step(model, Momentum(0.1, 0.9))` with the cross-entropy
+   loss on one seeded batch of 128 x 3 x 224 x 224.  Printed: step ms,
+   images/s, MFU (3 x 4.089e9 FLOP per image over 989 TFLOP/s, as
+   bench.py), peak memory and a profile of one step.  Fails unless every
+   loss is finite, the last loss is below the first, and every step
+   launches K7 forward and backward exactly 12 times each.  The unfused
+   step (`fused=False`, bench_resnet50's path, no port kernel) is timed
+   the same way beside it as the yardstick.
+5. Serving path: GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
    heads) in bfloat16 with seeded random weights serves greedy
    `generate()` on 4 prompts of 256 tokens (128 new) and a
    continuous-batching `DecodeEngine` (8 slots, max_len 1024, buckets
@@ -38,18 +57,23 @@ Phases (any failure makes the script exit non-zero without a result):
    just before and read just after; every kernel must have launched.  A
    torch.profiler window over 16 decode steps then says where a step's
    time goes.
-5. Checks in float32: the train geometry at full width and depth 2
+6. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
-   first step's grads and the params must agree.  Then the card's
-   GPT-2-small logits against the same model on the CPU for one
-   128-token prompt, and engine tokens against `generate()` for prompts
-   whose length equals a bucket.  A token mismatch fails only if
+   first step's grads and the params must agree.  A shallow NHWC
+   ResNet-50 (full widths, one identity block per stage through K7)
+   takes 2 Momentum steps at batch 8 x 128 x 128 on the card and on the
+   CPU: losses, first-step grads, params and batch-norm buffers must
+   agree (in norm per tensor, see `resnet_check`).  Then
+   the card's GPT-2-small logits against the same model on the CPU for
+   one 128-token prompt, and engine tokens against `generate()` for
+   prompts whose length equals a bucket.  A token mismatch fails only if
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
-The last lines are the kernels' JSON line (K1-K6, each with its launches
-on the train and serving paths), the card line and
+The last lines are the kernels' JSON line (K1-K7, K7 as two rows,
+each with its launches summed over the GPT train, ResNet and serving
+paths), the card line and
 {"ok": true, "device": {...}}.
 """
 
@@ -273,6 +297,7 @@ def kernel_phase(failures):
                           "bf16 (generate decode)")
     flash_bwd_checks(rows, failures, rnd)
     layer_norm_bwd_checks(rows, failures, rnd)
+    fused_bottleneck_checks(rows, failures, rnd)
     return rows
 
 
@@ -431,6 +456,217 @@ def layer_norm_bwd_checks(rows, failures, rnd):
                           "reductions")
 
 
+# K7 at ResNet-50's four identity-block geometries and its stage-1 block-0
+# projection geometry: (H = W, Cin, Cm, Cout, proj)
+K7_GEOMETRIES = ((56, 256, 64, 256, False), (28, 512, 128, 512, False),
+                 (14, 1024, 256, 1024, False), (7, 2048, 512, 2048, False),
+                 (56, 64, 64, 256, True))
+
+
+def compare_k7(name, got, want, dtype, rows, failures):
+    """K7 against its plain version.  float32: atol = rtol = 2e-5, the
+    weight and affine grads (f32 sums over the rows, added with atomics
+    in any order) atol 2e-5 * sqrt(rows).  bfloat16: a relu mask whose
+    pre-activation lies within one rounding of 0 can fall the other way
+    on the card (f32 sums in another order, one bf16 ulp of h0 or h1),
+    and each such flip moves one element of dx or one column of a weight
+    grad by about |dy|; so at least 99% of the elements must lie within
+    atol = rtol = 3e-2 (x sqrt(rows) for the sums) and the whole tensor
+    within 1e-2 relative Frobenius error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = TOL[dtype]
+    atol = tol * (rows ** 0.5 if rows > 1 else 1.0)
+    finite = bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        if not (finite and torch.allclose(got, want, atol=atol, rtol=tol)):
+            failures.append(f"{name}: max_abs_err {err:.3e} > atol {atol}")
+        return err
+    bad = ((got - want).abs() > atol + tol * want.abs()).float().mean().item()
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    if not (finite and bad <= 1e-2 and rel <= 1e-2):
+        failures.append(f"{name}: {bad:.2e} of elements outside atol "
+                        f"{atol:.3g}, relative Frobenius error {rel:.2e}")
+    return err
+
+
+def k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt):
+    """Seeded K7 inputs at He-like scales, affines near (1, 0) rounded to
+    the activation dtype (as the model casts them), and a cotangent."""
+    import torch
+
+    x = rnd((n, hw, hw, cin), dt)
+    ws = [rnd((cin, cm), dt, cin ** -0.5),
+          rnd((3, 3, cm, cm), dt, (9 * cm) ** -0.5),
+          rnd((cm, cout), dt, cm ** -0.5)]
+    if proj:
+        ws.append(rnd((cin, cout), dt, cin ** -0.5))
+    widths = [cm] * 4 + [cout] * (4 if proj else 2)
+    affs = [(rnd((c,), torch.float32, 0.3) + (1.0 if i % 2 == 0 else 0.0)
+             ).to(dt) for i, c in enumerate(widths)]
+    return x, ws, affs, rnd((n, hw, hw, cout), dt)
+
+
+def k7_composition(x, ws, affs, proj):
+    """The cuDNN composition of a bottleneck block: three (four)
+    F.conv2d on channels-last views plus the elementwise tail, the
+    library yardstick of K7 (several calls, not one)."""
+    import torch
+    import torch.nn.functional as TF
+
+    def conv(t, w_oihw, pad=0):
+        return TF.conv2d(t, w_oihw, padding=pad)
+
+    def aff(t, a, b):
+        return t * a[None, :, None, None] + b[None, :, None, None]
+
+    xc = x.permute(0, 3, 1, 2)
+    w1 = ws[0].t()[:, :, None, None]
+    w2 = ws[1].permute(3, 2, 0, 1)
+    w3 = ws[2].t()[:, :, None, None]
+    h0 = torch.relu(aff(conv(xc, w1), affs[0], affs[1]))
+    h1 = torch.relu(aff(conv(h0, w2, 1), affs[2], affs[3]))
+    s = (aff(conv(xc, ws[3].t()[:, :, None, None]), affs[6], affs[7])
+         if proj else xc)
+    return torch.relu(aff(conv(h1, w3), affs[4], affs[5]) + s)
+
+
+def fused_bottleneck_checks(rows, failures, rnd):
+    """K7 forward and backward: raw launches and through the autograd
+    Functions against the plain versions, in float32 (batch 2) and
+    bfloat16 (batch 128, timed), at every geometry above."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
+        for hw, cin, cm, cout, proj in K7_GEOMETRIES:
+            d = dname(dt)
+            x, ws, affs, dy = k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt)
+            w4 = ws[3] if proj else None
+            aff = FB._pack_affines(affs, cout)
+            tag = (f"K7 {hw}^2 {cin}/{cm}/{cout} {'proj' if proj else 'id'} "
+                   f"n={n} {d}")
+            rows_n = n * hw * hw
+            y = FB._launch_fwd(x, *ws[:3], w4, aff, proj)
+            y_ref = FB.fused_bottleneck_fwd_ref(x, *ws[:3], w4, aff, proj)
+            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures)
+            got = FB._launch_bwd(x, dy, *ws[:3], w4, aff, proj)
+            want = FB.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj)
+            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures)
+            for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
+                                  got[1:], want[1:]):
+                if g is not None:
+                    err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
+                                                  rows_n, failures))
+            # through the Function: y and every grad, in the primals' dtype
+            fn = FB.fused_bottleneck_proj if proj else FB.fused_bottleneck
+            leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+            out = fn(*leaves)
+            err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
+                                failures)
+            grads = torch.autograd.grad(out, leaves, dy)
+            err_fg = 0.0
+            cmw = [want[0], *want[1:4]] + ([want[4]] if proj else [])
+            daff = want[5]
+            cmw += [daff[0, :cm], daff[1, :cm], daff[2, :cm], daff[3, :cm],
+                    daff[4], daff[5]] + ([daff[6], daff[7]] if proj else [])
+            for i, (g, w) in enumerate(zip(grads, cmw)):
+                if g.dtype != leaves[i].dtype:
+                    failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
+                err_fg = max(err_fg, compare_k7(
+                    f"{tag} Function grad {i}", g, w.to(g.dtype), d,
+                    1 if i == 0 else rows_n, failures))
+            del leaves, out, grads, got, want, cmw
+            msg = (f"{tag}: max_err fwd {err_f:.3e} bwd {err_b:.3e} "
+                   f"Function y {err_fy:.3e} grads {err_fg:.3e}")
+            if dt == torch.bfloat16:
+                timed = k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm,
+                                 cout)
+                msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                       else f"{k} {v}"
+                                       for k, v in timed.items())
+                if not proj and hw == 56:
+                    common = dict(route="cuda",
+                                  source="paddle_tpu_torch/csrc/"
+                                         "fused_bottleneck.cu")
+                    shape = (f"x [128, 56, 56, 256], Cm 64 (stage 1 identity "
+                             "block) bf16")
+                    rows["fused_bottleneck_fwd"] = dict(
+                        name="K7 fused_bottleneck_fwd",
+                        replaces="paddle_tpu/kernels/fused_bottleneck.py:180",
+                        max_abs_err=max(err_f, err_fy), ms=timed["fwd_ms"],
+                        plain_ms=timed["plain_fwd_ms"],
+                        bound_ms=timed["fwd_bound_ms"],
+                        bound_by=timed["fwd_bound_by"],
+                        library_ms=timed["cudnn_fwd_ms"], shape=shape
+                        + "; library: the cuDNN composition (3 convs + "
+                          "elementwise), not one call", **common)
+                    rows["fused_bottleneck_bwd"] = dict(
+                        name="K7 fused_bottleneck_bwd",
+                        replaces="paddle_tpu/kernels/fused_bottleneck.py:205",
+                        max_abs_err=max(err_b, err_fg), ms=timed["bwd_ms"],
+                        plain_ms=timed["plain_bwd_ms"],
+                        bound_ms=timed["bwd_bound_ms"],
+                        bound_by=timed["bwd_bound_by"],
+                        library_ms=timed["cudnn_bwd_ms"], shape=shape
+                        + "; kernel_ms is both backward kernels and the "
+                          "wrapper's zeroed grad buffers; library: the cuDNN "
+                          "composition's backward", **common)
+            log(msg)
+            del x, ws, affs, dy, aff, y, y_ref
+            torch.cuda.empty_cache()
+
+
+def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
+    """Device ms of K7 forward and backward, the plain versions and the
+    cuDNN composition (forward, and backward through autograd), and the
+    bounds: forward 2 R (Cin Cm + 9 Cm^2 + Cm Cout [+ Cin Cout]) FLOP
+    against x, the weights, the affines and y; backward 3x those FLOP
+    (the recompute and two products per conv) against x, dy, the
+    weights and affines read and dx, the f32 weight and affine grads
+    written."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    w4 = ws[3] if proj else None
+    out = {}
+    out["fwd_ms"] = time_ms(lambda: FB._launch_fwd(x, *ws[:3], w4, aff,
+                                                   proj), 5, graph=False)
+    out["bwd_ms"] = time_ms(lambda: FB._launch_bwd(x, dy, *ws[:3], w4, aff,
+                                                   proj), 5, graph=False)
+    out["plain_fwd_ms"] = time_ms(lambda: FB.fused_bottleneck_fwd_ref(
+        x, *ws[:3], w4, aff, proj), 3, graph=False)
+    out["plain_bwd_ms"] = time_ms(lambda: FB.fused_bottleneck_bwd_ref(
+        x, dy, *ws[:3], w4, aff, proj), 3, graph=False)
+    leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+    with torch.no_grad():
+        out["cudnn_fwd_ms"] = time_ms(lambda: k7_composition(
+            leaves[0], leaves[1:1 + len(ws)], leaves[1 + len(ws):], proj), 5,
+            graph=False)
+    lout = k7_composition(leaves[0], leaves[1:1 + len(ws)],
+                          leaves[1 + len(ws):], proj)
+    ldy = dy.permute(0, 3, 1, 2)
+    out["cudnn_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lout, leaves, ldy, retain_graph=True), 5, graph=False)
+    del lout, leaves
+    r = n * hw * hw
+    elt = x.element_size()
+    flops = 2.0 * r * (cin * cm + 9 * cm * cm + cm * cout
+                       + (cin * cout if proj else 0))
+    wbytes = sum(w.numel() for w in ws) * elt + aff.numel() * 4
+    fb, fby = bound(r * (cin + cout) * elt + wbytes, flops, "bfloat16")
+    bb, bby = bound(r * (2 * cin + cout) * elt + wbytes
+                    + (sum(w.numel() for w in ws) + aff.numel()) * 4,
+                    3 * flops, "bfloat16")
+    out.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+               bwd_bound_by=bby, gflop_fwd=flops / 1e9)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the train path
 # ---------------------------------------------------------------------------
@@ -519,7 +755,7 @@ def train_phase(failures):
     return launches
 
 
-def profile_train_step(step, state, batch, host_ms):
+def profile_train_step(step, state, batch, host_ms, label="train"):
     """Where a train step's time goes: device time per step and the
     busiest kernels (torch.profiler, kernel events only), against the
     step's host-clock time measured without the profiler."""
@@ -535,7 +771,7 @@ def profile_train_step(step, state, batch, host_ms):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_ms = sum(r[0] for r in rows) / 1e3
-    log(f"train step profile: host {host_ms:.3f} ms/step (mean, no "
+    log(f"{label} step profile: host {host_ms:.3f} ms/step (mean, no "
         f"profiler), device {device_ms:.3f} ms/step, device busy "
         f"{device_ms / host_ms:.1%}; {sum(r[1] for r in rows)} kernel "
         f"launches")
@@ -545,7 +781,107 @@ def profile_train_step(step, state, batch, host_ms):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving path
+# phase 4: the ResNet-50 train path
+# ---------------------------------------------------------------------------
+
+RESNET50_FWD_FLOPS_224 = 4.089e9       # bench.py's per-image forward count
+RESNET_LAUNCHES = {"fused_bottleneck_fwd": 12, "fused_bottleneck_bwd": 12}
+
+
+def resnet_run(fused, failures, steps=5, batch=128):
+    """bench.py `resnet50_time_config` (bench_resnet50_fused with fused,
+    bench_resnet50 without): ResNet-50 bf16 NHWC, ghost batch norm over
+    16 samples, Momentum(0.1, 0.9), cross-entropy, one seeded batch of
+    128 x 3 x 224 x 224 repeated; one warm-up step and `steps` timed
+    ones.  Returns (launches over the timed steps, mean step ms)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer import Momentum
+
+    label = "resnet fused" if fused else "resnet unfused"
+    model = resnet50(dtype="bfloat16", data_format="NHWC",
+                     bn_stats_sample=16, fused=fused, device="cuda",
+                     generator=make_generator(0))
+    n_fused = sum(b._fused for b in model.blocks)
+    if n_fused != (12 if fused else 0):
+        failures.append(f"{label}: {n_fused} fused blocks")
+    opt = Momentum(0.1, 0.9)
+    state = init_train_state(model, opt)
+    step = make_train_step(
+        model, opt, loss_fn=lambda m, a, b: F.cross_entropy(m(a), b).mean())
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((batch, 3, 224, 224)),
+                        dtype=torch.bfloat16, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (batch,)), dtype=torch.int32,
+                        device="cuda")
+    t0 = time.perf_counter()
+    state, loss = step(state, x, y)
+    losses = [float(loss)]
+    log(f"{label} warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"loss {losses[0]:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms = []
+    for i in range(steps):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made = {k: c - before.get(k, 0) for k, c in backend.LAUNCHES.items()}
+        made = {k: c for k, c in made.items() if c}
+        want = RESNET_LAUNCHES if fused else {}
+        if made != want:
+            failures.append(f"{label} step {i} launches {made} != {want}")
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = sum(step_ms) / steps
+    mfu = 3.0 * RESNET50_FWD_FLOPS_224 * batch / (mean_ms / 1e3) \
+        / H100_BF16_FLOPS
+    log(f"{label}: {steps} steps, step ms {[round(t, 3) for t in step_ms]}, "
+        f"mean {mean_ms:.3f} ms, min {min(step_ms):.3f} ms; images/s "
+        f"{batch / (mean_ms / 1e3):.1f}; MFU {mfu:.4f} (bench.py: 3 x "
+        f"4.089e9 FLOP per image over 989 TFLOP/s bf16, mean step); peak "
+        f"memory {peak / 2 ** 30:.3f} GiB")
+    log(f"{label} losses {losses}; launches ({steps} steps): {launches}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"{label} losses not finite: {losses}")
+    # the falling loss is the fused path's check; the unfused step is
+    # the yardstick of its time
+    if fused and not losses[-1] < losses[0]:
+        failures.append(f"{label} loss did not fall: {losses}")
+    profile_train_step(step, state, (x, y), mean_ms, label=label)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches, mean_ms
+
+
+def resnet_phase(failures):
+    """The fused step (K7 on the 12 identity blocks, subset `id`) and
+    the unfused step beside it, in one call on one card."""
+    import os
+
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = "id"
+    launches, fused_ms = resnet_run(True, failures)
+    for name in RESNET_LAUNCHES:
+        if launches.get(name, 0) < 1:
+            failures.append(f"{name} never launched on the ResNet path")
+    _, unfused_ms = resnet_run(False, failures)
+    log(f"resnet: fused (K7, subset id) {fused_ms:.3f} ms/step against "
+        f"unfused {unfused_ms:.3f} ms/step ({unfused_ms / fused_ms:.3f}x)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving path
 # ---------------------------------------------------------------------------
 
 def path_phase(failures):
@@ -683,7 +1019,7 @@ def profile_decode(params, cache, logits, steps=16):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: float32 checks
+# phase 6: float32 checks
 # ---------------------------------------------------------------------------
 
 def _margin(logits):
@@ -776,10 +1112,132 @@ def train_check(failures, steps=3, lr=1e-4):
     torch.cuda.empty_cache()
 
 
+def _rel(a, b, floor=0.0):
+    """||a - b|| / max(||b||, floor)."""
+    return (a - b).norm().item() / max(b.norm().item(), floor, 1e-30)
+
+
+def resnet_check(failures, steps=2, lr=1e-5):
+    """A shallow NHWC ResNet-50 (full widths, depths [2, 2, 2, 2]: one
+    identity block per stage, all four through K7 under subset `id`),
+    f32, batch 8 x 3 x 128 x 128, ghost batch norm over 4 samples: the
+    first step's grads and 2 Momentum steps on the card (kernels) against
+    the CPU (plain versions) from the same weights.
+
+    At random init this net is steep (one step of lr 1e-5 moves the loss
+    from 7.63 to 7.37) and its conv-weight grads are sums that batch norm
+    nearly cancels, so f32 rounding alone moves them by up to about 1% of
+    a tensor's norm (against a float64 copy of the same net on the CPU).
+    A relu mask within a rounding of 0
+    that falls the other way on the card re-routes one element's
+    gradient on top of that.  The lr is small enough that the second step
+    does not amplify the first step's difference (at lr 1e-3 it grows
+    ~10x).  Held: the first loss 1e-4 relative, the second 1e-3; per
+    tensor, ||card - cpu|| <= 5e-2 max(||cpu||, 1e-2 max over tensors)
+    for the first step's grads and for the params' update after 2 steps;
+    the batch-norm buffers 1e-3 relative in norm."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import (
+        functional as F, functional_call_with_state, load_param_dict,
+        make_generator,
+    )
+    from paddle_tpu_torch.optimizer import Momentum
+
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = "id"
+    loss_fn = lambda m, a, b: F.cross_entropy(m(a), b).mean()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((8, 3, 128, 128)).astype(np.float32)
+    y = rng.integers(0, 1000, (8,)).astype(np.int32)
+    runs, start = {}, None
+    for dev in ("cuda", "cpu"):
+        model = ResNet(BottleneckBlock, [2, 2, 2, 2], data_format="NHWC",
+                       fused=True, device=dev, generator=make_generator(3))
+        for m in model.modules():
+            if hasattr(m, "_stats_sample"):
+                m._stats_sample = 4
+        if start is None:
+            start = {n: p.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        else:
+            load_param_dict(model, start)
+        xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        params = dict(model.named_parameters())
+        names = list(params)
+        loss, _ = functional_call_with_state(
+            model, params, dict(model.named_buffers()), xt, yt,
+            _method=loss_fn)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        grads = {n: g.cpu() for n, g in zip(names, grads)}
+        opt = Momentum(lr, 0.9)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, loss_fn=loss_fn)
+        backend.reset_launches()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, xt, yt)
+            losses.append(float(loss))
+        if dev == "cuda" and dict(backend.LAUNCHES) != {
+                "fused_bottleneck_fwd": 4 * steps,
+                "fused_bottleneck_bwd": 4 * steps}:
+            failures.append(f"resnet check launches {dict(backend.LAUNCHES)}")
+        runs[dev] = dict(
+            grads=grads, losses=losses,
+            params={n: p.detach().cpu() for n, p in state.params.items()},
+            buffers={n: b.cpu() for n, b in state.buffers.items()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    first_err = abs(card["losses"][0] - cpu["losses"][0]) \
+        / abs(cpu["losses"][0])
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    top = max(g.norm().item() for g in cpu["grads"].values())
+    grad_err, grad_worst = max((_rel(card["grads"][n], g, 1e-2 * top), n)
+                               for n, g in cpu["grads"].items())
+    grad_max, max_worst = max(
+        ((card["grads"][n] - g).abs().max().item() / g.abs().max().item(),
+         n) for n, g in cpu["grads"].items())
+    update = {n: p - start[n] for n, p in cpu["params"].items()}
+    top_update = max(u.norm().item() for u in update.values())
+    param_err, param_worst = max(
+        (_rel(card["params"][n] - start[n], u, 1e-2 * top_update), n)
+        for n, u in update.items())
+    buf_err, buf_worst = max((_rel(card["buffers"][n], b), n)
+                             for n, b in cpu["buffers"].items())
+    log(f"f32 ResNet check (ResNet-50 widths, depths [2, 2, 2, 2], NHWC, "
+        f"4 K7 blocks, batch 8 x 128 x 128, ghost batch 4, {steps} "
+        f"Momentum({lr}) steps), card vs CPU: losses card {card['losses']} "
+        f"CPU {cpu['losses']} (rel err first {first_err:.3e}, max "
+        f"{loss_err:.3e}); first-step "
+        f"grads: worst relative norm error {grad_err:.3e} ({grad_worst}), "
+        f"worst max error / max |grad| {grad_max:.3e} ({max_worst}); "
+        f"params: worst ||card - cpu|| / ||update|| {param_err:.3e} "
+        f"({param_worst}); buffers: worst relative norm error "
+        f"{buf_err:.3e} ({buf_worst})")
+    if not (first_err <= 1e-4 and loss_err <= 1e-3):
+        failures.append(f"resnet check losses differ: first {first_err:.3e}"
+                        f", max {loss_err:.3e}")
+    if not grad_err <= 5e-2:
+        failures.append(f"resnet check grads differ: {grad_err:.3e}")
+    if not param_err <= 5e-2:
+        failures.append(f"resnet check params differ: {param_err:.3e}")
+    if not buf_err <= 1e-3:
+        failures.append(f"resnet check buffers differ: {buf_err:.3e}")
+    del runs, card, cpu
+    torch.cuda.empty_cache()
+
+
 def check_phase(failures):
     import torch
 
     train_check(failures)
+    resnet_check(failures)
 
     from paddle_tpu_torch.models import generate as G
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
@@ -880,7 +1338,8 @@ def main():
 
     failures = []
     phases = (("kernels", kernel_phase), ("train", train_phase),
-              ("path", path_phase), ("checks", check_phase))
+              ("resnet", resnet_phase), ("path", path_phase),
+              ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -901,12 +1360,14 @@ def main():
     kernels = []
     for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv", "layer_norm_fwd",
-                "layer_norm_bwd", "flash_decode"):
+                "layer_norm_bwd", "flash_decode", "fused_bottleneck_fwd",
+                "fused_bottleneck_bwd"):
         row = dict(rows[key])
-        # launches on the main paths: the 5 timed train steps plus the
-        # serving run (generate + engine)
-        row["launches"] = (results["train"].get(key, 0)
-                           + results["path"].get(key, 0))
+        # launches on the main paths: the 5 timed GPT train steps, the 5
+        # timed fused ResNet-50 steps and the serving run (generate +
+        # engine)
+        row["launches"] = sum(results[p].get(key, 0)
+                              for p in ("train", "resnet", "path"))
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

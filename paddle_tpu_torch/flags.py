@@ -80,3 +80,10 @@ declare_flag("decode_token_budget_s", 0.0,
              "Default per-token deadline budget for decode requests "
              "(0 = none).  The port does not enforce budgets yet: a "
              "non-zero value makes DecodeConfig raise.")
+
+# Max pooling (ops/nn_ops.py pool2d).
+declare_flag("maxpool_mask_bwd", False,
+             "The reference's recompute-mask max-pool backward.  Its tie "
+             "semantics (the first maximum of each window in row-major "
+             "order gets the gradient) are torch's max-pool gradient's, so "
+             "in the port both values give the same op.")

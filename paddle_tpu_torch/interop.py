@@ -5,9 +5,10 @@ name -> array under the same names the port's modules use
 (`blocks.3.attn.q_proj.weight`, Linear weights as [in, out]).  These
 helpers turn such a dict into torch tensors and load it into a port
 model, which is how the tests give both packages the same weights;
-`train_state_from_jax` carries a whole train state (params, optimizer
-state, step) across, so both packages can go on from the same point of
-a run.
+`load_jax_buffer_dict` does the same for mutable buffers (batch-norm
+running stats) and `train_state_from_jax` carries a whole train state
+(params, buffers, optimizer state, step) across, so both packages can go
+on from the same point of a run.
 """
 
 import numpy as np
@@ -52,6 +53,26 @@ def load_jax_param_dict(model, np_params):
     return model
 
 
+def load_jax_buffer_dict(model, np_buffers):
+    """Copy a JAX model's buffers (`dict(jm.named_buffers())` as numpy
+    arrays, e.g. the batch-norm `_mean` / `_variance`) into `model`'s
+    buffers of the same names, in place, keeping each buffer's dtype and
+    device.  The names must match exactly; a shape mismatch raises."""
+    named = dict(model.named_buffers())
+    if set(named) != set(np_buffers):
+        raise KeyError(f"buffer names differ: missing "
+                       f"{sorted(set(named) - set(np_buffers))}, unexpected "
+                       f"{sorted(set(np_buffers) - set(named))}")
+    with torch.no_grad():
+        for n, a in np_buffers.items():
+            v = _to_tensor(a)
+            if tuple(v.shape) != tuple(named[n].shape):
+                raise ValueError(f"{n}: shape {tuple(v.shape)} != buffer "
+                                 f"shape {tuple(named[n].shape)}")
+            named[n].copy_(v)
+    return model
+
+
 def _field(state, name):
     return state[name] if isinstance(state, dict) else getattr(state, name)
 
@@ -62,14 +83,19 @@ def train_state_from_jax(np_state, model, optimizer, device=None,
     converted to numpy (`jax.tree.map(np.asarray, state)`; a dict with
     the same fields works too).
 
-    The params are copied into `model`, whose own parameters the state
-    then holds (as `init_train_state` does); the optimizer state (f32
+    The params and buffers (a JAX TrainState's `buffers`, e.g. the
+    batch-norm running stats) are copied into `model`, whose own tensors
+    the state then holds (as `init_train_state` does); the optimizer state (f32
     moments and beta powers per parameter, the int32 `__step__`) and the
     step counter are converted to tensors on `device` (default `cuda`)
     in the layout `optimizer.init` makes.  A JAX PRNG key has no torch
     counterpart: the state's generator is seeded with `rng_seed`."""
     dev = resolve_device(device)
     load_jax_param_dict(model, _field(np_state, "params"))
+    np_buffers = (np_state.get("buffers") if isinstance(np_state, dict)
+                  else np_state.buffers)
+    if np_buffers:
+        load_jax_buffer_dict(model, np_buffers)
     params = param_dict(model, trainable_only=True)
     template = optimizer.init(params)
     theirs = _field(np_state, "opt_state")

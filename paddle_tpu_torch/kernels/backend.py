@@ -39,7 +39,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # every csrc/*.cu source, one shared library each
-SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode")
+SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode",
+           "fused_bottleneck")
 
 LAUNCHES = collections.Counter()
 # compiler output (ptxas register / shared-memory / spill report) per

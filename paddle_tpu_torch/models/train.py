@@ -6,9 +6,12 @@ Port of paddle_tpu/models/train.py (`TrainState`, `init_train_state`,
 with donated state; eager PyTorch runs the same three phases as calls:
 the loss with the state's params and buffers substituted into the model
 (`functional_call_with_state`), `torch.autograd.grad` for the grads, and
-the functional optimizer's update.  On the card the attention and
-LayerNorm of the forward and backward run through the hand-written
-kernels (K1-K5) by way of their autograd Functions.
+the functional optimizer's update.  Buffers that a step replaces (the
+batch-norm running stats) come back from the call and are copied into
+the state.  On the card the attention and LayerNorm of the forward and
+backward run through the hand-written kernels (K1-K5), and a fused
+ResNet's identity blocks through K7, by way of their autograd
+Functions.
 
 TrainState is the explicit record of everything that changes per step,
 the analogue of the reference's persistable variables in a Scope.  Its
@@ -65,7 +68,8 @@ def _loss_with_buffers(model, params, buffers, rng, loss_fn, batch):
 def _check_options(remat, accum_steps, precision, amp, grad_psum_axis):
     if remat == "conv_outs":
         raise NotImplementedError(
-            "remat='conv_outs' needs the conv path: ROADMAP queue 1 item 6")
+            "remat='conv_outs' (save the conv outputs, recompute the "
+            "elementwise tail) is not ported yet: ROADMAP queue 1 item 6")
     if isinstance(remat, str):
         raise ValueError(
             f"unknown remat mode {remat!r}; use True or 'conv_outs'")

@@ -1,8 +1,11 @@
-"""Eager layers (port of the GPT slice of paddle_tpu/nn/__init__.py).
+"""Eager layers (port of the GPT and ResNet slices of
+paddle_tpu/nn/__init__.py).
 
 Every layer takes `dtype`, `device` (default `cuda`) and `generator`
 (the host torch.Generator its parameters are drawn from).
 """
+
+import torch
 
 from . import functional as F
 from .functional import scaled_dot_product_attention
@@ -15,7 +18,8 @@ from .parameter import default_rng, make_generator, seed
 __all__ = [
     "Layer", "functional_call", "functional_call_with_state", "param_dict",
     "buffer_dict", "load_param_dict", "make_generator", "default_rng",
-    "seed", "functional", "Linear",
+    "seed", "functional", "Linear", "Conv2D", "Pool2D", "MaxPool2D",
+    "AvgPool2D", "BatchNorm", "ReLU",
     "LayerNorm", "Embedding", "Dropout", "LayerList",
     "MultiHeadAttention", "scaled_dot_product_attention",
 ]
@@ -44,6 +48,114 @@ class Linear(Layer):
 
     def forward(self, x):
         return _apply_act(F.linear(x, self.weight, self.bias), self._act)
+
+
+class Conv2D(Layer):
+    """Parity: dygraph/nn.py Conv2D.  weight is OIHW ([num_filters,
+    num_channels // groups, kh, kw]) in both data formats."""
+
+    def __init__(self, num_channels, num_filters, filter_size, stride=1,
+                 padding=0, dilation=1, groups=1, bias_attr=None, act=None,
+                 data_format="NCHW", **kw):
+        super().__init__(**kw)
+        self.weight = self.create_parameter(
+            [num_filters, num_channels // groups] + F._pair_list(filter_size))
+        if bias_attr is not False:
+            self.bias = self.create_parameter([num_filters], is_bias=True)
+        else:
+            self.register_parameter("bias", None)
+        self._stride, self._padding = stride, padding
+        self._dilation, self._groups = dilation, groups
+        self._act = act
+        self._data_format = data_format
+
+    def forward(self, x):
+        out = F.conv2d(x, self.weight, self.bias, self._stride,
+                       self._padding, self._dilation, self._groups,
+                       data_format=self._data_format)
+        return _apply_act(out, self._act)
+
+
+class Pool2D(Layer):
+    """Parity: dygraph/nn.py Pool2D."""
+
+    def __init__(self, pool_size=-1, pool_type="max", pool_stride=1,
+                 pool_padding=0, global_pooling=False, data_format="NCHW",
+                 **kw):
+        super().__init__(**kw)
+        self._pool_size = pool_size
+        self._pool_type = pool_type
+        self._pool_stride = pool_stride
+        self._pool_padding = pool_padding
+        self._global = global_pooling
+        self._data_format = data_format
+
+    def forward(self, x):
+        if self._global:
+            axis = (2, 3) if self._data_format == "NCHW" else (1, 2)
+            if self._pool_type == "max":
+                return x.amax(dim=axis, keepdim=True)
+            return x.mean(dim=axis, keepdim=True)
+        if self._pool_type == "max":
+            return F.max_pool2d(x, self._pool_size, self._pool_stride,
+                                self._pool_padding,
+                                data_format=self._data_format)
+        return F.avg_pool2d(x, self._pool_size, self._pool_stride,
+                            self._pool_padding,
+                            data_format=self._data_format)
+
+
+class MaxPool2D(Pool2D):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", **kw):
+        super().__init__(kernel_size, "max", stride or kernel_size, padding,
+                         data_format=data_format, **kw)
+
+
+class AvgPool2D(Pool2D):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", **kw):
+        super().__init__(kernel_size, "avg", stride or kernel_size, padding,
+                         data_format=data_format, **kw)
+
+
+class BatchNorm(Layer):
+    """Parity: dygraph/nn.py BatchNorm.  The running stats are f32
+    buffers `_mean` (zeros) and `_variance` (ones); a training call
+    replaces them with the `batch_norm` op's MeanOut / VarianceOut
+    (detached), so `functional_call_with_state` and the train step carry
+    them.  `_stats_sample` > 0 takes the batch stats from the first
+    samples only (ghost batch norm)."""
+
+    def __init__(self, num_channels, momentum=0.9, epsilon=1e-5, act=None,
+                 data_format="NCHW", stats_sample=0, **kw):
+        super().__init__(**kw)
+        self.weight = self.create_parameter([num_channels], constant=1.0)
+        self.bias = self.create_parameter([num_channels], is_bias=True)
+        self.register_buffer("_mean", torch.zeros(
+            num_channels, dtype=torch.float32, device=self._device))
+        self.register_buffer("_variance", torch.ones(
+            num_channels, dtype=torch.float32, device=self._device))
+        self._momentum, self._epsilon = momentum, epsilon
+        self._data_format = data_format
+        self._act = act
+        self._stats_sample = stats_sample
+
+    def forward(self, x):
+        y, new_mean, new_var = F.batch_norm(
+            x, self._buffers["_mean"], self._buffers["_variance"],
+            self.weight, self.bias, training=self.training,
+            momentum=self._momentum, epsilon=self._epsilon,
+            data_format=self._data_format, stats_sample=self._stats_sample)
+        if self.training:
+            self._buffers["_mean"] = new_mean.detach()
+            self._buffers["_variance"] = new_var.detach()
+        return _apply_act(y, self._act)
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return F.relu(x)
 
 
 class LayerNorm(Layer):
