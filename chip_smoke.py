@@ -10,8 +10,10 @@ Phases (any failure makes the script exit non-zero without a result):
    print the build time and the compiler's register/spill report.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
-   (flash decode, CUDA) and K7 (the fused ResNet bottleneck block,
-   forward and backward, CUDA) against their plain PyTorch versions on
+   (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
+   (the stride-2 transition block) and K9 (the stem's batch-norm, relu
+   and max-pool tail), each forward and backward in CUDA, against their
+   plain PyTorch versions on
    the card, in float32 and bfloat16, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick only; the port never calls it) and the bound (the larger
@@ -28,6 +30,15 @@ Phases (any failure makes the script exit non-zero without a result):
    float32 and batch 128 (timed) in bfloat16; its yardstick is the
    cuDNN composition (three or four `F.conv2d` plus the elementwise
    tail, through autograd for the backward), several calls, not one.
+   K8 is checked the same way at ResNet-50's three transitions (56^2
+   256 -> 512 Cm 128, 28^2 512 -> 1024 Cm 256, 14^2 1024 -> 2048 Cm
+   512), with the tile heights its launches pick printed; its yardstick
+   is the composition with the stride-2 3x3 and 1x1 convs.  K9 is
+   checked at the stem's [2 | 128, 112, 112, 64] in float32 | bfloat16
+   on random and tie-heavy inputs (the forward exactly, dc and da/db
+   within the tolerances, raw and through `_StemTail`) and raw at
+   [2, 128, 128, 64] (the kernel has no side limit); its yardstick is
+   `F.max_pool2d(F.relu(c * a + b), 3, 2, 1)` (first-wins gradient).
 3. GPT train path: the repo's headline training configuration
    (`bench.py` `bench_bert`: a GPT of BERT-base geometry, vocab 32768,
    hidden 768, 12 layers, 12 heads, max_seq_len 512, bfloat16) with
@@ -39,16 +50,19 @@ Phases (any failure makes the script exit non-zero without a result):
    first, and every step launches exactly K1, K2, K3 x12 and K4, K5 x25.
 4. ResNet-50 train path (`bench.py` `resnet50_time_config`, the
    `bench_resnet50_fused` row): ResNet-50, bfloat16, NHWC, ghost batch
-   norm over 16 samples, `fused=True` under PADDLE_TPU_FUSED_SUBSET=id,
-   seeded weights, one warm-up step and 5 timed steps of
-   `make_train_step(model, Momentum(0.1, 0.9))` with the cross-entropy
-   loss on one seeded batch of 128 x 3 x 224 x 224.  Printed: step ms,
-   images/s, MFU (3 x 4.089e9 FLOP per image over 989 TFLOP/s, as
-   bench.py), peak memory and a profile of one step.  Fails unless every
-   loss is finite, the last loss is below the first, and every step
-   launches K7 forward and backward exactly 12 times each.  The unfused
-   step (`fused=False`, bench_resnet50's path, no port kernel) is timed
-   the same way beside it as the yardstick.
+   norm over 16 samples, `fused=True`, seeded weights, one warm-up step
+   and 5 timed steps of `make_train_step(model, Momentum(0.1, 0.9))`
+   with the cross-entropy loss on one seeded batch of 128 x 3 x 224 x
+   224, in three runs: the full fused program (PADDLE_TPU_FUSED_SUBSET
+   empty: 16 fused blocks and the fused stem), the `id` subset (the 12
+   identity blocks) and unfused (`fused=False`, bench_resnet50's path,
+   no port kernel, the yardstick).  Printed per run: step ms, images/s,
+   MFU (3 x 4.089e9 FLOP per image over 989 TFLOP/s, as bench.py), peak
+   memory and a profile of one step; then the three step times on one
+   line.  Fails unless every loss is finite, the fused runs' last loss
+   is below their first, and every step launches exactly K7 forward and
+   backward 13 times, K8 3 times and K9 once (full) or K7 12 times
+   (`id`).
 5. Serving path: GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
    heads) in bfloat16 with seeded random weights serves greedy
    `generate()` on 4 prompts of 256 tokens (128 new) and a
@@ -61,19 +75,20 @@ Phases (any failure makes the script exit non-zero without a result):
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
    first step's grads and the params must agree.  A shallow NHWC
-   ResNet-50 (full widths, one identity block per stage through K7)
-   takes 2 Momentum steps at batch 8 x 128 x 128 on the card and on the
-   CPU: losses, first-step grads, params and batch-norm buffers must
-   agree (in norm per tensor, see `resnet_check`).  Then
+   ResNet-50 (full widths, depths [2, 2, 2, 2], the full fused program:
+   K9, the projection K7, three K8 and four identity K7) takes 2
+   Momentum steps at batch 8 x 128 x 128 on the card and on the CPU:
+   losses, first-step grads, params and batch-norm buffers must agree
+   (in norm per tensor, see `resnet_check`).  Then
    the card's GPT-2-small logits against the same model on the CPU for
    one 128-token prompt, and engine tokens against `generate()` for
    prompts whose length equals a bucket.  A token mismatch fails only if
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
-The last lines are the kernels' JSON line (K1-K7, K7 as two rows,
-each with its launches summed over the GPT train, ResNet and serving
-paths), the card line and
+The last lines are the kernels' JSON line (K1-K9, K7, K8 and K9 as two
+rows each, every row with its launches summed over the GPT train, the
+two fused ResNet runs and the serving paths), the card line and
 {"ok": true, "device": {...}}.
 """
 
@@ -298,6 +313,8 @@ def kernel_phase(failures):
     flash_bwd_checks(rows, failures, rnd)
     layer_norm_bwd_checks(rows, failures, rnd)
     fused_bottleneck_checks(rows, failures, rnd)
+    fused_bottleneck_down_checks(rows, failures, rnd)
+    stem_tail_checks(rows, failures, rnd)
     return rows
 
 
@@ -667,6 +684,319 @@ def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
     return out
 
 
+# K8 at ResNet-50's three stride-2 transitions: (H = W, Cin, Cm, Cout)
+K8_GEOMETRIES = ((56, 256, 128, 512), (28, 512, 256, 1024),
+                 (14, 1024, 512, 2048))
+
+
+def k8_composition(x, ws, affs):
+    """The cuDNN composition of a transition block: a 1x1 conv, a
+    stride-2 3x3 conv, a 1x1 conv and a stride-2 1x1 shortcut conv on
+    channels-last views plus the elementwise tail (K8's yardstick;
+    several calls, not one)."""
+    import torch
+    import torch.nn.functional as TF
+
+    def aff(t, a, b):
+        return t * a[None, :, None, None] + b[None, :, None, None]
+
+    def w1x1(w):
+        return w.t()[:, :, None, None]
+
+    xc = x.permute(0, 3, 1, 2)
+    h0 = torch.relu(aff(TF.conv2d(xc, w1x1(ws[0])), affs[0], affs[1]))
+    h1 = torch.relu(aff(TF.conv2d(h0, ws[1].permute(3, 2, 0, 1), stride=2,
+                                  padding=1), affs[2], affs[3]))
+    s = aff(TF.conv2d(xc, w1x1(ws[3]), stride=2), affs[6], affs[7])
+    return torch.relu(aff(TF.conv2d(h1, w1x1(ws[2])), affs[4], affs[5]) + s)
+
+
+def fused_bottleneck_down_checks(rows, failures, rnd):
+    """K8 forward and backward: raw launches and through `_FusedDown`
+    against the plain versions, in float32 (batch 2) and bfloat16 (batch
+    128, timed), at the three transition geometries; the tile heights
+    the launches pick are printed per geometry."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
+        for hw, cin, cm, cout in K8_GEOMETRIES:
+            d = dname(dt)
+            x, ws, affs, _ = k7_inputs(rnd, n, hw, cin, cm, cout, True, dt)
+            dy = rnd((n, hw // 2, hw // 2, cout), dt)
+            aff = FB._pack_affines(affs, cout)
+            tag = f"K8 {hw}^2 {cin}/{cm}/{cout} n={n} {d}"
+            rows_n = n * (hw // 2) ** 2
+            ths = FB.tile_heights(hw, hw, cm, dt, True, True)
+            y = FB._launch_down_fwd(x, *ws, aff)
+            y_ref = FB.fused_bottleneck_down_fwd_ref(x, *ws, aff)
+            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures)
+            got = FB._launch_down_bwd(x, dy, *ws, aff)
+            want = FB.fused_bottleneck_down_bwd_ref(x, dy, *ws, aff)
+            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures)
+            for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
+                                  got[1:], want[1:]):
+                err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
+                                              rows_n, failures))
+            leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+            out = FB.fused_bottleneck_down(*leaves)
+            err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
+                                failures)
+            grads = torch.autograd.grad(out, leaves, dy)
+            daff = want[5]
+            cmw = list(want[:5]) + [daff[0, :cm], daff[1, :cm],
+                                    daff[2, :cm], daff[3, :cm]] + [
+                daff[i] for i in range(4, 8)]
+            err_fg = 0.0
+            for i, (g, w) in enumerate(zip(grads, cmw)):
+                if g.dtype != leaves[i].dtype:
+                    failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
+                err_fg = max(err_fg, compare_k7(
+                    f"{tag} Function grad {i}", g, w.to(g.dtype), d,
+                    1 if i == 0 else rows_n, failures))
+            del leaves, out, grads, got, want, cmw
+            msg = (f"{tag}: tile rows fwd/B1/B2 {ths}; max_err fwd "
+                   f"{err_f:.3e} bwd {err_b:.3e} Function y {err_fy:.3e} "
+                   f"grads {err_fg:.3e}")
+            if dt == torch.bfloat16:
+                timed = k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout)
+                msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                       else f"{k} {v}"
+                                       for k, v in timed.items())
+                if hw == 56:
+                    common = dict(route="cuda",
+                                  source="paddle_tpu_torch/csrc/"
+                                         "fused_bottleneck.cu")
+                    shape = ("x [128, 56, 56, 256] -> [128, 28, 28, 512], Cm "
+                             "128 (stage-2 transition) bf16")
+                    rows["fused_bottleneck_down_fwd"] = dict(
+                        name="K8 fused_bottleneck_down_fwd",
+                        replaces="paddle_tpu/kernels/fused_bottleneck.py:499",
+                        max_abs_err=max(err_f, err_fy), ms=timed["fwd_ms"],
+                        plain_ms=timed["plain_fwd_ms"],
+                        bound_ms=timed["fwd_bound_ms"],
+                        bound_by=timed["fwd_bound_by"],
+                        library_ms=timed["cudnn_fwd_ms"], shape=shape
+                        + "; library: the cuDNN composition (4 convs + "
+                          "elementwise), not one call", **common)
+                    rows["fused_bottleneck_down_bwd"] = dict(
+                        name="K8 fused_bottleneck_down_bwd",
+                        replaces="paddle_tpu/kernels/fused_bottleneck.py:526",
+                        max_abs_err=max(err_b, err_fg), ms=timed["bwd_ms"],
+                        plain_ms=timed["plain_bwd_ms"],
+                        bound_ms=timed["bwd_bound_ms"],
+                        bound_by=timed["bwd_bound_by"],
+                        library_ms=timed["cudnn_bwd_ms"], shape=shape
+                        + "; kernel_ms is both backward kernels and the "
+                          "wrapper's zeroed grad buffers; library: the "
+                          "cuDNN composition's backward", **common)
+            log(msg)
+            del x, ws, affs, dy, aff, y, y_ref
+            torch.cuda.empty_cache()
+
+
+def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
+    """Device ms of K8 forward and backward, the plain versions and the
+    cuDNN composition, and the bounds: forward 2 R_out (4 Cin Cm + 9 Cm^2
+    + Cm Cout + Cin Cout) FLOP against x, the weights, the affines and y;
+    backward 3x those FLOP against x, dy, the weights and affines read
+    and dx, the f32 weight and affine grads written."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    out = {}
+    out["fwd_ms"] = time_ms(lambda: FB._launch_down_fwd(x, *ws, aff), 5,
+                            graph=False)
+    out["bwd_ms"] = time_ms(lambda: FB._launch_down_bwd(x, dy, *ws, aff), 5,
+                            graph=False)
+    out["plain_fwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_fwd_ref(
+        x, *ws, aff), 3, graph=False)
+    out["plain_bwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_bwd_ref(
+        x, dy, *ws, aff), 3, graph=False)
+    leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+    with torch.no_grad():
+        out["cudnn_fwd_ms"] = time_ms(lambda: k8_composition(
+            leaves[0], leaves[1:5], leaves[5:]), 5, graph=False)
+    lout = k8_composition(leaves[0], leaves[1:5], leaves[5:])
+    ldy = dy.permute(0, 3, 1, 2)
+    out["cudnn_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lout, leaves, ldy, retain_graph=True), 5, graph=False)
+    del lout, leaves
+    r_out = n * (hw // 2) ** 2
+    elt = x.element_size()
+    flops = 2.0 * r_out * (4 * cin * cm + 9 * cm * cm + cm * cout
+                           + cin * cout)
+    wn = sum(w.numel() for w in ws)
+    wbytes = wn * elt + aff.numel() * 4
+    xbytes = n * hw * hw * cin * elt
+    ybytes = r_out * cout * elt
+    fb, fby = bound(xbytes + ybytes + wbytes, flops, "bfloat16")
+    bb, bby = bound(2 * xbytes + ybytes + wbytes + (wn + aff.numel()) * 4,
+                    3 * flops, "bfloat16")
+    out.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+               bwd_bound_by=bby, gflop_fwd=flops / 1e9)
+    return out
+
+
+def stem_inputs(rnd, shape, dt, ties):
+    """K9 inputs: c (random, or drawn from the levels -1, 0, 1, 2 with a =
+    1, b = 0 so most windows hold exact ties, at the max and at 0), the
+    f32 affine [2, C] and a cotangent."""
+    import torch
+
+    cm = shape[-1]
+    dev = torch.device("cuda")
+    if ties:
+        c = (torch.floor(rnd(shape, torch.float32) * 1.2).clamp(-1, 2)
+             ).to(dt)
+        aff = torch.stack([torch.ones(cm, device=dev),
+                           torch.zeros(cm, device=dev)])
+    else:
+        c = rnd(shape, dt)
+        aff = torch.stack([rnd((cm,), torch.float32, 0.3) + 1.0,
+                           rnd((cm,), torch.float32, 0.1)])
+    n, h, w, _ = shape
+    return c, aff, rnd((n, h // 2, w // 2, cm), dt)
+
+
+def stem_tail_checks(rows, failures, rnd):
+    """K9 forward and backward against the plain versions: the forward
+    exactly, dc and da/db within the tolerances (da/db are f32 sums over
+    the rows, atol tol * sqrt(rows)), at the ResNet-50 stem's shape in
+    f32 (batch 2) and bf16 (batch 128, timed), on random and tie-heavy
+    inputs, through `_StemTail` as well; and the raw kernel at a side
+    above 112 (the public function takes the composition there)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    cases = [((2, 112, 112, 64), torch.float32, False),
+             ((2, 112, 112, 64), torch.float32, True),
+             ((128, 112, 112, 64), torch.bfloat16, False),
+             ((128, 112, 112, 64), torch.bfloat16, True),
+             ((2, 128, 128, 64), torch.float32, False),
+             ((2, 128, 128, 64), torch.bfloat16, True)]
+    for shape, dt, ties in cases:
+        d = dname(dt)
+        n, h, w, cm = shape
+        rows_n = n * h * w
+        tag = f"K9 {list(shape)} {'ties' if ties else 'random'} {d}"
+        c, aff, dy = stem_inputs(rnd, shape, dt, ties)
+        y = FB._launch_stem_fwd(c, aff)
+        y_ref = FB.fused_stem_tail_fwd_ref(c, aff)
+        if not torch.equal(y, y_ref):
+            failures.append(f"{tag} y: not exact, max_abs_err "
+                            f"{(y.float() - y_ref.float()).abs().max():.3e}")
+        dc, daff = FB._launch_stem_bwd(c, dy, aff)
+        dc_ref, daff_ref = FB.fused_stem_tail_bwd_ref(c, dy, aff)
+        err = compare_k7(tag + " dc", dc, dc_ref, d, 1, failures)
+        dc_exact = bool(torch.equal(dc, dc_ref))
+        err_a = compare_k7(tag + " da/db", daff, daff_ref, "float32",
+                           rows_n, failures)
+        msg = (f"{tag}: y exact; dc max_err {err:.3e} (exact {dc_exact}) "
+               f"da/db max_err {err_a:.3e}")
+        if h <= FB._STEM_SIDE_LIMIT:
+            leaves = [c.clone().requires_grad_(),
+                      aff[0].to(dt).requires_grad_(),
+                      aff[1].to(dt).requires_grad_()]
+            out = FB.fused_stem_tail(*leaves)
+            faff = torch.stack([leaves[1].detach().float(),
+                                leaves[2].detach().float()])
+            want_y = FB.fused_stem_tail_fwd_ref(c, faff)
+            want_dc, want_daff = FB.fused_stem_tail_bwd_ref(c, dy, faff)
+            if not torch.equal(out, want_y):
+                failures.append(f"{tag} Function y: not exact")
+            got = torch.autograd.grad(out, leaves, dy)
+            err_fn = compare_k7(tag + " Function dc", got[0], want_dc, d, 1,
+                                failures)
+            for g, wv, nm in ((got[1], want_daff[0], "da"),
+                              (got[2], want_daff[1], "db")):
+                if g.dtype != dt:
+                    failures.append(f"{tag} Function {nm} dtype {g.dtype}")
+                err_fn = max(err_fn, compare_k7(
+                    f"{tag} Function {nm}", g, wv.to(dt), d, rows_n,
+                    failures))
+            msg += f"; Function max_err {err_fn:.3e}"
+            del leaves, out, got
+        if dt == torch.bfloat16 and not ties and h == 112:
+            timed = k9_times(c, aff, dy)
+            msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                   else f"{k} {v}" for k, v in timed.items())
+            common = dict(route="cuda",
+                          source="paddle_tpu_torch/csrc/fused_stem_tail.cu",
+                          shape="c [128, 112, 112, 64] -> [128, 56, 56, 64] "
+                                "bf16 (ResNet-50 stem); library: "
+                                "F.max_pool2d(F.relu(c * a + b), 3, 2, 1), "
+                                "a first-wins yardstick, not one call")
+            rows["fused_stem_tail_fwd"] = dict(
+                name="K9 fused_stem_tail_fwd",
+                replaces="paddle_tpu/kernels/fused_bottleneck.py:761",
+                max_abs_err=0.0, ms=timed["fwd_ms"],
+                plain_ms=timed["plain_fwd_ms"],
+                bound_ms=timed["fwd_bound_ms"],
+                bound_by=timed["fwd_bound_by"],
+                library_ms=timed["library_fwd_ms"], **common)
+            rows["fused_stem_tail_bwd"] = dict(
+                name="K9 fused_stem_tail_bwd",
+                replaces="paddle_tpu/kernels/fused_bottleneck.py:775",
+                max_abs_err=max(err, err_a), ms=timed["bwd_ms"],
+                plain_ms=timed["plain_bwd_ms"],
+                bound_ms=timed["bwd_bound_ms"],
+                bound_by=timed["bwd_bound_by"],
+                library_ms=timed["library_bwd_ms"], **common)
+        log(msg)
+        del c, aff, dy, y, y_ref, dc, dc_ref
+        torch.cuda.empty_cache()
+
+
+def k9_times(c, aff, dy):
+    """Device ms of K9 forward and backward (the backward with its
+    partials' sum), the plain versions and the yardstick max-pool of the
+    relu'd affine (its backward through autograd), and the bounds: bytes
+    c + y (forward), c + dy + dc (backward); operations 3 per element of
+    c and 8 per element of y (forward: the affine, the relu, the window
+    max), 11 per element of c and 8 per element of y (backward: the
+    recomputed forward, the equality routing over 2.25 windows on
+    average, the mask, dc and the da/db sums)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    out = {}
+    out["fwd_ms"] = time_ms(lambda: FB._launch_stem_fwd(c, aff))
+    out["bwd_ms"] = time_ms(lambda: FB._launch_stem_bwd(c, dy, aff))
+    out["plain_fwd_ms"] = time_ms(lambda: FB.fused_stem_tail_fwd_ref(c, aff),
+                                  3, graph=False)
+    out["plain_bwd_ms"] = time_ms(
+        lambda: FB.fused_stem_tail_bwd_ref(c, dy, aff), 3, graph=False)
+    a = aff[0].to(c.dtype)[None, :, None, None]
+    b = aff[1].to(c.dtype)[None, :, None, None]
+    lc = c.permute(0, 3, 1, 2).clone().requires_grad_()
+
+    def lib():
+        return TF.max_pool2d(torch.relu(lc * a + b), 3, 2, 1)
+
+    with torch.no_grad():
+        out["library_fwd_ms"] = time_ms(lib, 5, graph=False)
+    lout = lib()
+    ldy = dy.permute(0, 3, 1, 2)
+    out["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lout, lc, ldy, retain_graph=True), 5, graph=False)
+    del lout, lc
+    n_c, n_y = c.numel(), dy.numel()
+    elt = c.element_size()
+    fb, fby = bound((n_c + n_y) * elt + aff.numel() * 4,
+                    3.0 * n_c + 8.0 * n_y, "bfloat16")
+    bb, bby = bound((2 * n_c + n_y) * elt + aff.numel() * 12,
+                    11.0 * n_c + 8.0 * n_y, "bfloat16")
+    out.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+               bwd_bound_by=bby)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the train path
 # ---------------------------------------------------------------------------
@@ -785,15 +1115,28 @@ def profile_train_step(step, state, batch, host_ms, label="train"):
 # ---------------------------------------------------------------------------
 
 RESNET50_FWD_FLOPS_224 = 4.089e9       # bench.py's per-image forward count
-RESNET_LAUNCHES = {"fused_bottleneck_fwd": 12, "fused_bottleneck_bwd": 12}
+# per step: the full fused program (PADDLE_TPU_FUSED_SUBSET empty: K7 on
+# the 12 identity blocks and the stage-1 projection block, K8 on the 3
+# transitions, K9 on the stem), the `id` subset, the unfused step
+RESNET_LAUNCHES = {
+    "full": {"fused_bottleneck_fwd": 13, "fused_bottleneck_bwd": 13,
+             "fused_bottleneck_down_fwd": 3, "fused_bottleneck_down_bwd": 3,
+             "fused_stem_tail_fwd": 1, "fused_stem_tail_bwd": 1},
+    "id": {"fused_bottleneck_fwd": 12, "fused_bottleneck_bwd": 12},
+    "unfused": {},
+}
+RESNET_FUSED_BLOCKS = {"full": 16, "id": 12, "unfused": 0}
 
 
-def resnet_run(fused, failures, steps=5, batch=128):
+def resnet_run(mode, failures, steps=5, batch=128):
     """bench.py `resnet50_time_config` (bench_resnet50_fused with fused,
-    bench_resnet50 without): ResNet-50 bf16 NHWC, ghost batch norm over
-    16 samples, Momentum(0.1, 0.9), cross-entropy, one seeded batch of
-    128 x 3 x 224 x 224 repeated; one warm-up step and `steps` timed
-    ones.  Returns (launches over the timed steps, mean step ms)."""
+    under the subset of `mode`; bench_resnet50 unfused): ResNet-50 bf16
+    NHWC, ghost batch norm over 16 samples, Momentum(0.1, 0.9),
+    cross-entropy, one seeded batch of 128 x 3 x 224 x 224 repeated; one
+    warm-up step and `steps` timed ones.  Returns (launches over the
+    timed steps, mean step ms)."""
+    import os
+
     import torch
 
     from paddle_tpu_torch.kernels import backend
@@ -805,13 +1148,17 @@ def resnet_run(fused, failures, steps=5, batch=128):
     from paddle_tpu_torch.nn import make_generator
     from paddle_tpu_torch.optimizer import Momentum
 
-    label = "resnet fused" if fused else "resnet unfused"
+    fused = mode != "unfused"
+    label = f"resnet {mode}"
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = "id" if mode == "id" else ""
     model = resnet50(dtype="bfloat16", data_format="NHWC",
                      bn_stats_sample=16, fused=fused, device="cuda",
                      generator=make_generator(0))
     n_fused = sum(b._fused for b in model.blocks)
-    if n_fused != (12 if fused else 0):
-        failures.append(f"{label}: {n_fused} fused blocks")
+    if n_fused != RESNET_FUSED_BLOCKS[mode] \
+            or model._fused_stem != (mode == "full"):
+        failures.append(f"{label}: {n_fused} fused blocks, fused stem "
+                        f"{model._fused_stem}")
     opt = Momentum(0.1, 0.9)
     state = init_train_state(model, opt)
     step = make_train_step(
@@ -838,7 +1185,7 @@ def resnet_run(fused, failures, steps=5, batch=128):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         made = {k: c - before.get(k, 0) for k, c in backend.LAUNCHES.items()}
         made = {k: c for k, c in made.items() if c}
-        want = RESNET_LAUNCHES if fused else {}
+        want = RESNET_LAUNCHES[mode]
         if made != want:
             failures.append(f"{label} step {i} launches {made} != {want}")
     launches = dict(backend.LAUNCHES)
@@ -865,19 +1212,24 @@ def resnet_run(fused, failures, steps=5, batch=128):
 
 
 def resnet_phase(failures):
-    """The fused step (K7 on the 12 identity blocks, subset `id`) and
-    the unfused step beside it, in one call on one card."""
-    import os
+    """The full fused step (`resnet50_time_config(fused=True)` with the
+    subset unset: K7 x13, K8 x3, K9), the `id` step (K7 on the 12
+    identity blocks) and the unfused step, in one call on one card.
+    Returns the launches of the two fused runs' timed steps, summed."""
+    import collections
 
-    os.environ["PADDLE_TPU_FUSED_SUBSET"] = "id"
-    launches, fused_ms = resnet_run(True, failures)
-    for name in RESNET_LAUNCHES:
+    launches = collections.Counter()
+    step_ms = {}
+    for mode in ("full", "id", "unfused"):
+        made, step_ms[mode] = resnet_run(mode, failures)
+        launches.update(made)
+    for name in RESNET_LAUNCHES["full"]:
         if launches.get(name, 0) < 1:
             failures.append(f"{name} never launched on the ResNet path")
-    _, unfused_ms = resnet_run(False, failures)
-    log(f"resnet: fused (K7, subset id) {fused_ms:.3f} ms/step against "
-        f"unfused {unfused_ms:.3f} ms/step ({unfused_ms / fused_ms:.3f}x)")
-    return launches
+    log(f"resnet step ms: full (K7 x13, K8 x3, K9) {step_ms['full']:.3f}, "
+        f"id (K7 x12) {step_ms['id']:.3f}, unfused "
+        f"{step_ms['unfused']:.3f}")
+    return dict(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1118,8 +1470,10 @@ def _rel(a, b, floor=0.0):
 
 
 def resnet_check(failures, steps=2, lr=1e-5):
-    """A shallow NHWC ResNet-50 (full widths, depths [2, 2, 2, 2]: one
-    identity block per stage, all four through K7 under subset `id`),
+    """A shallow NHWC ResNet-50 (full widths, depths [2, 2, 2, 2], the
+    full fused program: the stem tail through K9, the stage-1 projection
+    block and one identity block per stage through K7, the three
+    transitions through K8),
     f32, batch 8 x 3 x 128 x 128, ghost batch norm over 4 samples: the
     first step's grads and 2 Momentum steps on the card (kernels) against
     the CPU (plain versions) from the same weights.
@@ -1151,7 +1505,7 @@ def resnet_check(failures, steps=2, lr=1e-5):
     )
     from paddle_tpu_torch.optimizer import Momentum
 
-    os.environ["PADDLE_TPU_FUSED_SUBSET"] = "id"
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = ""
     loss_fn = lambda m, a, b: F.cross_entropy(m(a), b).mean()
     rng = np.random.default_rng(3)
     x = rng.standard_normal((8, 3, 128, 128)).astype(np.float32)
@@ -1184,10 +1538,14 @@ def resnet_check(failures, steps=2, lr=1e-5):
         for _ in range(steps):
             state, loss = step(state, xt, yt)
             losses.append(float(loss))
-        if dev == "cuda" and dict(backend.LAUNCHES) != {
-                "fused_bottleneck_fwd": 4 * steps,
-                "fused_bottleneck_bwd": 4 * steps}:
-            failures.append(f"resnet check launches {dict(backend.LAUNCHES)}")
+        want = {"fused_bottleneck_fwd": 5 * steps,
+                "fused_bottleneck_bwd": 5 * steps,
+                "fused_bottleneck_down_fwd": 3 * steps,
+                "fused_bottleneck_down_bwd": 3 * steps,
+                "fused_stem_tail_fwd": steps, "fused_stem_tail_bwd": steps}
+        if dev == "cuda" and dict(backend.LAUNCHES) != want:
+            failures.append(f"resnet check launches {dict(backend.LAUNCHES)}"
+                            f" != {want}")
         runs[dev] = dict(
             grads=grads, losses=losses,
             params={n: p.detach().cpu() for n, p in state.params.items()},
@@ -1211,7 +1569,8 @@ def resnet_check(failures, steps=2, lr=1e-5):
     buf_err, buf_worst = max((_rel(card["buffers"][n], b), n)
                              for n, b in cpu["buffers"].items())
     log(f"f32 ResNet check (ResNet-50 widths, depths [2, 2, 2, 2], NHWC, "
-        f"4 K7 blocks, batch 8 x 128 x 128, ghost batch 4, {steps} "
+        f"full fused program: K9, 5 K7 and 3 K8 blocks, batch 8 x 128 x "
+        f"128, ghost batch 4, {steps} "
         f"Momentum({lr}) steps), card vs CPU: losses card {card['losses']} "
         f"CPU {cpu['losses']} (rel err first {first_err:.3e}, max "
         f"{loss_err:.3e}); first-step "
@@ -1361,11 +1720,13 @@ def main():
     for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv", "layer_norm_fwd",
                 "layer_norm_bwd", "flash_decode", "fused_bottleneck_fwd",
-                "fused_bottleneck_bwd"):
+                "fused_bottleneck_bwd", "fused_bottleneck_down_fwd",
+                "fused_bottleneck_down_bwd", "fused_stem_tail_fwd",
+                "fused_stem_tail_bwd"):
         row = dict(rows[key])
         # launches on the main paths: the 5 timed GPT train steps, the 5
-        # timed fused ResNet-50 steps and the serving run (generate +
-        # engine)
+        # timed steps of each fused ResNet-50 run (full and `id`) and the
+        # serving run (generate + engine)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in ("train", "resnet", "path"))
         kernels.append(row)

@@ -1,5 +1,5 @@
-// K7: fused stride-1 ResNet bottleneck block, forward and backward, for
-// Hopper (sm_90a).
+// K7: fused stride-1 ResNet bottleneck block, and K8: the stride-2
+// transition block, forward and backward, for Hopper (sm_90a).
 //
 // Replaces paddle_tpu/kernels/fused_bottleneck.py `_fwd_kernel` (driven by
 // `_fwd`) and `_bwd_kernel` (driven by `_bwd`), public there as
@@ -76,6 +76,31 @@
 // operation-bound.  This kernel runs those operations as scalar f32 FMAs
 // on the CUDA cores (67 TFLOP/s peak), so it is bound by them, far above
 // either bound; the backward does about 3x the forward's operations.
+//
+// K8 replaces `_fwd_kernel_down` (driven by `_fwd_down`) and
+// `_bwd_kernel_down` (`_bwd_down`), public there as `fused_bottleneck_down`:
+//   h0  = round(relu(a1 * (x @ w1) + b1))                    at H x W
+//   h1  = round(relu(a2 * conv3x3_s2(h0, w2) + b2))          at H/2 x W/2
+//   y   = round(relu(a3 * (h1 @ w3) + b3 + a4 * (x[:, ::2, ::2] @ w4) + b4))
+// with the same rounding points as K7's projection block.  It is K7's
+// forward and B1 kernels at stride 2 (template flag kDown): a tile of TH
+// output rows recomputes h0 on input rows 2 r0 - 1 .. 2 (r0 + TH) - 1, so
+// 2 TH + 1 rows, and the patch loader and the shortcut's loader step by 2.
+// ResNet-50's transitions have W * Cm = 7168 at every stage, twice K7's,
+// so the tiles are shorter: in bf16 the forward takes TH 4 and B1 TH 2.
+// The backward's dh0 is the stride-2 conv transposed: input pixel (2i +
+// py, 2j + px) receives tap 1 (py = 0) or taps 0 and 2 (py = 1, from
+// output rows i + 1 and i) in each direction, so B2 (`down_bwd2_kernel`)
+// runs one GEMM per input phase, nine taps over the four phases, against
+// dc1 read from B1's scratch including one output row below the tile.
+// The shortcut's dx lands on phase (0, 0) only: dx there is one f32 sum
+// of dc0 w1^T and dc4 w4^T, elsewhere dc0 w1^T alone.
+//
+// Bound on the H100 at batch 128, for each of the three transitions (56^2
+// 256 -> 512 Cm 128; 28^2 512 -> 1024 Cm 256; 14^2 1024 -> 2048 Cm 512):
+// 2 R_out (4 Cin Cm + 9 Cm^2 + Cm Cout + Cin Cout) = 95.4 GFLOP per
+// forward, 0.096 ms at 989 TFLOP/s, against 0.092 / 0.046 / 0.023 ms for
+// x + y: operation-bound.  The CUDA-core GEMM runs it far above that.
 
 #include <cstdint>
 
@@ -92,28 +117,39 @@ constexpr int kBStride = kTN + 4;   // Bs [kTK][kTN+4]: float4-aligned rows
 constexpr int kChunk = 64;          // Cout channels per chunk (B1, forward)
 constexpr int kMaxTH = 8;
 
+// h, w are the input's sides; th the output rows of a tile.
 struct Geo {
   int n, h, w, cin, cm, lgcm, cout, aw, th, tiles_per_img;
 };
 
-// A tile: rows [r0, r0 + rows) of image img; `own` is the index of its
-// first pixel in the [N*H*W] pixel order.  Halo pixel hp (0 <= hp < P2)
-// is row r0 - 1 + hp / W; it lies in the image iff lo <= hp < hi.
+// A tile: output rows [r0, r0 + rows) of image img, P = rows * wo
+// pixels; `own` is the index of its first pixel in the [N*Ho*Wo] pixel
+// order.  Its h0 halo is input rows s r0 - 1 .. s (r0 + rows - 1) + 1
+// (s the stride: K7 rows + 2 rows, K8 2 rows + 1); halo pixel hp
+// (0 <= hp < P2) lies in the image iff lo <= hp < hi, and `xb` is the
+// input pixel index of halo pixel 0.
 struct Tile {
-  int img, r0, rows, P, P2, lo, hi;
-  long long own;
+  int img, r0, rows, wo, P, P2, lo, hi;
+  long long own, xb;
 };
 
+template <bool kDown>
 __device__ __forceinline__ Tile tile_of(const Geo& g) {
+  constexpr int s = kDown ? 2 : 1;
+  const int ho = g.h / s;
   Tile t;
+  t.wo = g.w / s;
   t.img = blockIdx.x / g.tiles_per_img;
   t.r0 = (blockIdx.x % g.tiles_per_img) * g.th;
-  t.rows = min(g.th, g.h - t.r0);
-  t.P = t.rows * g.w;
-  t.P2 = (t.rows + 2) * g.w;
+  t.rows = min(g.th, ho - t.r0);
+  t.P = t.rows * t.wo;
+  t.P2 = (s * t.rows + 3 - s) * g.w;
   t.lo = t.r0 == 0 ? g.w : 0;
-  t.hi = t.r0 + t.rows >= g.h ? (t.rows + 1) * g.w : t.P2;
-  t.own = (static_cast<long long>(t.img) * g.h + t.r0) * g.w;
+  // K7's last tile has its lower halo row outside the image; K8's
+  // lower halo row is input row 2 (r0 + rows) - 1 <= H - 1, inside
+  t.hi = (!kDown && t.r0 + t.rows >= g.h) ? (t.rows + 1) * g.w : t.P2;
+  t.own = (static_cast<long long>(t.img) * ho + t.r0) * t.wo;
+  t.xb = (static_cast<long long>(t.img) * g.h + s * t.r0 - 1) * g.w;
   return t;
 }
 
@@ -132,15 +168,24 @@ struct Carve {
   }
 };
 
+// Own output pixels and h0 halo pixels of a tile of th output rows.
+__host__ __device__ inline size_t tile_px(int th, int w, bool down) {
+  return size_t(th) * (down ? w / 2 : w);
+}
+__host__ __device__ inline size_t halo_px(int th, int w, bool down) {
+  return size_t(down ? 2 * th + 1 : th + 2) * w;
+}
+
 struct FwdLayout {
   size_t as, bs, row, col, h0, h1, s, total;
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int th, int w, int cm,
-                                                int tsz, bool proj) {
+                                                int tsz, bool proj,
+                                                bool down) {
   Carve c;
   FwdLayout l;
-  const size_t p = size_t(th) * w, p2 = size_t(th + 2) * w;
+  const size_t p = tile_px(th, w, down), p2 = halo_px(th, w, down);
   l.as = c.take(sizeof(float) * kTK * kAStride);
   l.bs = c.take(sizeof(float) * kTK * kBStride);
   l.row = c.take(sizeof(short) * p);
@@ -157,10 +202,10 @@ struct B1Layout {
 };
 
 __host__ __device__ inline B1Layout b1_layout(int th, int w, int cm, int tsz,
-                                              bool proj) {
+                                              bool proj, bool down) {
   Carve c;
   B1Layout l;
-  const size_t p = size_t(th) * w, p2 = size_t(th + 2) * w;
+  const size_t p = tile_px(th, w, down), p2 = halo_px(th, w, down);
   l.as = c.take(sizeof(float) * kTK * kAStride);
   l.bs = c.take(sizeof(float) * kTK * kBStride);
   l.row = c.take(sizeof(short) * p);
@@ -181,17 +226,20 @@ struct B2Layout {
   size_t as, bs, row, col, c0, dc0, daff, total;
 };
 
+// K7's B2 (down = false) keeps th x W own pixels; K8's B2 keeps the 2 th
+// input rows of th output rows, and its tables index the output pixels.
 __host__ __device__ inline B2Layout b2_layout(int th, int w, int cm,
-                                              int tsz) {
+                                              int tsz, bool down) {
   Carve c;
   B2Layout l;
-  const size_t p = size_t(th) * w;
+  const size_t p = tile_px(th, w, down);
+  const size_t pin = size_t(down ? 2 * th : th) * w;
   l.as = c.take(sizeof(float) * kTK * kAStride);
   l.bs = c.take(sizeof(float) * kTK * kBStride);
   l.row = c.take(sizeof(short) * p);
   l.col = c.take(sizeof(short) * p);
-  l.c0 = c.take(sizeof(float) * p * cm);  // f32 c0 of the own rows
-  l.dc0 = c.take(tsz * p * cm);
+  l.c0 = c.take(sizeof(float) * pin * cm);  // f32 c0 of the own rows
+  l.dc0 = c.take(tsz * pin * cm);
   l.daff = c.take(sizeof(float) * 2 * cm);
   l.total = c.off;
   return l;
@@ -264,11 +312,13 @@ __device__ __forceinline__ float affine(float c, float a, float b) {
   return __fadd_rn(__fmul_rn(c, a), b);
 }
 
-__device__ __forceinline__ void fill_tables(const Geo& g, const Tile& t,
-                                            short* rowt, short* colt) {
+// Row and column of each own output pixel, so the loaders divide by no
+// runtime width.
+__device__ __forceinline__ void fill_tables(const Tile& t, short* rowt,
+                                            short* colt) {
   for (int p = threadIdx.x; p < t.P; p += kThreads) {
-    rowt[p] = static_cast<short>(p / g.w);
-    colt[p] = static_cast<short>(p % g.w);
+    rowt[p] = static_cast<short>(p / t.wo);
+    colt[p] = static_cast<short>(p % t.wo);
   }
 }
 
@@ -278,7 +328,7 @@ __device__ void halo_h0(const Geo& g, const Tile& t, const T* __restrict__ x,
                         const T* __restrict__ w1,
                         const float* __restrict__ aff, T* h0s, float* As,
                         float* Bs) {
-  const long long xb = t.own - g.w;  // pixel index of halo pixel 0
+  const long long xb = t.xb;
   const float* a1 = aff;
   const float* b1 = aff + g.aw;
   gemm<false, false>(
@@ -296,23 +346,39 @@ __device__ void halo_h0(const Geo& g, const Tile& t, const T* __restrict__ x,
       As, Bs);
 }
 
-// im2col view of h0: own pixel p, k = tap * Cm + c with tap = dy * 3 + dx.
-template <typename T>
+// im2col view of h0: own output pixel p, k = tap * Cm + c with tap = dy *
+// 3 + dx.  Output row r of the tile reads halo row s r + dy, column s
+// col + dx - 1 (s the stride, 1 for K7 and 2 for K8).
+template <bool kDown, typename T>
 __device__ __forceinline__ float patch(const Geo& g, const short* rowt,
                                        const short* colt, const T* h0s, int p,
                                        int k) {
+  constexpr int s = kDown ? 2 : 1;
   const int tap = k >> g.lgcm, c = k & (g.cm - 1);
   const int dy = tap / 3, dx = tap - 3 * dy;
-  const int cc = colt[p] + dx - 1;
+  const int cc = s * colt[p] + dx - 1;
   if (cc < 0 || cc >= g.w) return 0.f;
-  return pt::to_f32(h0s[((rowt[p] + dy) * g.w + cc) * g.cm + c]);
+  return pt::to_f32(h0s[((s * rowt[p] + dy) * g.w + cc) * g.cm + c]);
+}
+
+// The input pixel that own output pixel p's shortcut reads: the pixel
+// itself (K7), or phase (0, 0) of its 2 x 2 cell (K8, x[:, ::2, ::2]).
+template <bool kDown>
+__device__ __forceinline__ long long in_pixel(const Geo& g, const Tile& t,
+                                              const short* rowt,
+                                              const short* colt, int p) {
+  if (!kDown) return t.own + p;
+  return (static_cast<long long>(t.img) * g.h + 2 * (t.r0 + rowt[p])) * g.w +
+         2 * colt[p];
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, bool kProj>
+// kDown (K8, which implies kProj): the 3x3 conv and the shortcut at
+// stride 2.
+template <typename T, bool kProj, bool kDown>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
                       const T* __restrict__ w1, const T* __restrict__ w2,
@@ -320,7 +386,7 @@ bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
                       const float* __restrict__ aff, T* __restrict__ y) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const FwdLayout L = fwd_layout(g.th, g.w, g.cm, sizeof(T), kProj);
+  const FwdLayout L = fwd_layout(g.th, g.w, g.cm, sizeof(T), kProj, kDown);
   float* As = reinterpret_cast<float*>(smem + L.as);
   float* Bs = reinterpret_cast<float*>(smem + L.bs);
   short* rowt = reinterpret_cast<short*>(smem + L.row);
@@ -328,7 +394,7 @@ bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
   T* h0s = reinterpret_cast<T*>(smem + L.h0);
   T* h1s = reinterpret_cast<T*>(smem + L.h1);
   float* ss = reinterpret_cast<float*>(smem + L.s);
-  const Tile t = tile_of(g);
+  const Tile t = tile_of<kDown>(g);
   const float* a2 = aff + 2 * g.aw;
   const float* b2 = aff + 3 * g.aw;
   const float* a3 = aff + 4 * g.aw;
@@ -336,11 +402,11 @@ bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
   const float* a4 = aff + 6 * g.aw;
   const float* b4 = aff + 7 * g.aw;
 
-  fill_tables(g, t, rowt, colt);
+  fill_tables(t, rowt, colt);
   halo_h0(g, t, x, w1, aff, h0s, As, Bs);
   gemm<false, false>(
       t.P, g.cm, 9 * g.cm,
-      [&](int m, int k) { return patch(g, rowt, colt, h0s, m, k); },
+      [&](int m, int k) { return patch<kDown>(g, rowt, colt, h0s, m, k); },
       [&](int k, int n) { return pt::to_f32(w2[size_t(k) * g.cm + n]); },
       [&](int m, int n, float v) {
         h1s[m * g.cm + n] =
@@ -352,7 +418,10 @@ bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
     if (kProj) {
       gemm<false, false>(
           t.P, nc, g.cin,
-          [&](int m, int k) { return pt::to_f32(x[(t.own + m) * g.cin + k]); },
+          [&](int m, int k) {
+            return pt::to_f32(
+                x[in_pixel<kDown>(g, t, rowt, colt, m) * g.cin + k]);
+          },
           [&](int k, int n) {
             return pt::to_f32(w4[size_t(k) * g.cout + j0 + n]);
           },
@@ -382,7 +451,7 @@ bottleneck_fwd_kernel(Geo g, const T* __restrict__ x,
 // backward, kernel B1: recompute, the Cout-wide chain, dc1, dW2, dW3
 // ---------------------------------------------------------------------------
 
-template <typename T, bool kProj>
+template <typename T, bool kProj, bool kDown>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
                        const T* __restrict__ dy, const T* __restrict__ w1,
@@ -393,7 +462,7 @@ bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
                        T* __restrict__ dc1g, uint8_t* __restrict__ mask) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const B1Layout L = b1_layout(g.th, g.w, g.cm, sizeof(T), kProj);
+  const B1Layout L = b1_layout(g.th, g.w, g.cm, sizeof(T), kProj, kDown);
   float* As = reinterpret_cast<float*>(smem + L.as);
   float* Bs = reinterpret_cast<float*>(smem + L.bs);
   short* rowt = reinterpret_cast<short*>(smem + L.row);
@@ -407,7 +476,7 @@ bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
   float* c4s = reinterpret_cast<float*>(smem + L.c4);
   float* dA = reinterpret_cast<float*>(smem + L.daff);  // rows 2, 3: [2][Cm]
   float* dC = dA + 2 * g.cm;                            // rows 4-7: [4][64]
-  const Tile t = tile_of(g);
+  const Tile t = tile_of<kDown>(g);
   const int tid = threadIdx.x;
   const float* a2 = aff + 2 * g.aw;
   const float* b2 = aff + 3 * g.aw;
@@ -417,13 +486,13 @@ bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
   const float* b4 = aff + 7 * g.aw;
   const int pcm = t.P * g.cm;
 
-  fill_tables(g, t, rowt, colt);
+  fill_tables(t, rowt, colt);
   for (int i = tid; i < pcm; i += kThreads) dh1[i] = 0.f;
   for (int i = tid; i < 2 * g.cm + 4 * kChunk; i += kThreads) dA[i] = 0.f;
   halo_h0(g, t, x, w1, aff, h0s, As, Bs);
   gemm<false, false>(
       t.P, g.cm, 9 * g.cm,
-      [&](int m, int k) { return patch(g, rowt, colt, h0s, m, k); },
+      [&](int m, int k) { return patch<kDown>(g, rowt, colt, h0s, m, k); },
       [&](int k, int n) { return pt::to_f32(w2[size_t(k) * g.cm + n]); },
       [&](int m, int n, float v) {
         const float u1 = affine(v, a2[n], b2[n]);
@@ -438,7 +507,10 @@ bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
     if (kProj) {
       gemm<false, false>(
           t.P, nc, g.cin,
-          [&](int m, int k) { return pt::to_f32(x[(t.own + m) * g.cin + k]); },
+          [&](int m, int k) {
+            return pt::to_f32(
+                x[in_pixel<kDown>(g, t, rowt, colt, m) * g.cin + k]);
+          },
           [&](int k, int n) {
             return pt::to_f32(w4[size_t(k) * g.cout + j0 + n]);
           },
@@ -519,7 +591,7 @@ bottleneck_bwd1_kernel(Geo g, const T* __restrict__ x,
   // dW2 += patches(h0)^T dc1: rows tap * Cm + c
   gemm<true, false>(
       9 * g.cm, g.cm, t.P,
-      [&](int m, int k) { return patch(g, rowt, colt, h0s, k, m); },
+      [&](int m, int k) { return patch<kDown>(g, rowt, colt, h0s, k, m); },
       [&](int k, int n) { return pt::to_f32(c1r[k * g.cm + n]); },
       [&](int m, int n, float v) { atomicAdd(dw2 + size_t(m) * g.cm + n, v); },
       As, Bs);
@@ -541,7 +613,7 @@ bottleneck_bwd2_kernel(Geo g, const T* __restrict__ x,
                        float* __restrict__ daff) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const B2Layout L = b2_layout(g.th, g.w, g.cm, sizeof(T));
+  const B2Layout L = b2_layout(g.th, g.w, g.cm, sizeof(T), false);
   float* As = reinterpret_cast<float*>(smem + L.as);
   float* Bs = reinterpret_cast<float*>(smem + L.bs);
   short* rowt = reinterpret_cast<short*>(smem + L.row);
@@ -549,13 +621,13 @@ bottleneck_bwd2_kernel(Geo g, const T* __restrict__ x,
   float* c0f = reinterpret_cast<float*>(smem + L.c0);
   T* dc0s = reinterpret_cast<T*>(smem + L.dc0);
   float* dA = reinterpret_cast<float*>(smem + L.daff);  // rows 0, 1: [2][Cm]
-  const Tile t = tile_of(g);
+  const Tile t = tile_of<false>(g);
   const int tid = threadIdx.x;
   const float* a1 = aff;
   const float* b1 = aff + g.aw;
   const float* a4 = aff + 6 * g.aw;
 
-  fill_tables(g, t, rowt, colt);
+  fill_tables(t, rowt, colt);
   for (int i = tid; i < 2 * g.cm; i += kThreads) dA[i] = 0.f;
   gemm<false, false>(
       t.P, g.cm, g.cin,
@@ -636,6 +708,145 @@ bottleneck_bwd2_kernel(Geo g, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// K8 backward, kernel B2: dh0 (the stride-2 3x3 conv transposed, by input
+// phase), dc0, dW1, dW4, dx
+// ---------------------------------------------------------------------------
+
+// A tile of th output rows owns input rows 2 r0 .. 2 (r0 + rows) - 1.  Input
+// pixel (2 i + py, 2 j + px) -- phase (py, px) of output cell (i, j) --
+// receives tap (ky, kx) of output pixel ((2 i + py + 1 - ky) / 2, ...)
+// where that is whole: ky = 1 for py = 0, ky in {0, 2} for py = 1 (rows
+// i + 1 and i), and the same for the columns.  So each phase is one GEMM
+// over the tile's output cells with K = (its taps) x Cm, nine taps over
+// the four phases in all, and dc1 is read from the scratch one output row
+// below the tile as well.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+down_bwd2_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ dy,
+                 const T* __restrict__ w1, const T* __restrict__ w2,
+                 const T* __restrict__ w4, const float* __restrict__ aff,
+                 const T* __restrict__ dc1g, const uint8_t* __restrict__ mask,
+                 T* __restrict__ dx, float* __restrict__ dw1,
+                 float* __restrict__ dw4, float* __restrict__ daff) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const B2Layout L = b2_layout(g.th, g.w, g.cm, sizeof(T), true);
+  float* As = reinterpret_cast<float*>(smem + L.as);
+  float* Bs = reinterpret_cast<float*>(smem + L.bs);
+  short* rowt = reinterpret_cast<short*>(smem + L.row);
+  short* colt = reinterpret_cast<short*>(smem + L.col);
+  float* c0f = reinterpret_cast<float*>(smem + L.c0);
+  T* dc0s = reinterpret_cast<T*>(smem + L.dc0);
+  float* dA = reinterpret_cast<float*>(smem + L.daff);  // rows 0, 1: [2][Cm]
+  const Tile t = tile_of<true>(g);
+  const int tid = threadIdx.x;
+  const int ho = g.h >> 1;
+  const int pin = 2 * t.rows * g.w;  // own input pixels
+  const long long xin = (static_cast<long long>(t.img) * g.h + 2 * t.r0) *
+                        g.w;         // the first of them
+  const float* a1 = aff;
+  const float* b1 = aff + g.aw;
+  const float* a4 = aff + 6 * g.aw;
+  // own input pixel (local index) of phase (py, px) of output cell m
+  auto qof = [&](int m, int py, int px) {
+    return (2 * rowt[m] + py) * g.w + 2 * colt[m] + px;
+  };
+
+  fill_tables(t, rowt, colt);
+  for (int i = tid; i < 2 * g.cm; i += kThreads) dA[i] = 0.f;
+  gemm<false, false>(
+      pin, g.cm, g.cin,
+      [&](int m, int k) { return pt::to_f32(x[(xin + m) * g.cin + k]); },
+      [&](int k, int n) { return pt::to_f32(w1[size_t(k) * g.cm + n]); },
+      [&](int m, int n, float v) { c0f[m * g.cm + n] = v; }, As, Bs);
+  for (int ph = 0; ph < 4; ++ph) {
+    const int py = ph >> 1, px = ph & 1;
+    const int nx = px ? 2 : 1;
+    const int ntaps = (py ? 2 : 1) * nx;
+    // tap index -> (ky, kx); the dc1 row and column it reads
+    auto tap_of = [&](int k, int& ky, int& kx) {
+      const int tp = k >> g.lgcm, iy = tp / nx, ix = tp - nx * iy;
+      ky = py ? 2 * iy : 1;
+      kx = px ? 2 * ix : 1;
+    };
+    gemm<false, true>(
+        t.P, g.cm, ntaps * g.cm,
+        [&](int m, int k) {
+          int ky, kx;
+          tap_of(k, ky, kx);
+          const int i = t.r0 + rowt[m] + ((py + 1 - ky) >> 1);
+          const int j = colt[m] + ((px + 1 - kx) >> 1);
+          if (i >= ho || j >= t.wo) return 0.f;
+          return pt::to_f32(
+              dc1g[((static_cast<long long>(t.img) * ho + i) * t.wo + j) *
+                       g.cm + (k & (g.cm - 1))]);
+        },
+        [&](int k, int n) {
+          int ky, kx;
+          tap_of(k, ky, kx);
+          return pt::to_f32(
+              w2[(size_t(ky * 3 + kx) * g.cm + n) * g.cm + (k & (g.cm - 1))]);
+        },
+        [&](int m, int n, float v) {
+          const int q = qof(m, py, px);
+          const float c0 = c0f[q * g.cm + n];
+          const float du0 = affine(c0, a1[n], b1[n]) > 0.f ? v : 0.f;
+          atomicAdd(dA + n, du0 * pt::to_f32(pt::from_f32<T>(c0)));
+          atomicAdd(dA + g.cm + n, du0);
+          dc0s[q * g.cm + n] = pt::from_f32<T>(du0 * a1[n]);
+        },
+        As, Bs);
+  }
+  __syncthreads();
+  for (int c = tid; c < g.cm; c += kThreads) {
+    atomicAdd(daff + c, dA[c]);
+    atomicAdd(daff + g.aw + c, dA[g.cm + c]);
+  }
+  // dc4 = round(dz3 * a4) at output cell m, dz3 from B1's mask and dy
+  auto dc4 = [&](int m, int col) {
+    const long long at = (t.own + m) * g.cout + col;
+    const float dz3 = mask[at] ? pt::to_f32(dy[at]) : 0.f;
+    return pt::to_f32(pt::from_f32<T>(dz3 * a4[col]));
+  };
+  // dW1 += x^T dc0 over the own input pixels
+  gemm<true, false>(
+      g.cin, g.cm, pin,
+      [&](int m, int k) { return pt::to_f32(x[(xin + k) * g.cin + m]); },
+      [&](int k, int n) { return pt::to_f32(dc0s[k * g.cm + n]); },
+      [&](int m, int n, float v) { atomicAdd(dw1 + size_t(m) * g.cm + n, v); },
+      As, Bs);
+  // dW4 += x[:, ::2, ::2]^T dc4 over the tile's output cells
+  gemm<true, false>(
+      g.cin, g.cout, t.P,
+      [&](int m, int k) {
+        return pt::to_f32(x[(xin + qof(k, 0, 0)) * g.cin + m]);
+      },
+      [&](int k, int n) { return dc4(k, n); },
+      [&](int m, int n, float v) {
+        atomicAdd(dw4 + size_t(m) * g.cout + n, v);
+      },
+      As, Bs);
+  // dx = dc0 w1^T, plus dc4 w4^T at phase (0, 0): one f32 sum, rounded once
+  for (int ph = 0; ph < 4; ++ph) {
+    const int py = ph >> 1, px = ph & 1;
+    gemm<false, true>(
+        t.P, g.cin, g.cm + (ph == 0 ? g.cout : 0),
+        [&](int m, int k) {
+          return k < g.cm ? pt::to_f32(dc0s[qof(m, py, px) * g.cm + k])
+                          : dc4(m, k - g.cm);
+        },
+        [&](int k, int n) {
+          return k < g.cm ? pt::to_f32(w1[size_t(n) * g.cm + k])
+                          : pt::to_f32(w4[size_t(n) * g.cout + (k - g.cm)]);
+        },
+        [&](int m, int n, float v) {
+          dx[(xin + qof(m, py, px)) * g.cin + n] = pt::from_f32<T>(v);
+        },
+        As, Bs);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -646,18 +857,21 @@ int max_smem() {
   return v;
 }
 
-// The TH <= 8 whose shared memory fits and whose tiles compute the fewest
-// rows (own rows plus `halo` recomputed rows per tile); ties go to the
-// larger TH.  0 when none fits.
+// Over `rows` output rows, the TH <= 8 whose shared memory fits and whose
+// tiles compute the fewest rows, ceil(rows / TH) (s TH + halo) with s the
+// stride (K7: TH + 2 h0 rows at stride 1; K8: 2 TH + 1); ties go to the
+// larger TH.  Without a halo (B2) the fewest tiles come first: each tile
+// adds a whole weight gradient with atomics.  0 when none fits.
 template <class Bytes>
-int pick_th(int h, int halo, const Bytes& bytes) {
+int pick_th(int rows, int s, int halo, const Bytes& bytes) {
   const size_t limit = static_cast<size_t>(max_smem());
   int best = 0;
   long long best_cost = 0;
-  for (int th = 1; th <= (h < kMaxTH ? h : kMaxTH); ++th) {
+  for (int th = 1; th <= (rows < kMaxTH ? rows : kMaxTH); ++th) {
     if (bytes(th) > limit) continue;
-    const long long cost = static_cast<long long>((h + th - 1) / th) *
-                           (th + halo);
+    const long long tiles = (rows + th - 1) / th;
+    const long long cost = tiles * (s * th + halo) +
+                           (halo == 0 ? tiles * s * kMaxTH * rows : 0);
     if (best == 0 || cost <= best_cost) {
       best = th;
       best_cost = cost;
@@ -666,81 +880,101 @@ int pick_th(int h, int halo, const Bytes& bytes) {
   return best;
 }
 
-Geo make_geo(int n, int h, int w, int cin, int cm, int cout, int aw, int th) {
+// The tile heights of one launch: forward, B1, B2.
+struct Ths {
+  int fwd, b1, b2;
+};
+
+template <typename T>
+Ths pick_ths(int h, int w, int cm, bool proj, bool down) {
+  const int s = down ? 2 : 1, rows = h / s;
+  Ths r;
+  r.fwd = pick_th(rows, s, 3 - s, [&](int t) {
+    return fwd_layout(t, w, cm, sizeof(T), proj, down).total;
+  });
+  r.b1 = pick_th(rows, s, 3 - s, [&](int t) {
+    return b1_layout(t, w, cm, sizeof(T), proj, down).total;
+  });
+  r.b2 = pick_th(rows, s, 0, [&](int t) {
+    return b2_layout(t, w, cm, sizeof(T), down).total;
+  });
+  return r;
+}
+
+Geo make_geo(int n, int h, int w, int cin, int cm, int cout, int aw, int th,
+             bool down) {
   int lg = 0;
   while ((1 << lg) < cm) ++lg;
-  return Geo{n, h, w, cin, cm, lg, cout, aw, th, (h + th - 1) / th};
+  const int rows = down ? h / 2 : h;
+  return Geo{n, h, w, cin, cm, lg, cout, aw, th, (rows + th - 1) / th};
 }
 
 bool geo_ok(int n, int h, int w, int cin, int cm, int cout, int aw,
-            bool proj) {
+            bool proj, bool down) {
   if (n < 1 || h < 1 || w < 1 || cin < 1 || cm < 1 || cout < 1) return false;
   if (cm & (cm - 1)) return false;                 // Cm a power of two
   if (!proj && cin != cout) return false;          // identity shortcut
+  if (down && (h % 2 || w % 2)) return false;      // K8: even sides
   if (aw < cm || aw < cout) return false;
   if (w * kMaxTH > 32767) return false;            // short pixel tables
   return true;
 }
 
-template <typename T, bool kProj>
+template <class Kernel>
+cudaError_t set_smem(Kernel k, size_t bytes) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, bool kProj, bool kDown>
 cudaError_t launch_fwd(const void* x, const void* w1, const void* w2,
                        const void* w3, const void* w4, const void* aff,
                        void* y, int n, int h, int w, int cin, int cm,
                        int cout, int aw, cudaStream_t st) {
-  const int th = pick_th(h, 2, [&](int t) {
-    return fwd_layout(t, w, cm, sizeof(T), kProj).total;
-  });
+  const int th = pick_ths<T>(h, w, cm, kProj, kDown).fwd;
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cin, cm, cout, aw, th);
-  const size_t smem = fwd_layout(th, w, cm, sizeof(T), kProj).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_fwd_kernel<T, kProj>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const Geo g = make_geo(n, h, w, cin, cm, cout, aw, th, kDown);
+  const size_t smem = fwd_layout(th, w, cm, sizeof(T), kProj, kDown).total;
+  cudaError_t err = set_smem(bottleneck_fwd_kernel<T, kProj, kDown>, smem);
   if (err != cudaSuccess) return err;
-  bottleneck_fwd_kernel<T, kProj><<<n * g.tiles_per_img, kThreads, smem, st>>>(
-      g, static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(w2), static_cast<const T*>(w3),
-      static_cast<const T*>(w4), static_cast<const float*>(aff),
-      static_cast<T*>(y));
+  bottleneck_fwd_kernel<T, kProj, kDown>
+      <<<n * g.tiles_per_img, kThreads, smem, st>>>(
+          g, static_cast<const T*>(x), static_cast<const T*>(w1),
+          static_cast<const T*>(w2), static_cast<const T*>(w3),
+          static_cast<const T*>(w4), static_cast<const float*>(aff),
+          static_cast<T*>(y));
   return cudaGetLastError();
 }
 
-template <typename T, bool kProj>
+template <typename T, bool kProj, bool kDown>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* w1,
                        const void* w2, const void* w3, const void* w4,
                        const void* aff, void* dx, void* dw1, void* dw2,
                        void* dw3, void* dw4, void* daff, void* dc1,
                        void* mask, int n, int h, int w, int cin, int cm,
                        int cout, int aw, cudaStream_t st) {
-  const int th1 = pick_th(h, 2, [&](int t) {
-    return b1_layout(t, w, cm, sizeof(T), kProj).total;
-  });
-  const int th2 = pick_th(h, 0, [&](int t) {
-    return b2_layout(t, w, cm, sizeof(T)).total;
-  });
-  if (th1 == 0 || th2 == 0) return cudaErrorInvalidValue;
-  const Geo g1 = make_geo(n, h, w, cin, cm, cout, aw, th1);
-  const Geo g2 = make_geo(n, h, w, cin, cm, cout, aw, th2);
-  const size_t s1 = b1_layout(th1, w, cm, sizeof(T), kProj).total;
-  const size_t s2 = b2_layout(th2, w, cm, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_bwd1_kernel<T, kProj>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s1));
+  const Ths ths = pick_ths<T>(h, w, cm, kProj, kDown);
+  if (ths.b1 == 0 || ths.b2 == 0) return cudaErrorInvalidValue;
+  const Geo g1 = make_geo(n, h, w, cin, cm, cout, aw, ths.b1, kDown);
+  const Geo g2 = make_geo(n, h, w, cin, cm, cout, aw, ths.b2, kDown);
+  const size_t s1 = b1_layout(ths.b1, w, cm, sizeof(T), kProj, kDown).total;
+  const size_t s2 = b2_layout(ths.b2, w, cm, sizeof(T), kDown).total;
+  cudaError_t err = set_smem(bottleneck_bwd1_kernel<T, kProj, kDown>, s1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bottleneck_bwd2_kernel<T, kProj>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(s2));
-  if (err != cudaSuccess) return err;
-  bottleneck_bwd1_kernel<T, kProj><<<n * g1.tiles_per_img, kThreads, s1, st>>>(
-      g1, static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const T*>(w3), static_cast<const T*>(w4),
-      static_cast<const float*>(aff), static_cast<float*>(dw2),
-      static_cast<float*>(dw3), static_cast<float*>(daff),
-      static_cast<T*>(dc1), static_cast<uint8_t*>(mask));
+  bottleneck_bwd1_kernel<T, kProj, kDown>
+      <<<n * g1.tiles_per_img, kThreads, s1, st>>>(
+          g1, static_cast<const T*>(x), static_cast<const T*>(dy),
+          static_cast<const T*>(w1), static_cast<const T*>(w2),
+          static_cast<const T*>(w3), static_cast<const T*>(w4),
+          static_cast<const float*>(aff), static_cast<float*>(dw2),
+          static_cast<float*>(dw3), static_cast<float*>(daff),
+          static_cast<T*>(dc1), static_cast<uint8_t*>(mask));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bottleneck_bwd2_kernel<T, kProj><<<n * g2.tiles_per_img, kThreads, s2, st>>>(
+  auto b2 = kDown ? down_bwd2_kernel<T> : bottleneck_bwd2_kernel<T, kProj>;
+  err = set_smem(b2, s2);
+  if (err != cudaSuccess) return err;
+  b2<<<n * g2.tiles_per_img, kThreads, s2, st>>>(
       g2, static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const T*>(w4), static_cast<const float*>(aff),
@@ -763,21 +997,18 @@ extern "C" int pt_fused_bottleneck_fwd(const void* x, const void* w1,
                                        void* y, int n, int h, int w, int cin,
                                        int cm, int cout, int aw, int dtype,
                                        int proj, void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0))
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0, false))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_FWD(T, P)                                                   \
+  launch_fwd<T, P, false>(x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, \
+                          cout, aw, st)
   if (dtype == pt::kFloat32)
-    return int(proj ? launch_fwd<float, true>(x, w1, w2, w3, w4, aff, y, n, h,
-                                              w, cin, cm, cout, aw, st)
-                    : launch_fwd<float, false>(x, w1, w2, w3, w4, aff, y, n,
-                                               h, w, cin, cm, cout, aw, st));
+    return int(proj ? PT_FWD(float, true) : PT_FWD(float, false));
   if (dtype == pt::kBFloat16)
-    return int(proj ? launch_fwd<__nv_bfloat16, true>(
-                          x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, cout,
-                          aw, st)
-                    : launch_fwd<__nv_bfloat16, false>(
-                          x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, cout,
-                          aw, st));
+    return int(proj ? PT_FWD(__nv_bfloat16, true)
+                    : PT_FWD(__nv_bfloat16, false));
+#undef PT_FWD
   return int(cudaErrorInvalidValue);
 }
 
@@ -792,12 +1023,13 @@ extern "C" int pt_fused_bottleneck_bwd(
     void* dw2, void* dw3, void* dw4, void* daff, void* dc1, void* mask, int n,
     int h, int w, int cin, int cm, int cout, int aw, int dtype, int proj,
     void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0))
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0, false))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_BWD(T, P)                                                        \
-  launch_bwd<T, P>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, dw4, daff, \
-                   dc1, mask, n, h, w, cin, cm, cout, aw, st)
+#define PT_BWD(T, P)                                                     \
+  launch_bwd<T, P, false>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, \
+                          dw4, daff, dc1, mask, n, h, w, cin, cm, cout,  \
+                          aw, st)
   if (dtype == pt::kFloat32)
     return int(proj ? PT_BWD(float, true) : PT_BWD(float, false));
   if (dtype == pt::kBFloat16)
@@ -805,4 +1037,62 @@ extern "C" int pt_fused_bottleneck_bwd(
                     : PT_BWD(__nv_bfloat16, false));
 #undef PT_BWD
   return int(cudaErrorInvalidValue);
+}
+
+// K8.  x: [n, h, w, cin] with h and w even, w1: [cin, cm], w2: [3, 3, cm,
+// cm] (HWIO), w3: [cm, cout], w4: [cin, cout], y: [n, h/2, w/2, cout], all
+// contiguous in `dtype`; aff: [8, aw] float32 as above; cm a power of two.
+// Returns cudaGetLastError() after the launch.
+extern "C" int pt_fused_bottleneck_down_fwd(const void* x, const void* w1,
+                                            const void* w2, const void* w3,
+                                            const void* w4, const void* aff,
+                                            void* y, int n, int h, int w,
+                                            int cin, int cm, int cout, int aw,
+                                            int dtype, void* stream) {
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, true, true))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == pt::kFloat32)
+    return int(launch_fwd<float, true, true>(x, w1, w2, w3, w4, aff, y, n, h,
+                                             w, cin, cm, cout, aw, st));
+  if (dtype == pt::kBFloat16)
+    return int(launch_fwd<__nv_bfloat16, true, true>(
+        x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, cout, aw, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// As pt_fused_bottleneck_down_fwd, plus dy: [n, h/2, w/2, cout].  Writes dx
+// ([n, h, w, cin], `dtype`) and ADDS into dw1..dw4 and daff (float32),
+// which the caller zeroes.  Scratch: dc1 [n*h/2*w/2, cm] in `dtype` and
+// mask [n*h/2*w/2, cout] bytes.  Launches B1 then B2 on `stream`.
+extern "C" int pt_fused_bottleneck_down_bwd(
+    const void* x, const void* dy, const void* w1, const void* w2,
+    const void* w3, const void* w4, const void* aff, void* dx, void* dw1,
+    void* dw2, void* dw3, void* dw4, void* daff, void* dc1, void* mask, int n,
+    int h, int w, int cin, int cm, int cout, int aw, int dtype,
+    void* stream) {
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, true, true))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_BWD(T)                                                          \
+  launch_bwd<T, true, true>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, \
+                            dw4, daff, dc1, mask, n, h, w, cin, cm, cout,  \
+                            aw, st)
+  if (dtype == pt::kFloat32) return int(PT_BWD(float));
+  if (dtype == pt::kBFloat16) return int(PT_BWD(__nv_bfloat16));
+#undef PT_BWD
+  return int(cudaErrorInvalidValue);
+}
+
+// The tile heights (output rows) the launches above pick for one geometry
+// on the current device: out[0..2] = forward, B1, B2; 0 where none fits.
+extern "C" int pt_fused_bottleneck_tiles(int h, int w, int cm, int dtype,
+                                         int proj, int down, int* out) {
+  const Ths r = dtype == pt::kFloat32
+                    ? pick_ths<float>(h, w, cm, proj != 0, down != 0)
+                    : pick_ths<__nv_bfloat16>(h, w, cm, proj != 0, down != 0);
+  out[0] = r.fwd;
+  out[1] = r.b1;
+  out[2] = r.b2;
+  return 0;
 }

@@ -1,4 +1,4 @@
-"""Fused ResNet bottleneck block for Hopper: K7, forward and backward.
+"""Fused ResNet blocks for Hopper: K7, K8 and K9, forward and backward.
 
 Port of paddle_tpu/kernels/fused_bottleneck.py (`fused_bottleneck` :399,
 `fused_bottleneck_proj` :436).  The kernels are CUDA C++ in
@@ -32,8 +32,25 @@ budgets (`default_batch_tile`, `_rows_for`, `_FWD_ROW_UNITS`,
 the same function) do not carry over; the CUDA launcher picks its own
 spatial tiles.
 
-K8 (`fused_bottleneck_down`) and K9 (`fused_stem_tail`) are not ported
-yet: they raise NotImplementedError (ROADMAP queue 2).
+K8 (`fused_bottleneck_down`, the reference's :702) is the stride-2
+transition block, x [N, H, W, Cin] -> y [N, H/2, W/2, Cout] for even H
+and W:
+
+    h0 = relu(a1 * (x @ w1) + b1)                      at H x W
+    h1 = relu(a2 * conv3x3_s2(h0, w2) + b2)            at H/2 x W/2, pad 1
+    y  = relu(a3 * (h1 @ w3) + b3 + a4 * (x[:, ::2, ::2] @ w4) + b4)
+
+with the Pallas `_fwd_kernel_down` :499 / `_bwd_kernel_down` :526
+rounding points, under `_FusedDown` (the custom VJP :713-733).  K9
+(`fused_stem_tail`, :902) is the ResNet stem's tail, relu(c * a + b)
+then a 3x3 stride-2 max-pool with pad 1; its backward routes each
+window's gradient to EVERY element equal to the window's max (the
+Pallas `_stem_bwd_kernel` :775), not to the first.  Above a side of 112
+the reference dispatches to its XLA composition (`_stem_tail_xla`
+:892), whose pool gradient goes to the first maximum; the port keeps
+that dispatch (it decides the tie rule), with its own `pool2d` in the
+composition.  The CUDA kernels of K8 are in `csrc/fused_bottleneck.cu`
+beside K7's, K9's in `csrc/fused_stem_tail.cu`.
 """
 
 import ctypes
@@ -48,9 +65,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "pt_fused_bottleneck_fwd": [_P] * 7 + [_I] * 9 + [_P],
     "pt_fused_bottleneck_bwd": [_P] * 15 + [_I] * 9 + [_P],
+    "pt_fused_bottleneck_down_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "pt_fused_bottleneck_down_bwd": [_P] * 15 + [_I] * 8 + [_P],
+    "pt_fused_bottleneck_tiles": [_I] * 6 + [_P],
 }
-_UNPORTED = ("{} (K8/K9) is not ported to the PyTorch/H100 port yet: "
-             "ROADMAP queue 2")
+_STEM_SIGS = {
+    "pt_fused_stem_tail_fwd": [_P] * 3 + [_I] * 5 + [_P],
+    "pt_fused_stem_tail_bwd": [_P] * 6 + [_I] * 6 + [_P],
+}
+# the backward's per-block da/db partials: a fixed grid, so the sums
+# are taken in one order on every run
+_STEM_BWD_BLOCKS = 1024
+# the reference's `_STEM_SIDE_LIMIT` (:890): above it the stem tail is
+# the XLA composition, whose pool gradient goes to the first maximum
+_STEM_SIDE_LIMIT = 112
 
 
 def _pack_affines(affs, width):
@@ -239,6 +267,17 @@ def _dims(x, w1, w3, aff, proj):
             _DTYPE_CODES[x.dtype], int(proj))
 
 
+def tile_heights(h, w, cm, dtype, proj, down):
+    """The output rows per tile that the K7 (down=False) or K8 launches
+    pick on the current CUDA device for an input of sides h x w: (forward,
+    backward B1, backward B2); 0 where no tile fits in shared memory."""
+    lib = backend.load("fused_bottleneck", _SIGS)
+    out = (ctypes.c_int * 3)()
+    lib.pt_fused_bottleneck_tiles(h, w, cm, _DTYPE_CODES[dtype], int(proj),
+                                  int(down), ctypes.addressof(out))
+    return tuple(out)
+
+
 def _launch_fwd(x, w1, w2, w3, w4, aff, proj):
     w4 = w4 if proj else w1          # never read by the identity kernel
     _check_launch(x, w1, w2, w3, w4)
@@ -363,11 +402,358 @@ def fused_bottleneck_proj(x, w1, w2, w3, w4, a1, b1, a2, b2, a3, b3, a4,
                             b4)
 
 
-def fused_bottleneck_down(*args, **kwargs):
-    """The stride-2 transition block (K8): not ported yet."""
-    raise NotImplementedError(_UNPORTED.format("fused_bottleneck_down"))
 
 
-def fused_stem_tail(*args, **kwargs):
-    """The stem's BN affine + relu + max-pool tail (K9): not ported yet."""
-    raise NotImplementedError(_UNPORTED.format("fused_stem_tail"))
+# ---------------------------------------------------------------------------
+# K8: the stride-2 transition block
+# ---------------------------------------------------------------------------
+
+def _im2col_s2(p, n, ho, wo, c):
+    """Stride-2 3x3 patches of a padded [N, H+2, W+2, C] tensor ->
+    [N*Ho*Wo, 9*C] (tap (dy, dx) reads rows dy, dy+2, ..., the
+    reference's `_tap2`)."""
+    taps = [p[:, dy:dy + 2 * ho:2, dx:dx + 2 * wo:2, :].reshape(
+        n * ho * wo, c) for dy in range(3) for dx in range(3)]
+    return torch.cat(taps, dim=1)
+
+
+def _down_recompute(x, w1, w2, w3, w4, aff):
+    """The forward of the Pallas `_fwd_kernel_down` with its rounding
+    points: (c0, u0, h0, p, c1, u1, h1, c2, xs2, c4, pre), all f32 but
+    h0 and h1 (x's dtype); p the stride-2 patches of h0."""
+    dt = x.dtype
+    n, h, w, cin = x.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    ho, wo = h // 2, w // 2
+    a1, b1, a2, b2 = aff[0, :cm], aff[1, :cm], aff[2, :cm], aff[3, :cm]
+    a3, b3, a4, b4 = (aff[4, :cout], aff[5, :cout], aff[6, :cout],
+                      aff[7, :cout])
+    c0 = _dot(x.reshape(n * h * w, cin), w1)
+    u0 = c0 * a1 + b1
+    h0 = torch.clamp_min(u0, 0.0).to(dt)
+    p = _im2col_s2(_pad_hw(h0.reshape(n, h, w, cm)), n, ho, wo, cm)
+    c1 = _dot(p, w2.reshape(9 * cm, cm))
+    u1 = c1 * a2 + b2
+    h1 = torch.clamp_min(u1, 0.0).to(dt)
+    c2 = _dot(h1, w3)
+    xs2 = x[:, ::2, ::2, :].reshape(n * ho * wo, cin)
+    c4 = _dot(xs2, w4)
+    pre = c2 * a3 + b3 + (c4 * a4 + b4)
+    return c0, u0, h0, p, c1, u1, h1, c2, xs2, c4, pre
+
+
+def fused_bottleneck_down_fwd_ref(x, w1, w2, w3, w4, aff):
+    """Plain version of the K8 forward kernel (the Pallas
+    `_fwd_kernel_down`): y [N, H/2, W/2, Cout] in x's dtype."""
+    n, h, w, _ = x.shape
+    pre = _down_recompute(x, w1, w2, w3, w4, aff)[-1]
+    return torch.clamp_min(pre, 0.0).to(x.dtype).reshape(
+        n, h // 2, w // 2, w3.shape[1])
+
+
+def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
+    """Plain version of the K8 backward kernel (the Pallas
+    `_bwd_kernel_down`): recomputes the forward and returns (dx in x's
+    dtype, dW1, dW2, dW3, dW4, daff [8, width]), the weight and affine
+    grads in f32.  c0, c1, c2, c4 are rounded to x's dtype before the
+    affine-grad sums, dc2, dc1, dc0, dc4 before their products; dh0 is
+    the stride-2 3x3 conv transposed, and the shortcut's dx lands on the
+    even rows and columns only."""
+    dt = x.dtype
+    n, h, w, cin = x.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    ho, wo = h // 2, w // 2
+    a1, a2, a3, a4 = aff[0, :cm], aff[2, :cm], aff[4, :cout], aff[6, :cout]
+    c0, u0, h0, p, c1, u1, h1, c2, xs2, c4, pre = _down_recompute(
+        x, w1, w2, w3, w4, aff)
+    c0, c1, c2, c4 = c0.to(dt), c1.to(dt), c2.to(dt), c4.to(dt)
+    daff = torch.zeros_like(aff, dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    dyf = dy.reshape(n * ho * wo, cout).float()
+    dz3 = torch.where(pre > 0.0, dyf, zero)
+    daff[4, :cout] = (dz3 * c2.float()).sum(0)
+    daff[5, :cout] = dz3.sum(0)
+    daff[6, :cout] = (dz3 * c4.float()).sum(0)
+    daff[7, :cout] = dz3.sum(0)
+    dc2 = (dz3 * a3).to(dt)
+    dw3 = _dot(h1.t(), dc2)
+    dh1 = _dot(dc2, w3.t())
+    du1 = torch.where(u1 > 0.0, dh1, zero)
+    daff[2, :cm] = (du1 * c1.float()).sum(0)
+    daff[3, :cm] = du1.sum(0)
+    dc1 = (du1 * a2).to(dt)
+
+    dc4 = (dz3 * a4).to(dt)
+    dw4 = _dot(xs2.t(), dc4)
+    dx = torch.zeros((n, h, w, cin), dtype=torch.float32, device=x.device)
+    dx[:, ::2, ::2, :] = _dot(dc4, w4.t()).reshape(n, ho, wo, cin)
+
+    dw2 = _dot(p.t(), dc1).reshape(w2.shape)
+    # the transposed stride-2 conv: tap (dy, dx) of output (i, j) feeds
+    # input (2i + dy - 1, 2j + dx - 1), zero padding absorbing the edge
+    dh0 = torch.zeros((n, h + 2, w + 2, cm), dtype=torch.float32,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            dh0[:, ky:ky + 2 * ho:2, kx:kx + 2 * wo:2, :] += _dot(
+                dc1, w2[ky, kx].t()).reshape(n, ho, wo, cm)
+    dh0 = dh0[:, 1:h + 1, 1:w + 1, :].reshape(n * h * w, cm)
+    du0 = torch.where(u0 > 0.0, dh0, zero)
+    daff[0, :cm] = (du0 * c0.float()).sum(0)
+    daff[1, :cm] = du0.sum(0)
+    dc0 = (du0 * a1).to(dt)
+    xm = x.reshape(n * h * w, cin)
+    dw1 = _dot(xm.t(), dc0)
+    dx = (_dot(dc0, w1.t()).reshape(n, h, w, cin) + dx).to(dt)
+    return dx, dw1, dw2, dw3, dw4, daff
+
+
+def _launch_down_fwd(x, w1, w2, w3, w4, aff):
+    _check_launch(x, w1, w2, w3, w4)
+    aff = aff.contiguous()
+    lib = backend.load("fused_bottleneck", _SIGS)
+    n, h, w, _ = x.shape
+    y = torch.empty((n, h // 2, w // 2, w3.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.pt_fused_bottleneck_down_fwd(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+            w4.data_ptr(), aff.data_ptr(), y.data_ptr(),
+            *_dims(x, w1, w3, aff, True)[:-1],
+            backend.stream_handle(x.device))
+    backend.check(status, "fused_bottleneck_down_fwd")
+    backend.LAUNCHES["fused_bottleneck_down_fwd"] += 1
+    return y
+
+
+def _launch_down_bwd(x, dy, w1, w2, w3, w4, aff):
+    _check_launch(x, w1, w2, w3, w4)
+    dy, aff = dy.contiguous(), aff.contiguous()
+    lib = backend.load("fused_bottleneck", _SIGS)
+    n, h, w, _ = x.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    r_out = n * (h // 2) * (w // 2)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw1, dw2 = torch.zeros(w1.shape, **f32), torch.zeros(w2.shape, **f32)
+    dw3, dw4 = torch.zeros(w3.shape, **f32), torch.zeros(w4.shape, **f32)
+    daff = torch.zeros(aff.shape, **f32)
+    dc1 = torch.empty((r_out, cm), dtype=x.dtype, device=x.device)
+    mask = torch.empty((r_out, cout), dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.pt_fused_bottleneck_down_bwd(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            w3.data_ptr(), w4.data_ptr(), aff.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dw4.data_ptr(),
+            daff.data_ptr(), dc1.data_ptr(), mask.data_ptr(),
+            *_dims(x, w1, w3, aff, True)[:-1],
+            backend.stream_handle(x.device))
+    backend.check(status, "fused_bottleneck_down_bwd")
+    backend.LAUNCHES["fused_bottleneck_down_bwd"] += 1
+    return dx, dw1, dw2, dw3, dw4, daff
+
+
+class _FusedDown(torch.autograd.Function):
+    """Stride-2 transition block: forward K8 fwd, backward K8 bwd."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, w4, a1, b1, a2, b2, a3, b3, a4, b4):
+        aff = _pack_affines((a1, b1, a2, b2, a3, b3, a4, b4), w3.shape[1])
+        ctx.save_for_backward(x, w1, w2, w3, w4, aff)
+        ctx.adtype = a1.dtype
+        if x.device.type == "cpu":
+            return fused_bottleneck_down_fwd_ref(x, w1, w2, w3, w4, aff)
+        return _launch_down_fwd(x, w1, w2, w3, w4, aff)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3, w4, aff = ctx.saved_tensors
+        cm = w1.shape[1]
+        bwd = (fused_bottleneck_down_bwd_ref if x.device.type == "cpu"
+               else _launch_down_bwd)
+        dx, dw1, dw2, dw3, dw4, daff = bwd(x, dy, w1, w2, w3, w4, aff)
+        daff = daff.to(ctx.adtype)
+        return (dx, dw1.to(w1.dtype), dw2.to(w2.dtype), dw3.to(w3.dtype),
+                dw4.to(w4.dtype), daff[0, :cm], daff[1, :cm], daff[2, :cm],
+                daff[3, :cm], daff[4], daff[5], daff[6], daff[7])
+
+
+def _check_even(name, t):
+    if t.dim() != 4 or t.shape[1] % 2 or t.shape[2] % 2:
+        raise ValueError(f"{name}: needs an NHWC input with even H and W, "
+                         f"got {tuple(t.shape)}")
+
+
+def fused_bottleneck_down(x, w1, w2, w3, w4, a1, b1, a2, b2, a3, b3, a4,
+                          b4, batch_tile=None):
+    """Stride-2 transition bottleneck block (3x3 stride-2 conv1 and a 1x1
+    stride-2 projection shortcut): [N, H, W, Cin] -> [N, H/2, W/2,
+    Cout], H and W even.  w1: [Cin, Cm]; w2: [3, 3, Cm, Cm] (HWIO); w3:
+    [Cm, Cout]; w4: [Cin, Cout]; a*/b*: per-channel affines."""
+    _check_even("fused_bottleneck_down", x)
+    _check(x, w1, w2, w3, w4, True, batch_tile)
+    return _FusedDown.apply(x, w1, w2, w3, w4, a1, b1, a2, b2, a3, b3, a4,
+                            b4)
+
+
+# ---------------------------------------------------------------------------
+# K9: the stem tail, relu(c * a + b) then a 3x3 stride-2 max-pool, pad 1
+# ---------------------------------------------------------------------------
+
+def _pool_s2(hp, ho, wo):
+    """Max over the nine stride-2 taps of a padded [N, H+2, W+2, C]."""
+    out = None
+    for dy in range(3):
+        for dx in range(3):
+            sl = hp[:, dy:dy + 2 * ho:2, dx:dx + 2 * wo:2, :]
+            out = sl if out is None else torch.maximum(out, sl)
+    return out
+
+
+def fused_stem_tail_fwd_ref(c, aff):
+    """Plain version of the K9 forward kernel (the Pallas
+    `_stem_fwd_kernel`): h = relu(f32(c) * a + b) rounded to c's dtype,
+    zero-padded (h >= 0, so the pad never wins), pooled."""
+    n, h, w, _ = c.shape
+    hh = torch.clamp_min(c.float() * aff[0] + aff[1], 0.0).to(c.dtype)
+    return _pool_s2(_pad_hw(hh), h // 2, w // 2)
+
+
+def fused_stem_tail_bwd_ref(c, dy, aff):
+    """Plain version of the K9 backward kernel (the Pallas
+    `_stem_bwd_kernel`): recomputes h and the pooled y in c's dtype, then
+    every element equal to its window's max receives that window's dy
+    (summed in f32 over the <= 4 windows that cover it, in the
+    reference's order), then the relu mask.  Returns (dc in c's dtype,
+    daff [2, C] f32)."""
+    n, h, w, cm = c.shape
+    ho, wo = h // 2, w // 2
+    a, b = aff[0], aff[1]
+    cf = c.float()
+    u = cf * a + b
+    hh = torch.clamp_min(u, 0.0).to(c.dtype)
+    yp = _pad_hw(_pool_s2(_pad_hw(hh), ho, wo))
+    dyp = _pad_hw(dy.float())
+    zero = torch.zeros((), dtype=torch.float32, device=c.device)
+    dh = torch.empty((n, h, w, cm), dtype=torch.float32, device=c.device)
+    # phase (pr, pc) of h is covered by windows (dy_, dx_) with dy_ = pr+1
+    # and dx_ = pc+1 (mod 2), at padded window offset 1 + (pr+1-dy_)//2
+    for pr in (0, 1):
+        for pc in (0, 1):
+            h_ph = hh[:, pr::2, pc::2, :]
+            acc = torch.zeros((n, ho, wo, cm), dtype=torch.float32,
+                              device=c.device)
+            for ky in range(3):
+                if ky % 2 != (pr + 1) % 2:
+                    continue
+                for kx in range(3):
+                    if kx % 2 != (pc + 1) % 2:
+                        continue
+                    ro, co = 1 + (pr + 1 - ky) // 2, 1 + (pc + 1 - kx) // 2
+                    ysl = yp[:, ro:ro + ho, co:co + wo, :]
+                    dsl = dyp[:, ro:ro + ho, co:co + wo, :]
+                    acc = acc + torch.where(h_ph == ysl, dsl, zero)
+            dh[:, pr::2, pc::2, :] = acc
+    du = torch.where(u > 0.0, dh, zero)
+    daff = torch.stack([(du * cf).sum((0, 1, 2)), du.sum((0, 1, 2))])
+    return (du * a).to(c.dtype), daff
+
+
+def _check_stem_launch(c):
+    vec = 16 // c.element_size()
+    if c.shape[3] % vec or 256 % (c.shape[3] // vec):
+        raise ValueError(f"fused_stem_tail: the CUDA kernel needs C a "
+                         f"multiple of {vec} with C/{vec} dividing 256, got "
+                         f"{c.shape[3]}")
+    if not c.is_contiguous() or c.data_ptr() % 16:
+        raise ValueError("fused_stem_tail: the CUDA kernel needs a "
+                         "contiguous, 16-byte aligned input")
+
+
+def _launch_stem_fwd(c, aff):
+    _check_stem_launch(c)
+    lib = backend.load("fused_stem_tail", _STEM_SIGS)
+    n, h, w, cm = c.shape
+    y = torch.empty((n, h // 2, w // 2, cm), dtype=c.dtype, device=c.device)
+    with torch.cuda.device(c.device):
+        status = lib.pt_fused_stem_tail_fwd(
+            c.data_ptr(), aff.contiguous().data_ptr(), y.data_ptr(), n, h,
+            w, cm, _DTYPE_CODES[c.dtype], backend.stream_handle(c.device))
+    backend.check(status, "fused_stem_tail_fwd")
+    backend.LAUNCHES["fused_stem_tail_fwd"] += 1
+    return y
+
+
+def _launch_stem_bwd(c, dy, aff):
+    _check_stem_launch(c)
+    dy, aff = dy.contiguous(), aff.contiguous()
+    lib = backend.load("fused_stem_tail", _STEM_SIGS)
+    n, h, w, cm = c.shape
+    dc = torch.empty_like(c)
+    daff = torch.empty((2, cm), dtype=torch.float32, device=c.device)
+    part = torch.empty((_STEM_BWD_BLOCKS, 2, cm), dtype=torch.float32,
+                       device=c.device)
+    with torch.cuda.device(c.device):
+        status = lib.pt_fused_stem_tail_bwd(
+            c.data_ptr(), dy.data_ptr(), aff.data_ptr(), dc.data_ptr(),
+            daff.data_ptr(), part.data_ptr(), n, h, w, cm,
+            _STEM_BWD_BLOCKS, _DTYPE_CODES[c.dtype],
+            backend.stream_handle(c.device))
+    backend.check(status, "fused_stem_tail_bwd")
+    backend.LAUNCHES["fused_stem_tail_bwd"] += 1
+    return dc, daff
+
+
+class _StemTail(torch.autograd.Function):
+    """The stem tail: forward K9 fwd, backward K9 bwd (equality
+    routing)."""
+
+    @staticmethod
+    def forward(ctx, c, a, b):
+        aff = torch.stack([a.float(), b.float()])
+        ctx.save_for_backward(c, aff)
+        ctx.adtype = a.dtype
+        if c.device.type == "cpu":
+            return fused_stem_tail_fwd_ref(c, aff)
+        return _launch_stem_fwd(c, aff)
+
+    @staticmethod
+    def backward(ctx, dy):
+        c, aff = ctx.saved_tensors
+        bwd = (fused_stem_tail_bwd_ref if c.device.type == "cpu"
+               else _launch_stem_bwd)
+        dc, daff = bwd(c, dy, aff)
+        daff = daff.to(ctx.adtype)
+        return dc, daff[0], daff[1]
+
+
+def _stem_tail_composition(c, a, b):
+    """The reference's `_stem_tail_xla`: relu(c * a + b) in f32, rounded,
+    then a 3x3 stride-2 max-pool (pad 1) whose gradient goes to the first
+    maximum of each window."""
+    from ..ops import nn_ops
+
+    u = c.float() * a + b
+    hh = torch.maximum(u, torch.zeros((), dtype=u.dtype, device=u.device))
+    return nn_ops.pool2d({"X": hh.to(c.dtype)}, {
+        "pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+        "paddings": [1, 1], "data_format": "NHWC"})["Out"]
+
+
+def fused_stem_tail(c, a, b, batch_tile=None):
+    """relu(c * a + b) -> 3x3 stride-2 max-pool (pad 1), the ResNet
+    stem's batch-norm, relu and pool tail.  c: [N, H, W, Cm] (H, W even);
+    a, b: per-channel affines.  Sides above 112 take the reference's
+    composition (see the module docstring); the kernel takes any even
+    side."""
+    _check_even("fused_stem_tail", c)
+    if batch_tile is not None and c.shape[0] % batch_tile:
+        raise ValueError(f"batch_tile={batch_tile} does not divide batch "
+                         f"{c.shape[0]}")
+    if c.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_stem_tail: dtype {c.dtype} not in "
+                        "float32/bfloat16")
+    if max(c.shape[1], c.shape[2]) > _STEM_SIDE_LIMIT:
+        return _stem_tail_composition(c, a, b)
+    return _StemTail.apply(c, a, b)

@@ -7,19 +7,20 @@ weights and batch-norm buffers one to one.  `data_format="NHWC"` runs
 the conv stack channels-last; the input stays NCHW with one transpose at
 the stem.
 
-`fused=True` (NHWC) sends the stride-1 bottleneck blocks through K7
-(`kernels/fused_bottleneck.py`, CUDA C++ on the card): the batch-norm
-statistics are resolved OUTSIDE the kernel on a ghost-batch slice (the
+`fused=True` (NHWC) runs the reference's fused program
+(`kernels/fused_bottleneck.py`, CUDA C++ on the card): K7 on the
+stride-1 bottleneck blocks (identity and projection), K8 on the stride-2
+transition blocks (for even H and W; odd sides take the per-conv path)
+and K9 on the stem's batch-norm, relu and max-pool tail.  The batch-norm
+statistics are resolved OUTSIDE the kernels on a ghost-batch slice (the
 slice convs re-run on `bn_stats_sample` of the N samples; grads through
-the stats reach the weights by autograd, through the kernel Function's
-affine grads), then the whole block runs as one kernel.  The port has K7
-only: the stride-2 transition blocks (K8) and the fused stem tail (K9)
-are not ported (ROADMAP queue 2), so `fused=True` needs
-PADDLE_TPU_FUSED_SUBSET=id (the 12 identity blocks) or `id_early` (the
-identity blocks with Cm <= 128), the reference's subsets that engage
-neither; any other subset raises NotImplementedError where the
-reference would engage K8 or K9.  SE-ResNeXt is not ported yet (ROADMAP
-queue 1).
+the stats reach the weights by autograd, through the kernel Functions'
+affine grads), then each block runs as one kernel.  Training with
+full-batch statistics (`bn_stats_sample` 0) takes the per-conv path, as
+in the reference.  PADDLE_TPU_FUSED_SUBSET=id restricts the fused path
+to the 12 identity blocks, `id_early` further to those with Cm <= 128
+(stages 1-2); either leaves the stem unfused.  SE-ResNeXt is not ported
+yet (ROADMAP queue 1).
 """
 
 import os
@@ -28,10 +29,6 @@ import torch
 
 from .. import nn
 from ..ops import nn_ops
-
-_NEEDS_K8_K9 = ("fused=True with PADDLE_TPU_FUSED_SUBSET={!r} would run the "
-                "{} kernel (K8/K9), which is not ported yet (ROADMAP queue "
-                "2); set PADDLE_TPU_FUSED_SUBSET=id or id_early")
 
 
 class ConvBNLayer(nn.Layer):
@@ -131,15 +128,13 @@ class BottleneckBlock(nn.Layer):
                        and not (id_only
                                 and (self.short is not None or stride != 1))
                        and not (subset == "id_early" and ch > 128))
-        if self._fused and stride == 2:
-            raise NotImplementedError(_NEEDS_K8_K9.format(
-                subset, "fused_bottleneck_down"))
 
     def _forward_fused(self, x):
-        """The whole block as one K7 launch, the batch-norm affines from
-        a ghost-batch slice (training) or the running stats (eval)."""
+        """The whole block as one K7 (stride 1) or K8 (stride 2) launch,
+        the batch-norm affines from a ghost-batch slice (training) or the
+        running stats (eval)."""
         from ..kernels.fused_bottleneck import (
-            fused_bottleneck, fused_bottleneck_proj)
+            fused_bottleneck, fused_bottleneck_down, fused_bottleneck_proj)
 
         w1 = _w1x1(self.conv0.conv)                               # [Cin, Cm]
         w2 = self.conv1.conv.weight.permute(2, 3, 1, 0).contiguous()  # HWIO
@@ -168,16 +163,20 @@ class BottleneckBlock(nn.Layer):
         if self.short is None:
             return fused_bottleneck(x, w1, w2, w3, a1, b1, a2, b2, a3, b3)
         w4 = _w1x1(self.short.conv)                               # [Cin, Cout]
+        if self._stride == 2:
+            return fused_bottleneck_down(x, w1, w2, w3, w4, a1, b1, a2, b2,
+                                         a3, b3, a4, b4)
         return fused_bottleneck_proj(x, w1, w2, w3, w4, a1, b1, a2, b2, a3,
                                      b3, a4, b4)
 
     def forward(self, x):
         # training with full-batch stats (ss = 0) would run every conv
         # twice (stats chain + kernel): the reference routes it to the
-        # per-conv path, and so does the port
+        # per-conv path, and so does the port; K8 needs even sides
         ss = self.conv0.bn._stats_sample
-        if (self._fused and self._stride == 1
-                and (not self.training or 0 < ss < x.shape[0])):
+        if (self._fused and (not self.training or 0 < ss < x.shape[0])
+                and (self._stride == 1
+                     or (x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0))):
             return self._forward_fused(x)
         y = self.conv2(self.conv1(self.conv0(x)))
         s = x if self.short is None else self.short(x)
@@ -211,17 +210,33 @@ class ResNet(nn.Layer):
         self.global_pool = nn.Pool2D(pool_type="avg", global_pooling=True,
                                      data_format=data_format, **sub)
         self.fc = nn.Linear(prev, num_classes, **sub)
-        # the reference's fused stem tail (K9) engages unless the subset
-        # is one of the identity subsets
-        if (fused and data_format == "NHWC"
-                and _fused_subset() not in ("id", "id_early")):
-            raise NotImplementedError(_NEEDS_K8_K9.format(
-                _fused_subset(), "fused_stem_tail"))
+        # the fused stem tail (K9: batch-norm affine, relu and the
+        # max-pool in one kernel; the 7x7 conv stays a library conv)
+        # engages unless the subset is one of the identity subsets
+        self._fused_stem = (fused and data_format == "NHWC"
+                            and _fused_subset() not in ("id", "id_early"))
+
+    def _stem_pool(self, x):
+        """The stem conv on the full batch, then either K9 with the stem
+        batch norm resolved on the ghost-batch slice (or the running
+        stats in eval), or the per-op batch norm, relu and max-pool (ss 0
+        in training, or odd sides), as the reference's `_stem_pool`."""
+        ss = self.stem.bn._stats_sample
+        c = self.stem.conv(x)
+        if (self._fused_stem
+                and (not self.training or 0 < ss < x.shape[0])
+                and c.shape[1] % 2 == 0 and c.shape[2] % 2 == 0):
+            from ..kernels.fused_bottleneck import fused_stem_tail
+
+            cs = c[:ss] if self.training else None
+            a, b = _bn_affine(self.stem.bn, cs, self.training)
+            return fused_stem_tail(c.contiguous(), a, b)
+        return self.pool(self.stem.bn(c))
 
     def forward(self, x):
         if self._data_format == "NHWC":
             x = x.permute(0, 2, 3, 1).contiguous()  # NCHW API -> NHWC core
-        x = self.pool(self.stem(x))
+        x = self._stem_pool(x)
         for b in self.blocks:
             x = b(x)
         x = self.global_pool(x)
@@ -253,9 +268,10 @@ def resnet34(num_classes=1000, data_format="NCHW", dtype="float32",
 
 def resnet50(num_classes=1000, data_format="NCHW", dtype="float32",
              bn_stats_sample=0, fused=False, **kw):
-    """fused=True routes the stride-1 bottleneck blocks through K7 (NHWC
-    only; needs PADDLE_TPU_FUSED_SUBSET=id or id_early, see the module
-    docstring); a win needs bn_stats_sample > 0 or eval mode.  `kw` takes
+    """fused=True (NHWC only) runs all 16 bottleneck blocks through K7 and
+    K8 and the stem tail through K9, or the identity blocks alone under
+    PADDLE_TPU_FUSED_SUBSET=id or id_early (see the module docstring); it
+    engages with bn_stats_sample > 0 or in eval mode.  `kw` takes
     `device` and `generator`."""
     return set_bn_stats_sample(
         ResNet(BottleneckBlock, [3, 4, 6, 3], num_classes,

@@ -111,6 +111,10 @@ def test_k7_plain_bwd_matches_its_own_autograd(proj):
 
 
 def test_k7_batch_tile_and_unported_variants():
+    """`batch_tile` is checked and has no effect; the variants that were
+    not ported with K7 (K8 `fused_bottleneck_down`, K9 `fused_stem_tail`)
+    now run, and agree with their plain versions on the same inputs (they
+    are held against the Pallas kernels in test_torch_fused_down_stem.py)."""
     args = [torch.from_numpy(a) for a in _args(1, False)]
     y = TK.fused_bottleneck(*args, batch_tile=4)
     torch.testing.assert_close(y, TK.fused_bottleneck(*args))
@@ -118,10 +122,19 @@ def test_k7_batch_tile_and_unported_variants():
         TK.fused_bottleneck(*args, batch_tile=3)
     with pytest.raises(ValueError, match="Cout == Cin"):
         TK.fused_bottleneck(args[0][..., :16], args[1][:16], *args[2:])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TK.fused_bottleneck_down(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TK.fused_stem_tail(args[0], args[4], args[5])
+    x, w1, w2, w3 = args[:4]
+    a1, b1, a2, b2, a3, b3 = args[4:]
+    w4 = torch.from_numpy(_args(2, True)[4])
+    down = TK.fused_bottleneck_down(x[..., :16], w1[:16], w2, w3, w4, a1,
+                                    b1, a2, b2, a3, b3, a3, b3)
+    aff = TK._pack_affines((a1, b1, a2, b2, a3, b3, a3, b3), 32)
+    torch.testing.assert_close(down, TK.fused_bottleneck_down_fwd_ref(
+        x[..., :16].contiguous(), w1[:16], w2, w3, w4, aff))
+    assert tuple(down.shape) == (8, 4, 4, 32)
+    stem = TK.fused_stem_tail(x, a3, b3)
+    assert tuple(stem.shape) == (8, 4, 4, 32)
+    torch.testing.assert_close(stem, TK.fused_stem_tail_fwd_ref(
+        x, torch.stack([a3, b3])))
 
 
 def test_k7_source_and_launch_counters():

@@ -1,0 +1,296 @@
+"""K8 (the stride-2 transition block) and K9 (the stem tail) of the port
+against the JAX package's Pallas kernels.
+
+On this CPU host the port's wrappers run their plain PyTorch versions
+(`fused_bottleneck_down_fwd_ref` / `_bwd_ref`, `fused_stem_tail_fwd_ref`
+/ `_bwd_ref`); the JAX `fused_bottleneck_down` and `fused_stem_tail` run
+their Pallas kernels in interpret mode, as tests/test_fused_bottleneck.py
+runs them, at that file's shapes (K8: n 8, 8x8, cin 16 -> cout 32, cm 8;
+K9: [4, 8, 8, 16]).  Inputs are numpy arrays from a seed handed to both
+packages; the grads come from `jax.vjp` and `torch.autograd.grad` with
+the same cotangent.
+
+Tolerances: float32 atol = rtol = 2e-5 (the same math, sums taken in
+another order; XLA on the CPU contracts the stem's c * a + b into one
+fused multiply-add, the port takes the product and then the sum, as the
+card does); bfloat16 atol = rtol = 3e-2 (one bf16 rounding of an
+intermediate may land on the other side).
+
+`test_k8_on_card` and `test_k9_on_card` hold the CUDA kernels against
+the plain versions on the card; they need a GPU and skip here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels import fused_bottleneck as JK
+
+from paddle_tpu_torch.kernels import backend
+from paddle_tpu_torch.kernels import fused_bottleneck as TK
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+DOWN_NAMES = "x w1 w2 w3 w4 a1 b1 a2 b2 a3 b3 a4 b4".split()
+
+
+def _down_args(seed=0, n=8, h=8, w=8, cin=16, cm=8, cout=32):
+    """tests/test_fused_bottleneck.py `_mk_args_proj`, as numpy."""
+    g = np.random.default_rng(seed).standard_normal
+    arrs = [g((n, h, w, cin)) * 0.5, g((cin, cm)) * 0.2,
+            g((3, 3, cm, cm)) * 0.2, g((cm, cout)) * 0.2,
+            g((cin, cout)) * 0.2, g(cm) * 0.3 + 1, g(cm) * 0.1,
+            g(cm) * 0.3 + 1, g(cm) * 0.1, g(cout) * 0.3 + 1, g(cout) * 0.1,
+            g(cout) * 0.3 + 1, g(cout) * 0.1]
+    return [a.astype(np.float32) for a in arrs]
+
+
+def _stem_args(seed=0, shape=(4, 8, 8, 16), levels=None):
+    """c, a, b for the stem tail; with `levels`, c is drawn from those
+    integers and (a, b) = (1, 0), so most windows hold exact ties (at the
+    max and at 0 after the relu)."""
+    rng = np.random.default_rng(seed)
+    cm = shape[-1]
+    if levels is not None:
+        c = rng.choice(np.asarray(levels, np.float32), size=shape)
+        return [c, np.ones(cm, np.float32), np.zeros(cm, np.float32)]
+    return [rng.standard_normal(shape).astype(np.float32),
+            (rng.standard_normal(cm) * 0.3 + 1).astype(np.float32),
+            (rng.standard_normal(cm) * 0.1).astype(np.float32)]
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _both(jf, tf, args, dtype, seed=9):
+    """Forward and every grad of `jf` (JAX) and `tf` (port) on the same
+    inputs and cotangent: (ty, tgrads, leaves, jy, jgrads)."""
+    jargs = [jnp.asarray(a, getattr(jnp, dtype)) for a in args]
+    targs = [torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_()
+             for a in args]
+    jy, vjp = jax.vjp(jf, *jargs)
+    dy = np.random.default_rng(seed).standard_normal(jy.shape).astype(
+        np.float32)
+    jgrads = vjp(jnp.asarray(dy, getattr(jnp, dtype)))
+    ty = tf(*targs)
+    tgrads = torch.autograd.grad(ty, targs,
+                                 torch.from_numpy(dy).to(ty.dtype))
+    return ty, tgrads, targs, jy, jgrads
+
+
+def _assert_all(ty, tgrads, targs, jy, jgrads, names, tol):
+    assert ty.dtype == targs[0].dtype
+    np.testing.assert_allclose(ty.detach().float().numpy(), _f32(jy),
+                               atol=tol, rtol=tol)
+    for name, t, j, ref in zip(names, tgrads, jgrads, targs):
+        # grads come back in their primal's dtype
+        assert t.dtype == ref.dtype, name
+        np.testing.assert_allclose(t.float().numpy(), _f32(j), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k8_plain_matches_pallas_fwd_and_vjp(dtype):
+    out = _both(JK.fused_bottleneck_down, TK.fused_bottleneck_down,
+                _down_args(0), dtype)
+    assert tuple(out[0].shape) == (8, 4, 4, 32)
+    _assert_all(*out, DOWN_NAMES, TOL[dtype])
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (6, 10), (2, 2)])
+def test_k8_plain_bwd_matches_its_own_autograd(hw):
+    """The plain backward (the kernel's reference) against autograd of
+    the plain forward, in f32 (atol = rtol = 1e-4: two chains of sums in
+    another order), at square, ragged (H/2 = 3, W/2 = 5) and 1x1 output
+    geometries: the transposed stride-2 conv's four phases and edges."""
+    args = [torch.from_numpy(a) for a in _down_args(3, n=2, h=hw[0],
+                                                    w=hw[1])]
+    leaves = [t.clone().requires_grad_() for t in args]
+    aff = TK._pack_affines(leaves[5:], 32)
+    y = TK.fused_bottleneck_down_fwd_ref(*leaves[:5], aff)
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tuple(y.shape)).astype(np.float32))
+    want = torch.autograd.grad(y, leaves, dy)
+    dx, dw1, dw2, dw3, dw4, daff = TK.fused_bottleneck_down_bwd_ref(
+        args[0], dy, *args[1:5], TK._pack_affines(args[5:], 32))
+    got = [dx, dw1, dw2, dw3, dw4] + [daff[i, :8] for i in range(4)] + [
+        daff[i] for i in range(4, 8)]
+    for name, g, w in zip(DOWN_NAMES, got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_k8_checks_match_the_reference():
+    args = _down_args(1)
+    odd = [args[0][:, :7]] + args[1:]
+    with pytest.raises((TypeError, ValueError)):
+        JK.fused_bottleneck_down(*[jnp.asarray(a) for a in odd])
+    with pytest.raises(ValueError, match="even H and W"):
+        TK.fused_bottleneck_down(*[torch.from_numpy(a) for a in odd])
+    six = [args[0][:6]] + args[1:]
+    with pytest.raises(ValueError, match="does not divide batch"):
+        JK.fused_bottleneck_down(*[jnp.asarray(a) for a in six],
+                                 batch_tile=4)
+    with pytest.raises(ValueError, match="does not divide batch"):
+        TK.fused_bottleneck_down(*[torch.from_numpy(a) for a in six],
+                                 batch_tile=4)
+    targs = [torch.from_numpy(a) for a in args]
+    torch.testing.assert_close(TK.fused_bottleneck_down(*targs,
+                                                        batch_tile=4),
+                               TK.fused_bottleneck_down(*targs))
+
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_k9_plain_matches_pallas_fwd_and_vjp(case, dtype):
+    args = _stem_args(0, levels=(-1, 0, 1, 2) if case == "ties" else None)
+    out = _both(JK.fused_stem_tail, TK.fused_stem_tail, args, dtype)
+    assert tuple(out[0].shape) == (4, 4, 4, 16)
+    _assert_all(*out, ("c", "a", "b"), TOL[dtype])
+
+
+def test_k9_ties_get_the_full_window_gradient():
+    """Equality routing: on a tie-heavy input every element equal to its
+    window's max receives that window's whole gradient, as the Pallas
+    `_stem_bwd_kernel` routes it; first-wins (the composition's max-pool
+    gradient) gives another answer on the same input."""
+    c, a, b = _stem_args(1, levels=(-1, 0, 1, 2))
+    dy = np.random.default_rng(5).standard_normal((4, 4, 4, 16)).astype(
+        np.float32)
+    # expected dc from the definition, one window at a time
+    hh = np.maximum(c, 0)
+    hp = np.pad(hh, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = np.zeros_like(np.pad(c, ((0, 0), (1, 1), (1, 1), (0, 0))))
+    for i in range(4):
+        for j in range(4):
+            win = hp[:, 2 * i:2 * i + 3, 2 * j:2 * j + 3, :]
+            top = win.max(axis=(1, 2), keepdims=True)
+            want[:, 2 * i:2 * i + 3, 2 * j:2 * j + 3, :] += np.where(
+                win == top, dy[:, i:i + 1, j:j + 1, :], 0.0)
+    want = np.where(c > 0, want[:, 1:9, 1:9, :], 0.0)
+    tied = (want != 0).sum()
+    ct = torch.from_numpy(c).requires_grad_()
+    got = torch.autograd.grad(
+        TK.fused_stem_tail(ct, torch.from_numpy(a), torch.from_numpy(b)),
+        ct, torch.from_numpy(dy))[0]
+    _, vjp = jax.vjp(JK.fused_stem_tail, *map(jnp.asarray, (c, a, b)))
+    jdc = np.asarray(vjp(jnp.asarray(dy))[0])
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(jdc, want, atol=1e-6, rtol=1e-6)
+    first = torch.autograd.grad(
+        TK._stem_tail_composition(ct, torch.from_numpy(a),
+                                  torch.from_numpy(b)),
+        ct, torch.from_numpy(dy))[0]
+    assert tied > 0 and not np.allclose(first.numpy(), want, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k9_above_112_takes_the_composition(dtype):
+    """Sides above 112: both packages run the composition (relu then a
+    max-pool whose gradient goes to the first maximum)."""
+    args = _stem_args(2, shape=(2, 114, 114, 8))
+    out = _both(JK.fused_stem_tail, TK.fused_stem_tail, args, dtype)
+    assert tuple(out[0].shape) == (2, 57, 57, 8)
+    _assert_all(*out, ("c", "a", "b"), TOL[dtype])
+
+
+def test_k9_checks_match_the_reference():
+    c, a, b = _stem_args(3)
+    odd = c[:, :, :7]
+    with pytest.raises((TypeError, ValueError)):
+        JK.fused_stem_tail(jnp.asarray(odd), jnp.asarray(a), jnp.asarray(b))
+    with pytest.raises(ValueError, match="even H and W"):
+        TK.fused_stem_tail(torch.from_numpy(odd), torch.from_numpy(a),
+                           torch.from_numpy(b))
+    with pytest.raises(ValueError, match="does not divide batch"):
+        JK.fused_stem_tail(*map(jnp.asarray, (c, a, b)), batch_tile=3)
+    with pytest.raises(ValueError, match="does not divide batch"):
+        TK.fused_stem_tail(*map(torch.from_numpy, (c, a, b)), batch_tile=3)
+
+
+def test_k8_k9_sources_and_launch_counters():
+    assert "fused_stem_tail" in backend.SOURCES
+    text = (backend.CSRC / "fused_bottleneck.cu").read_text()
+    for entry in ("pt_fused_bottleneck_down_fwd",
+                  "pt_fused_bottleneck_down_bwd"):
+        assert f'extern "C" int {entry}' in text
+    text = (backend.CSRC / "fused_stem_tail.cu").read_text()
+    for entry in ("pt_fused_stem_tail_fwd", "pt_fused_stem_tail_bwd"):
+        assert f'extern "C" int {entry}' in text
+    assert "cudaGetLastError" in text
+    # the plain versions run on CPU tensors and count no launch
+    backend.reset_launches()
+    args = [torch.from_numpy(a).requires_grad_() for a in _down_args(2)]
+    torch.autograd.grad(TK.fused_bottleneck_down(*args).sum(), args)
+    sargs = [torch.from_numpy(a).requires_grad_() for a in _stem_args(2)]
+    torch.autograd.grad(TK.fused_stem_tail(*sargs).sum(), sargs)
+    assert not any(backend.LAUNCHES[k] for k in (
+        "fused_bottleneck_down_fwd", "fused_bottleneck_down_bwd",
+        "fused_stem_tail_fwd", "fused_stem_tail_bwd"))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "mode (chip_smoke.py runs them on the card)")
+
+
+def _card_vs_cpu(fn, args, grads_rows):
+    """fn on the card (the kernels) and on the CPU (the plain versions)
+    from the same f32 inputs and cotangent: output 2e-5, grads 2e-5 with
+    atol 2e-5 * sqrt(rows) for the sums over rows (f32 atomics or
+    partials in another order)."""
+    dev = torch.device("cuda")
+    leaves = [torch.from_numpy(a).to(dev).requires_grad_() for a in args]
+    y = fn(*leaves)
+    dy = torch.randn(y.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    got = torch.autograd.grad(y, leaves, dy)
+    cpu = [torch.from_numpy(a).requires_grad_() for a in args]
+    y_ref = fn(*cpu)
+    want = torch.autograd.grad(y_ref, cpu, dy.cpu())
+    torch.testing.assert_close(y.cpu(), y_ref, atol=2e-5, rtol=2e-5)
+    for i, (g, w) in enumerate(zip(got, want)):
+        atol = 2e-5 * (grads_rows ** 0.5 if i else 1.0)
+        torch.testing.assert_close(g.cpu(), w, atol=atol, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_k8_on_card():
+    """K8 forward and backward on the card, through the Function, against
+    the plain versions, at a square and a ragged geometry."""
+    _needs_card()
+    backend.reset_launches()
+    for h, w in ((8, 8), (10, 6)):
+        _card_vs_cpu(TK.fused_bottleneck_down,
+                     _down_args(5, n=4, h=h, w=w, cm=32), 4 * h * w)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES["fused_bottleneck_down_fwd"] == 2
+    assert backend.LAUNCHES["fused_bottleneck_down_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_k9_on_card():
+    """K9 forward and backward on the card against the plain versions,
+    on random and tie-heavy inputs; the forward is exact."""
+    _needs_card()
+    backend.reset_launches()
+    for levels in (None, (-1, 0, 1, 2)):
+        args = _stem_args(6, shape=(4, 16, 12, 16), levels=levels)
+        _card_vs_cpu(TK.fused_stem_tail, args, 4 * 16 * 12)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES["fused_stem_tail_fwd"] == 2
+    assert backend.LAUNCHES["fused_stem_tail_bwd"] == 2

@@ -3,8 +3,9 @@ against the JAX package's.
 
 Inputs are numpy arrays from a seed handed to both packages; weights and
 batch-norm buffers cross as numpy arrays (`paddle_tpu_torch.interop`).
-On this CPU host the port's K7 Function runs its plain versions and the
-JAX package's fused blocks run the Pallas kernels in interpret mode.
+On this CPU host the port's K7, K8 and K9 Functions run their plain
+versions and the JAX package's fused blocks and stem tail run the Pallas
+kernels in interpret mode.
 
 Tolerances (atol = rtol unless said):
 - conv2d / pool2d / batch_norm ops, f32: 1e-5 (one op, sums in another
@@ -23,10 +24,13 @@ Tolerances (atol = rtol unless said):
   a tensor then move differently (one such flip measured 2% of a grad
   tensor's scale, and 3.5% of the stem's update after 2 steps); the norm
   bound holds the update as a whole.
-The bottleneck net is cut to stages 1-2 ([2, 2, 0, 0]: one identity
+The `id` bottleneck net is cut to stages 1-2 ([2, 2, 0, 0]: one identity
 block in each, Cm 64 and 128) at 32x32, which keeps its maps at 8x8 and
 4x4 (a 2-sample ghost batch over a 1x1 map gives a degenerate 2-point
-variance, the note in tests/test_fused_bottleneck.py).
+variance, the note in tests/test_fused_bottleneck.py).  The full-subset
+net ([1, 1, 1, 1]: the fused stem, the stride-1 projection block and the
+three stride-2 transitions) runs at 64x64, which keeps its stage-4 maps
+at 2x2.
 """
 
 import jax
@@ -49,6 +53,7 @@ from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.models import resnet as TR
 from paddle_tpu_torch.models import train as ttrain
 from paddle_tpu_torch.nn import functional as TF_
+from paddle_tpu_torch.nn import functional_call_with_state
 from paddle_tpu_torch.ops import nn_ops as tops
 from paddle_tpu_torch.optimizer import functional as topt
 
@@ -207,11 +212,11 @@ def test_cross_entropy_matches_reference():
 # the fused block
 # ---------------------------------------------------------------------------
 
-def _block_pair(dtype="float32", ss=4):
+def _block_pair(dtype="float32", ss=4, in_ch=32, stride=1):
     np.random.seed(0)
-    jb = JR.BottleneckBlock(32, 8, stride=1, data_format="NHWC",
+    jb = JR.BottleneckBlock(in_ch, 8, stride=stride, data_format="NHWC",
                             dtype=dtype, fused=True)
-    tb = TR.BottleneckBlock(32, 8, stride=1, data_format="NHWC",
+    tb = TR.BottleneckBlock(in_ch, 8, stride=stride, data_format="NHWC",
                             dtype=dtype, fused=True, device="cpu")
     for lyr in jb.sublayers(include_self=True):
         if isinstance(lyr, jnn.BatchNorm):
@@ -232,12 +237,66 @@ def test_fused_block_matches_reference(training):
     """BottleneckBlock(fused=True): output, every param grad and the
     updated running stats against the JAX block (K7 in interpret mode)."""
     jb, tb = _block_pair()
-    x = _rand((8, 8, 8, 32), 11, 0.5)
+    _check_block_against_reference(jb, tb, (8, 8, 8, 32), training)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_fused_down_block_matches_reference(training, monkeypatch):
+    """The stride-2 transition block (fused=True, K8; the reference's
+    `fused_bottleneck_down` in interpret mode): output, grads and running
+    stats as above, and the block really took K8 in both packages."""
+    from paddle_tpu.kernels import fused_bottleneck as JK
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as TK
+
+    calls = []
+    for mod in (JK, TK):
+        real = mod.fused_bottleneck_down
+        monkeypatch.setattr(mod, "fused_bottleneck_down",
+                            lambda *a, _f=real, _m=mod, **k: calls.append(_m)
+                            or _f(*a, **k))
+    jb, tb = _block_pair(in_ch=16, stride=2)
+    assert jb._fused and tb._fused
+    _check_block_against_reference(jb, tb, (8, 8, 8, 16), training,
+                                   out_shape=(8, 4, 4, 32))
+    assert JK in calls and TK in calls
+
+
+def test_down_block_odd_spatial_takes_the_per_conv_path(monkeypatch):
+    """Odd H or W cannot split into the four stride-2 phases: a fused
+    stride-2 block runs its per-conv path in both packages (the
+    reference's `test_down_block_odd_spatial_falls_back`), and the two
+    agree."""
+    from paddle_tpu.kernels import fused_bottleneck as JK
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as TK
+
+    def refuse(*a, **k):
+        raise AssertionError("K8 called on an odd-sided input")
+
+    monkeypatch.setattr(JK, "fused_bottleneck_down", refuse)
+    monkeypatch.setattr(TK, "fused_bottleneck_down", refuse)
+    jb, tb = _block_pair(in_ch=16, stride=2)
+    jb.train()
+    tb.train()
+    x = _rand((8, 7, 7, 16), 13)
+    want = jb(jnp.asarray(x))
+    got = tb(_t(x))
+    assert tuple(got.shape) == (8, 4, 4, 32)
+    _close(got, want, 1e-5)
+    for n, b in tb.named_buffers():
+        np.testing.assert_allclose(b.numpy(), _f32(_buffers(jb)[n]),
+                                   atol=1e-5, rtol=1e-5, err_msg=n)
+
+
+def _check_block_against_reference(jb, tb, xshape, training,
+                                   out_shape=None):
+    x = _rand(xshape, 11, 0.5)
     if not training:
         # running stats away from their start, the same in both
         for i in range(2):
             jb.train()
-            jb(jnp.asarray(_rand((8, 8, 8, 32), 20 + i, 0.5)))
+            jb(jnp.asarray(_rand(xshape, 20 + i, 0.5)))
         load_jax_buffer_dict(tb, _buffers(jb))
         jb.eval()
         tb.eval()
@@ -258,6 +317,8 @@ def test_fused_block_matches_reference(training):
     names = list(params)
     leaves = [params[n] for n in names]
     out, tbufs = tnn_call(tb, dict(zip(names, leaves)), bufs, _t(x))
+    if out_shape is not None:
+        assert tuple(out.shape) == out_shape
     tl = (out.float() ** 2).sum()
     tg = torch.autograd.grad(tl, leaves)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
@@ -271,8 +332,6 @@ def test_fused_block_matches_reference(training):
 
 
 def tnn_call(layer, params, buffers, x):
-    from paddle_tpu_torch.nn import functional_call_with_state
-
     return functional_call_with_state(layer, params, buffers, x)
 
 
@@ -291,19 +350,76 @@ def test_fused_block_bf16_matches_reference():
 
 
 def test_fused_with_a_subset_that_needs_k8_or_k9_raises(monkeypatch):
+    """The subsets that need K8 and K9 (unset or empty: the reference's
+    full fused program) build, and match the reference's gates block by
+    block; `id` and `id_early` keep their meaning."""
+    for subset, blocks, stem in (("", 16, True), ("id", 12, False),
+                                 ("id_early", 5, False)):
+        monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", subset)
+        model = TR.resnet50(num_classes=10, data_format="NHWC", fused=True,
+                            device="cpu")
+        jm = JR.resnet50(num_classes=10, data_format="NHWC", fused=True)
+        # `id`: the projection and stride-2 blocks stay on the per-conv
+        # path, as the reference's gate has it
+        assert sum(b._fused for b in model.blocks) == blocks, subset
+        assert [b._fused for b in model.blocks] == [
+            b._fused for b in jm.blocks], subset
+        assert model._fused_stem is stem is jm._fused_stem, subset
+    monkeypatch.delenv("PADDLE_TPU_FUSED_SUBSET")
+    model = TR.resnet50(num_classes=10, data_format="NHWC", fused=True,
+                        device="cpu")
+    assert sum(b._fused for b in model.blocks) == 16 and model._fused_stem
+    assert not TR.resnet50(num_classes=10, data_format="NCHW", fused=True,
+                           device="cpu")._fused_stem
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_stem_pool_fused_matches_reference(training, monkeypatch):
+    """`ResNet._stem_pool` with the fused stem (K9 after the stem conv, the
+    stem batch norm from the ghost-batch slice): output, the grads of the
+    stem's params and its running stats against the JAX `_stem_pool`."""
     monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        TR.resnet50(data_format="NHWC", fused=True, device="cpu")
-    monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "id")
-    model = TR.resnet50(num_classes=10, data_format="NHWC", fused=True,
-                        device="cpu")
-    # the 12 identity blocks; the projection and stride-2 blocks stay
-    # on the per-conv path, as the reference's `id` gate has it
-    assert sum(b._fused for b in model.blocks) == 12
-    monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "id_early")
-    model = TR.resnet50(num_classes=10, data_format="NHWC", fused=True,
-                        device="cpu")
-    assert sum(b._fused for b in model.blocks) == 5
+    np.random.seed(2)
+    kw = dict(num_classes=4, data_format="NHWC", fused=True)
+    jm = JR.ResNet(JR.BottleneckBlock, [1, 0, 0, 0], **kw)
+    tm = TR.ResNet(TR.BottleneckBlock, [1, 0, 0, 0], device="cpu", **kw)
+    JR.set_bn_stats_sample(jm, 4)
+    TR.set_bn_stats_sample(tm, 4)
+    load_jax_param_dict(tm, {n: np.asarray(v)
+                             for n, v in jnn.param_dict(jm).items()})
+    assert jm._fused_stem and tm._fused_stem
+    x = _rand((8, 32, 32, 3), 14)
+    if not training:
+        jm.train()
+        jm._stem_pool(jnp.asarray(_rand((8, 32, 32, 3), 15)))
+        load_jax_buffer_dict(tm, _buffers(jm))
+        jm.eval()
+        tm.eval()
+    jstate = jtrain.init_train_state(jm, jopt.Momentum(LR))
+    lf_j = lambda m, a: jnp.sum(m._stem_pool(a) ** 2)
+
+    def jloss(params):
+        return jtrain._loss_with_buffers(jm, params, jstate.buffers,
+                                         jax.random.PRNGKey(0), lf_j,
+                                         (jnp.asarray(x),))
+
+    (jl, jbufs), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jstate.params)
+    params = {n: p for n, p in tm.named_parameters() if n.startswith("stem")}
+    bufs = dict(tm.named_buffers())
+    out, tbufs = functional_call_with_state(
+        tm, params, bufs, _t(x), _method=lambda m, a: m._stem_pool(a))
+    assert tuple(out.shape) == (8, 8, 8, 64)
+    tl = (out ** 2).sum()
+    tg = torch.autograd.grad(tl, list(params.values()))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    for n, g in zip(params, tg):
+        scale = max(float(np.abs(_f32(jg[n])).max()), 1.0)
+        np.testing.assert_allclose(g.numpy() / scale, _f32(jg[n]) / scale,
+                                   atol=1e-4, rtol=1e-4, err_msg=n)
+    for n, b in tbufs.items():
+        np.testing.assert_allclose(b.numpy(), _f32(jbufs[n]), atol=1e-5,
+                                   rtol=1e-5, err_msg=n)
 
 
 # ---------------------------------------------------------------------------
@@ -320,29 +436,46 @@ def _loss_t(m, x, y):
 
 def _net_pair(kind):
     np.random.seed(1)
-    if kind == "bottleneck_nhwc_id":
+    if kind.startswith("bottleneck_nhwc"):
         kw = dict(num_classes=10, data_format="NHWC", fused=True)
-        jm = JR.ResNet(JR.BottleneckBlock, [2, 2, 0, 0], **kw)
-        tm = TR.ResNet(TR.BottleneckBlock, [2, 2, 0, 0], device="cpu", **kw)
+        depths = [2, 2, 0, 0] if kind.endswith("_id") else [1, 1, 1, 1]
+        jm = JR.ResNet(JR.BottleneckBlock, depths, **kw)
+        tm = TR.ResNet(TR.BottleneckBlock, depths, device="cpu", **kw)
         JR.set_bn_stats_sample(jm, 2)
         TR.set_bn_stats_sample(tm, 2)
-        assert sum(b._fused for b in tm.blocks) == 2
+        # `id`: one identity block per stage; the full subset: the stem
+        # (K9), the projection block (K7) and three transitions (K8)
+        full = kind.endswith("_full")
+        assert sum(b._fused for b in tm.blocks) == (4 if full else 2)
+        assert tm._fused_stem is full
     else:
         jm = JR.resnet18(num_classes=10)
         tm = TR.resnet18(num_classes=10, device="cpu")
     return jm, tm
 
 
-@pytest.mark.parametrize("kind", ["bottleneck_nhwc_id", "resnet18_nchw"])
+@pytest.mark.parametrize("kind", ["bottleneck_nhwc_id", "resnet18_nchw",
+                                  "bottleneck_nhwc_full"])
 def test_resnet_logits_and_momentum_steps_match_reference(kind,
                                                           monkeypatch):
-    monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "id")
+    full = kind == "bottleneck_nhwc_full"
+    monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "" if full else "id")
     jm, tm = _net_pair(kind)
     rng = np.random.default_rng(2)
-    xs = [rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    # 64x64 keeps the full net's stage-4 maps at 2x2 (a 2-sample ghost
+    # batch over 1x1 maps has a degenerate 2-point variance)
+    side = 64 if full else 32
+    xs = [rng.standard_normal((4, 3, side, side)).astype(np.float32)
           for _ in range(3)]
     ys = [rng.integers(0, 10, (4,)).astype(np.int32) for _ in range(3)]
-    jo, to = jopt.Momentum(LR, 0.9), topt.Momentum(LR, 0.9)
+    # the full net at random init is steep: one step of lr 0.01 moves its
+    # loss by ~0.7, so f32 sum-order noise in a step's update (~0.2% of
+    # it, or one relu mask within a rounding of 0 falling the other way)
+    # moves the next loss by ~6e-4; at lr 1e-3 a step does not amplify
+    # it past the tolerances (chip_smoke.py's card-vs-CPU ResNet check
+    # takes a small lr for the same reason)
+    lr = 1e-3 if full else LR
+    jo, to = jopt.Momentum(lr, 0.9), topt.Momentum(lr, 0.9)
     jstate = jtrain.init_train_state(jm, jo)
     jstep = jtrain.make_train_step(jm, jo, loss_fn=_loss_j, jit=True)
     # one JAX step first: the velocity and the running stats are past
