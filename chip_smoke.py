@@ -12,7 +12,8 @@ Phases (any failure makes the script exit non-zero without a result):
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
    (the stride-2 transition block) and K9 (the stem's batch-norm, relu
-   and max-pool tail), each forward and backward in CUDA, against their
+   and max-pool tail), each forward and backward in CUDA (K10 is held
+   in phase 5, on the DGC state it runs on), against their
    plain PyTorch versions on
    the card, in float32 and bfloat16, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
@@ -63,7 +64,30 @@ Phases (any failure makes the script exit non-zero without a result):
    is below their first, and every step launches exactly K7 forward and
    backward 13 times, K8 3 times and K9 once (full) or K7 12 times
    (`id`).
-5. Serving path: GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
+5. DGC path (the data-parallel tier): the same ResNet-50 (bf16, NHWC,
+   ghost batch norm over 16, batch 128, seeded weights) on the per-conv
+   path (`fused=False`) through `fleet.make_train_step(model,
+   Momentum(0.1, 0.9), loss, strategy)` on the one-rank NCCL group of
+   `init_parallel_env()` (destroyed at the end of the phase), one
+   warm-up and 3 timed steps each: DGC (sparsity 0.999, rampup 0) with
+   FLAGS_use_pallas_dgc_topk on (the threshold from K10, launched
+   exactly 161 times per step, once per trainable tensor), DGC with
+   torch.topk, and the dense DataParallelTrainStep.  Printed per run:
+   step ms, images/s, peak memory, launches and a profile of one step.
+   Then K10 against its plain version, counts exactly equal, on the 322
+   u and v tensors of the DGC state and on synthetic inputs (n = 1, n =
+   65,537, all zeros, negative zeros, values on the edges, the largest
+   tensor's 2,359,296 elements, f32 and bf16), its threshold inside the
+   reference's bracket (at least k kept, at most the elements within
+   one bin of the exact k-th |v|); K10's time at the largest tensor
+   beside its bound, its plain version and torch.topk(|v|, 2359), and
+   over the 161 tensors of a step; and 3 f32 DGC steps of a shallow
+   ResNet-50 (depths [1, 1, 1, 1], 64 x 64, batch 8, sparsity 0.99) on
+   the card (K10) against the CPU (plain version), held as the ResNet
+   check below holds its net, with every mask difference explained by
+   the two sides' thresholds and their v's noise (`dgc_check`), and the
+   same steps with K10's plain version on the card giving K10's masks.
+6. Serving path: GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
    heads) in bfloat16 with seeded random weights serves greedy
    `generate()` on 4 prompts of 256 tokens (128 new) and a
    continuous-batching `DecodeEngine` (8 slots, max_len 1024, buckets
@@ -71,7 +95,7 @@ Phases (any failure makes the script exit non-zero without a result):
    just before and read just after; every kernel must have launched.  A
    torch.profiler window over 16 decode steps then says where a step's
    time goes.
-6. Checks in float32: the train geometry at full width and depth 2
+7. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
    first step's grads and the params must agree.  A shallow NHWC
@@ -86,10 +110,10 @@ Phases (any failure makes the script exit non-zero without a result):
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
-The last lines are the kernels' JSON line (K1-K9, K7, K8 and K9 as two
+The last lines are the kernels' JSON line (K1-K10, K7, K8 and K9 as two
 rows each, every row with its launches summed over the GPT train, the
-two fused ResNet runs and the serving paths), the card line and
-{"ok": true, "device": {...}}.
+two fused ResNet runs and the serving paths, K10's over the DGC run
+with K10), the card line and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -1233,7 +1257,499 @@ def resnet_phase(failures):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the serving path
+# phase 5: the data-parallel tier's DGC train path (K10)
+# ---------------------------------------------------------------------------
+
+RESNET50_TRAINABLE = 161          # trainable tensors of ResNet-50
+K10_LARGEST = 2359296             # its largest: stage 4's 3x3 conv, 512^2 x 9
+
+
+def dgc_run(mode, failures, steps=3, batch=128):
+    """ResNet-50 (bf16, NHWC, ghost batch norm over 16, the per-conv path)
+    through `fleet.make_train_step(model, Momentum(0.1, 0.9), loss,
+    strategy)` on the one-rank NCCL group: DGC (sparsity 0.999, rampup 0)
+    with K10 (`mode` "k10", FLAGS_use_pallas_dgc_topk on) or with
+    torch.topk ("topk"), or the dense DataParallelTrainStep ("dense").
+    One warm-up step and `steps` timed ones on one seeded batch.  Returns
+    (launches over the timed steps, mean step ms, the step)."""
+    import torch
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer import Momentum
+
+    label = f"dgc {mode}"
+    model = resnet50(dtype="bfloat16", data_format="NHWC",
+                     bn_stats_sample=16, fused=False, device="cuda",
+                     generator=make_generator(0))
+    strategy = fleet.DistributedStrategy()
+    strategy.use_dgc = mode != "dense"
+    strategy.dgc_sparsity = 0.999
+    strategy.dgc_rampup_begin_step = 0
+    opt = fleet.distributed_optimizer(Momentum(0.1, 0.9), strategy)
+    step = fleet.make_train_step(
+        model, opt, lambda m, a, b: F.cross_entropy(m(a), b).mean())
+    flags.set_flags({"FLAGS_use_pallas_dgc_topk": mode == "k10"})
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((batch, 3, 224, 224)),
+                        dtype=torch.bfloat16, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (batch,)), dtype=torch.int32,
+                        device="cuda")
+    want = {"topk_threshold": RESNET50_TRAINABLE} if mode == "k10" else {}
+    try:
+        t0 = time.perf_counter()
+        losses = [float(step(x, y))]
+        log(f"{label} warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} "
+            f"ms, loss {losses[0]:.6f}")
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launches()
+        step_ms = []
+        for i in range(steps):
+            before = dict(backend.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(x, y)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            made = {k: c - before.get(k, 0)
+                    for k, c in backend.LAUNCHES.items()}
+            made = {k: c for k, c in made.items() if c}
+            if made != want:
+                failures.append(f"{label} step {i} launches {made} != "
+                                f"{want}")
+        launches = dict(backend.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        mean_ms = sum(step_ms) / steps
+        log(f"{label}: {steps} steps, step ms "
+            f"{[round(t, 3) for t in step_ms]}, mean {mean_ms:.3f} ms; "
+            f"images/s {batch / (mean_ms / 1e3):.1f}; peak memory "
+            f"{peak / 2 ** 30:.3f} GiB; launches ({steps} steps): "
+            f"{launches}; losses {losses}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{label} losses not finite: {losses}")
+        profile_train_step(lambda _s, *b: step(*b), None, (x, y), mean_ms,
+                           label=label)
+    finally:
+        flags.set_flags({"FLAGS_use_pallas_dgc_topk": False})
+    del model, x, y
+    return launches, mean_ms, step
+
+
+def k10_synthetic(rnd):
+    """K10's synthetic inputs: (name, tensor, k)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import topk_threshold as K
+
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        d = dname(dt)
+        big = rnd((K10_LARGEST,), dt)
+        out += [(f"n=1 {d}", rnd((1,), dt), 1),
+                (f"n=65537 {d}", rnd((65537,), dt), 66),
+                (f"all zeros {d}", torch.zeros(4099, dtype=dt,
+                                               device="cuda"), 4),
+                (f"negative zeros {d}", -torch.zeros(4099, dtype=dt,
+                                                     device="cuda"), 4),
+                (f"largest [{K10_LARGEST}] {d}", big, 2359)]
+        # values drawn from the edges of their own histogram (max 1),
+        # both signs
+        frac = torch.from_numpy(K.EDGE_FRACTIONS).to("cuda")
+        idx = torch.randint(0, K.NUM_EDGES, (70001,), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+        on = frac[idx]
+        on[0] = 1.0
+        sign = torch.where(idx % 2 == 0, 1.0, -1.0).to(dt)
+        # f32: exactly on the edges; bf16: rounded next to them
+        out.append((f"on the edges {d}", (on.to(dt) * sign), 70))
+    return out
+
+
+def k10_check(name, v, k, failures):
+    """K10 against the plain version on one tensor: the counts exactly
+    equal; its threshold keeps at least k elements and at most those
+    within one bin of the exact k-th |v|.  Returns the largest count
+    difference (0 when right)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import topk_threshold as K
+
+    flat = v.reshape(-1)
+    vmax = torch.linalg.vector_norm(flat, float("inf")).float()
+    edges = K._edges(vmax)
+    got = K.count_ge_histogram(flat, edges)
+    want = K.count_ge_histogram_ref(flat, edges)
+    err = (got - want).abs().max().item()
+    if err != 0:
+        failures.append(f"K10 {name}: counts differ by up to {err}")
+    a = flat.float().abs()
+    t = K.topk_threshold(flat, k)
+    kept = int((a >= t).sum())
+    kth = torch.topk(a, k).values[-1]
+    near = int((a >= kth - vmax / (K.NUM_EDGES - 1)).sum())
+    if not k <= kept <= near:
+        failures.append(f"K10 {name}: threshold keeps {kept}, outside "
+                        f"[{k}, {near}]")
+    return err
+
+
+def k10_times(v, state_v):
+    """Device ms of K10 at ResNet-50's largest tensor (bf16), its plain
+    version and torch.topk(|v|, k) (the flag-off path's call), and K10
+    over the 161 v tensors of a step (one CUDA graph of the launches);
+    bounds: one read of v (each element once, bf16) plus the edges and
+    counts, and 8 compares per element (a binary search over the sorted
+    edges), float32 rate."""
+    import torch
+
+    from paddle_tpu_torch.kernels import topk_threshold as K
+
+    vmax = torch.linalg.vector_norm(v, float("inf")).float()
+    edges = K._edges(vmax)
+    tensors = list(state_v.values())
+    edge_list = [K._edges(torch.linalg.vector_norm(t, float("inf"))
+                          .float()) for t in tensors]
+    out = {"ms": time_ms(lambda: K.count_ge_histogram(v, edges)),
+           "plain_ms": time_ms(lambda: K.count_ge_histogram_ref(v, edges),
+                               graph=False),
+           "library_ms": time_ms(
+               lambda: torch.topk(v.abs().reshape(-1), 2359), graph=False),
+           "step_ms": time_ms(lambda: [K.count_ge_histogram(t, e) for t, e
+                                       in zip(tensors, edge_list)], 3)}
+    extra = 2 * K.NUM_EDGES * 4
+    out["bound_ms"], out["bound_by"] = bound(
+        v.numel() * v.element_size() + extra, 8.0 * v.numel(), "float32")
+    n_all = sum(t.numel() for t in tensors)
+    out["step_bytes"] = n_all * 2 + len(tensors) * extra
+    out["step_bound_ms"], _ = bound(out["step_bytes"], 8.0 * n_all,
+                                    "float32")
+    return out
+
+
+def _k10_pick(v, k):
+    """K10's pick for v: (threshold, edge index), from the plain counts
+    on the CPU, which equal K10's exactly."""
+    import torch
+
+    from paddle_tpu_torch.kernels import topk_threshold as K
+
+    flat = v.reshape(-1)
+    edges = K._edges(torch.linalg.vector_norm(flat, float("inf")).float())
+    counts = K.count_ge_histogram_ref(flat, edges)
+    idx = int(torch.nonzero(counts >= k).max())
+    return float(edges[idx]), idx
+
+
+def _dgc_run(dev, plain, x, y, start, steps, lr, sparsity, failures):
+    """`steps` f32 DGC steps of the shallow ResNet-50 on `dev` from the
+    weights `start` (None: the seed's, returned), with K10 or (`plain`)
+    its plain version; records each step's v and mask per tensor."""
+    import torch
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import strategies
+    from paddle_tpu_torch.distributed.mesh import Mesh
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.kernels import topk_threshold as K
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.nn import (
+        functional as F, load_param_dict, make_generator,
+    )
+
+    model = ResNet(BottleneckBlock, [1, 1, 1, 1], data_format="NHWC",
+                   device=dev, generator=make_generator(4))
+    if start is None:
+        start = {n: p.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+    else:
+        load_param_dict(model, start)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    masks = []
+    real_mask, real_count = strategies.dgc_topk_mask, K.count_ge_histogram
+
+    def recording(v, s):
+        m = real_mask(v, s)
+        # copies: the step clears the sent slots of v in place
+        masks[-1][names[len(masks[-1])]] = (
+            v.detach().to("cpu", torch.float32, copy=True),
+            m.detach().to("cpu", torch.float32, copy=True))
+        return m
+
+    # the card runs on the NCCL group of the phase, the CPU on a gloo
+    # group over the same one rank
+    mesh = (None if dev == "cuda" else Mesh(
+        dist.new_group(backend="gloo"), 1, 0, torch.device("cpu")))
+    loss_fn = lambda m, a, b: F.cross_entropy(m(a), b).mean()
+    step = strategies.DGCTrainStep(model, loss_fn, mesh, lr=lr,
+                                   momentum=0.9, sparsity=sparsity)
+    strategies.dgc_topk_mask = recording
+    if plain:
+        K.count_ge_histogram = (
+            lambda a, e, block=None: K.count_ge_histogram_ref(a, e))
+    backend.reset_launches()
+    losses = []
+    try:
+        for _ in range(steps):
+            masks.append({})
+            losses.append(float(step(torch.as_tensor(x),
+                                     torch.as_tensor(y))))
+    finally:
+        strategies.dgc_topk_mask, K.count_ge_histogram = (real_mask,
+                                                          real_count)
+    want = {} if plain or dev == "cpu" else {
+        "topk_threshold": steps * len(names)}
+    if dict(backend.LAUNCHES) != want:
+        failures.append(f"dgc check ({dev}, plain {plain}) launches "
+                        f"{dict(backend.LAUNCHES)} != {want}")
+    return start, dict(
+        losses=losses, masks=masks,
+        params={n: p.detach().cpu() for n, p in model.named_parameters()},
+        u={n: t.cpu() for n, t in step._state[0].items()},
+        v={n: t.cpu() for n, t in step._state[1].items()})
+
+
+def _hold_dgc_masks(card, cpu, sparsity, failures, rtol=1e-4):
+    """The card's DGC masks against the CPU's, step by step.  Each
+    side's mask must be exactly what K10's pick on its own v gives.
+    Where the two masks differ, each element must be explained:
+
+    - carried: its mask differed at an earlier step, so its u and v were
+      cleared on one side only and it has its own v on each side since;
+    - else its |v| must lie between the two sides' thresholds on both
+      sides, give or take the tensor's own card-vs-CPU noise: the
+      largest |v card - v CPU| over the elements whose masks agree.
+      The thresholds differ as the two v do: their max (which scales
+      the edges) and their counts move with the noise.
+    - At step 0 (v = the grads) at most one element per tensor may
+      differ, within `rtol` of the card's threshold (the repo's near-tie
+      rule).  Later the noise grows (u and v add up grads that batch
+      norm nearly cancels), and so does the number of elements it
+      carries across a threshold.
+
+    Anything else fails.  Returns (the mask elements that differed per
+    step, name -> every element that ever differed)."""
+    import torch
+
+    flipped, differ = {}, []
+    for t, (mc, mh) in enumerate(zip(card["masks"], cpu["masks"])):
+        differ.append(0)
+        for n, (vc, m_c) in mc.items():
+            vh, m_h = mh[n]
+            k = max(1, int(round(vc.numel() * (1.0 - sparsity))))
+            (tc, ic), (th, ih) = _k10_pick(vc, k), _k10_pick(vh, k)
+            vc, vh = vc.reshape(-1), vh.reshape(-1)
+            ac, ah = vc.abs(), vh.abs()
+            m_c, m_h = m_c.reshape(-1) > 0, m_h.reshape(-1) > 0
+            for side, m, a, thr in (("card", m_c, ac, tc),
+                                    ("CPU", m_h, ah, th)):
+                if not torch.equal(m, a >= thr):
+                    failures.append(f"dgc check step {t} {n}: the {side}'s "
+                                    "mask is not |v| >= its threshold")
+            diff = torch.nonzero(m_c != m_h).reshape(-1)
+            if not diff.numel():
+                continue
+            differ[-1] += diff.numel()
+            before = flipped.setdefault(n, set())
+            rest = torch.tensor([i for i in diff.tolist()
+                                 if i not in before], dtype=torch.long)
+            agree = torch.ones(vc.numel(), dtype=torch.bool)
+            agree[diff] = False
+            agree[list(before)] = False
+            noise = float((vc - vh)[agree].abs().max()) if agree.any() \
+                else 0.0
+            lo, hi = min(tc, th) - noise, max(tc, th) + noise
+            out = max([0.0] + [float(torch.maximum(lo - a, a - hi).max())
+                               for a in (ac[rest], ah[rest]) if a.numel()])
+            ok = out <= 0.0
+            if t == 0:
+                ok = ok and rest.numel() <= 1 and bool(torch.allclose(
+                    ac[rest], torch.full_like(ac[rest], tc), rtol=rtol,
+                    atol=0.0))
+            scale = max(tc, th, 1e-30)
+            log(f"dgc check step {t} {n} [{vc.numel()}, k {k}]: masks "
+                f"differ in {diff.numel()} ({diff.numel() - rest.numel()} "
+                f"carried); edges card {ic} ({tc:.6e}) CPU {ih} "
+                f"({th:.6e}); noise {noise / scale:.3e} of the threshold, "
+                f"the farthest element {out / scale:.3e} "
+                f"outside the band: {'explained' if ok else 'UNEXPLAINED'}")
+            if not ok:
+                failures.append(
+                    f"dgc check step {t} {n}: {rest.numel()} mask elements "
+                    f"differ beyond carry-over and the noise (edges {ic} "
+                    f"vs {ih}, {out / scale:.3e} outside the band)")
+            before.update(diff.tolist())
+    return differ, flipped
+
+
+def dgc_check(failures, steps=3, lr=1e-5, sparsity=0.99):
+    """f32 DGC steps, card against CPU: a shallow ResNet-50 (full widths,
+    depths [1, 1, 1, 1], NHWC, the per-conv path), batch 8 x 3 x 64 x
+    64, `steps` DGC steps (sparsity 0.99, Momentum(lr, 0.9)) with K10 on
+    the card and its plain version on the CPU, from the same weights.
+    Held as `resnet_check` holds the ResNet: the first loss 1e-4
+    relative, the others 1e-3; per tensor ||card - cpu|| <= 5e-2 max(
+    ||cpu||, 1e-2 of the largest) for u, v and the params' update.  The
+    masks are held at every step by `_hold_dgc_masks`: this net's v
+    differ between the card and the CPU in f32 noise that grows with the
+    steps (u and v add up conv-weight grads that batch norm nearly
+    cancels, see `resnet_check`), so an element near a threshold can
+    fall the other way; the elements whose masks differed are left out
+    of the norms.  A witness that the differences come from v and not
+    from K10, on the card with cuDNN deterministic: the same steps with
+    K10's plain version in its place must give exactly K10's masks
+    wherever their v are bitwise equal, and its
+    differences from the CPU are printed beside K10's."""
+    import torch
+
+    from paddle_tpu_torch import flags
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((8, 3, 64, 64)).astype(np.float32)
+    y = rng.integers(0, 1000, (8,)).astype(np.int32)
+    runs, start = {}, None
+    flags.set_flags({"FLAGS_use_pallas_dgc_topk": True})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, dev, plain in (("card", "cuda", False),
+                                 ("card plain", "cuda", True),
+                                 ("cpu", "cpu", False)):
+            start, runs[name] = _dgc_run(dev, plain, x, y, start, steps, lr,
+                                         sparsity, failures)
+    finally:
+        flags.set_flags({"FLAGS_use_pallas_dgc_topk": False})
+        torch.backends.cudnn.deterministic = deterministic
+    card, witness, cpu = runs["card"], runs["card plain"], runs["cpu"]
+    same_v, same_mask = 0, 0
+    for t, (mk, mp) in enumerate(zip(card["masks"], witness["masks"])):
+        for n, (v, m) in mk.items():
+            if torch.equal(v, mp[n][0]):
+                same_v += 1
+                if torch.equal(m, mp[n][1]):
+                    same_mask += 1
+                else:
+                    failures.append(f"dgc check step {t} {n}: K10 and its "
+                                    "plain version give other masks on "
+                                    "the same v")
+    differ, flipped = _hold_dgc_masks(card, cpu, sparsity, failures)
+    plain_differ = [sum(int((m != mh[n][1]).sum()) for n, (_, m) in
+                        mp.items())
+                    for mp, mh in zip(witness["masks"], cpu["masks"])]
+    log(f"dgc check witness (K10's plain version on the card): bitwise "
+        f"equal v in {same_v} of {steps * len(card['masks'][0])} "
+        f"(step, tensor) pairs, equal masks in {same_mask} of them")
+
+    def rel(a, b, n, floor):
+        keep = torch.ones(b.numel(), dtype=torch.bool)
+        keep[list(flipped.get(n, ()))] = False
+        return _rel(a.reshape(-1)[keep], b.reshape(-1)[keep], floor)
+
+    errs = {}
+    for what in ("u", "v"):
+        top = max(t.norm().item() for t in cpu[what].values())
+        errs[what] = max((rel(card[what][n], t, n, 1e-2 * top), n)
+                         for n, t in cpu[what].items())
+    update = {n: p - start[n] for n, p in cpu["params"].items()}
+    top = max(u.norm().item() for u in update.values())
+    errs["update"] = max((rel(card["params"][n] - start[n], u, n, 1e-2 * top),
+                          n) for n, u in update.items())
+    first = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(card["losses"], cpu["losses"]))
+    log(f"f32 DGC check (ResNet-50 widths, depths [1, 1, 1, 1], NHWC, "
+        f"per-conv, batch 8 x 64 x 64, {steps} DGC steps, sparsity "
+        f"{sparsity}, Momentum({lr}, 0.9), K10 on the card, plain on the "
+        f"CPU): losses card {card['losses']} CPU {cpu['losses']} (rel err "
+        f"first {first:.3e}, max {worst:.3e}); worst relative norm error "
+        f"u {errs['u'][0]:.3e} ({errs['u'][1]}), v {errs['v'][0]:.3e} "
+        f"({errs['v'][1]}), update {errs['update'][0]:.3e} "
+        f"({errs['update'][1]}); mask elements that differ from the CPU's, "
+        f"per step: K10 {differ}, its plain version on the card "
+        f"{plain_differ} (left out of the norms)")
+    if not (first <= 1e-4 and worst <= 1e-3):
+        failures.append(f"dgc check losses differ: first {first:.3e}, max "
+                        f"{worst:.3e}")
+    for what, (err, n) in errs.items():
+        if not err <= 5e-2:
+            failures.append(f"dgc check {what} differs: {err:.3e} ({n})")
+    del runs, card, cpu, witness
+    torch.cuda.empty_cache()
+
+
+def dgc_phase(failures):
+    """The DGC ResNet-50 step on one H100 through fleet.make_train_step:
+    with K10, with torch.topk and the dense step (one NCCL group of one
+    rank, destroyed at the end); then K10 against its plain version on
+    the DGC state's 322 u and v tensors and on synthetic inputs, its
+    times, and the f32 card-vs-CPU DGC check.  Returns the launches of
+    the K10 run's timed steps and the K10 row."""
+    import torch
+
+    from paddle_tpu_torch.distributed import env
+
+    env.init_parallel_env()
+    try:
+        step_ms = {}
+        launches, step_ms["k10"], step = dgc_run("k10", failures)
+        state = {"u": step._state[0], "v": step._state[1]}
+        del step
+        torch.cuda.empty_cache()
+        for mode in ("topk", "dense"):
+            _, step_ms[mode], _ = dgc_run(mode, failures)
+            torch.cuda.empty_cache()
+        log(f"dgc step ms: DGC with K10 {step_ms['k10']:.3f}, DGC with "
+            f"torch.topk {step_ms['topk']:.3f}, dense DP "
+            f"{step_ms['dense']:.3f}")
+        if launches.get("topk_threshold", 0) < 1:
+            failures.append("topk_threshold never launched on the DGC path")
+
+        errs = []
+        for what, tensors in state.items():
+            for n, t in tensors.items():
+                k = max(1, int(round(t.numel() * 0.001)))
+                errs.append(k10_check(f"{what} {n}", t, k, failures))
+        log(f"K10 on the DGC state's {sum(map(len, state.values()))} u and "
+            f"v tensors (bf16): counts equal the plain version's exactly: "
+            f"{max(errs) == 0}")
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        rnd = lambda shape, dt: torch.randn(shape, generator=gen,
+                                            device="cuda").to(dt)
+        for name, v, k in k10_synthetic(rnd):
+            errs.append(k10_check(name, v, k, failures))
+            log(f"K10 {name}: counts equal: {errs[-1] == 0}")
+        largest = max(state["v"].values(), key=lambda t: t.numel())
+        timed = k10_times(largest, state["v"])
+        log(f"K10 [{K10_LARGEST}] bf16 (DGC v of stage 4's 3x3 conv): "
+            f"kernel_ms {timed['ms']:.4f} plain_ms {timed['plain_ms']:.4f} "
+            f"library_ms (torch.topk(|v|, 2359)) {timed['library_ms']:.4f} "
+            f"bound_ms {timed['bound_ms']:.5f} ({timed['bound_by']}); the "
+            f"161 v tensors of a step: {timed['step_ms']:.4f} ms, bound "
+            f"{timed['step_bound_ms']:.5f} ms "
+            f"({timed['step_bytes'] / 1e6:.1f} MB)")
+        row = dict(name="K10 topk_threshold", route="cuda",
+                   source="paddle_tpu_torch/csrc/topk_threshold.cu",
+                   replaces="paddle_tpu/kernels/topk_threshold.py:35",
+                   max_abs_err=max(errs), ms=timed["ms"],
+                   plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
+                   bound_by=timed["bound_by"],
+                   library_ms=timed["library_ms"],
+                   shape=f"v [{K10_LARGEST}] bf16 (ResNet-50 DGC, stage 4 "
+                         "3x3 conv); library: torch.topk(|v|, 2359)")
+        del state, largest
+        torch.cuda.empty_cache()
+        dgc_check(failures)
+    finally:
+        env.destroy_parallel_env()
+    return {"launches": launches, "row": row}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path
 # ---------------------------------------------------------------------------
 
 def path_phase(failures):
@@ -1371,7 +1887,7 @@ def profile_decode(params, cache, logits, steps=16):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: float32 checks
+# phase 7: float32 checks
 # ---------------------------------------------------------------------------
 
 def _margin(logits):
@@ -1697,8 +2213,8 @@ def main():
 
     failures = []
     phases = (("kernels", kernel_phase), ("train", train_phase),
-              ("resnet", resnet_phase), ("path", path_phase),
-              ("checks", check_phase))
+              ("resnet", resnet_phase), ("dgc", dgc_phase),
+              ("path", path_phase), ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1730,6 +2246,9 @@ def main():
         row["launches"] = sum(results[p].get(key, 0)
                               for p in ("train", "resnet", "path"))
         kernels.append(row)
+    # K10: the 3 timed DGC steps of ResNet-50 with the flag on
+    kernels.append(dict(results["dgc"]["row"], launches=results["dgc"][
+        "launches"].get("topk_threshold", 0)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

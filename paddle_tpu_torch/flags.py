@@ -87,3 +87,9 @@ declare_flag("maxpool_mask_bwd", False,
              "semantics (the first maximum of each window in row-major "
              "order gets the gradient) are torch's max-pool gradient's, so "
              "in the port both values give the same op.")
+
+# DGC top-k selection (distributed/strategies.py dgc_topk_mask).
+declare_flag("use_pallas_dgc_topk", False,
+             "Route DGC top-k gradient selection through the histogram "
+             "threshold kernel K10 (kernels/topk_threshold.py) instead of "
+             "torch.topk (approximate: keeps >= k elements).")

@@ -20,7 +20,7 @@ __all__ = [
     "buffer_dict", "load_param_dict", "make_generator", "default_rng",
     "seed", "functional", "Linear", "Conv2D", "Pool2D", "MaxPool2D",
     "AvgPool2D", "BatchNorm", "ReLU",
-    "LayerNorm", "Embedding", "Dropout", "LayerList",
+    "LayerNorm", "Embedding", "Dropout", "LayerList", "Sequential",
     "MultiHeadAttention", "scaled_dot_product_attention",
 ]
 
@@ -196,6 +196,27 @@ class Dropout(Layer):
 
     def forward(self, x):
         return F.dropout(x, self._p, training=self.training, mode=self._mode)
+
+
+class Sequential(Layer):
+    """Parity: nn.Sequential.  Sub-layers are named "0", "1", ... (or by
+    the name of a (name, layer) pair) and run in order.  It lives on its
+    first sub-layer's device."""
+
+    def __init__(self, *layers):
+        subs = [l[1] if isinstance(l, tuple) else l for l in layers]
+        super().__init__(device=subs[0]._device if subs else "cpu")
+        for i, l in enumerate(layers):
+            name, l = l if isinstance(l, tuple) else (str(i), l)
+            self.add_module(name, l)
+
+    def forward(self, x):
+        for l in self._modules.values():
+            x = l(x)
+        return x
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
 
 
 class LayerList(Layer):
