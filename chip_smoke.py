@@ -40,6 +40,20 @@ Phases (any failure makes the script exit non-zero without a result):
    within the tolerances, raw and through `_StemTail`) and raw at
    [2, 128, 128, 64] (the kernel has no side limit); its yardstick is
    `F.max_pool2d(F.relu(c * a + b), 3, 2, 1)` (first-wins gradient).
+   The f32 K7/K8 checks name their near-ties (`tools/near_ties.py`):
+   relu inputs within the measured card noise of 0, counted on each
+   line with the comparisons that needed them; what fails elementwise
+   must lie in their footprint (the weight grads then in norm).
+2b. Probes: P1 (K7's 3x3 conv alone) and P2 (its 1x1 chain and
+   residual) against their plain versions at ResNet-50's stage-1
+   geometry (56^2, Cin 256, Cm 64), f32 at batch 2 (2e-5) and bf16 at
+   batches 8 and 128 (3e-2), from a generator of their own; at batch
+   128 their times beside the plain versions, a library yardstick
+   (`F.conv2d` channels-last; `relu(x @ w1) @ w3 + x`) and the bound;
+   K7's stage-1 identity forward on the same x and weights, split into
+   P1, P2 and the rest; then `python -m paddle_tpu_torch.tools.fused_probe`
+   (all seven probes, each in its subprocess), failing unless every
+   probe exits 0 having launched its kernel.
 3. GPT train path: the repo's headline training configuration
    (`bench.py` `bench_bert`: a GPT of BERT-base geometry, vocab 32768,
    hidden 768, 12 layers, 12 heads, max_seq_len 512, bfloat16) with
@@ -110,10 +124,11 @@ Phases (any failure makes the script exit non-zero without a result):
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
-The last lines are the kernels' JSON line (K1-K10, K7, K8 and K9 as two
-rows each, every row with its launches summed over the GPT train, the
-two fused ResNet runs and the serving paths, K10's over the DGC run
-with K10), the card line and {"ok": true, "device": {...}}.
+The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
+K9 as two rows each, P1, P2; every row with its launches summed over
+the GPT train, the two fused ResNet runs, the serving paths and the
+probe tool's runs, K10's over the DGC run with K10, P1's and P2's over
+the probe tool's), the card line and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -504,10 +519,15 @@ K7_GEOMETRIES = ((56, 256, 64, 256, False), (28, 512, 128, 512, False),
                  (56, 64, 64, 256, True))
 
 
-def compare_k7(name, got, want, dtype, rows, failures):
-    """K7 against its plain version.  float32: atol = rtol = 2e-5, the
-    weight and affine grads (f32 sums over the rows, added with atomics
-    in any order) atol 2e-5 * sqrt(rows).  bfloat16: a relu mask whose
+def compare_k7(name, got, want, dtype, rows, failures, ties=None,
+               kind="sum"):
+    """K7 against its plain version.  float32: `near_ties.hold`, atol =
+    rtol = 2e-5 (the weight and affine grads, f32 sums over the rows
+    added with atomics in any order, atol 2e-5 * sqrt(rows)); where that
+    fails, only inside the footprint of a near-tie `ties` names (a relu
+    input within the measured rounding noise of 0, whose mask may fall
+    the other way on the card), the weight and affine grads then within
+    1e-2 relative Frobenius error.  bfloat16: a relu mask whose
     pre-activation lies within one rounding of 0 can fall the other way
     on the card (f32 sums in another order, one bf16 ulp of h0 or h1),
     and each such flip moves one element of dx or one column of a weight
@@ -516,14 +536,17 @@ def compare_k7(name, got, want, dtype, rows, failures):
     within 1e-2 relative Frobenius error."""
     import torch
 
+    from paddle_tpu_torch.tools import near_ties as NT
+
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     tol = TOL[dtype]
     atol = tol * (rows ** 0.5 if rows > 1 else 1.0)
     finite = bool(torch.isfinite(got).all())
     if dtype == "float32":
-        if not (finite and torch.allclose(got, want, atol=atol, rtol=tol)):
-            failures.append(f"{name}: max_abs_err {err:.3e} > atol {atol}")
+        why = NT.hold(got, want, ties, kind, rows)
+        if why:
+            failures.append(f"{name}: {why}")
         return err
     bad = ((got - want).abs() > atol + tol * want.abs()).float().mean().item()
     rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
@@ -581,6 +604,7 @@ def fused_bottleneck_checks(rows, failures, rnd):
     import torch
 
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
+    from paddle_tpu_torch.tools import near_ties as NT
 
     for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
         for hw, cin, cm, cout, proj in K7_GEOMETRIES:
@@ -593,21 +617,25 @@ def fused_bottleneck_checks(rows, failures, rnd):
             rows_n = n * hw * hw
             y = FB._launch_fwd(x, *ws[:3], w4, aff, proj)
             y_ref = FB.fused_bottleneck_fwd_ref(x, *ws[:3], w4, aff, proj)
-            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures)
+            ties = (NT.NearTies(x, *ws[:3], w4, aff, proj, False, y, y_ref)
+                    if dt == torch.float32 else None)
+            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties,
+                               "y")
             got = FB._launch_bwd(x, dy, *ws[:3], w4, aff, proj)
             want = FB.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj)
-            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures)
+            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures,
+                               ties, "dx")
             for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
                                   got[1:], want[1:]):
                 if g is not None:
                     err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
-                                                  rows_n, failures))
+                                                  rows_n, failures, ties))
             # through the Function: y and every grad, in the primals' dtype
             fn = FB.fused_bottleneck_proj if proj else FB.fused_bottleneck
             leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
             out = fn(*leaves)
             err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
-                                failures)
+                                failures, ties, "y")
             grads = torch.autograd.grad(out, leaves, dy)
             err_fg = 0.0
             cmw = [want[0], *want[1:4]] + ([want[4]] if proj else [])
@@ -619,10 +647,13 @@ def fused_bottleneck_checks(rows, failures, rnd):
                     failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
                 err_fg = max(err_fg, compare_k7(
                     f"{tag} Function grad {i}", g, w.to(g.dtype), d,
-                    1 if i == 0 else rows_n, failures))
+                    1 if i == 0 else rows_n, failures, ties,
+                    "dx" if i == 0 else "sum"))
             del leaves, out, grads, got, want, cmw
             msg = (f"{tag}: max_err fwd {err_f:.3e} bwd {err_b:.3e} "
                    f"Function y {err_fy:.3e} grads {err_fg:.3e}")
+            if ties is not None:
+                msg += f"; {ties}"
             if dt == torch.bfloat16:
                 timed = k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm,
                                  cout)
@@ -743,6 +774,7 @@ def fused_bottleneck_down_checks(rows, failures, rnd):
     import torch
 
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
+    from paddle_tpu_torch.tools import near_ties as NT
 
     for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
         for hw, cin, cm, cout in K8_GEOMETRIES:
@@ -755,18 +787,22 @@ def fused_bottleneck_down_checks(rows, failures, rnd):
             ths = FB.tile_heights(hw, hw, cm, dt, True, True)
             y = FB._launch_down_fwd(x, *ws, aff)
             y_ref = FB.fused_bottleneck_down_fwd_ref(x, *ws, aff)
-            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures)
+            ties = (NT.NearTies(x, *ws, aff, True, True, y, y_ref)
+                    if dt == torch.float32 else None)
+            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties,
+                               "y")
             got = FB._launch_down_bwd(x, dy, *ws, aff)
             want = FB.fused_bottleneck_down_bwd_ref(x, dy, *ws, aff)
-            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures)
+            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures,
+                               ties, "dx")
             for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
                                   got[1:], want[1:]):
                 err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
-                                              rows_n, failures))
+                                              rows_n, failures, ties))
             leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
             out = FB.fused_bottleneck_down(*leaves)
             err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
-                                failures)
+                                failures, ties, "y")
             grads = torch.autograd.grad(out, leaves, dy)
             daff = want[5]
             cmw = list(want[:5]) + [daff[0, :cm], daff[1, :cm],
@@ -778,11 +814,14 @@ def fused_bottleneck_down_checks(rows, failures, rnd):
                     failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
                 err_fg = max(err_fg, compare_k7(
                     f"{tag} Function grad {i}", g, w.to(g.dtype), d,
-                    1 if i == 0 else rows_n, failures))
+                    1 if i == 0 else rows_n, failures, ties,
+                    "dx" if i == 0 else "sum"))
             del leaves, out, grads, got, want, cmw
             msg = (f"{tag}: tile rows fwd/B1/B2 {ths}; max_err fwd "
                    f"{err_f:.3e} bwd {err_b:.3e} Function y {err_fy:.3e} "
                    f"grads {err_fg:.3e}")
+            if ties is not None:
+                msg += f"; {ties}"
             if dt == torch.bfloat16:
                 timed = k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout)
                 msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
@@ -1022,6 +1061,171 @@ def k9_times(c, aff, dy):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the probes P1 and P2, the K7 split, the port's probe tool
+# ---------------------------------------------------------------------------
+
+def probes_phase(failures):
+    """P1 (K7's 3x3 conv alone) and P2 (its 1x1 chain) against their
+    plain versions on the card, in f32 at batch 2 and bf16 at the tool's
+    batch 8 and ResNet-50's batch 128 (ResNet-50 stage 1: 56^2, Cin 256,
+    Cm 64), and at a ragged 11 x 7 in both dtypes; their times beside
+    the plain versions, a library yardstick and the bound; K7's stage-1 identity forward on the same x, w1, w2,
+    w3, split into P1, P2 and the rest; then the port's probe tool, all
+    seven probes, each of which must exit 0 having launched its kernel.
+    The inputs come from a generator of their own, so the kernel phase's
+    draws are those of earlier runs."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_probe as FP
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    hw, cin, cm = 56, 256, 64
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    rows, out = {}, {}
+    # 11 x 7: a ragged geometry, whose last tile of rows is partial for
+    # both probes (P1's halo fill and output rows past H)
+    for dt, n, h, w in ((torch.float32, 2, 11, 7),
+                        (torch.bfloat16, 2, 11, 7),
+                        (torch.float32, 2, hw, hw),
+                        (torch.bfloat16, 8, hw, hw),
+                        (torch.bfloat16, 128, hw, hw)):
+        d = dname(dt)
+        x1 = rnd((n, h, w, cm), dt)
+        w2 = rnd((3, 3, cm, cm), dt, (9 * cm) ** -0.5)
+        x2 = rnd((n, h, w, cin), dt)
+        w1 = rnd((cin, cm), dt, cin ** -0.5)
+        w3 = rnd((cm, cin), dt, cm ** -0.5)
+        err1 = compare(f"P1 x [{n}, {h}, {w}, {cm}] {d}",
+                       FP.conv3x3_probe(x1, w2),
+                       FP.conv3x3_probe_ref(x1, w2), d, failures)
+        err2 = compare(f"P2 x [{n}, {h}, {w}, {cin}] Cm {cm} {d}",
+                       FP.matmul_chain_probe(x2, w1, w3),
+                       FP.matmul_chain_probe_ref(x2, w1, w3), d, failures)
+        ths, blocks = FP.probe_tiles(h, w, cm, dt)
+        log(f"P1 [{n}, {h}, {w}, {cm}] {d}: max_err {err1:.3e}; P2 "
+            f"[{n}, {h}, {w}, {cin}] -> {cm} {d}: max_err {err2:.3e}; "
+            f"tiles (P1, P2) {ths}, blocks per SM (K7 forward, P1, P2) "
+            f"{blocks}")
+        if h != hw and not all(t and h % t for t in ths):
+            failures.append(f"P1/P2 [{n}, {h}, {w}]: tile rows {ths} leave "
+                            "no partial tile")
+        if n == 128:
+            out = probe_times(x1, w2, x2, w1, w3, rnd)
+            common = dict(route="cuda",
+                          source="paddle_tpu_torch/csrc/fused_bottleneck.cu")
+            rows["probe_conv3x3"] = dict(
+                name="P1 probe_conv3x3", replaces="tools/fused_probe.py:88",
+                max_abs_err=err1, ms=out["p1_ms"], plain_ms=out["p1_plain"],
+                bound_ms=out["p1_bound"], bound_by=out["p1_by"],
+                library_ms=out["p1_lib"], shape="x [128, 56, 56, 64], w2 "
+                "[3, 3, 64, 64] bf16 (ResNet-50 stage 1); library: "
+                "F.conv2d, channels-last", **common)
+            rows["probe_matmuls"] = dict(
+                name="P2 probe_matmuls", replaces="tools/fused_probe.py:114",
+                max_abs_err=err2, ms=out["p2_ms"], plain_ms=out["p2_plain"],
+                bound_ms=out["p2_bound"], bound_by=out["p2_by"],
+                library_ms=out["p2_lib"], shape="x [128, 56, 56, 256] -> 64 "
+                "-> 256 bf16 (ResNet-50 stage 1); library: relu(x @ w1) @ "
+                "w3 + x, two cuBLAS products", **common)
+        del x1, w2, x2, w1, w3
+    torch.cuda.empty_cache()
+    return {"rows": rows, "tool": probe_tool(failures)}
+
+
+def probe_times(x1, w2, x2, w1, w3, rnd):
+    """Device ms at batch 128 bf16 of P1 and P2, their plain versions,
+    their library yardsticks and bounds, and the K7 stage-1 identity
+    forward on the same x2, w1, w2, w3 (affines near (1, 0)); prints the
+    split line."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+    from paddle_tpu_torch.kernels import fused_probe as FP
+
+    n, hw, _, cm = x1.shape
+    cin = x2.shape[-1]
+    r, elt = n * hw * hw, x1.element_size()
+    o = {}
+    o["p1_ms"] = time_ms(lambda: FP.conv3x3_probe(x1, w2), 10, graph=False)
+    o["p2_ms"] = time_ms(lambda: FP.matmul_chain_probe(x2, w1, w3), 10,
+                         graph=False)
+    o["p1_plain"] = time_ms(lambda: FP.conv3x3_probe_ref(x1, w2), 3,
+                            graph=False)
+    o["p2_plain"] = time_ms(lambda: FP.matmul_chain_probe_ref(x2, w1, w3),
+                            3, graph=False)
+    xc = x1.permute(0, 3, 1, 2)                       # channels-last view
+    w_oihw = w2.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    x2d = x2.reshape(r, cin)
+    with torch.no_grad():
+        o["p1_lib"] = time_ms(lambda: TF.conv2d(xc, w_oihw, padding=1), 10,
+                              graph=False)
+        o["p2_lib"] = time_ms(lambda: torch.relu(x2d @ w1).to(
+            torch.bfloat16) @ w3 + x2d, 10, graph=False)
+    o["p1_bound"], o["p1_by"] = bound(
+        2 * x1.numel() * elt + w2.numel() * elt, 2.0 * r * 9 * cm * cm,
+        "bfloat16")
+    o["p2_bound"], o["p2_by"] = bound(
+        2 * x2.numel() * elt + (w1.numel() + w3.numel()) * elt,
+        2.0 * r * 2 * cin * cm, "bfloat16")
+    affs = [(rnd((c,), torch.float32, 0.3) + (1.0 if i % 2 == 0 else 0.0)
+             ).to(x2.dtype) for i, c in enumerate([cm] * 4 + [cin] * 2)]
+    aff = FB._pack_affines(affs, cin)
+    o["k7_ms"] = time_ms(lambda: FB._launch_fwd(x2, w1, w2, w3, None, aff,
+                                                False), 10, graph=False)
+    o["rest_ms"] = o["k7_ms"] - o["p1_ms"] - o["p2_ms"]
+    log(f"P1 [{n}, {hw}, {hw}, {cm}] bf16: kernel_ms {o['p1_ms']:.4f} "
+        f"plain_ms {o['p1_plain']:.4f} library_ms {o['p1_lib']:.4f} "
+        f"bound_ms {o['p1_bound']:.5f} ({o['p1_by']})")
+    log(f"P2 [{n}, {hw}, {hw}, {cin}] -> {cm} bf16: kernel_ms "
+        f"{o['p2_ms']:.4f} plain_ms {o['p2_plain']:.4f} library_ms "
+        f"{o['p2_lib']:.4f} bound_ms {o['p2_bound']:.5f} ({o['p2_by']})")
+    k7_flop = 2.0 * r * (2 * cin * cm + 9 * cm * cm)
+    log(f"K7 split, stage-1 identity forward [{n}, {hw}, {hw}, {cin}] Cm "
+        f"{cm} bf16: K7 {o['k7_ms']:.4f} ms = P1 (3x3) {o['p1_ms']:.4f} + "
+        f"P2 (1x1 chain) {o['p2_ms']:.4f} + rest {o['rest_ms']:.4f} (the "
+        f"halo's w1 recompute, affines, loaders); K7 "
+        f"{k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without its halo")
+    return o
+
+
+def probe_tool(failures):
+    """`python -m paddle_tpu_torch.tools.fused_probe`, all seven probes in
+    their subprocesses; each must exit 0 having launched its kernel.
+    Returns the launches each kernel made, summed over the probes."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.tools.fused_probe"], cwd=repo,
+                       capture_output=True, text=True, timeout=900)
+    recs = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith("{")]
+    launches = {}
+    for rec in recs:
+        log(f"probe tool {rec['probe']}: rc {rec['rc']} kernel "
+            f"{rec['kernel']} launches {rec['launches']} ms {rec['ms']} "
+            f"wall {rec['wall_s']} s")
+        if rec["rc"] != 0 or rec["launches"] < 1:
+            failures.append(f"probe tool {rec['probe']}: rc {rec['rc']}, "
+                            f"{rec['launches']} launches of "
+                            f"{rec['kernel']}: {rec.get('stderr', '')}")
+        launches[rec["kernel"]] = (launches.get(rec["kernel"], 0)
+                                   + rec["launches"])
+    if r.returncode != 0 or len(recs) != 7:
+        failures.append(f"probe tool: exit {r.returncode}, {len(recs)} of 7 "
+                        f"probes reported: {r.stderr[-400:]}")
+    log(f"probe tool: {time.perf_counter() - t0:.1f} s, launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the train path
 # ---------------------------------------------------------------------------
 
@@ -1226,9 +1430,14 @@ def resnet_run(mode, failures, steps=5, batch=128):
     if not all(np.isfinite(losses)):
         failures.append(f"{label} losses not finite: {losses}")
     # the falling loss is the fused path's check; the unfused step is
-    # the yardstick of its time
-    if fused and not losses[-1] < losses[0]:
-        failures.append(f"{label} loss did not fall: {losses}")
+    # the yardstick of its time.  Momentum(0.1, 0.9) on one repeated
+    # batch overshoots from the third step on (the unfused step too:
+    # 7.5 -> 5.4 -> 7.47 at the fifth), so the check is the first two
+    # steps' fall (7.5 -> ~5.8 -> ~5.35 in every run); the last loss
+    # against the first passed or failed on run-to-run noise
+    if fused and not losses[2] < losses[1] < losses[0]:
+        failures.append(f"{label} loss did not fall over the first two "
+                        f"steps: {losses}")
     profile_train_step(step, state, (x, y), mean_ms, label=label)
     del model, state, step
     torch.cuda.empty_cache()
@@ -2212,7 +2421,8 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     failures = []
-    phases = (("kernels", kernel_phase), ("train", train_phase),
+    phases = (("kernels", kernel_phase), ("probes", probes_phase),
+              ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("checks", check_phase))
     results = {}
@@ -2241,14 +2451,20 @@ def main():
                 "fused_stem_tail_bwd"):
         row = dict(rows[key])
         # launches on the main paths: the 5 timed GPT train steps, the 5
-        # timed steps of each fused ResNet-50 run (full and `id`) and the
-        # serving run (generate + engine)
+        # timed steps of each fused ResNet-50 run (full and `id`), the
+        # serving run (generate + engine) and the probe tool's runs (K4,
+        # K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
-                              for p in ("train", "resnet", "path"))
+                              for p in ("train", "resnet", "path")) \
+            + results["probes"]["tool"].get(key, 0)
         kernels.append(row)
     # K10: the 3 timed DGC steps of ResNet-50 with the flag on
     kernels.append(dict(results["dgc"]["row"], launches=results["dgc"][
         "launches"].get("topk_threshold", 0)))
+    # P1, P2: their probes' runs in the port's probe tool
+    for key in ("probe_conv3x3", "probe_matmuls"):
+        kernels.append(dict(results["probes"]["rows"][key],
+                            launches=results["probes"]["tool"].get(key, 0)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -101,6 +101,24 @@
 // 2 R_out (4 Cin Cm + 9 Cm^2 + Cm Cout + Cin Cout) = 95.4 GFLOP per
 // forward, 0.096 ms at 989 TFLOP/s, against 0.092 / 0.046 / 0.023 ms for
 // x + y: operation-bound.  The CUDA-core GEMM runs it far above that.
+//
+// P1 and P2 replace the two stripped kernels of tools/fused_probe.py
+// (`p4_conv_only`, pallas_call :88; `p5_matmuls`, pallas_call :114): K7's
+// forward cut in two, so that its time splits between the 3x3 product and
+// the 1x1 chain.  Both run on K7's own `gemm`, tiles and loaders:
+//   P1  y = round(conv3x3(zero_pad(x), w2))     x, y [N, H, W, Cm]
+//       a block stages TH rows of x and their one-row halo (zero outside
+//       the image) in shared memory, as K7 stages h0, and runs the im2col
+//       `gemm` against w2 viewed as [9 Cm, Cm]; TH by K7's forward rule.
+//   P2  h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x)
+//       x, y [N, H, W, Cin], w1 [Cin, Cm], w3 [Cm, Cin]; a block takes TH
+//       rows (no halo), writes h0 to shared memory in the first `gemm`'s
+//       epilogue and adds x from device memory in the second's.
+// No affines and no relu in P1, none but the one relu in P2, as in the
+// Pallas probes.  Bound at ResNet-50's stage 1, batch 128 bf16: P1 moves
+// 102.8 MB (0.0307 ms at 3.35 TB/s) for 29.6 GFLOP; P2 411.0 MB (0.1227
+// ms) for 26.3 GFLOP: both byte-bound, and both run far above that on the
+// CUDA cores, as K7 does.
 
 #include <cstdint>
 
@@ -241,6 +259,26 @@ __host__ __device__ inline B2Layout b2_layout(int th, int w, int cm,
   l.c0 = c.take(sizeof(float) * pin * cm);  // f32 c0 of the own rows
   l.dc0 = c.take(tsz * pin * cm);
   l.daff = c.take(sizeof(float) * 2 * cm);
+  l.total = c.off;
+  return l;
+}
+
+// P1 stages the tile's x over its halo rows (K7's h0 slot); P2 keeps h0
+// of its own rows.
+struct ProbeLayout {
+  size_t as, bs, row, col, t, total;
+};
+
+__host__ __device__ inline ProbeLayout probe_layout(int th, int w, int cm,
+                                                    int tsz, bool conv) {
+  Carve c;
+  ProbeLayout l;
+  l.as = c.take(sizeof(float) * kTK * kAStride);
+  l.bs = c.take(sizeof(float) * kTK * kBStride);
+  l.row = c.take(conv ? sizeof(short) * tile_px(th, w, false) : 0);
+  l.col = c.take(conv ? sizeof(short) * tile_px(th, w, false) : 0);
+  l.t = c.take(tsz * (conv ? halo_px(th, w, false) : tile_px(th, w, false)) *
+               cm);
   l.total = c.off;
   return l;
 }
@@ -847,6 +885,74 @@ down_bwd2_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
+// the probes: K7's 3x3 product alone (P1) and its 1x1 chain alone (P2)
+// ---------------------------------------------------------------------------
+
+// P1: y = round(conv3x3(zero_pad(x), w2)), g.cin == g.cm == g.cout.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+probe_conv3x3_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w2,
+                     T* __restrict__ y) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const ProbeLayout L = probe_layout(g.th, g.w, g.cm, sizeof(T), true);
+  float* As = reinterpret_cast<float*>(smem + L.as);
+  float* Bs = reinterpret_cast<float*>(smem + L.bs);
+  short* rowt = reinterpret_cast<short*>(smem + L.row);
+  short* colt = reinterpret_cast<short*>(smem + L.col);
+  T* xs = reinterpret_cast<T*>(smem + L.t);
+  const Tile t = tile_of<false>(g);
+
+  fill_tables(t, rowt, colt);
+  // x over the halo rows, zero outside the image (the conv's padding);
+  // gemm's leading barrier orders these stores before the patch loads
+  for (int i = threadIdx.x; i < t.P2 * g.cm; i += kThreads) {
+    const int m = i >> g.lgcm;
+    xs[i] = (m >= t.lo && m < t.hi) ? x[t.xb * g.cm + i] : pt::from_f32<T>(0.f);
+  }
+  gemm<false, false>(
+      t.P, g.cm, 9 * g.cm,
+      [&](int m, int k) { return patch<false>(g, rowt, colt, xs, m, k); },
+      [&](int k, int n) { return pt::to_f32(w2[size_t(k) * g.cm + n]); },
+      [&](int m, int n, float v) {
+        y[(t.own + m) * g.cm + n] = pt::from_f32<T>(v);
+      },
+      As, Bs);
+}
+
+// P2: h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x), g.cout == g.cin.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+probe_matmuls_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w1,
+                     const T* __restrict__ w3, T* __restrict__ y) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const ProbeLayout L = probe_layout(g.th, g.w, g.cm, sizeof(T), false);
+  float* As = reinterpret_cast<float*>(smem + L.as);
+  float* Bs = reinterpret_cast<float*>(smem + L.bs);
+  T* h0s = reinterpret_cast<T*>(smem + L.t);
+  const Tile t = tile_of<false>(g);
+
+  gemm<false, false>(
+      t.P, g.cm, g.cin,
+      [&](int m, int k) { return pt::to_f32(x[(t.own + m) * g.cin + k]); },
+      [&](int k, int n) { return pt::to_f32(w1[size_t(k) * g.cm + n]); },
+      [&](int m, int n, float v) {
+        h0s[m * g.cm + n] = pt::from_f32<T>(fmaxf(v, 0.f));
+      },
+      As, Bs);
+  gemm<false, false>(
+      t.P, g.cout, g.cm,
+      [&](int m, int k) { return pt::to_f32(h0s[m * g.cm + k]); },
+      [&](int k, int n) { return pt::to_f32(w3[size_t(k) * g.cout + n]); },
+      [&](int m, int n, float v) {
+        const long long at = (t.own + m) * g.cout + n;
+        y[at] = pt::from_f32<T>(v + pt::to_f32(x[at]));
+      },
+      As, Bs);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -984,6 +1090,86 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* w1,
   return cudaGetLastError();
 }
 
+// The probes' tile heights: P1 by K7's forward rule (halo 2), P2 by the
+// no-halo rule (fewest tiles).
+struct ProbeThs {
+  int conv, mm;
+};
+
+template <typename T>
+ProbeThs pick_probe_ths(int h, int w, int cm) {
+  ProbeThs r;
+  r.conv = pick_th(h, 1, 2, [&](int t) {
+    return probe_layout(t, w, cm, sizeof(T), true).total;
+  });
+  r.mm = pick_th(h, 1, 0, [&](int t) {
+    return probe_layout(t, w, cm, sizeof(T), false).total;
+  });
+  return r;
+}
+
+template <typename T>
+cudaError_t launch_probe_conv(const void* x, const void* w2, void* y, int n,
+                              int h, int w, int cm, cudaStream_t st) {
+  const int th = pick_probe_ths<T>(h, w, cm).conv;
+  if (th == 0) return cudaErrorInvalidValue;
+  const Geo g = make_geo(n, h, w, cm, cm, cm, cm, th, false);
+  const size_t smem = probe_layout(th, w, cm, sizeof(T), true).total;
+  cudaError_t err = set_smem(probe_conv3x3_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  probe_conv3x3_kernel<T><<<n * g.tiles_per_img, kThreads, smem, st>>>(
+      g, static_cast<const T*>(x), static_cast<const T*>(w2),
+      static_cast<T*>(y));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_probe_mm(const void* x, const void* w1, const void* w3,
+                            void* y, int n, int h, int w, int cin, int cm,
+                            cudaStream_t st) {
+  const int th = pick_probe_ths<T>(h, w, cm).mm;
+  if (th == 0) return cudaErrorInvalidValue;
+  const Geo g = make_geo(n, h, w, cin, cm, cin, cin, th, false);
+  const size_t smem = probe_layout(th, w, cm, sizeof(T), false).total;
+  cudaError_t err = set_smem(probe_matmuls_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  probe_matmuls_kernel<T><<<n * g.tiles_per_img, kThreads, smem, st>>>(
+      g, static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(w3), static_cast<T*>(y));
+  return cudaGetLastError();
+}
+
+template <class Kernel>
+int blocks_per_sm(Kernel k, size_t smem) {
+  int b = 0;
+  if (set_smem(k, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, kThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  return b;
+}
+
+template <typename T>
+int probe_tiles(int h, int w, int cm, int* out) {
+  const ProbeThs r = pick_probe_ths<T>(h, w, cm);
+  const int fwd = pick_ths<T>(h, w, cm, false, false).fwd;
+  out[0] = r.conv;
+  out[1] = r.mm;
+  out[2] = fwd ? blocks_per_sm(bottleneck_fwd_kernel<T, false, false>,
+                               fwd_layout(fwd, w, cm, sizeof(T), false, false)
+                                   .total)
+               : 0;
+  out[3] = r.conv ? blocks_per_sm(probe_conv3x3_kernel<T>,
+                                  probe_layout(r.conv, w, cm, sizeof(T), true)
+                                      .total)
+                  : 0;
+  out[4] = r.mm ? blocks_per_sm(probe_matmuls_kernel<T>,
+                                probe_layout(r.mm, w, cm, sizeof(T), false)
+                                    .total)
+                : 0;
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: [n, h, w, cin], w1: [cin, cm], w2: [3, 3, cm, cm] (HWIO), w3: [cm,
@@ -1095,4 +1281,44 @@ extern "C" int pt_fused_bottleneck_tiles(int h, int w, int cm, int dtype,
   out[1] = r.b1;
   out[2] = r.b2;
   return 0;
+}
+
+// P1.  x, y: [n, h, w, cm]; w2: [3, 3, cm, cm] (HWIO); all contiguous in
+// `dtype`; cm a power of two.  Returns cudaGetLastError() after the launch.
+extern "C" int pt_probe_conv3x3(const void* x, const void* w2, void* y, int n,
+                                int h, int w, int cm, int dtype,
+                                void* stream) {
+  if (!geo_ok(n, h, w, cm, cm, cm, cm, false, false))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == pt::kFloat32)
+    return int(launch_probe_conv<float>(x, w2, y, n, h, w, cm, st));
+  if (dtype == pt::kBFloat16)
+    return int(launch_probe_conv<__nv_bfloat16>(x, w2, y, n, h, w, cm, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// P2.  x, y: [n, h, w, cin]; w1: [cin, cm]; w3: [cm, cin]; all contiguous
+// in `dtype`; cm a power of two.  Returns cudaGetLastError().
+extern "C" int pt_probe_matmuls(const void* x, const void* w1, const void* w3,
+                                void* y, int n, int h, int w, int cin, int cm,
+                                int dtype, void* stream) {
+  if (!geo_ok(n, h, w, cin, cm, cin, cin, false, false))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == pt::kFloat32)
+    return int(launch_probe_mm<float>(x, w1, w3, y, n, h, w, cin, cm, st));
+  if (dtype == pt::kBFloat16)
+    return int(
+        launch_probe_mm<__nv_bfloat16>(x, w1, w3, y, n, h, w, cin, cm, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// The probes' tile heights on the current device, out[0] P1 and out[1]
+// P2, and the blocks that fit on one SM (shared memory, registers,
+// threads) for K7's identity forward, P1 and P2 at those tiles: out[2..4].
+extern "C" int pt_probe_tiles(int h, int w, int cm, int dtype, int* out) {
+  if (dtype == pt::kFloat32) return probe_tiles<float>(h, w, cm, out);
+  if (dtype == pt::kBFloat16) return probe_tiles<__nv_bfloat16>(h, w, cm, out);
+  return int(cudaErrorInvalidValue);
 }

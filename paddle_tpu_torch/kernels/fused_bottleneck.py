@@ -68,6 +68,10 @@ _SIGS = {
     "pt_fused_bottleneck_down_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "pt_fused_bottleneck_down_bwd": [_P] * 15 + [_I] * 8 + [_P],
     "pt_fused_bottleneck_tiles": [_I] * 6 + [_P],
+    # P1 and P2 (`fused_probe.py`) live in this library, on K7's routine
+    "pt_probe_conv3x3": [_P] * 3 + [_I] * 5 + [_P],
+    "pt_probe_matmuls": [_P] * 4 + [_I] * 6 + [_P],
+    "pt_probe_tiles": [_I] * 4 + [_P],
 }
 _STEM_SIGS = {
     "pt_fused_stem_tail_fwd": [_P] * 3 + [_I] * 5 + [_P],

@@ -610,6 +610,10 @@ def _worker_main(case_file, out_dir):
     mesh = build_mesh(dp=2)
     spec = json.loads(Path(case_file).read_text())
     weights = pickle.loads(Path(spec["weights"]).read_bytes())
+    # the port's probe modules load without jax too
+    import paddle_tpu_torch.kernels.fused_probe  # noqa: F401
+    import paddle_tpu_torch.tools.fused_probe  # noqa: F401
+    import paddle_tpu_torch.tools.near_ties  # noqa: F401
     out = {"cases": [_run_port(case, w, mesh)
                      for case, w in zip(spec["cases"], weights)],
            "collectives": _collectives(mesh.rank, mesh.size),

@@ -247,7 +247,10 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.serving, "
-        "paddle_tpu_torch.models.generate, paddle_tpu_torch.interop\n"
+        "paddle_tpu_torch.models.generate, paddle_tpu_torch.interop, "
+        "paddle_tpu_torch.kernels.fused_probe, "
+        "paddle_tpu_torch.tools.fused_probe, "
+        "paddle_tpu_torch.tools.near_ties\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
         "print(bad)\n"
