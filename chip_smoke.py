@@ -8,6 +8,8 @@ Phases (any failure makes the script exit non-zero without a result):
 1. Card and build: print the card's name and power limit, turn TF32
    off, build the CUDA kernels (one nvcc per source, in parallel) and
    print the build time and the compiler's register/spill report.
+1b. SASS: `cuobjdump -sass` of K8's library; every bf16 K8 kernel that
+   runs a product must hold tensor-core instructions (HMMA / HGMMA).
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -33,8 +35,15 @@ Phases (any failure makes the script exit non-zero without a result):
    tail, through autograd for the backward), several calls, not one.
    K8 is checked the same way at ResNet-50's three transitions (56^2
    256 -> 512 Cm 128, 28^2 512 -> 1024 Cm 256, 14^2 1024 -> 2048 Cm
-   512), with the tile heights its launches pick printed; its yardstick
-   is the composition with the stride-2 3x3 and 1x1 convs.  K9 is
+   512), with its launch plan printed (tile pixels, blocks, K slices of
+   the weight-gradient GEMMs, scratch MB), and at ragged shapes (Cin,
+   Cout not multiples of 16, Ho Wo not a multiple of 16, odd batch; and
+   channels that are no multiple of 8, the element-wise loaders); its
+   yardstick is the composition with the stride-2 3x3 and 1x1 convs.
+   In bf16 its error against float64 products may not exceed 1.5x the
+   plain version's at the transitions (`k8_numerics`), and at the small
+   tests' weight scale it must be that of a model of the tensor core's
+   sums (`k8_precision`).  K9 is
    checked at the stem's [2 | 128, 112, 112, 64] in float32 | bfloat16
    on random and tie-heavy inputs (the forward exactly, dc and da/db
    within the tolerances, raw and through `_StemTail`) and raw at
@@ -229,6 +238,57 @@ def compare(name, got, want, dtype, failures):
     if not ok:
         failures.append(f"{name}: max_abs_err {err:.3e} > tol {tol}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: K8's tensor-core instructions in the built library
+# ---------------------------------------------------------------------------
+
+# K8's kernels (csrc/fused_down.cu) that run a product
+K8_MMA_KERNELS = ("down_fwd_kernel", "down_bwd1_kernel", "down_bwd2_kernel",
+                  "down_wgrad_kernel")
+
+
+def sass_phase(failures):
+    """`cuobjdump -sass` of the built K8 library: the HMMA / HGMMA count
+    of every kernel, and the first such instruction of each.  Fails
+    unless each bf16 K8 kernel that runs a product holds one.  The f32
+    instantiations run on the CUDA cores (exact f32 FMAs) and the slice
+    sum has no product; their counts are printed as read."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from paddle_tpu_torch.kernels import backend
+
+    lib = backend.lib_path("fused_down")
+    tool = shutil.which("cuobjdump") or str(
+        Path(backend.nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        failures.append(f"cuobjdump -sass exit {out.returncode}: "
+                        f"{out.stderr[-500:]}")
+        return {}
+    counts, first, name = {}, {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+            continue
+        if name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+            first.setdefault(name, " ".join(line.split()))
+    for name, c in sorted(counts.items()):
+        log(f"sass {lib.name} {name}: {c} HMMA/HGMMA; first: "
+            f"{first.get(name, '-')}")
+    for kernel in K8_MMA_KERNELS:
+        bf16 = [n for n in counts if kernel in n and "nv_bfloat16" in n]
+        if not bf16 or not all(counts[n] for n in bf16):
+            failures.append(f"sass: bf16 {kernel} has no tensor-core "
+                            f"instruction ({[counts[n] for n in bf16]})")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -556,12 +616,14 @@ def compare_k7(name, got, want, dtype, rows, failures, ties=None,
     return err
 
 
-def k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt):
+def k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt, w=None):
     """Seeded K7 inputs at He-like scales, affines near (1, 0) rounded to
-    the activation dtype (as the model casts them), and a cotangent."""
+    the activation dtype (as the model casts them), and a cotangent; the
+    sides are hw x hw, or hw x w."""
     import torch
 
-    x = rnd((n, hw, hw, cin), dt)
+    w = hw if w is None else w
+    x = rnd((n, hw, w, cin), dt)
     ws = [rnd((cin, cm), dt, cin ** -0.5),
           rnd((3, 3, cm, cm), dt, (9 * cm) ** -0.5),
           rnd((cm, cout), dt, cm ** -0.5)]
@@ -570,7 +632,7 @@ def k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt):
     widths = [cm] * 4 + [cout] * (4 if proj else 2)
     affs = [(rnd((c,), torch.float32, 0.3) + (1.0 if i % 2 == 0 else 0.0)
              ).to(dt) for i, c in enumerate(widths)]
-    return x, ws, affs, rnd((n, hw, hw, cout), dt)
+    return x, ws, affs, rnd((n, hw, w, cout), dt)
 
 
 def k7_composition(x, ws, affs, proj):
@@ -742,6 +804,17 @@ def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
 # K8 at ResNet-50's three stride-2 transitions: (H = W, Cin, Cm, Cout)
 K8_GEOMETRIES = ((56, 256, 128, 512), (28, 512, 256, 1024),
                  (14, 1024, 512, 2048))
+# k8_numerics: the kernel's error against float64 products may exceed the
+# plain f32 version's by at most this factor on each output
+K8_P64_RATIO = 1.5
+# k8_precision: the kernel's error against float64 products is the tensor
+# core model's within this relative band on each output, and its y is the
+# model's in all but this share of the elements
+K8_MODEL_BAND = 0.1
+K8_MODEL_Y_OFF = 1e-4
+# K8 at ragged shapes, f32 and bf16, untimed: (N, H, W, Cin, Cm, Cout)
+K8_RAGGED = ((3, 10, 10, 24, 16, 40), (3, 6, 10, 6, 4, 10),
+             (8, 28, 28, 512, 256, 1024))
 
 
 def k8_composition(x, ws, affs):
@@ -769,94 +842,114 @@ def k8_composition(x, ws, affs):
 def fused_bottleneck_down_checks(rows, failures, rnd):
     """K8 forward and backward: raw launches and through `_FusedDown`
     against the plain versions, in float32 (batch 2) and bfloat16 (batch
-    128, timed), at the three transition geometries; the tile heights
-    the launches pick are printed per geometry."""
+    128, timed), at the three transition geometries, then untimed at the
+    ragged shapes; the launch plan is printed per geometry.  The
+    transitions take their inputs from `rnd` in the order of the first
+    K8 checks; the ragged shapes draw from a generator of their own, so
+    that the checks after these see the same draws."""
     import torch
 
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
     from paddle_tpu_torch.tools import near_ties as NT
 
-    for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
-        for hw, cin, cm, cout in K8_GEOMETRIES:
-            d = dname(dt)
-            x, ws, affs, _ = k7_inputs(rnd, n, hw, cin, cm, cout, True, dt)
-            dy = rnd((n, hw // 2, hw // 2, cout), dt)
-            aff = FB._pack_affines(affs, cout)
-            tag = f"K8 {hw}^2 {cin}/{cm}/{cout} n={n} {d}"
-            rows_n = n * (hw // 2) ** 2
-            ths = FB.tile_heights(hw, hw, cm, dt, True, True)
-            y = FB._launch_down_fwd(x, *ws, aff)
-            y_ref = FB.fused_bottleneck_down_fwd_ref(x, *ws, aff)
-            ties = (NT.NearTies(x, *ws, aff, True, True, y, y_ref)
-                    if dt == torch.float32 else None)
-            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties,
-                               "y")
-            got = FB._launch_down_bwd(x, dy, *ws, aff)
-            want = FB.fused_bottleneck_down_bwd_ref(x, dy, *ws, aff)
-            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures,
-                               ties, "dx")
-            for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
-                                  got[1:], want[1:]):
-                err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
-                                              rows_n, failures, ties))
-            leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
-            out = FB.fused_bottleneck_down(*leaves)
-            err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
-                                failures, ties, "y")
-            grads = torch.autograd.grad(out, leaves, dy)
-            daff = want[5]
-            cmw = list(want[:5]) + [daff[0, :cm], daff[1, :cm],
-                                    daff[2, :cm], daff[3, :cm]] + [
-                daff[i] for i in range(4, 8)]
-            err_fg = 0.0
-            for i, (g, w) in enumerate(zip(grads, cmw)):
-                if g.dtype != leaves[i].dtype:
-                    failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
-                err_fg = max(err_fg, compare_k7(
-                    f"{tag} Function grad {i}", g, w.to(g.dtype), d,
-                    1 if i == 0 else rows_n, failures, ties,
-                    "dx" if i == 0 else "sum"))
-            del leaves, out, grads, got, want, cmw
-            msg = (f"{tag}: tile rows fwd/B1/B2 {ths}; max_err fwd "
-                   f"{err_f:.3e} bwd {err_b:.3e} Function y {err_fy:.3e} "
-                   f"grads {err_fg:.3e}")
-            if ties is not None:
-                msg += f"; {ties}"
-            if dt == torch.bfloat16:
-                timed = k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout)
-                msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
-                                       else f"{k} {v}"
-                                       for k, v in timed.items())
-                if hw == 56:
-                    common = dict(route="cuda",
-                                  source="paddle_tpu_torch/csrc/"
-                                         "fused_bottleneck.cu")
-                    shape = ("x [128, 56, 56, 256] -> [128, 28, 28, 512], Cm "
-                             "128 (stage-2 transition) bf16")
-                    rows["fused_bottleneck_down_fwd"] = dict(
-                        name="K8 fused_bottleneck_down_fwd",
-                        replaces="paddle_tpu/kernels/fused_bottleneck.py:499",
-                        max_abs_err=max(err_f, err_fy), ms=timed["fwd_ms"],
-                        plain_ms=timed["plain_fwd_ms"],
-                        bound_ms=timed["fwd_bound_ms"],
-                        bound_by=timed["fwd_bound_by"],
-                        library_ms=timed["cudnn_fwd_ms"], shape=shape
-                        + "; library: the cuDNN composition (4 convs + "
-                          "elementwise), not one call", **common)
-                    rows["fused_bottleneck_down_bwd"] = dict(
-                        name="K8 fused_bottleneck_down_bwd",
-                        replaces="paddle_tpu/kernels/fused_bottleneck.py:526",
-                        max_abs_err=max(err_b, err_fg), ms=timed["bwd_ms"],
-                        plain_ms=timed["plain_bwd_ms"],
-                        bound_ms=timed["bwd_bound_ms"],
-                        bound_by=timed["bwd_bound_by"],
-                        library_ms=timed["cudnn_bwd_ms"], shape=shape
-                        + "; kernel_ms is both backward kernels and the "
-                          "wrapper's zeroed grad buffers; library: the "
-                          "cuDNN composition's backward", **common)
-            log(msg)
-            del x, ws, affs, dy, aff, y, y_ref
-            torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd_ragged(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt)
+
+    cases = [(dt, n, hw, hw, cin, cm, cout, rnd)
+             for dt, n in ((torch.float32, 2), (torch.bfloat16, 128))
+             for hw, cin, cm, cout in K8_GEOMETRIES]
+    cases += [(dt, *shape, rnd_ragged) for shape in K8_RAGGED
+              for dt in (torch.float32, torch.bfloat16)]
+    for dt, n, hh, hw, cin, cm, cout, draw in cases:
+        d = dname(dt)
+        x, ws, affs, _ = k7_inputs(draw, n, hh, cin, cm, cout, True, dt, hw)
+        dy = draw((n, hh // 2, hw // 2, cout), dt)
+        aff = FB._pack_affines(affs, cout)
+        tag = f"K8 {hh}x{hw} {cin}/{cm}/{cout} n={n} {d}"
+        rows_n = n * (hh // 2) * (hw // 2)
+        plan = FB.down_plan(n, hh, hw, cin, cm, cout, dt)
+        y = FB._launch_down_fwd(x, *ws, aff)
+        y_ref = FB.fused_bottleneck_down_fwd_ref(x, *ws, aff)
+        ties = (NT.NearTies(x, *ws, aff, True, True, y, y_ref)
+                if dt == torch.float32 else None)
+        err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties,
+                           "y")
+        got = FB._launch_down_bwd(x, dy, *ws, aff)
+        want = FB.fused_bottleneck_down_bwd_ref(x, dy, *ws, aff)
+        err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures,
+                           ties, "dx")
+        for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
+                              got[1:], want[1:]):
+            err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
+                                          rows_n, failures, ties))
+        leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+        out = FB.fused_bottleneck_down(*leaves)
+        err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
+                            failures, ties, "y")
+        grads = torch.autograd.grad(out, leaves, dy)
+        daff = want[5]
+        cmw = list(want[:5]) + [daff[0, :cm], daff[1, :cm],
+                                daff[2, :cm], daff[3, :cm]] + [
+            daff[i] for i in range(4, 8)]
+        err_fg = 0.0
+        for i, (g, w) in enumerate(zip(grads, cmw)):
+            if g.dtype != leaves[i].dtype:
+                failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
+            err_fg = max(err_fg, compare_k7(
+                f"{tag} Function grad {i}", g, w.to(g.dtype), d,
+                1 if i == 0 else rows_n, failures, ties,
+                "dx" if i == 0 else "sum"))
+        del leaves, out, grads, got, want, cmw
+        msg = (f"{tag}: plan tile px fwd/B1/B2 {plan['tile_px']} blocks "
+               f"{plan['blocks']} dW1-4 K slices {plan['slices']} "
+               f"({plan['wgrad_items']} items, {plan['partials']} f32 "
+               f"partials) scratch {plan['scratch_mb']:.1f} MB; max_err "
+               f"fwd {err_f:.3e} bwd {err_b:.3e} Function y "
+               f"{err_fy:.3e} grads {err_fg:.3e}")
+        if ties is not None:
+            msg += f"; {ties}"
+        if dt == torch.bfloat16 and n == 128:
+            msg += "; " + k8_numerics(x, dy, ws, aff, cm, failures, tag)
+            timed = k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout)
+            msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                   else f"{k} {v}"
+                                   for k, v in timed.items())
+            if hw == 56:
+                common = dict(route="cuda",
+                              source="paddle_tpu_torch/csrc/"
+                                     "fused_down.cu")
+                shape = ("x [128, 56, 56, 256] -> [128, 28, 28, 512], Cm "
+                         "128 (stage-2 transition) bf16")
+                rows["fused_bottleneck_down_fwd"] = dict(
+                    name="K8 fused_bottleneck_down_fwd",
+                    replaces="paddle_tpu/kernels/fused_bottleneck.py:499",
+                    max_abs_err=max(err_f, err_fy), ms=timed["fwd_ms"],
+                    plain_ms=timed["plain_fwd_ms"],
+                    bound_ms=timed["fwd_bound_ms"],
+                    bound_by=timed["fwd_bound_by"],
+                    library_ms=timed["cudnn_fwd_ms"], shape=shape
+                    + "; library: the cuDNN composition (4 convs + "
+                      "elementwise), not one call", **common)
+                rows["fused_bottleneck_down_bwd"] = dict(
+                    name="K8 fused_bottleneck_down_bwd",
+                    replaces="paddle_tpu/kernels/fused_bottleneck.py:526",
+                    max_abs_err=max(err_b, err_fg), ms=timed["bwd_ms"],
+                    plain_ms=timed["plain_bwd_ms"],
+                    bound_ms=timed["bwd_bound_ms"],
+                    bound_by=timed["bwd_bound_by"],
+                    library_ms=timed["cudnn_bwd_ms"], shape=shape
+                    + "; kernel_ms is the four backward kernels (B1, "
+                      "B2, the weight-gradient GEMM and its slice sum) "
+                      "and the wrapper's buffers; library: the cuDNN "
+                      "composition's backward", **common)
+        log(msg)
+        del x, ws, affs, dy, aff, y, y_ref
+        torch.cuda.empty_cache()
+    for seed in (6, 7):
+        log(k8_precision(failures, seed))
 
 
 def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
@@ -874,6 +967,7 @@ def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
                             graph=False)
     out["bwd_ms"] = time_ms(lambda: FB._launch_down_bwd(x, dy, *ws, aff), 5,
                             graph=False)
+    out["bwd_split_ms"] = k8_bwd_split(x, dy, ws, aff)
     out["plain_fwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_fwd_ref(
         x, *ws, aff), 3, graph=False)
     out["plain_bwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_bwd_ref(
@@ -901,6 +995,187 @@ def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
     out.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
                bwd_bound_by=bby, gflop_fwd=flops / 1e9)
     return out
+
+
+K8_OUTPUTS = ("y", "dx", "dw1", "dw2", "dw3", "dw4", "daff")
+
+
+def k8_outs(x, dy, ws, aff, cm, dot=None):
+    """K8's y, dx, dW1-4 and its eight affine-grad rows: the kernel's
+    with `dot` "kernel", else the plain version's with its products
+    taken by `dot` (None: its own f32 `_dot`)."""
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    fwd = FB.fused_bottleneck_down_fwd_ref
+    bwd = FB.fused_bottleneck_down_bwd_ref
+    if dot == "kernel":
+        fwd, bwd, dot = FB._launch_down_fwd, FB._launch_down_bwd, None
+    own = FB._dot
+    FB._dot = dot or own
+    try:
+        y = fwd(x, *ws, aff)
+        dx, dw1, dw2, dw3, dw4, daff = bwd(x, dy, *ws, aff)
+    finally:
+        FB._dot = own
+    rows = [daff[i, :cm] if i < 4 else daff[i] for i in range(8)]
+    return [y, dx, dw1, dw2, dw3, dw4], rows
+
+
+def dot64(a, b):
+    """The plain version's products in float64, rounded once to f32."""
+    return (a.double() @ b.double()).float()
+
+
+def rel_err(a, b):
+    """Relative Frobenius error of a against b, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def k8_errs(outs, ref):
+    """rel_err of each K8 output against ref's (the affine grads: the
+    worst of the eight rows), in K8_OUTPUTS order."""
+    errs = [rel_err(a, b) for a, b in zip(outs[0], ref[0])]
+    errs.append(max(rel_err(a, b) for a, b in zip(outs[1], ref[1])))
+    return errs
+
+
+def k8_numerics(x, dy, ws, aff, cm, failures, tag):
+    """K8's bf16 error against float64 products: the relative Frobenius
+    error of y, dx, dW1-4 and the affine grads (the worst of the eight
+    rows) for the kernel against the plain version, the kernel against
+    the plain version with float64 products (`p64`), and the plain
+    version against p64.  Fails unless a second run gives dW1-4 bitwise
+    equal (the slice sums are taken in a fixed order), and where the
+    kernel's error against p64 exceeds K8_P64_RATIO times the plain
+    version's on any output."""
+    import torch
+
+    kern = k8_outs(x, dy, ws, aff, cm, "kernel")
+    again = k8_outs(x, dy, ws, aff, cm, "kernel")
+    plain = k8_outs(x, dy, ws, aff, cm)
+    p64 = k8_outs(x, dy, ws, aff, cm, dot64)
+    same = all(torch.equal(a, b) for a, b in zip(kern[0][2:], again[0][2:]))
+    if not same:
+        failures.append(f"{tag}: dW1-4 differ between two runs")
+    errs = [k8_errs(*pair) for pair in ((kern, plain), (kern, p64),
+                                        (plain, p64))]
+    parts = [" ".join(f"{n} {v:.2e}" for n, v in zip(K8_OUTPUTS, e))
+             for e in errs]
+    for name, k, p in zip(K8_OUTPUTS, errs[1], errs[2]):
+        if k > K8_P64_RATIO * p:
+            failures.append(f"{tag} {name}: kernel error against float64 "
+                            f"products {k:.2e} > {K8_P64_RATIO} x the "
+                            f"plain version's {p:.2e}")
+    return (f"rel Frobenius kernel-plain [{parts[0]}] kernel-p64 "
+            f"[{parts[1]}] plain-p64 [{parts[2]}]; dW1-4 bitwise "
+            f"repeatable {same}")
+
+
+def hmma_dot(toward_zero):
+    """A model of the sums of `pt::tc::product` (csrc/mma.cuh) for the
+    plain version's products: each 16-deep group of K summed exactly
+    (float64), rounded to f32 as one mma returns it (toward zero, or to
+    nearest), and the groups added in K order in f32."""
+    import torch
+
+    def dot(a, b):
+        a, b = a.double(), b.double()
+        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for k0 in range(0, a.shape[1], 16):
+            s = a[:, k0:k0 + 16] @ b[k0:k0 + 16]
+            f = s.float()
+            if toward_zero:
+                f = torch.where(f.double().abs() > s.abs(),
+                                torch.nextafter(f, torch.zeros_like(f)), f)
+            acc += f
+        return acc
+
+    return dot
+
+
+def k8_precision(failures, seed):
+    """K8 in bf16 at the stage-3 transition (28^2 512 -> 1024, Cm 256),
+    batch 8, on the inputs of the small tests' scales (test_torch_fused_
+    down_stem.py `_down_args(seed, ...)`: x 0.5, weights 0.2, affines 1
+    + 0.3 N and 0.1 N; dy from a generator seeded 1), where the
+    activations reach the hundreds (at seed 6, the cuda-marked test's
+    first draw, the kernel's error against float64 products (p64)
+    exceeds the plain f32 version's).  Prints that
+    error for the kernel, the plain version and the plain version on
+    two models of the tensor core's sums (`hmma_dot`: rz toward zero, rn
+    to nearest), per output, and the share of y's elements bitwise
+    equal to the kernel's.  Fails unless the kernel's error is the rz
+    model's within K8_MODEL_BAND on every output and its y is the rz
+    model's in all but K8_MODEL_Y_OFF of the elements: the gap is then
+    the tensor core's arithmetic, not the kernel's indexing."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    n, hw, cin, cm, cout = 8, 28, 512, 256, 1024
+    g = np.random.default_rng(seed).standard_normal
+    arrs = [g((n, hw, hw, cin)) * 0.5, g((cin, cm)) * 0.2,
+            g((3, 3, cm, cm)) * 0.2, g((cm, cout)) * 0.2,
+            g((cin, cout)) * 0.2]
+    for c in (cm, cm, cout, cout):
+        arrs += [g(c) * 0.3 + 1, g(c) * 0.1]
+    x, *ws = [torch.from_numpy(a.astype(np.float32)).to("cuda",
+                                                        torch.bfloat16)
+              for a in arrs]
+    ws, affs = ws[:4], ws[4:]
+    aff = FB._pack_affines(affs, cout)
+    dy = torch.randn((n, hw // 2, hw // 2, cout), device="cuda",
+                     dtype=torch.bfloat16,
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    p64 = k8_outs(x, dy, ws, aff, cm, dot64)
+    runs = {"kernel": k8_outs(x, dy, ws, aff, cm, "kernel"),
+            "plain": k8_outs(x, dy, ws, aff, cm),
+            "rz": k8_outs(x, dy, ws, aff, cm, hmma_dot(True)),
+            "rn": k8_outs(x, dy, ws, aff, cm, hmma_dot(False))}
+    errs = {k: k8_errs(v, p64) for k, v in runs.items()}
+    y = runs["kernel"][0][0]
+    off = {k: torch.ne(v[0][0], y).float().mean().item()
+           for k, v in runs.items() if k != "kernel"}
+    tag = f"K8 28x28 512/256/1024 n={n} bfloat16 weights 0.2 seed {seed}"
+    for name, k, rz in zip(K8_OUTPUTS, errs["kernel"], errs["rz"]):
+        if abs(k - rz) > K8_MODEL_BAND * rz:
+            failures.append(f"{tag} {name}: kernel error against p64 "
+                            f"{k:.3e}, the rz model's {rz:.3e}")
+    if off["rz"] > K8_MODEL_Y_OFF:
+        failures.append(f"{tag}: y differs from the rz model's in "
+                        f"{off['rz']:.2e} of the elements")
+    parts = [f"{k}-p64 [" + " ".join(f"{n} {e:.3e}" for n, e in
+                                     zip(K8_OUTPUTS, v)) + "]"
+             for k, v in errs.items()]
+    return (f"{tag}: rel Frobenius {' '.join(parts)}; y elements off the "
+            "kernel's: " + " ".join(f"{k} {v:.2e}" for k, v in off.items()))
+
+
+def k8_bwd_split(x, dy, ws, aff):
+    """Device ms of one K8 backward by kernel (torch.profiler): B1, B2,
+    the weight-gradient GEMM (W), its slice sum (R) and the rest (the
+    wrapper's zeroed affine grads)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    FB._launch_down_bwd(x, dy, *ws, aff)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FB._launch_down_bwd(x, dy, *ws, aff)
+        torch.cuda.synchronize()
+    parts = {"B1": 0.0, "B2": 0.0, "W": 0.0, "R": 0.0, "rest": 0.0}
+    names = {"down_bwd1_kernel": "B1", "down_bwd2_kernel": "B2",
+             "down_wgrad_kernel": "W", "down_wsum_kernel": "R"}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.self_device_time_total <= 0:
+            continue
+        part = next((v for k, v in names.items() if k in e.key), "rest")
+        parts[part] += e.self_device_time_total / 1e3
+    return "/".join(f"{k} {v:.4f}" for k, v in parts.items())
 
 
 def stem_inputs(rnd, shape, dt, ties):
@@ -1441,7 +1716,7 @@ def resnet_run(mode, failures, steps=5, batch=128):
     profile_train_step(step, state, (x, y), mean_ms, label=label)
     del model, state, step
     torch.cuda.empty_cache()
-    return launches, mean_ms
+    return launches, mean_ms, peak
 
 
 def resnet_phase(failures):
@@ -1452,16 +1727,17 @@ def resnet_phase(failures):
     import collections
 
     launches = collections.Counter()
-    step_ms = {}
+    step_ms, peak = {}, {}
     for mode in ("full", "id", "unfused"):
-        made, step_ms[mode] = resnet_run(mode, failures)
+        made, step_ms[mode], peak[mode] = resnet_run(mode, failures)
         launches.update(made)
     for name in RESNET_LAUNCHES["full"]:
         if launches.get(name, 0) < 1:
             failures.append(f"{name} never launched on the ResNet path")
-    log(f"resnet step ms: full (K7 x13, K8 x3, K9) {step_ms['full']:.3f}, "
-        f"id (K7 x12) {step_ms['id']:.3f}, unfused "
-        f"{step_ms['unfused']:.3f}")
+    log(f"resnet step ms (peak memory GiB): full (K7 x13, K8 x3, K9) "
+        f"{step_ms['full']:.3f} ({peak['full'] / 2 ** 30:.3f}), id (K7 x12) "
+        f"{step_ms['id']:.3f} ({peak['id'] / 2 ** 30:.3f}), unfused "
+        f"{step_ms['unfused']:.3f} ({peak['unfused'] / 2 ** 30:.3f})")
     return dict(launches)
 
 
@@ -2421,7 +2697,8 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     failures = []
-    phases = (("kernels", kernel_phase), ("probes", probes_phase),
+    phases = (("sass", sass_phase), ("kernels", kernel_phase),
+              ("probes", probes_phase),
               ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("checks", check_phase))

@@ -1,5 +1,5 @@
-// K7: fused stride-1 ResNet bottleneck block, and K8: the stride-2
-// transition block, forward and backward, for Hopper (sm_90a).
+// K7: fused stride-1 ResNet bottleneck block, forward and backward, for
+// Hopper (sm_90a).
 //
 // Replaces paddle_tpu/kernels/fused_bottleneck.py `_fwd_kernel` (driven by
 // `_fwd`) and `_bwd_kernel` (driven by `_bwd`), public there as
@@ -77,30 +77,11 @@
 // on the CUDA cores (67 TFLOP/s peak), so it is bound by them, far above
 // either bound; the backward does about 3x the forward's operations.
 //
-// K8 replaces `_fwd_kernel_down` (driven by `_fwd_down`) and
-// `_bwd_kernel_down` (`_bwd_down`), public there as `fused_bottleneck_down`:
-//   h0  = round(relu(a1 * (x @ w1) + b1))                    at H x W
-//   h1  = round(relu(a2 * conv3x3_s2(h0, w2) + b2))          at H/2 x W/2
-//   y   = round(relu(a3 * (h1 @ w3) + b3 + a4 * (x[:, ::2, ::2] @ w4) + b4))
-// with the same rounding points as K7's projection block.  It is K7's
-// forward and B1 kernels at stride 2 (template flag kDown): a tile of TH
-// output rows recomputes h0 on input rows 2 r0 - 1 .. 2 (r0 + TH) - 1, so
-// 2 TH + 1 rows, and the patch loader and the shortcut's loader step by 2.
-// ResNet-50's transitions have W * Cm = 7168 at every stage, twice K7's,
-// so the tiles are shorter: in bf16 the forward takes TH 4 and B1 TH 2.
-// The backward's dh0 is the stride-2 conv transposed: input pixel (2i +
-// py, 2j + px) receives tap 1 (py = 0) or taps 0 and 2 (py = 1, from
-// output rows i + 1 and i) in each direction, so B2 (`down_bwd2_kernel`)
-// runs one GEMM per input phase, nine taps over the four phases, against
-// dc1 read from B1's scratch including one output row below the tile.
-// The shortcut's dx lands on phase (0, 0) only: dx there is one f32 sum
-// of dc0 w1^T and dc4 w4^T, elsewhere dc0 w1^T alone.
-//
-// Bound on the H100 at batch 128, for each of the three transitions (56^2
-// 256 -> 512 Cm 128; 28^2 512 -> 1024 Cm 256; 14^2 1024 -> 2048 Cm 512):
-// 2 R_out (4 Cin Cm + 9 Cm^2 + Cm Cout + Cin Cout) = 95.4 GFLOP per
-// forward, 0.096 ms at 989 TFLOP/s, against 0.092 / 0.046 / 0.023 ms for
-// x + y: operation-bound.  The CUDA-core GEMM runs it far above that.
+// K8, the stride-2 transition block, is in csrc/fused_down.cu, on the
+// tensor-core routine of csrc/mma.cuh.  The launchers here run stride 1
+// only; the kernel templates' kDown flag (the stride-2 tile, patch and
+// shortcut loaders) is instantiated no more and goes when K7 moves to
+// that routine.
 //
 // P1 and P2 replace the two stripped kernels of tools/fused_probe.py
 // (`p4_conv_only`, pallas_call :88; `p5_matmuls`, pallas_call :114): K7's
@@ -746,145 +727,6 @@ bottleneck_bwd2_kernel(Geo g, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K8 backward, kernel B2: dh0 (the stride-2 3x3 conv transposed, by input
-// phase), dc0, dW1, dW4, dx
-// ---------------------------------------------------------------------------
-
-// A tile of th output rows owns input rows 2 r0 .. 2 (r0 + rows) - 1.  Input
-// pixel (2 i + py, 2 j + px) -- phase (py, px) of output cell (i, j) --
-// receives tap (ky, kx) of output pixel ((2 i + py + 1 - ky) / 2, ...)
-// where that is whole: ky = 1 for py = 0, ky in {0, 2} for py = 1 (rows
-// i + 1 and i), and the same for the columns.  So each phase is one GEMM
-// over the tile's output cells with K = (its taps) x Cm, nine taps over
-// the four phases in all, and dc1 is read from the scratch one output row
-// below the tile as well.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-down_bwd2_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ dy,
-                 const T* __restrict__ w1, const T* __restrict__ w2,
-                 const T* __restrict__ w4, const float* __restrict__ aff,
-                 const T* __restrict__ dc1g, const uint8_t* __restrict__ mask,
-                 T* __restrict__ dx, float* __restrict__ dw1,
-                 float* __restrict__ dw4, float* __restrict__ daff) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const B2Layout L = b2_layout(g.th, g.w, g.cm, sizeof(T), true);
-  float* As = reinterpret_cast<float*>(smem + L.as);
-  float* Bs = reinterpret_cast<float*>(smem + L.bs);
-  short* rowt = reinterpret_cast<short*>(smem + L.row);
-  short* colt = reinterpret_cast<short*>(smem + L.col);
-  float* c0f = reinterpret_cast<float*>(smem + L.c0);
-  T* dc0s = reinterpret_cast<T*>(smem + L.dc0);
-  float* dA = reinterpret_cast<float*>(smem + L.daff);  // rows 0, 1: [2][Cm]
-  const Tile t = tile_of<true>(g);
-  const int tid = threadIdx.x;
-  const int ho = g.h >> 1;
-  const int pin = 2 * t.rows * g.w;  // own input pixels
-  const long long xin = (static_cast<long long>(t.img) * g.h + 2 * t.r0) *
-                        g.w;         // the first of them
-  const float* a1 = aff;
-  const float* b1 = aff + g.aw;
-  const float* a4 = aff + 6 * g.aw;
-  // own input pixel (local index) of phase (py, px) of output cell m
-  auto qof = [&](int m, int py, int px) {
-    return (2 * rowt[m] + py) * g.w + 2 * colt[m] + px;
-  };
-
-  fill_tables(t, rowt, colt);
-  for (int i = tid; i < 2 * g.cm; i += kThreads) dA[i] = 0.f;
-  gemm<false, false>(
-      pin, g.cm, g.cin,
-      [&](int m, int k) { return pt::to_f32(x[(xin + m) * g.cin + k]); },
-      [&](int k, int n) { return pt::to_f32(w1[size_t(k) * g.cm + n]); },
-      [&](int m, int n, float v) { c0f[m * g.cm + n] = v; }, As, Bs);
-  for (int ph = 0; ph < 4; ++ph) {
-    const int py = ph >> 1, px = ph & 1;
-    const int nx = px ? 2 : 1;
-    const int ntaps = (py ? 2 : 1) * nx;
-    // tap index -> (ky, kx); the dc1 row and column it reads
-    auto tap_of = [&](int k, int& ky, int& kx) {
-      const int tp = k >> g.lgcm, iy = tp / nx, ix = tp - nx * iy;
-      ky = py ? 2 * iy : 1;
-      kx = px ? 2 * ix : 1;
-    };
-    gemm<false, true>(
-        t.P, g.cm, ntaps * g.cm,
-        [&](int m, int k) {
-          int ky, kx;
-          tap_of(k, ky, kx);
-          const int i = t.r0 + rowt[m] + ((py + 1 - ky) >> 1);
-          const int j = colt[m] + ((px + 1 - kx) >> 1);
-          if (i >= ho || j >= t.wo) return 0.f;
-          return pt::to_f32(
-              dc1g[((static_cast<long long>(t.img) * ho + i) * t.wo + j) *
-                       g.cm + (k & (g.cm - 1))]);
-        },
-        [&](int k, int n) {
-          int ky, kx;
-          tap_of(k, ky, kx);
-          return pt::to_f32(
-              w2[(size_t(ky * 3 + kx) * g.cm + n) * g.cm + (k & (g.cm - 1))]);
-        },
-        [&](int m, int n, float v) {
-          const int q = qof(m, py, px);
-          const float c0 = c0f[q * g.cm + n];
-          const float du0 = affine(c0, a1[n], b1[n]) > 0.f ? v : 0.f;
-          atomicAdd(dA + n, du0 * pt::to_f32(pt::from_f32<T>(c0)));
-          atomicAdd(dA + g.cm + n, du0);
-          dc0s[q * g.cm + n] = pt::from_f32<T>(du0 * a1[n]);
-        },
-        As, Bs);
-  }
-  __syncthreads();
-  for (int c = tid; c < g.cm; c += kThreads) {
-    atomicAdd(daff + c, dA[c]);
-    atomicAdd(daff + g.aw + c, dA[g.cm + c]);
-  }
-  // dc4 = round(dz3 * a4) at output cell m, dz3 from B1's mask and dy
-  auto dc4 = [&](int m, int col) {
-    const long long at = (t.own + m) * g.cout + col;
-    const float dz3 = mask[at] ? pt::to_f32(dy[at]) : 0.f;
-    return pt::to_f32(pt::from_f32<T>(dz3 * a4[col]));
-  };
-  // dW1 += x^T dc0 over the own input pixels
-  gemm<true, false>(
-      g.cin, g.cm, pin,
-      [&](int m, int k) { return pt::to_f32(x[(xin + k) * g.cin + m]); },
-      [&](int k, int n) { return pt::to_f32(dc0s[k * g.cm + n]); },
-      [&](int m, int n, float v) { atomicAdd(dw1 + size_t(m) * g.cm + n, v); },
-      As, Bs);
-  // dW4 += x[:, ::2, ::2]^T dc4 over the tile's output cells
-  gemm<true, false>(
-      g.cin, g.cout, t.P,
-      [&](int m, int k) {
-        return pt::to_f32(x[(xin + qof(k, 0, 0)) * g.cin + m]);
-      },
-      [&](int k, int n) { return dc4(k, n); },
-      [&](int m, int n, float v) {
-        atomicAdd(dw4 + size_t(m) * g.cout + n, v);
-      },
-      As, Bs);
-  // dx = dc0 w1^T, plus dc4 w4^T at phase (0, 0): one f32 sum, rounded once
-  for (int ph = 0; ph < 4; ++ph) {
-    const int py = ph >> 1, px = ph & 1;
-    gemm<false, true>(
-        t.P, g.cin, g.cm + (ph == 0 ? g.cout : 0),
-        [&](int m, int k) {
-          return k < g.cm ? pt::to_f32(dc0s[qof(m, py, px) * g.cm + k])
-                          : dc4(m, k - g.cm);
-        },
-        [&](int k, int n) {
-          return k < g.cm ? pt::to_f32(w1[size_t(n) * g.cm + k])
-                          : pt::to_f32(w4[size_t(n) * g.cout + (k - g.cm)]);
-        },
-        [&](int m, int n, float v) {
-          dx[(xin + qof(m, py, px)) * g.cin + n] = pt::from_f32<T>(v);
-        },
-        As, Bs);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the probes: K7's 3x3 product alone (P1) and its 1x1 chain alone (P2)
 // ---------------------------------------------------------------------------
 
@@ -964,20 +806,20 @@ int max_smem() {
 }
 
 // Over `rows` output rows, the TH <= 8 whose shared memory fits and whose
-// tiles compute the fewest rows, ceil(rows / TH) (s TH + halo) with s the
-// stride (K7: TH + 2 h0 rows at stride 1; K8: 2 TH + 1); ties go to the
-// larger TH.  Without a halo (B2) the fewest tiles come first: each tile
-// adds a whole weight gradient with atomics.  0 when none fits.
+// tiles compute the fewest rows, ceil(rows / TH) (TH + halo) (K7: TH + 2
+// h0 rows); ties go to the larger TH.  Without a halo (B2) the fewest
+// tiles come first: each tile adds a whole weight gradient with atomics.
+// 0 when none fits.
 template <class Bytes>
-int pick_th(int rows, int s, int halo, const Bytes& bytes) {
+int pick_th(int rows, int halo, const Bytes& bytes) {
   const size_t limit = static_cast<size_t>(max_smem());
   int best = 0;
   long long best_cost = 0;
   for (int th = 1; th <= (rows < kMaxTH ? rows : kMaxTH); ++th) {
     if (bytes(th) > limit) continue;
     const long long tiles = (rows + th - 1) / th;
-    const long long cost = tiles * (s * th + halo) +
-                           (halo == 0 ? tiles * s * kMaxTH * rows : 0);
+    const long long cost = tiles * (th + halo) +
+                           (halo == 0 ? tiles * kMaxTH * rows : 0);
     if (best == 0 || cost <= best_cost) {
       best = th;
       best_cost = cost;
@@ -992,35 +834,32 @@ struct Ths {
 };
 
 template <typename T>
-Ths pick_ths(int h, int w, int cm, bool proj, bool down) {
-  const int s = down ? 2 : 1, rows = h / s;
+Ths pick_ths(int h, int w, int cm, bool proj) {
   Ths r;
-  r.fwd = pick_th(rows, s, 3 - s, [&](int t) {
-    return fwd_layout(t, w, cm, sizeof(T), proj, down).total;
+  r.fwd = pick_th(h, 2, [&](int t) {
+    return fwd_layout(t, w, cm, sizeof(T), proj, false).total;
   });
-  r.b1 = pick_th(rows, s, 3 - s, [&](int t) {
-    return b1_layout(t, w, cm, sizeof(T), proj, down).total;
+  r.b1 = pick_th(h, 2, [&](int t) {
+    return b1_layout(t, w, cm, sizeof(T), proj, false).total;
   });
-  r.b2 = pick_th(rows, s, 0, [&](int t) {
-    return b2_layout(t, w, cm, sizeof(T), down).total;
+  r.b2 = pick_th(h, 0, [&](int t) {
+    return b2_layout(t, w, cm, sizeof(T), false).total;
   });
   return r;
 }
 
-Geo make_geo(int n, int h, int w, int cin, int cm, int cout, int aw, int th,
-             bool down) {
+Geo make_geo(int n, int h, int w, int cin, int cm, int cout, int aw,
+             int th) {
   int lg = 0;
   while ((1 << lg) < cm) ++lg;
-  const int rows = down ? h / 2 : h;
-  return Geo{n, h, w, cin, cm, lg, cout, aw, th, (rows + th - 1) / th};
+  return Geo{n, h, w, cin, cm, lg, cout, aw, th, (h + th - 1) / th};
 }
 
 bool geo_ok(int n, int h, int w, int cin, int cm, int cout, int aw,
-            bool proj, bool down) {
+            bool proj) {
   if (n < 1 || h < 1 || w < 1 || cin < 1 || cm < 1 || cout < 1) return false;
   if (cm & (cm - 1)) return false;                 // Cm a power of two
   if (!proj && cin != cout) return false;          // identity shortcut
-  if (down && (h % 2 || w % 2)) return false;      // K8: even sides
   if (aw < cm || aw < cout) return false;
   if (w * kMaxTH > 32767) return false;            // short pixel tables
   return true;
@@ -1032,18 +871,18 @@ cudaError_t set_smem(Kernel k, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, bool kProj, bool kDown>
+template <typename T, bool kProj>
 cudaError_t launch_fwd(const void* x, const void* w1, const void* w2,
                        const void* w3, const void* w4, const void* aff,
                        void* y, int n, int h, int w, int cin, int cm,
                        int cout, int aw, cudaStream_t st) {
-  const int th = pick_ths<T>(h, w, cm, kProj, kDown).fwd;
+  const int th = pick_ths<T>(h, w, cm, kProj).fwd;
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cin, cm, cout, aw, th, kDown);
-  const size_t smem = fwd_layout(th, w, cm, sizeof(T), kProj, kDown).total;
-  cudaError_t err = set_smem(bottleneck_fwd_kernel<T, kProj, kDown>, smem);
+  const Geo g = make_geo(n, h, w, cin, cm, cout, aw, th);
+  const size_t smem = fwd_layout(th, w, cm, sizeof(T), kProj, false).total;
+  cudaError_t err = set_smem(bottleneck_fwd_kernel<T, kProj, false>, smem);
   if (err != cudaSuccess) return err;
-  bottleneck_fwd_kernel<T, kProj, kDown>
+  bottleneck_fwd_kernel<T, kProj, false>
       <<<n * g.tiles_per_img, kThreads, smem, st>>>(
           g, static_cast<const T*>(x), static_cast<const T*>(w1),
           static_cast<const T*>(w2), static_cast<const T*>(w3),
@@ -1052,22 +891,22 @@ cudaError_t launch_fwd(const void* x, const void* w1, const void* w2,
   return cudaGetLastError();
 }
 
-template <typename T, bool kProj, bool kDown>
+template <typename T, bool kProj>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* w1,
                        const void* w2, const void* w3, const void* w4,
                        const void* aff, void* dx, void* dw1, void* dw2,
                        void* dw3, void* dw4, void* daff, void* dc1,
                        void* mask, int n, int h, int w, int cin, int cm,
                        int cout, int aw, cudaStream_t st) {
-  const Ths ths = pick_ths<T>(h, w, cm, kProj, kDown);
+  const Ths ths = pick_ths<T>(h, w, cm, kProj);
   if (ths.b1 == 0 || ths.b2 == 0) return cudaErrorInvalidValue;
-  const Geo g1 = make_geo(n, h, w, cin, cm, cout, aw, ths.b1, kDown);
-  const Geo g2 = make_geo(n, h, w, cin, cm, cout, aw, ths.b2, kDown);
-  const size_t s1 = b1_layout(ths.b1, w, cm, sizeof(T), kProj, kDown).total;
-  const size_t s2 = b2_layout(ths.b2, w, cm, sizeof(T), kDown).total;
-  cudaError_t err = set_smem(bottleneck_bwd1_kernel<T, kProj, kDown>, s1);
+  const Geo g1 = make_geo(n, h, w, cin, cm, cout, aw, ths.b1);
+  const Geo g2 = make_geo(n, h, w, cin, cm, cout, aw, ths.b2);
+  const size_t s1 = b1_layout(ths.b1, w, cm, sizeof(T), kProj, false).total;
+  const size_t s2 = b2_layout(ths.b2, w, cm, sizeof(T), false).total;
+  cudaError_t err = set_smem(bottleneck_bwd1_kernel<T, kProj, false>, s1);
   if (err != cudaSuccess) return err;
-  bottleneck_bwd1_kernel<T, kProj, kDown>
+  bottleneck_bwd1_kernel<T, kProj, false>
       <<<n * g1.tiles_per_img, kThreads, s1, st>>>(
           g1, static_cast<const T*>(x), static_cast<const T*>(dy),
           static_cast<const T*>(w1), static_cast<const T*>(w2),
@@ -1077,7 +916,7 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* w1,
           static_cast<T*>(dc1), static_cast<uint8_t*>(mask));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto b2 = kDown ? down_bwd2_kernel<T> : bottleneck_bwd2_kernel<T, kProj>;
+  auto b2 = bottleneck_bwd2_kernel<T, kProj>;
   err = set_smem(b2, s2);
   if (err != cudaSuccess) return err;
   b2<<<n * g2.tiles_per_img, kThreads, s2, st>>>(
@@ -1099,10 +938,10 @@ struct ProbeThs {
 template <typename T>
 ProbeThs pick_probe_ths(int h, int w, int cm) {
   ProbeThs r;
-  r.conv = pick_th(h, 1, 2, [&](int t) {
+  r.conv = pick_th(h, 2, [&](int t) {
     return probe_layout(t, w, cm, sizeof(T), true).total;
   });
-  r.mm = pick_th(h, 1, 0, [&](int t) {
+  r.mm = pick_th(h, 0, [&](int t) {
     return probe_layout(t, w, cm, sizeof(T), false).total;
   });
   return r;
@@ -1113,7 +952,7 @@ cudaError_t launch_probe_conv(const void* x, const void* w2, void* y, int n,
                               int h, int w, int cm, cudaStream_t st) {
   const int th = pick_probe_ths<T>(h, w, cm).conv;
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cm, cm, cm, cm, th, false);
+  const Geo g = make_geo(n, h, w, cm, cm, cm, cm, th);
   const size_t smem = probe_layout(th, w, cm, sizeof(T), true).total;
   cudaError_t err = set_smem(probe_conv3x3_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -1129,7 +968,7 @@ cudaError_t launch_probe_mm(const void* x, const void* w1, const void* w3,
                             cudaStream_t st) {
   const int th = pick_probe_ths<T>(h, w, cm).mm;
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cin, cm, cin, cin, th, false);
+  const Geo g = make_geo(n, h, w, cin, cm, cin, cin, th);
   const size_t smem = probe_layout(th, w, cm, sizeof(T), false).total;
   cudaError_t err = set_smem(probe_matmuls_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -1152,7 +991,7 @@ int blocks_per_sm(Kernel k, size_t smem) {
 template <typename T>
 int probe_tiles(int h, int w, int cm, int* out) {
   const ProbeThs r = pick_probe_ths<T>(h, w, cm);
-  const int fwd = pick_ths<T>(h, w, cm, false, false).fwd;
+  const int fwd = pick_ths<T>(h, w, cm, false).fwd;
   out[0] = r.conv;
   out[1] = r.mm;
   out[2] = fwd ? blocks_per_sm(bottleneck_fwd_kernel<T, false, false>,
@@ -1183,12 +1022,12 @@ extern "C" int pt_fused_bottleneck_fwd(const void* x, const void* w1,
                                        void* y, int n, int h, int w, int cin,
                                        int cm, int cout, int aw, int dtype,
                                        int proj, void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0, false))
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PT_FWD(T, P)                                                   \
-  launch_fwd<T, P, false>(x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, \
-                          cout, aw, st)
+  launch_fwd<T, P>(x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, cout, aw, \
+                   st)
   if (dtype == pt::kFloat32)
     return int(proj ? PT_FWD(float, true) : PT_FWD(float, false));
   if (dtype == pt::kBFloat16)
@@ -1209,13 +1048,12 @@ extern "C" int pt_fused_bottleneck_bwd(
     void* dw2, void* dw3, void* dw4, void* daff, void* dc1, void* mask, int n,
     int h, int w, int cin, int cm, int cout, int aw, int dtype, int proj,
     void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0, false))
+  if (!geo_ok(n, h, w, cin, cm, cout, aw, proj != 0))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PT_BWD(T, P)                                                     \
-  launch_bwd<T, P, false>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, \
-                          dw4, daff, dc1, mask, n, h, w, cin, cm, cout,  \
-                          aw, st)
+  launch_bwd<T, P>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, dw4, \
+                   daff, dc1, mask, n, h, w, cin, cm, cout, aw, st)
   if (dtype == pt::kFloat32)
     return int(proj ? PT_BWD(float, true) : PT_BWD(float, false));
   if (dtype == pt::kBFloat16)
@@ -1225,70 +1063,12 @@ extern "C" int pt_fused_bottleneck_bwd(
   return int(cudaErrorInvalidValue);
 }
 
-// K8.  x: [n, h, w, cin] with h and w even, w1: [cin, cm], w2: [3, 3, cm,
-// cm] (HWIO), w3: [cm, cout], w4: [cin, cout], y: [n, h/2, w/2, cout], all
-// contiguous in `dtype`; aff: [8, aw] float32 as above; cm a power of two.
-// Returns cudaGetLastError() after the launch.
-extern "C" int pt_fused_bottleneck_down_fwd(const void* x, const void* w1,
-                                            const void* w2, const void* w3,
-                                            const void* w4, const void* aff,
-                                            void* y, int n, int h, int w,
-                                            int cin, int cm, int cout, int aw,
-                                            int dtype, void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, true, true))
-    return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kFloat32)
-    return int(launch_fwd<float, true, true>(x, w1, w2, w3, w4, aff, y, n, h,
-                                             w, cin, cm, cout, aw, st));
-  if (dtype == pt::kBFloat16)
-    return int(launch_fwd<__nv_bfloat16, true, true>(
-        x, w1, w2, w3, w4, aff, y, n, h, w, cin, cm, cout, aw, st));
-  return int(cudaErrorInvalidValue);
-}
-
-// As pt_fused_bottleneck_down_fwd, plus dy: [n, h/2, w/2, cout].  Writes dx
-// ([n, h, w, cin], `dtype`) and ADDS into dw1..dw4 and daff (float32),
-// which the caller zeroes.  Scratch: dc1 [n*h/2*w/2, cm] in `dtype` and
-// mask [n*h/2*w/2, cout] bytes.  Launches B1 then B2 on `stream`.
-extern "C" int pt_fused_bottleneck_down_bwd(
-    const void* x, const void* dy, const void* w1, const void* w2,
-    const void* w3, const void* w4, const void* aff, void* dx, void* dw1,
-    void* dw2, void* dw3, void* dw4, void* daff, void* dc1, void* mask, int n,
-    int h, int w, int cin, int cm, int cout, int aw, int dtype,
-    void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cout, aw, true, true))
-    return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_BWD(T)                                                          \
-  launch_bwd<T, true, true>(x, dy, w1, w2, w3, w4, aff, dx, dw1, dw2, dw3, \
-                            dw4, daff, dc1, mask, n, h, w, cin, cm, cout,  \
-                            aw, st)
-  if (dtype == pt::kFloat32) return int(PT_BWD(float));
-  if (dtype == pt::kBFloat16) return int(PT_BWD(__nv_bfloat16));
-#undef PT_BWD
-  return int(cudaErrorInvalidValue);
-}
-
-// The tile heights (output rows) the launches above pick for one geometry
-// on the current device: out[0..2] = forward, B1, B2; 0 where none fits.
-extern "C" int pt_fused_bottleneck_tiles(int h, int w, int cm, int dtype,
-                                         int proj, int down, int* out) {
-  const Ths r = dtype == pt::kFloat32
-                    ? pick_ths<float>(h, w, cm, proj != 0, down != 0)
-                    : pick_ths<__nv_bfloat16>(h, w, cm, proj != 0, down != 0);
-  out[0] = r.fwd;
-  out[1] = r.b1;
-  out[2] = r.b2;
-  return 0;
-}
-
 // P1.  x, y: [n, h, w, cm]; w2: [3, 3, cm, cm] (HWIO); all contiguous in
 // `dtype`; cm a power of two.  Returns cudaGetLastError() after the launch.
 extern "C" int pt_probe_conv3x3(const void* x, const void* w2, void* y, int n,
                                 int h, int w, int cm, int dtype,
                                 void* stream) {
-  if (!geo_ok(n, h, w, cm, cm, cm, cm, false, false))
+  if (!geo_ok(n, h, w, cm, cm, cm, cm, false))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32)
@@ -1303,7 +1083,7 @@ extern "C" int pt_probe_conv3x3(const void* x, const void* w2, void* y, int n,
 extern "C" int pt_probe_matmuls(const void* x, const void* w1, const void* w3,
                                 void* y, int n, int h, int w, int cin, int cm,
                                 int dtype, void* stream) {
-  if (!geo_ok(n, h, w, cin, cm, cin, cin, false, false))
+  if (!geo_ok(n, h, w, cin, cm, cin, cin, false))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32)

@@ -49,11 +49,13 @@ Pallas `_stem_bwd_kernel` :775), not to the first.  Above a side of 112
 the reference dispatches to its XLA composition (`_stem_tail_xla`
 :892), whose pool gradient goes to the first maximum; the port keeps
 that dispatch (it decides the tie rule), with its own `pool2d` in the
-composition.  The CUDA kernels of K8 are in `csrc/fused_bottleneck.cu`
-beside K7's, K9's in `csrc/fused_stem_tail.cu`.
+composition.  K8's CUDA kernels are in `csrc/fused_down.cu`, on the
+tensor-core product routine of `csrc/mma.cuh` (its backward writes
+scratch that `down_plan` sizes), K9's in `csrc/fused_stem_tail.cu`.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as TF
@@ -65,13 +67,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "pt_fused_bottleneck_fwd": [_P] * 7 + [_I] * 9 + [_P],
     "pt_fused_bottleneck_bwd": [_P] * 15 + [_I] * 9 + [_P],
-    "pt_fused_bottleneck_down_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    "pt_fused_bottleneck_down_bwd": [_P] * 15 + [_I] * 8 + [_P],
-    "pt_fused_bottleneck_tiles": [_I] * 6 + [_P],
     # P1 and P2 (`fused_probe.py`) live in this library, on K7's routine
     "pt_probe_conv3x3": [_P] * 3 + [_I] * 5 + [_P],
     "pt_probe_matmuls": [_P] * 4 + [_I] * 6 + [_P],
     "pt_probe_tiles": [_I] * 4 + [_P],
+}
+# K8 (csrc/fused_down.cu)
+_DOWN_SIGS = {
+    "pt_fused_down_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "pt_fused_down_bwd": [_P] * 20 + [_I] * 8 + [_P],
+    "pt_fused_down_plan": [_I] * 7 + [_P],
 }
 _STEM_SIGS = {
     "pt_fused_stem_tail_fwd": [_P] * 3 + [_I] * 5 + [_P],
@@ -269,17 +274,6 @@ def _dims(x, w1, w3, aff, proj):
     n, h, w, cin = x.shape
     return (n, h, w, cin, w1.shape[1], w3.shape[1], aff.shape[1],
             _DTYPE_CODES[x.dtype], int(proj))
-
-
-def tile_heights(h, w, cm, dtype, proj, down):
-    """The output rows per tile that the K7 (down=False) or K8 launches
-    pick on the current CUDA device for an input of sides h x w: (forward,
-    backward B1, backward B2); 0 where no tile fits in shared memory."""
-    lib = backend.load("fused_bottleneck", _SIGS)
-    out = (ctypes.c_int * 3)()
-    lib.pt_fused_bottleneck_tiles(h, w, cm, _DTYPE_CODES[dtype], int(proj),
-                                  int(down), ctypes.addressof(out))
-    return tuple(out)
 
 
 def _launch_fwd(x, w1, w2, w3, w4, aff, proj):
@@ -513,15 +507,51 @@ def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
     return dx, dw1, dw2, dw3, dw4, daff
 
 
+def down_plan(n, h, w, cin, cm, cout, dtype, device=None):
+    """K8's launch plan on a CUDA device (default: the current one;
+    `pt_fused_down_plan`): per kernel (forward, B1, B2) the output rows
+    and pixels of a tile, the blocks and the shared memory; the K slices
+    of dW1..dW4 and the weight-gradient GEMM's items; the float32 partials
+    those slices store (one per slice per weight element, summed in slice
+    order) and the backward's scratch in MB (h0, dc0 [R_in, Cm]; h1, dc1
+    [R_out, Cm]; dc2, dc4 [R_out, Cout] in the activation dtype, and the
+    partials).  Planned once per device, geometry and dtype."""
+    index = torch.device("cuda" if device is None else device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return dict(_down_plan(index, n, h, w, cin, cm, cout, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _down_plan(index, n, h, w, cin, cm, cout, dtype):
+    lib = backend.load("fused_down", _DOWN_SIGS)
+    out = (ctypes.c_longlong * 15)()
+    with torch.cuda.device(index):
+        status = lib.pt_fused_down_plan(n, h, w, cin, cm, cout,
+                                        _DTYPE_CODES[dtype],
+                                        ctypes.addressof(out))
+    backend.check(status, "fused_down_plan")
+    out = list(out)
+    elt = torch.empty((), dtype=dtype).element_size()
+    r_in, r_out = n * h * w, n * (h // 2) * (w // 2)
+    scratch = (2 * r_in * cm + 2 * r_out * cm + 2 * r_out * cout) * elt
+    return dict(tile_rows=tuple(out[0:3]),
+                tile_px=tuple(t * (w // 2) for t in out[0:3]),
+                blocks=tuple(out[3:6]), smem=tuple(out[6:9]),
+                slices=tuple(out[9:13]), partials=out[13],
+                wgrad_items=out[14],
+                scratch_mb=(scratch + 4 * out[13]) / 1e6)
+
+
 def _launch_down_fwd(x, w1, w2, w3, w4, aff):
     _check_launch(x, w1, w2, w3, w4)
     aff = aff.contiguous()
-    lib = backend.load("fused_bottleneck", _SIGS)
+    lib = backend.load("fused_down", _DOWN_SIGS)
     n, h, w, _ = x.shape
     y = torch.empty((n, h // 2, w // 2, w3.shape[1]), dtype=x.dtype,
                     device=x.device)
     with torch.cuda.device(x.device):
-        status = lib.pt_fused_bottleneck_down_fwd(
+        status = lib.pt_fused_down_fwd(
             x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
             w4.data_ptr(), aff.data_ptr(), y.data_ptr(),
             *_dims(x, w1, w3, aff, True)[:-1],
@@ -534,23 +564,31 @@ def _launch_down_fwd(x, w1, w2, w3, w4, aff):
 def _launch_down_bwd(x, dy, w1, w2, w3, w4, aff):
     _check_launch(x, w1, w2, w3, w4)
     dy, aff = dy.contiguous(), aff.contiguous()
-    lib = backend.load("fused_bottleneck", _SIGS)
-    n, h, w, _ = x.shape
+    lib = backend.load("fused_down", _DOWN_SIGS)
+    n, h, w, cin = x.shape
     cm, cout = w1.shape[1], w3.shape[1]
-    r_out = n * (h // 2) * (w // 2)
+    r_in, r_out = n * h * w, n * (h // 2) * (w // 2)
+    partials = down_plan(n, h, w, cin, cm, cout, x.dtype,
+                         x.device)["partials"]
     f32 = dict(dtype=torch.float32, device=x.device)
+    act = dict(dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    dw1, dw2 = torch.zeros(w1.shape, **f32), torch.zeros(w2.shape, **f32)
-    dw3, dw4 = torch.zeros(w3.shape, **f32), torch.zeros(w4.shape, **f32)
+    dw1, dw2 = torch.empty(w1.shape, **f32), torch.empty(w2.shape, **f32)
+    dw3, dw4 = torch.empty(w3.shape, **f32), torch.empty(w4.shape, **f32)
     daff = torch.zeros(aff.shape, **f32)
-    dc1 = torch.empty((r_out, cm), dtype=x.dtype, device=x.device)
-    mask = torch.empty((r_out, cout), dtype=torch.uint8, device=x.device)
+    # h0, dc0 [R_in, Cm]; h1, dc1 [R_out, Cm]; dc2, dc4 [R_out, Cout];
+    # the weight-gradient slices' partials
+    scratch = [torch.empty((r_in, cm), **act), torch.empty((r_out, cm), **act),
+               torch.empty((r_in, cm), **act), torch.empty((r_out, cm), **act),
+               torch.empty((r_out, cout), **act),
+               torch.empty((r_out, cout), **act),
+               torch.empty(partials, **f32)]
     with torch.cuda.device(x.device):
-        status = lib.pt_fused_bottleneck_down_bwd(
+        status = lib.pt_fused_down_bwd(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             w3.data_ptr(), w4.data_ptr(), aff.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dw4.data_ptr(),
-            daff.data_ptr(), dc1.data_ptr(), mask.data_ptr(),
+            daff.data_ptr(), *(t.data_ptr() for t in scratch),
             *_dims(x, w1, w3, aff, True)[:-1],
             backend.stream_handle(x.device))
     backend.check(status, "fused_bottleneck_down_bwd")

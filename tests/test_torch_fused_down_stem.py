@@ -20,6 +20,8 @@ intermediate may land on the other side).
 the plain versions on the card; they need a GPU and skip here.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,12 +37,18 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DOWN_NAMES = "x w1 w2 w3 w4 a1 b1 a2 b2 a3 b3 a4 b4".split()
 
 
-def _down_args(seed=0, n=8, h=8, w=8, cin=16, cm=8, cout=32):
-    """tests/test_fused_bottleneck.py `_mk_args_proj`, as numpy."""
+def _down_args(seed=0, n=8, h=8, w=8, cin=16, cm=8, cout=32, he=False):
+    """tests/test_fused_bottleneck.py `_mk_args_proj`, as numpy; with
+    `he`, the weights take a ResNet's fan-in scale (1 / sqrt(fan-in))
+    in place of 0.2."""
     g = np.random.default_rng(seed).standard_normal
-    arrs = [g((n, h, w, cin)) * 0.5, g((cin, cm)) * 0.2,
-            g((3, 3, cm, cm)) * 0.2, g((cm, cout)) * 0.2,
-            g((cin, cout)) * 0.2, g(cm) * 0.3 + 1, g(cm) * 0.1,
+
+    def s(fan_in):
+        return fan_in ** -0.5 if he else 0.2
+
+    arrs = [g((n, h, w, cin)) * 0.5, g((cin, cm)) * s(cin),
+            g((3, 3, cm, cm)) * s(9 * cm), g((cm, cout)) * s(cm),
+            g((cin, cout)) * s(cin), g(cm) * 0.3 + 1, g(cm) * 0.1,
             g(cm) * 0.3 + 1, g(cm) * 0.1, g(cout) * 0.3 + 1, g(cout) * 0.1,
             g(cout) * 0.3 + 1, g(cout) * 0.1]
     return [a.astype(np.float32) for a in arrs]
@@ -100,6 +108,18 @@ def test_k8_plain_matches_pallas_fwd_and_vjp(dtype):
     out = _both(JK.fused_bottleneck_down, TK.fused_bottleneck_down,
                 _down_args(0), dtype)
     assert tuple(out[0].shape) == (8, 4, 4, 32)
+    _assert_all(*out, DOWN_NAMES, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k8_plain_matches_pallas_at_ragged_shapes(dtype):
+    """The edges of the CUDA kernels' 16-wide products: Cin 24 and Cout
+    40 (no multiples of 16), 10x10 -> 5x5 (Ho Wo = 25, no multiple of
+    16) and an odd batch of 3, against the Pallas kernels (interpret)."""
+    out = _both(JK.fused_bottleneck_down, TK.fused_bottleneck_down,
+                _down_args(7, n=3, h=10, w=10, cin=24, cm=16, cout=40),
+                dtype)
+    assert tuple(out[0].shape) == (3, 5, 5, 40)
     _assert_all(*out, DOWN_NAMES, TOL[dtype])
 
 
@@ -217,12 +237,37 @@ def test_k9_checks_match_the_reference():
         TK.fused_stem_tail(*map(torch.from_numpy, (c, a, b)), batch_tile=3)
 
 
+def _with_includes(name):
+    """A csrc source and the csrc headers it includes."""
+    text = (backend.CSRC / name).read_text()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        text += (backend.CSRC / inc).read_text()
+    return text
+
+
+def _kernel_body(text, name):
+    start = text.index(f"\n{name}(")
+    return text[start:text.index("\n}\n", start)]
+
+
 def test_k8_k9_sources_and_launch_counters():
     assert "fused_stem_tail" in backend.SOURCES
-    text = (backend.CSRC / "fused_bottleneck.cu").read_text()
-    for entry in ("pt_fused_bottleneck_down_fwd",
-                  "pt_fused_bottleneck_down_bwd"):
+    assert "fused_down" in backend.SOURCES
+    # K8: its own source, on the tensor cores
+    text = _with_includes("fused_down.cu")
+    for entry in ("pt_fused_down_fwd", "pt_fused_down_bwd",
+                  "pt_fused_down_plan"):
         assert f'extern "C" int {entry}' in text
+    assert "cudaGetLastError" in text
+    assert "mma.sync" in text or "wgmma" in text
+    # K7 and the probes stay on their CUDA-core `gemm`; K8's old
+    # instantiation is gone from their library
+    text = (backend.CSRC / "fused_bottleneck.cu").read_text()
+    for kernel in ("bottleneck_fwd_kernel", "bottleneck_bwd1_kernel",
+                   "bottleneck_bwd2_kernel", "probe_conv3x3_kernel",
+                   "probe_matmuls_kernel"):
+        assert "gemm<" in _kernel_body(text, kernel), kernel
+    assert "pt_fused_bottleneck_down" not in text
     text = (backend.CSRC / "fused_stem_tail.cu").read_text()
     for entry in ("pt_fused_stem_tail_fwd", "pt_fused_stem_tail_bwd"):
         assert f'extern "C" int {entry}' in text
@@ -277,21 +322,61 @@ def _card_vs_cpu(fn, args, grads_rows, ties_of=None):
 @pytest.mark.cuda
 def test_k8_on_card():
     """K8 forward and backward on the card, through the Function, against
-    the plain versions, at a square and a ragged geometry."""
+    the plain versions in f32: a square and a ragged geometry; Cin 24,
+    Cout 40, 10x10 -> 5x5 at batch 3 (the products' partial 16-wide
+    edges); Cin 6, Cm 4, Cout 10 (no multiple of 8: the element-wise
+    loaders).  Then ResNet-50's stage-3 transition (28^2, 512 -> 1024,
+    Cm 256, weights at a ResNet's fan-in scale) in bf16 at batch 8,
+    against the plain version on the card by the bf16 rule of
+    chip_smoke.compare_k7 (>= 99% of the elements within 3e-2, the sums
+    x sqrt(rows); <= 1e-2 relative Frobenius error).  At the small
+    shapes' weight scale of 0.2 these widths give activations in the
+    hundreds, where the plain f32 version itself misses that rule
+    against float64 products; chip_smoke.py's `k8_precision` holds the
+    kernel there, on these inputs, against a model of the tensor core's
+    sums."""
     _needs_card()
     backend.reset_launches()
     from paddle_tpu_torch.tools import near_ties as NT
 
-    for h, w in ((8, 8), (10, 6)):
-        args = _down_args(5, n=4, h=h, w=w, cm=32)
+    cases = [dict(n=4, h=8, w=8, cm=32), dict(n=4, h=10, w=6, cm=32),
+             dict(n=3, h=10, w=10, cin=24, cm=16, cout=40),
+             dict(n=1, h=6, w=10, cin=6, cm=4, cout=10)]
+    for case in cases:
+        args = _down_args(5, **case)
         t = [torch.from_numpy(a) for a in args]
         aff = TK._pack_affines(t[5:], t[3].shape[1])
-        _card_vs_cpu(TK.fused_bottleneck_down, args, 4 * h * w,
+        _card_vs_cpu(TK.fused_bottleneck_down, args,
+                     case["n"] * case["h"] * case["w"] // 4,
                      lambda yc, yp: NT.NearTies(t[0], *t[1:5], aff, True,
                                                 True, yc, yp))
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev, torch.bfloat16).requires_grad_()
+            for a in _down_args(6, n=8, h=28, w=28, cin=512, cm=256,
+                                cout=1024, he=True)]
+    y = TK.fused_bottleneck_down(*args)
+    dy = torch.randn(y.shape, device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    got = [y] + list(torch.autograd.grad(y, args, dy))
+    with torch.no_grad():
+        p = [a.detach() for a in args]
+        paff = TK._pack_affines(p[5:], 1024)
+        y_ref = TK.fused_bottleneck_down_fwd_ref(*p[:5], paff)
+        dx, dw1, dw2, dw3, dw4, daff = TK.fused_bottleneck_down_bwd_ref(
+            p[0], dy, *p[1:5], paff)
+    want = [y_ref, dx, dw1, dw2, dw3, dw4] + [
+        daff[i, :256] for i in range(4)] + [daff[i] for i in range(4, 8)]
+    rows = 8 * 14 * 14
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        atol = 3e-2 * (1.0 if i < 2 else rows ** 0.5)
+        bad = ((g - w).abs() > atol + 3e-2 * w.abs()).float().mean().item()
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert torch.isfinite(g).all() and bad <= 1e-2 and rel <= 1e-2, (
+            i, bad, rel)
     torch.cuda.synchronize()
-    assert backend.LAUNCHES["fused_bottleneck_down_fwd"] == 2
-    assert backend.LAUNCHES["fused_bottleneck_down_bwd"] == 2
+    assert backend.LAUNCHES["fused_bottleneck_down_fwd"] == 5
+    assert backend.LAUNCHES["fused_bottleneck_down_bwd"] == 5
 
 
 @pytest.mark.cuda
