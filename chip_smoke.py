@@ -8,8 +8,12 @@ Phases (any failure makes the script exit non-zero without a result):
 1. Card and build: print the card's name and power limit, turn TF32
    off, build the CUDA kernels (one nvcc per source, in parallel) and
    print the build time and the compiler's register/spill report.
-1b. SASS: `cuobjdump -sass` of K8's library; every bf16 K8 kernel that
-   runs a product must hold tensor-core instructions (HMMA / HGMMA).
+1b. SASS: `cuobjdump -sass` of K8's, K1's and K2/K3's libraries; every
+   bf16 K8 kernel that runs a product, and the bf16 K1 and K3 kernels at
+   each head dim, must hold tensor-core instructions (HMMA / HGMMA); the
+   f32 K1/K3 and K2 counts are printed as read (0 expected).  K1's and
+   K3's registers and spills per head dim from the ptxas report; the
+   bf16 ones must not spill at head dim 64.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -27,6 +31,11 @@ Phases (any failure makes the script exit non-zero without a result):
    and non-causal at head_dim 128 and 256; their library yardstick is
    the backward of `F.scaled_dot_product_attention` / `F.layer_norm`,
    timed as `torch.autograd.grad(out, inputs, dout, retain_graph=True)`.
+   bf16 K1 and K3 run on the tensor cores: `flash_precision` holds each
+   of O, lse, dK, dV at the train shape and non-causal at head dims 128
+   and 256 to at most 1.5x the error of the rounding model (the plain
+   versions with the reference's bf16 roundings of p and ds) against
+   float64 products.
    K7 is checked at ResNet-50's four identity-block geometries (56^2
    256/64, 28^2 512/128, 14^2 1024/256, 7^2 2048/512) and its stage-1
    block-0 projection geometry (56^2, 64 -> 256, Cm 64), batch 2 in
@@ -241,33 +250,39 @@ def compare(name, got, want, dtype, failures):
 
 
 # ---------------------------------------------------------------------------
-# phase 1b: K8's tensor-core instructions in the built library
+# phase 1b: tensor-core instructions in the built libraries
 # ---------------------------------------------------------------------------
 
-# K8's kernels (csrc/fused_down.cu) that run a product
-K8_MMA_KERNELS = ("down_fwd_kernel", "down_bwd1_kernel", "down_bwd2_kernel",
-                  "down_wgrad_kernel")
+# per library, the kernels whose bf16 instantiations must hold HMMA: K8's
+# (csrc/fused_down.cu) that run a product, K1's and K3's tensor-core
+# kernels (one per head dim)
+MMA_KERNELS = {
+    "fused_down": ("down_fwd_kernel", "down_bwd1_kernel", "down_bwd2_kernel",
+                   "down_wgrad_kernel"),
+    "flash_attention": ("flash_fwd_mma_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dkv_mma_kernel",),
+}
+# K1 and K3 in f32 (exact scalar kernels) and K2: counts printed as read
+FLASH_SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                        "flash_bwd_dq_kernel")
 
 
-def sass_phase(failures):
-    """`cuobjdump -sass` of the built K8 library: the HMMA / HGMMA count
-    of every kernel, and the first such instruction of each.  Fails
-    unless each bf16 K8 kernel that runs a product holds one.  The f32
-    instantiations run on the CUDA cores (exact f32 FMAs) and the slice
-    sum has no product; their counts are printed as read."""
+def sass_counts(lib_name, failures):
+    """{function: HMMA/HGMMA count} of one built library's
+    `cuobjdump -sass`, each function's first such instruction printed."""
     import re
     import shutil
     from pathlib import Path
 
     from paddle_tpu_torch.kernels import backend
 
-    lib = backend.lib_path("fused_down")
+    lib = backend.lib_path(lib_name)
     tool = shutil.which("cuobjdump") or str(
         Path(backend.nvcc()).parent / "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
-        failures.append(f"cuobjdump -sass exit {out.returncode}: "
+        failures.append(f"cuobjdump -sass {lib.name} exit {out.returncode}: "
                         f"{out.stderr[-500:]}")
         return {}
     counts, first, name = {}, {}, None
@@ -283,12 +298,85 @@ def sass_phase(failures):
     for name, c in sorted(counts.items()):
         log(f"sass {lib.name} {name}: {c} HMMA/HGMMA; first: "
             f"{first.get(name, '-')}")
-    for kernel in K8_MMA_KERNELS:
-        bf16 = [n for n in counts if kernel in n and "nv_bfloat16" in n]
-        if not bf16 or not all(counts[n] for n in bf16):
-            failures.append(f"sass: bf16 {kernel} has no tensor-core "
-                            f"instruction ({[counts[n] for n in bf16]})")
     return counts
+
+
+def sass_phase(failures):
+    """`cuobjdump -sass` of K8's, K1's and K2/K3's libraries: the HMMA /
+    HGMMA count of every kernel.  Fails unless each bf16 K8 kernel that
+    runs a product, and the bf16 K1 and K3 kernel at each head dim, holds
+    one; the f32 instantiations run on the CUDA cores (exact f32 FMAs),
+    K2 and K8's slice sum have no tensor-core product, and their counts
+    are printed as read.  Then K1's and K3's registers and spills from
+    the build log; fails if the bf16 kernels spill at head dim 64."""
+    from paddle_tpu_torch.kernels.flash_attention import HEAD_DIMS
+
+    counts = {}
+    for lib_name, kernels in MMA_KERNELS.items():
+        got = sass_counts(lib_name, failures)
+        counts.update(got)
+        for kernel in kernels:
+            bf16 = [n for n in got if kernel in n and "nv_bfloat16" in n]
+            want = len(HEAD_DIMS) if kernel.startswith("flash") else 1
+            if len(bf16) < want or not all(got[n] for n in bf16):
+                failures.append(f"sass: bf16 {kernel} has no tensor-core "
+                                f"instruction ({[got[n] for n in bf16]})")
+    for kernel in FLASH_SCALAR_KERNELS:
+        found = {n: c for n, c in counts.items() if kernel in n}
+        log(f"sass {kernel} (scalar; f32 K1/K3, K2 both dtypes): "
+            f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
+            "instantiations")
+    for lib_name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
+                             ("flash_attention_bwd",
+                              "flash_bwd_dkv_mma_kernel")):
+        for d in HEAD_DIMS:
+            use = ptxas_usage(lib_name, kernel, d)
+            log(f"ptxas {kernel}<{d}> (bf16): "
+                f"{usage_text(lib_name, kernel, d)}")
+            if d == 64 and use and (use["spill_stores"] or
+                                    use["spill_loads"]):
+                failures.append(f"{kernel}<64> spills: {use}")
+    return counts
+
+
+def ptxas_usage(lib_name, kernel, d, dtype=None):
+    """{registers, spill_stores, spill_loads} of `kernel` at head dim d
+    (dtype "float32" / "bfloat16" for K2's template argument, None for
+    the kernels templated on the head dim alone) from the ptxas report in
+    backend.BUILD_LOG, or None when this run did not build the library."""
+    import re
+
+    from paddle_tpu_torch.kernels import backend
+
+    arg = {None: "", "float32": "f", "bfloat16": "13__nv_bfloat16"}[dtype]
+    want = re.compile(kernel + "I" + arg + f"Li{d}E")
+    found, cur = None, None
+    for line in backend.BUILD_LOG.get(lib_name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w.$]+)", line)
+        if m:
+            cur = m.group(1) if want.search(m.group(1)) else None
+            if cur and found is None:
+                found = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found["spill_stores"], found["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found["registers"] = int(m.group(1))
+    return found
+
+
+def usage_text(lib_name, kernel, d, dtype=None):
+    use = ptxas_usage(lib_name, kernel, d, dtype)
+    if not use:
+        return "ptxas n/a"
+    return (f"{use.get('registers')} regs, spill {use.get('spill_stores')}/"
+            f"{use.get('spill_loads')} B")
 
 
 # ---------------------------------------------------------------------------
@@ -331,9 +419,12 @@ def kernel_phase(failures):
             pairs = s * (s + 1) / 2 if causal else s * s
             nbytes = 4 * b * h * s * d * q.element_size() + b * h * s * 4
             bms, by = bound(nbytes, 4 * b * h * pairs * d, dname(dt))
+            use = (usage_text("flash_attention", "flash_fwd_mma_kernel", d)
+                   if dt == torch.bfloat16 else
+                   usage_text("flash_attention", "flash_fwd_kernel", d))
             log(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                 f"{lib:.4f} bound_ms {bms:.5f} ({by}) max_err {err:.3e} "
-                f"lse_err {err_lse:.3e}")
+                f"lse_err {err_lse:.3e}; {use}")
             if shape == (48, 12, 512, 64) and dt == torch.bfloat16:
                 rows["flash_attention_fwd"] = dict(
                     name="K1 flash_attention_fwd", route="cuda",
@@ -410,6 +501,7 @@ def kernel_phase(failures):
                     shape=f"q [4, 12, 1, 64], cache T=384, lengths 320, "
                           "bf16 (generate decode)")
     flash_bwd_checks(rows, failures, rnd)
+    flash_precision(failures)
     layer_norm_bwd_checks(rows, failures, rnd)
     fused_bottleneck_checks(rows, failures, rnd)
     fused_bottleneck_down_checks(rows, failures, rnd)
@@ -478,9 +570,17 @@ def flash_bwd_checks(rows, failures, rnd):
             bq, byq = bound(reads + n * d * elt, 6 * pairs * d, dname(dt))
             bkv, bykv = bound(reads + 2 * n * d * elt, 8 * pairs * d,
                               dname(dt))
+            use_kv = (usage_text("flash_attention_bwd",
+                                 "flash_bwd_dkv_mma_kernel", d)
+                      if dt == torch.bfloat16 else
+                      usage_text("flash_attention_bwd", "flash_bwd_dkv_kernel",
+                                 d))
+            use_q = usage_text("flash_attention_bwd", "flash_bwd_dq_kernel",
+                               d, dname(dt))
             log(f"{tag}: K2 kernel_ms {ms_q:.4f} bound_ms {bq:.5f} ({byq}) "
-                f"max_err {err_q:.3e}; K3 kernel_ms {ms_kv:.4f} bound_ms "
-                f"{bkv:.5f} ({bykv}) max_err {err_kv:.3e}; whole backward "
+                f"max_err {err_q:.3e} ({use_q}); K3 kernel_ms {ms_kv:.4f} "
+                f"bound_ms {bkv:.5f} ({bykv}) max_err {err_kv:.3e} "
+                f"({use_kv}); whole backward "
                 f"plain_ms {plain:.4f} library_ms {lib:.4f}; Function "
                 f"(with dlse) max_err {err_f:.3e} ({what})")
             if shape == (48, 12, 512, 64) and dt == torch.bfloat16:
@@ -502,6 +602,99 @@ def flash_bwd_checks(rows, failures, rnd):
                     bound_by=bykv, **common)
             del q, k, v, do, out, lse, delta, args, want, dq, dk, dv
             torch.cuda.empty_cache()
+
+
+# the train shape of K1-K3, and the head dims of the non-causal checks
+FLASH_TRAIN = ((48, 12, 512, 64), True)
+FLASH_PRECISION_CASES = (FLASH_TRAIN, ((1, 4, 256, 128), False),
+                         ((1, 4, 256, 256), False))
+FLASH_OUTPUTS = ("O", "lse", "dK", "dV")
+FLASH_MODEL_RATIO = 1.5
+
+
+def flash_inputs(shape, seed):
+    """q, k, v, dO (bf16, scale 0.5) from a generator of their own, so
+    the draws of the other checks do not move."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (
+        (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16) for _ in range(4))
+    return q, k, v, do
+
+
+def flash_outs(q, k, v, do, causal, lse, delta, how):
+    """O, lse (K1) and dK, dV (K3) of one route: "kernel" (K1, then K3 on
+    the given lse and delta), or the plain versions with p and ds rounded
+    to bf16 where the reference rounds them (the rounding model) at the
+    inputs' own precision (pass float64 inputs for float64 products), or
+    without the rounding ("plain")."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if how == "kernel":
+        out, l = FA._launch_fwd(q, k, v, causal, scale)
+        dk, dv = FA._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        return out, l, dk, dv
+    rt = None if how == "plain" else torch.bfloat16
+    out, l = FA.flash_attention_ref(q, k, v, causal, scale, round_to=rt)
+    _, dk, dv = FA.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal,
+                                           scale, round_to=rt)
+    return out, l, dk, dv
+
+
+def flash_errs(q, k, v, do, causal):
+    """rel Frobenius error against float64 products (the plain versions
+    computed in float64 on the same bf16 inputs, lse and delta, p and ds
+    unrounded) of the kernel, the rounding model in f32 and the plain f32
+    version, per output (FLASH_OUTPUTS).  The model is no copy of the
+    kernel's roundings: it rounds p against the row's final max, the
+    kernel against the running max of its 64-key tiles."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    out, lse = FA.flash_attention_ref(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    p64 = flash_outs(*(t.double() for t in (q, k, v, do)), causal, lse,
+                     delta, "plain")
+    errs = {}
+    for how in ("kernel", "model", "plain"):
+        got = flash_outs(q, k, v, do, causal, lse, delta, how)
+        errs[how] = [rel_err(a, b) for a, b in zip(got, p64)]
+        del got
+    del p64
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flash_precision(failures):
+    """bf16 K1 and K3 against float64 products at the train shape and
+    non-causal at head dims 128 and 256: fails where the kernel's error on
+    any output exceeds FLASH_MODEL_RATIO x the rounding model's (the plain
+    versions with the reference's bf16 roundings of p and ds, in f32)."""
+    for i, (shape, causal) in enumerate(FLASH_PRECISION_CASES):
+        q, k, v, do = flash_inputs(shape, 100 + i)
+        errs = flash_errs(q, k, v, do, causal)
+        ratios = [a / max(b, 1e-30) for a, b in zip(errs["kernel"],
+                                                     errs["model"])]
+        tag = f"flash_precision {list(shape)} causal={causal} bfloat16"
+        for name, r, a, b in zip(FLASH_OUTPUTS, ratios, errs["kernel"],
+                                 errs["model"]):
+            if r > FLASH_MODEL_RATIO:
+                failures.append(f"{tag} {name}: kernel error against "
+                                f"float64 products {a:.3e} > "
+                                f"{FLASH_MODEL_RATIO} x the rounding "
+                                f"model's {b:.3e}")
+        worst = max(range(len(ratios)), key=ratios.__getitem__)
+        parts = [f"{how}-p64 [" + " ".join(
+            f"{n} {e:.3e}" for n, e in zip(FLASH_OUTPUTS, v)) + "]"
+            for how, v in errs.items()]
+        log(f"{tag}: rel Frobenius {' '.join(parts)}; kernel / model "
+            f"worst {FLASH_OUTPUTS[worst]} {ratios[worst]:.3f}")
 
 
 def layer_norm_bwd_checks(rows, failures, rnd):

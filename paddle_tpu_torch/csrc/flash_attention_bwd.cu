@@ -14,35 +14,65 @@
 //   K3  dV = sum_q p^T dO, dK = sum_q ds^T Q (one block per key tile)
 // Two kernels and no atomics, so the result is deterministic.
 //
-// Design.  K1's layout (csrc/flash_attention.cu): 8 warps per block, each
-// warp owning 2 rows of the block's 16-row tile; the other side streams
-// through shared memory in 64-row tiles converted to f32 on load.  For
-// the dot products (s = q.k, dp = dO.v) a lane takes one row of the
-// streamed tile and reads its own row padded to D+1 floats, so the 32
-// lanes hit 32 banks while the warp's own row is a broadcast; for the
-// accumulators lanes run over the head dimension (d = lane + 32 e) and
-// the per-row weights (ds, p) are broadcast with shuffles.  Accumulators
-// stay in f32 registers; outputs are written once in the input dtype.
-// Causal: K2 stops at the diagonal tile and skips 32-key chunks past the
-// row; K3 starts at the query tile that holds its first key and skips
-// 32-query chunks above the diagonal.  Heavy causal tiles are scheduled
-// first (K2 walks its query tiles from the last; K3's key tile 0 is its
-// heaviest), and (b*h) rides blockIdx.x so it is not held to 65535.
-// p and ds stay in f32 where the Pallas kernels round them to bf16 for
-// the MXU.
+// K3 in bf16 runs on the tensor cores (`flash_bwd_dkv_mma_kernel`),
+// computed transposed so that no fragment needs a transpose.  One block
+// per (b*h, 64-row key tile); each warp owns 16 key rows, and the block's
+// K and V tiles stay resident.  Q, dO, lse and delta stream in 64-query
+// tiles through a 2-slot cp.async ring (csrc/flash_tc.cuh), from the first
+// query tile that reaches the block's keys (causal: the diagonal tile, the
+// only one masked; key tile 0, the heaviest, is scheduled first).  Per
+// query tile, on mma.sync.m16n8k16 fed by ldmatrix:
+//   S^T = K Q^T;  P^T = exp(S^T * scale - lse[col]);
+//   dV += bf16(P^T) dO;  dP^T = V dO^T;
+//   dS^T = P^T (dP^T - delta[col]) * scale;  dK += bf16(dS^T) Q,
+// P^T's and dS^T's C fragments reused as A fragments in registers
+// (flash_tc.cuh has the map); p and ds round to bf16 where the reference
+// rounds them (`p.astype(do.dtype)`, `ds.astype(q.dtype)`).  dK and dV
+// stay in f32 registers, accumulated in the mma (flash_tc.cuh says why),
+// and are written once.  Registers: a warp's dK and dV for 16 rows are
+// D / 2 f32 per thread each, 256 at D = 256, more than a thread has.  At
+// D = 256 the block has 8 warps, two per 16 key rows, each owning a
+// 128-column slice of dK and dV; both compute S^T and dP^T over all of D
+// (that share of the work twice, 1.5x the products in all, with no
+// exchange through shared memory and no extra barrier).  At D >= 128
+// the products run over the 64-query tile in two 32-query halves, so S^T
+// and dP^T take 16 f32 each per thread.  Shared memory: (2 + 2 * 2) *
+// 64 * (D + 8) * 2 + 2 * 2 * 64 * 4 bytes, 203,776 at D = 256.
 //
-// Bound on the H100: like K1 this is scalar f32 FMA work on the CUDA
-// cores, 3 (K2) and 4 (K3) FMAs per (query, key, d) with a shared-memory
-// load per FMA; it is bound by those operations and by shared-memory
-// bandwidth, far from the device-memory bound (q, k, v, dO read once,
-// dq/dk/dv written once).  Tensor cores (mma.sync / wgmma), TMA and
-// pipelined loads are later work; this version is the simple, exact one.
+// Bound on the H100: at the train shape the least time is the bytes'
+// (q, k, v, dO, lse, delta read and dk, dv written once, 0.0683 ms;
+// the 38.7 GFLOP of the four products take 0.039 ms at 989 TFLOP/s),
+// but mma.sync from 4 warps reaches a fraction of the tensor cores' rate
+// and the exponentials run on the CUDA cores, so the products and the
+// elementwise work between them bound it in practice; wgmma fed by TMA
+// is the next step.
 //
-// Shared memory: (2*16*D + 2*64*(D+1) + 2*64) * 4 bytes, 164,864 at
-// D = 256, above the 48 KB default, so the launchers raise the dynamic
-// limit (the SM's 227 KB hold it).
+// K2, and K3 in f32: scalar f32 kernels on the CUDA cores (exact FMAs,
+// never TF32).  K1's old layout (8 warps per block, each warp owning 2
+// rows of the block's 16-row tile); the other side streams through shared
+// memory in 64-row tiles converted to f32 on load.  For the dot products
+// (s = q.k, dp = dO.v) a lane takes one row of the streamed tile and
+// reads its own row padded to D+1 floats, so the 32 lanes hit 32 banks
+// while the warp's own row is a broadcast; for the accumulators lanes run
+// over the head dimension (d = lane + 32 e) and the per-row weights (ds,
+// p) are broadcast with shuffles.  Accumulators stay in f32 registers;
+// outputs are written once in the input dtype.  Causal: K2 stops at the
+// diagonal tile and skips 32-key chunks past the row; K3 starts at the
+// query tile that holds its first key and skips 32-query chunks above the
+// diagonal.  Heavy causal tiles are scheduled first (K2 walks its query
+// tiles from the last; K3's key tile 0 is its heaviest), and (b*h) rides
+// blockIdx.x so it is not held to 65535.  p and ds stay in f32 where the
+// Pallas kernels round them to bf16 for the MXU.  They are 3 (K2) and 4
+// (K3) FMAs per (query, key, d) with a shared-memory load per FMA, bound
+// by those operations and by shared-memory bandwidth.  Shared memory:
+// (2*16*D + 2*64*(D+1) + 2*64) * 4 bytes, 164,864 at D = 256, above the
+// 48 KB default, so the launchers raise the dynamic limit (the SM's 227
+// KB hold it).
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -151,13 +181,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // K3: dK and dV for one (b*h, 16-row key tile).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int causal, float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int causal, float scale) {
   constexpr int QS = D + 1;  // padded row stride of the streamed tiles
   constexpr int E = D / 32;
   extern __shared__ float smem[];
@@ -177,8 +208,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBlockRows * D; i += blockDim.x) {
     const size_t g = base + size_t(k0) * D + i;
-    Ks[i] = pt::to_f32(k[g]);
-    Vs[i] = pt::to_f32(v[g]);
+    Ks[i] = k[g];
+    Vs[i] = v[g];
   }
   float acc_k[kRowsPerWarp][E], acc_v[kRowsPerWarp][E];
 #pragma unroll
@@ -197,8 +228,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBlockCols * D; i += blockDim.x) {
       const int r = i / D, c = i % D;
       const size_t g = base + size_t(q0 + r) * D + c;
-      Qs[r * QS + c] = pt::to_f32(q[g]);
-      dOs[r * QS + c] = pt::to_f32(dout[g]);
+      Qs[r * QS + c] = q[g];
+      dOs[r * QS + c] = dout[g];
     }
     for (int i = tid; i < kBlockCols; i += blockDim.x) {
       Ls[i] = lse[size_t(bh) * S + q0 + i];
@@ -248,8 +279,192 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const size_t o = base + size_t(kj) * D + lane + 32 * e;
-      dk[o] = pt::from_f32<T>(acc_k[r][e]);
-      dv[o] = pt::from_f32<T>(acc_v[r][e]);
+      dk[o] = acc_k[r][e];
+      dv[o] = acc_v[r][e];
+    }
+  }
+}
+
+// K3 in bf16 on the tensor cores: one block per (b*h, 64-row key tile)
+template <int D>
+struct DkvMma {
+  static constexpr int kSplit = D > 128 ? 2 : 1;  // warps per 16 key rows
+  static constexpr int kThreads = 4 * kSplit * 32;
+  static constexpr int kSlice = D / kSplit;       // dK, dV columns a warp owns
+  static constexpr int kSub = D > 64 ? 32 : 64;   // queries per product pass
+  static constexpr int ld = D + pt::flash::kPad;
+  static constexpr size_t kTileBytes =
+      sizeof(pt::flash::bf16) * size_t(pt::flash::kTile) * ld;
+  // K, V resident; two slots of Q, dO; two slots of lse, delta
+  static constexpr size_t kSmem =
+      6 * kTileBytes + 4 * pt::flash::kTile * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvMma<D>::kThreads)
+flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
+                         const pt::flash::bf16* __restrict__ k,
+                         const pt::flash::bf16* __restrict__ v,
+                         const pt::flash::bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         pt::flash::bf16* __restrict__ dk,
+                         pt::flash::bf16* __restrict__ dv, int S, int causal,
+                         float scale) {
+  using namespace pt::flash;
+  using C = DkvMma<D>;
+  constexpr int ld = C::ld;
+  constexpr int KD = D / 16;              // 16-deep steps of S^T, dP^T
+  constexpr int NS = C::kSub / 8;         // n-tiles of S^T, dP^T
+  constexpr int NA = C::kSlice / 8;       // n-tiles of the warp's dK, dV
+  constexpr int kTileElems = kTile * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][ld]
+  bf16* Vs = Ks + kTileElems;                    // [kTile][ld]
+  bf16* Qs = Vs + kTileElems;                    // [2][kTile][ld]
+  bf16* dOs = Qs + 2 * kTileElems;               // [2][kTile][ld]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // [2][kTile]
+  float* Dl = Ls + 2 * kTile;                                  // [2][kTile]
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // key tile 0 is the heaviest (causal)
+  const int k0 = kt * kTile;
+  const size_t base = size_t(bh) * S * D;
+  const float* lse_bh = lse + size_t(bh) * S;
+  const float* delta_bh = delta + size_t(bh) * S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp & 3) * 16;             // the warp's first key row
+  const int c0 = (warp >> 2) * C::kSlice;     // its first dK, dV column
+  const int j0 = causal ? kt : 0;             // first live query tile
+  const int n_tiles = S / kTile;
+
+  auto load_q_tile = [&](int j, int slot) {
+    const size_t at = base + size_t(j) * kTile * D;
+    load_tile<D>(Qs + slot * kTileElems, q + at);
+    load_tile<D>(dOs + slot * kTileElems, dout + at);
+    load_row_stat(Ls + slot * kTile, lse_bh + j * kTile, 0);
+    load_row_stat(Dl + slot * kTile, delta_bh + j * kTile, 32);
+  };
+  load_tile<D>(Ks, k + base + size_t(k0) * D);
+  load_tile<D>(Vs, v + base + size_t(k0) * D);
+  load_q_tile(j0, 0);
+  pt::tc::cp_async_commit();
+
+  float acc_k[NA][4], acc_v[NA][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[n][e] = 0.f;
+      acc_v[n][e] = 0.f;
+    }
+
+  for (int j = j0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_q_tile(j + 1, (j + 1 - j0) & 1);
+    pt::tc::cp_async_commit();
+    pt::tc::cp_async_wait<1>();  // tile j (and K, V) has landed
+    __syncthreads();
+    const int slot = (j - j0) & 1;
+    const bf16* qs = Qs + slot * kTileElems;
+    const bf16* dos = dOs + slot * kTileElems;
+    const float* ls = Ls + slot * kTile;
+    const float* dls = Dl + slot * kTile;
+    const bool diag = causal && j == kt;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kTile; sub += C::kSub) {
+      // S^T = K Q^T: 16 key rows x kSub queries
+      float st[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[n][e] = 0.f;
+          dp[n][e] = 0.f;
+        }
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4];
+        ldsm_a(a, Ks, ld, wr, kd * 16);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t b[4];
+          ldsm_b_rows(b, qs, ld, sub + np * 16, kd * 16);
+          pt::tc::mma_bf16(st[2 * np], a, b[0], b[1]);
+          pt::tc::mma_bf16(st[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // P^T = exp(S^T * scale - lse[col]); the diagonal tile is masked
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = sub + n * 8 + 2 * t + (e & 1);
+          float x = st[n][e] * scale;
+          if (diag && col < wr + g + (e >> 1) * 8) x = pt::kNegInf;
+          st[n][e] = expf(x - ls[col]);
+        }
+      // dV += bf16(P^T) dO, P^T's fragments reused as A
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < NA / 2; ++np) {
+          uint32_t b[4];
+          ldsm_b_cols(b, dos, ld, sub + kk * 16, c0 + np * 16);
+          pt::tc::mma_bf16(acc_v[2 * np], a, b[0], b[1]);
+          pt::tc::mma_bf16(acc_v[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // dP^T = V dO^T
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4];
+        ldsm_a(a, Vs, ld, wr, kd * 16);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t b[4];
+          ldsm_b_rows(b, dos, ld, sub + np * 16, kd * 16);
+          pt::tc::mma_bf16(dp[2 * np], a, b[0], b[1]);
+          pt::tc::mma_bf16(dp[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // dS^T = P^T (dP^T - delta[col]) * scale, in dp's registers
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = sub + n * 8 + 2 * t + (e & 1);
+          dp[n][e] = st[n][e] * (dp[n][e] - dls[col]) * scale;
+        }
+      // dK += bf16(dS^T) Q, dS^T's fragments reused as A
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < NA / 2; ++np) {
+          uint32_t b[4];
+          ldsm_b_cols(b, qs, ld, sub + kk * 16, c0 + np * 16);
+          pt::tc::mma_bf16(acc_k[2 * np], a, b[0], b[1]);
+          pt::tc::mma_bf16(acc_k[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the slot is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t at = base + size_t(k0 + wr + g + i * 8) * D + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
+          __floats2bfloat162_rn(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
+          __floats2bfloat162_rn(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
     }
   }
 }
@@ -278,20 +493,37 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
+// K3: the tensor-core kernel in bf16, the scalar one in f32
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.bh, a.s / kBlockRows);
-  flash_bwd_dkv_kernel<T, D><<<grid, kWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.s, a.causal,
-      a.scale);
+  if constexpr (std::is_same<T, pt::flash::bf16>::value) {
+    using C = DkvMma<D>;
+    using pt::flash::bf16;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmem));
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.bh, a.s / pt::flash::kTile);
+    flash_bwd_dkv_mma_kernel<D><<<grid, C::kThreads, C::kSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.s,
+        a.causal, a.scale);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.bh, a.s / kBlockRows);
+    flash_bwd_dkv_kernel<D><<<grid, kWarps * 32, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.s,
+        a.causal, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -323,7 +555,8 @@ int run(const Args& a, int d, int dtype) {
 
 // q, k, v, dout, dq: [bh, s, d] contiguous in `dtype`; lse, delta: [bh, s]
 // float32 (delta = rowsum(dout * out) - dlse).  Needs s % 64 == 0 (the
-// wrapper enforces s % 128 == 0) and d in {64, 128, 256}.  Each entry
+// wrapper enforces s % 128 == 0) and d in {64, 128, 256}; K3 in bf16
+// needs every pointer 16-byte aligned (the wrapper checks).  Each entry
 // returns cudaGetLastError() after its launch.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

@@ -7,8 +7,9 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
 - K1 `flash_attention` / `flash_attention_with_lse` replace the Pallas
   `_fwd_kernel` (`_fwd`): online-softmax attention over [B, H, S, D]
   with an optional causal mask, f32 statistics, O in the input dtype
-  and the row logsumexp in f32.  See csrc/flash_attention.cu for the
-  design and what bounds it on the H100.
+  and the row logsumexp in f32.  bf16 runs on the tensor cores
+  (`mma.sync`, P kept in registers), f32 on an exact scalar kernel; see
+  csrc/flash_attention.cu for the design and what bounds it on the H100.
 - K2 and K3 replace the Pallas `_bwd_dq_kernel` and `_bwd_dkv_kernel`
   (`_bwd_core`): the FA-2 backward, P recomputed from the saved lse,
   dQ in one kernel and dK/dV in the other.  `flash_attention` and
@@ -17,7 +18,9 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
   and `_flash_lse`): forward K1, backward K2 + K3.  delta = rowsum(dO *
   O) in f32 is computed with torch outside the kernels, as the
   reference's `_bwd` does, and the lse cotangent folds into delta -
-  dlse.  See csrc/flash_attention_bwd.cu.
+  dlse.  K3 in bf16 runs on the tensor cores (P^T and dS^T kept in
+  registers); K2, and K3 in f32, are exact scalar kernels.  See
+  csrc/flash_attention_bwd.cu.
 - K6 `flash_decode` replaces the Pallas `_decode_kernel`: one query row
   per (b, h) against a KV cache, keys past `lengths[b]` never read.
   See csrc/flash_decode.cu.
@@ -26,7 +29,9 @@ Each wrapper checks its envelope (shapes, dtypes, devices, contiguity)
 and raises on anything outside it.  On CPU tensors it returns the plain
 PyTorch version beside it (`flash_attention_ref`, `flash_decode_ref`),
 which the CPU tests hold against the Pallas kernels; on CUDA tensors it
-launches the kernel or raises.  The TPU tile sizes (`DEFAULT_BLOCK_Q/K`,
+launches the kernel or raises.  `round_to=torch.bfloat16` makes the
+flash plain versions round p and ds where the Pallas kernels do: the
+model the bf16 tensor-core kernels are held to.  The TPU tile sizes (`DEFAULT_BLOCK_Q/K`,
 `PADDLE_TPU_FLASH_BLOCK`) do not carry over: the CUDA kernels fix their
 own tiles.
 """
@@ -89,13 +94,18 @@ def _check_fwd(q, k, v):
     _check_common("flash_attention", (q, k, v))
 
 
-def flash_attention_ref(q, k, v, causal=False, sm_scale=None):
-    """Plain version of K1: (out in q.dtype, lse f32 [B, H, S]).  The
-    same math as the kernel in f32: -1e30 causal mask, exp(s - max),
-    the `l == 0` guard."""
+def flash_attention_ref(q, k, v, causal=False, sm_scale=None,
+                        round_to=None):
+    """Plain version of K1: (out in q.dtype, lse [B, H, S] in f32).  The
+    same math as the kernel in f32 (in float64 for float64 inputs): -1e30
+    causal mask, exp(s - max), the `l == 0` guard.  With `round_to` (a
+    dtype) p is rounded to it before P.V, where the reference's
+    `_fwd_kernel` rounds it (`p.astype(v_blk.dtype)`; l sums the unrounded
+    p): the rounding model of the bf16 tensor-core kernel."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * sm_scale
     if causal:
         n_q, n_k = s.shape[-2], s.shape[-1]
         live = torch.ones(n_q, n_k, dtype=torch.bool,
@@ -105,12 +115,27 @@ def flash_attention_ref(q, k, v, causal=False, sm_scale=None):
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.matmul(p, v.float()) / l_safe
+    out = torch.matmul(_rounded(p, round_to), v.to(ct)) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
+
+
+def _rounded(x, dtype):
+    """x rounded to `dtype` and back (None: x itself)."""
+    return x if dtype is None else x.to(dtype).to(x.dtype)
+
+
+def _check_aligned(name, tensors):
+    # the bf16 tensor-core kernels load 16 bytes a cp.async
+    if tensors[0].dtype == torch.bfloat16:
+        for t in tensors:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16 kernel needs 16-byte "
+                                 "aligned inputs")
 
 
 def _launch_fwd(q, k, v, causal, sm_scale):
     _check_launch("flash_attention", (q, k, v))
+    _check_aligned("flash_attention", (q, k, v))
     b, h, s, d = q.shape
     lib = backend.load("flash_attention", _FWD_SIGS)
     out = torch.empty_like(q)
@@ -136,23 +161,26 @@ def _fwd(q, k, v, causal, sm_scale):
 # --------------------------------------------------------------------------
 
 def flash_attention_bwd_ref(q, k, v, do, lse, delta, causal=False,
-                            sm_scale=None):
-    """Plain version of K2/K3: the FA-2 backward in f32, P recomputed
-    from the forward's lse (p = exp(s - lse), the same -1e30 causal
-    mask), ds = p * (dp - delta) * sm_scale.  Returns (dq, dk, dv) in the
-    inputs' dtype."""
+                            sm_scale=None, round_to=None):
+    """Plain version of K2/K3: the FA-2 backward in f32 (float64 for
+    float64 inputs), P recomputed from the forward's lse (p = exp(s -
+    lse), the same -1e30 causal mask), ds = p * (dp - delta) * sm_scale.
+    Returns (dq, dk, dv) in the inputs' dtype.  With `round_to` (a dtype)
+    p is rounded to it before dV and ds before dK and dQ, where the
+    reference's `_bwd_dkv_kernel` and `_bwd_dq_kernel` round them."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = q.to(ct), k.to(ct), v.to(ct), do.to(ct)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
     if causal:
         n = s.shape[-1]
         live = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
         s = torch.where(live, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - lse.float()[..., None])
-    dv = torch.matmul(p.transpose(-1, -2), dof)
+    p = torch.exp(s - lse.to(ct)[..., None])
+    dv = torch.matmul(_rounded(p, round_to).transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    ds = _rounded(p * (dp - delta.to(ct)[..., None]) * sm_scale, round_to)
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -193,6 +221,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
     """K3 alone: (dk, dv)."""
     _check_bwd(q, k, v, do, lse, delta)
+    _check_aligned("flash_attention_bwd_dkv", (q, k, v, do, lse, delta))
     lib = backend.load("flash_attention_bwd", _BWD_SIGS)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

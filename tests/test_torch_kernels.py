@@ -16,8 +16,10 @@ backward kernels in interpret mode: f32 atol = rtol = 2e-5, bf16 3e-2
 port keeps them in f32).
 
 `test_kernels_on_card` and `test_kernel_grads_on_card` hold the CUDA and
-Triton kernels against the plain versions on the card; they need a GPU
-and skip here.
+Triton kernels against the plain versions on the card, K1 and K3 at head
+dims 64, 128 and 256, causal and not, and in bf16 also against the
+rounding model (`round_to`, tests/test_torch_flash_rounding.py) within
+one bf16 ulp; they need a GPU and skip here.
 """
 
 import ast
@@ -407,6 +409,16 @@ def test_is_hopper_false_without_cuda():
 # on the card
 # ---------------------------------------------------------------------------
 
+# K1 / K3 on the card in bf16 against the rounding model (the plain
+# versions with round_to=torch.bfloat16): atol = rtol = 2^-7, one bf16
+# ulp of the output.  The kernels round p against the running max of
+# their 64-key tiles, the model against the row's final max, so an output
+# may land one rounding apart; a wrong fragment or mask is off by far more.
+MODEL_TOL = 2.0 ** -7
+CARD_FLASH_CASES = [(d, causal) for d in (64, 128, 256)
+                    for causal in (False, True)]
+
+
 @pytest.mark.cuda
 def test_kernels_on_card():
     if not torch.cuda.is_available():
@@ -417,20 +429,31 @@ def test_kernels_on_card():
     with torch.inference_mode(), warnings.catch_warnings():
         for dtype in DTYPES:
             dt = getattr(torch, dtype)
-            q, k, v = (_t(_rand((2, 3, 256, 64), s)).to(dev, dt)
-                       for s in (1, 2, 3))
-            for causal in (False, True):
+            for d, causal in CARD_FLASH_CASES:
+                q, k, v = (_t(_rand((2, 3, 256, d), s)).to(dev, dt)
+                           for s in (1, 2, 3))
                 got, lse = TFA.flash_attention_with_lse(q, k, v, causal)
                 want, want_lse = TFA.flash_attention_ref(q, k, v, causal)
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=TOL[dtype], rtol=TOL[dtype])
                 torch.testing.assert_close(lse, want_lse, atol=TOL[dtype],
                                            rtol=TOL[dtype])
+                if dtype == "bfloat16":
+                    model, model_lse = TFA.flash_attention_ref(
+                        q, k, v, causal, round_to=dt)
+                    torch.testing.assert_close(got.float(), model.float(),
+                                               atol=MODEL_TOL,
+                                               rtol=MODEL_TOL)
+                    torch.testing.assert_close(lse, model_lse, atol=2e-5,
+                                               rtol=2e-5)
+            # the first query row, made contiguous (K6's launcher takes
+            # only contiguous inputs)
+            q = _t(_rand((2, 3, 256, 64), 1)[:, :, :1]).to(dev, dt)
             kc = _t(_rand((2, 3, 384, 64), 4)).to(dev, dt)
             lens = torch.tensor([5, 300], dtype=torch.int32, device=dev)
             torch.testing.assert_close(
-                TFA.flash_decode(q[:, :, :1], kc, kc, lens).float(),
-                TFA.flash_decode_ref(q[:, :, :1], kc, kc, lens).float(),
+                TFA.flash_decode(q, kc, kc, lens).float(),
+                TFA.flash_decode_ref(q, kc, kc, lens).float(),
                 atol=TOL[dtype], rtol=TOL[dtype])
             x = _t(_rand((300, 768), 5, 2.0)).to(dev, dt)
             g = _t(_rand((768,), 6)).to(dev, dt)
@@ -439,7 +462,8 @@ def test_kernels_on_card():
                 TLN.layer_norm_ref(x, g, g).float(),
                 atol=TOL[dtype], rtol=TOL[dtype])
     torch.cuda.synchronize()
-    assert backend.LAUNCHES["flash_attention_fwd"] == 4
+    assert backend.LAUNCHES["flash_attention_fwd"] == 2 * len(
+        CARD_FLASH_CASES)
     assert backend.LAUNCHES["flash_decode"] == 2
     assert backend.LAUNCHES["layer_norm_fwd"] == 2
 
@@ -447,7 +471,8 @@ def test_kernels_on_card():
 @pytest.mark.cuda
 def test_kernel_grads_on_card():
     """K1 + K2 + K3 and K4 + K5 through their autograd Functions on the
-    card, against the plain backward versions on the same inputs."""
+    card, against the plain backward versions on the same inputs; bf16
+    dK and dV (K3) also against the rounding model."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA and Triton kernels have "
                     "no CPU mode (chip_smoke.py runs them on the card)")
@@ -456,7 +481,7 @@ def test_kernel_grads_on_card():
     for dtype in DTYPES:
         dt = getattr(torch, dtype)
         tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
-        for d, causal in ((64, True), (128, False), (256, True)):
+        for d, causal in CARD_FLASH_CASES:
             q, k, v, do = (_t(_rand((1, 2, 256, d), s)).to(dev, dt)
                            for s in (53, 54, 55, 56))
             dlse = _t(_rand((1, 2, 256), 57)).to(dev)
@@ -469,6 +494,15 @@ def test_kernel_grads_on_card():
                                                causal)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g.float(), w.float(), **tol)
+            if dtype == "bfloat16":
+                # K3 alone, on the model's own lse and delta
+                dk, dv = TFA._launch_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                             d ** -0.5)
+                model = TFA.flash_attention_bwd_ref(q, k, v, do, lse, delta,
+                                                    causal, round_to=dt)
+                for g, w in zip((dk, dv), model[1:]):
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               atol=MODEL_TOL, rtol=MODEL_TOL)
         x = _t(_rand((300, 768), 58, 2.0)).to(dev, dt)
         g = _t(_rand((768,), 59)).to(dev, dt)
         dy = _t(_rand((300, 768), 60)).to(dev, dt)
@@ -479,6 +513,7 @@ def test_kernel_grads_on_card():
         for a, w in ((got[1], dg), (got[2], db)):
             torch.testing.assert_close(a.float(), w.to(dt).float(), **tol)
     torch.cuda.synchronize()
-    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 6
-    assert backend.LAUNCHES["flash_attention_bwd_dkv"] == 6
+    n = len(CARD_FLASH_CASES)
+    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 2 * n
+    assert backend.LAUNCHES["flash_attention_bwd_dkv"] == 3 * n
     assert backend.LAUNCHES["layer_norm_bwd"] == 2
