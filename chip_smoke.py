@@ -8,12 +8,13 @@ Phases (any failure makes the script exit non-zero without a result):
 1. Card and build: print the card's name and power limit, turn TF32
    off, build the CUDA kernels (one nvcc per source, in parallel) and
    print the build time and the compiler's register/spill report.
-1b. SASS: `cuobjdump -sass` of K8's, K1's and K2/K3's libraries; every
-   bf16 K8 kernel that runs a product, and the bf16 K1 and K3 kernels at
-   each head dim, must hold tensor-core instructions (HMMA / HGMMA); the
-   f32 K1/K3 and K2 counts are printed as read (0 expected).  K1's and
-   K3's registers and spills per head dim from the ptxas report; the
-   bf16 ones must not spill at head dim 64.
+1b. SASS: `cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
+   libraries; every bf16 K7 and K8 kernel that runs a product, and the
+   bf16 K1 and K3 kernels at each head dim, must hold tensor-core
+   instructions (HMMA / HGMMA); the f32 K1/K3, K2 and P1/P2 counts are
+   printed as read (0 expected).  K1's and K3's registers and spills per
+   head dim from the ptxas report, the bf16 ones not spilling at head
+   dim 64; K7's printed as read.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -39,9 +40,16 @@ Phases (any failure makes the script exit non-zero without a result):
    K7 is checked at ResNet-50's four identity-block geometries (56^2
    256/64, 28^2 512/128, 14^2 1024/256, 7^2 2048/512) and its stage-1
    block-0 projection geometry (56^2, 64 -> 256, Cm 64), batch 2 in
-   float32 and batch 128 (timed) in bfloat16; its yardstick is the
-   cuDNN composition (three or four `F.conv2d` plus the elementwise
-   tail, through autograd for the backward), several calls, not one.
+   float32 and batch 128 (timed, its backward split B1/B2/W/R by
+   torch.profiler) in bfloat16, each with its launch plan; its yardstick
+   is the cuDNN composition (three or four `F.conv2d` plus the
+   elementwise tail, through autograd for the backward), several calls,
+   not one.  In bf16 its error against float64 products may not exceed
+   1.5x the plain version's unless the relu masks it chose account for
+   the excess, and dW1-4 must be bitwise equal over two runs
+   (`block_numerics`; at the projection geometry the same gate must
+   fail two lower-precision controls); its times are summed over the 13
+   launches of a full-fused step.
    K8 is checked the same way at ResNet-50's three transitions (56^2
    256 -> 512 Cm 128, 28^2 512 -> 1024 Cm 256, 14^2 1024 -> 2048 Cm
    512), with its launch plan printed (tile pixels, blocks, K slices of
@@ -50,7 +58,8 @@ Phases (any failure makes the script exit non-zero without a result):
    channels that are no multiple of 8, the element-wise loaders); its
    yardstick is the composition with the stride-2 3x3 and 1x1 convs.
    In bf16 its error against float64 products may not exceed 1.5x the
-   plain version's at the transitions (`k8_numerics`), and at the small
+   plain version's at the transitions unless its relu masks account for
+   the excess (`block_numerics`), and at the small
    tests' weight scale it must be that of a model of the tensor core's
    sums (`k8_precision`).  K9 is
    checked at the stem's [2 | 128, 112, 112, 64] in float32 | bfloat16
@@ -68,8 +77,9 @@ Phases (any failure makes the script exit non-zero without a result):
    batches 8 and 128 (3e-2), from a generator of their own; at batch
    128 their times beside the plain versions, a library yardstick
    (`F.conv2d` channels-last; `relu(x @ w1) @ w3 + x`) and the bound;
-   K7's stage-1 identity forward on the same x and weights, split into
-   P1, P2 and the rest; then `python -m paddle_tpu_torch.tools.fused_probe`
+   K7's stage-1 identity forward on the same x and weights beside them
+   (K7 on the tensor cores, P1/P2 on the CUDA-core `gemm`, so no split);
+   then `python -m paddle_tpu_torch.tools.fused_probe`
    (all seven probes, each in its subprocess), failing unless every
    probe exits 0 having launched its kernel.
 3. GPT train path: the repo's headline training configuration
@@ -142,6 +152,13 @@ Phases (any failure makes the script exit non-zero without a result):
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
+`python3 chip_smoke.py compare TREE [TREE ...]` instead times, for each
+tree in turn and in a process of its own (TREE a directory holding a
+paddle_tpu_torch package, e.g. `.` and an unpacked parent commit), K7
+in bf16 at batch 128 at its five geometries and summed over a
+full-fused step, then the full fused and `id` ResNet-50 steps of phase
+4 with their profiles: two versions compared in turns on one card.
+
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
 the GPT train, the two fused ResNet runs, the serving paths and the
@@ -150,6 +167,7 @@ the probe tool's), the card line and {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -253,15 +271,22 @@ def compare(name, got, want, dtype, failures):
 # phase 1b: tensor-core instructions in the built libraries
 # ---------------------------------------------------------------------------
 
-# per library, the kernels whose bf16 instantiations must hold HMMA: K8's
-# (csrc/fused_down.cu) that run a product, K1's and K3's tensor-core
-# kernels (one per head dim)
+# per library, the kernels whose bf16 instantiations must hold HMMA: K7's
+# (csrc/fused_block.cu) and K8's (csrc/fused_down.cu) that run a product,
+# most of them the pieces both share (csrc/block_tc.cuh), and K1's and
+# K3's tensor-core kernels (one per head dim)
+K7_MMA_KERNELS = ("block_fwd_kernel", "block_bwd1_kernel",
+                  "block_bwd2_kernel", "wgrad_kernel")
 MMA_KERNELS = {
-    "fused_down": ("down_fwd_kernel", "down_bwd1_kernel", "down_bwd2_kernel",
-                   "down_wgrad_kernel"),
+    "fused_block": K7_MMA_KERNELS,
+    "fused_down": ("block_fwd_kernel", "block_bwd1_kernel",
+                   "down_bwd2_kernel", "wgrad_kernel"),
     "flash_attention": ("flash_fwd_mma_kernel",),
     "flash_attention_bwd": ("flash_bwd_dkv_mma_kernel",),
 }
+# P1 and P2 (csrc/fused_bottleneck.cu) on the CUDA-core `gemm`: counts
+# printed as read (0 expected)
+PROBE_KERNELS = ("probe_conv3x3_kernel", "probe_matmuls_kernel")
 # K1 and K3 in f32 (exact scalar kernels) and K2: counts printed as read
 FLASH_SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                         "flash_bwd_dq_kernel")
@@ -302,13 +327,14 @@ def sass_counts(lib_name, failures):
 
 
 def sass_phase(failures):
-    """`cuobjdump -sass` of K8's, K1's and K2/K3's libraries: the HMMA /
-    HGMMA count of every kernel.  Fails unless each bf16 K8 kernel that
-    runs a product, and the bf16 K1 and K3 kernel at each head dim, holds
-    one; the f32 instantiations run on the CUDA cores (exact f32 FMAs),
-    K2 and K8's slice sum have no tensor-core product, and their counts
-    are printed as read.  Then K1's and K3's registers and spills from
-    the build log; fails if the bf16 kernels spill at head dim 64."""
+    """`cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
+    libraries: the HMMA / HGMMA count of every kernel.  Fails unless each
+    bf16 K7 and K8 kernel that runs a product, and the bf16 K1 and K3
+    kernel at each head dim, holds one; the f32 instantiations run on the
+    CUDA cores (exact f32 FMAs), K2, the slice sum and P1/P2 have no
+    tensor-core product, and their counts are printed as read.  Then
+    K1's and K3's registers and spills from the build log (fails if the
+    bf16 kernels spill at head dim 64), and K7's (printed as read)."""
     from paddle_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     counts = {}
@@ -326,6 +352,16 @@ def sass_phase(failures):
         log(f"sass {kernel} (scalar; f32 K1/K3, K2 both dtypes): "
             f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
             "instantiations")
+    probes = sass_counts("fused_bottleneck", failures)
+    for kernel in PROBE_KERNELS:
+        found = {n: c for n, c in probes.items() if kernel in n}
+        log(f"sass {kernel} (P1/P2, CUDA-core gemm): "
+            f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
+            "instantiations")
+    for kernel in K7_MMA_KERNELS:
+        for name, use in ptxas_find("fused_block", kernel):
+            log(f"ptxas fused_block {name}: {use.get('registers')} regs, "
+                f"spill {use.get('spill_stores')}/{use.get('spill_loads')} B")
     for lib_name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
                              ("flash_attention_bwd",
                               "flash_bwd_dkv_mma_kernel")):
@@ -344,31 +380,41 @@ def ptxas_usage(lib_name, kernel, d, dtype=None):
     (dtype "float32" / "bfloat16" for K2's template argument, None for
     the kernels templated on the head dim alone) from the ptxas report in
     backend.BUILD_LOG, or None when this run did not build the library."""
+    arg = {None: "", "float32": "f", "bfloat16": "13__nv_bfloat16"}[dtype]
+    found = ptxas_find(lib_name, kernel + "I" + arg + f"Li{d}E")
+    return found[0][1] if found else None
+
+
+def ptxas_find(lib_name, pattern):
+    """[(mangled name, {registers, spill_stores, spill_loads})] of the
+    entry functions whose mangled name matches `pattern`, from the ptxas
+    report in backend.BUILD_LOG (empty when this run did not build the
+    library)."""
     import re
 
     from paddle_tpu_torch.kernels import backend
 
-    arg = {None: "", "float32": "f", "bfloat16": "13__nv_bfloat16"}[dtype]
-    want = re.compile(kernel + "I" + arg + f"Li{d}E")
-    found, cur = None, None
+    want = re.compile(pattern)
+    found, cur = {}, None
     for line in backend.BUILD_LOG.get(lib_name, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w.$]+)", line)
         if m:
             cur = m.group(1) if want.search(m.group(1)) else None
-            if cur and found is None:
-                found = {}
+            if cur:
+                found.setdefault(cur, {})
             continue
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            found["spill_stores"], found["spill_loads"] = map(int, m.groups())
+            found[cur]["spill_stores"], found[cur]["spill_loads"] = map(
+                int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            found["registers"] = int(m.group(1))
-    return found
+            found[cur]["registers"] = int(m.group(1))
+    return sorted(found.items())
 
 
 def usage_text(lib_name, kernel, d, dtype=None):
@@ -855,96 +901,160 @@ def k7_composition(x, ws, affs, proj):
 def fused_bottleneck_checks(rows, failures, rnd):
     """K7 forward and backward: raw launches and through the autograd
     Functions against the plain versions, in float32 (batch 2) and
-    bfloat16 (batch 128, timed), at every geometry above."""
+    bfloat16 (batch 128, timed by `k7_bf16_times`), at every geometry
+    above, each with its launch plan (`block_plan`); in bfloat16 also its
+    error against float64 products and the repeatability of dW1-4
+    (`block_numerics`), and the forward and backward summed over a
+    full-fused step."""
+    import torch
+
+    for geo in K7_GEOMETRIES:
+        hw, cin, cm, cout, proj = geo
+        x, ws, affs, dy = k7_inputs(rnd, 2, hw, cin, cm, cout, proj,
+                                    torch.float32)
+        log(k7_check(geo, x, ws, affs, dy, failures)[0])
+        del x, ws, affs, dy
+    errs, secs = {}, []
+
+    def check(geo, x, ws, affs, aff, dy):
+        text, errs[geo] = k7_check(geo, x, ws, affs, dy, failures)
+        t0 = time.perf_counter()
+        text += "; " + block_numerics("proj" if geo[4] else "id", x, dy, ws,
+                                      aff, geo[2], failures,
+                                      k7_tag(geo, x), controls=geo[4])
+        secs.append(time.perf_counter() - t0)
+        return text
+
+    timed = k7_bf16_times(rnd, failures, check)
+    log(f"K7 block_numerics: {sum(secs):.1f} s over the five geometries "
+        f"(" + " ".join(f"{t:.1f}" for t in secs) + ")")
+    geo = K7_GEOMETRIES[0]
+    t, (err_f, err_fy, err_b, err_fg) = timed[geo], errs[geo]
+    common = dict(route="cuda", source="paddle_tpu_torch/csrc/fused_block.cu")
+    shape = "x [128, 56, 56, 256], Cm 64 (stage 1 identity block) bf16"
+    rows["fused_bottleneck_fwd"] = dict(
+        name="K7 fused_bottleneck_fwd",
+        replaces="paddle_tpu/kernels/fused_bottleneck.py:180",
+        max_abs_err=max(err_f, err_fy), ms=t["fwd_ms"],
+        plain_ms=t["plain_fwd_ms"], bound_ms=t["fwd_bound_ms"],
+        bound_by=t["fwd_bound_by"], library_ms=t["cudnn_fwd_ms"],
+        shape=shape + "; library: the cuDNN composition (3 convs + "
+                      "elementwise), not one call", **common)
+    rows["fused_bottleneck_bwd"] = dict(
+        name="K7 fused_bottleneck_bwd",
+        replaces="paddle_tpu/kernels/fused_bottleneck.py:205",
+        max_abs_err=max(err_b, err_fg), ms=t["bwd_ms"],
+        plain_ms=t["plain_bwd_ms"], bound_ms=t["bwd_bound_ms"],
+        bound_by=t["bwd_bound_by"], library_ms=t["cudnn_bwd_ms"],
+        shape=shape + "; kernel_ms is the four backward kernels (B1, B2, "
+                      "the weight-gradient GEMM and its slice sum) and the "
+                      "wrapper's buffers; library: the cuDNN composition's "
+                      "backward", **common)
+
+
+def k7_tag(geo, x):
+    hw, cin, cm, cout, proj = geo
+    return (f"K7 {hw}^2 {cin}/{cm}/{cout} {'proj' if proj else 'id'} "
+            f"n={x.shape[0]} {dname(x.dtype)}")
+
+
+def k7_check(geo, x, ws, affs, dy, failures):
+    """K7 at one geometry: raw launches and through the autograd Function
+    against the plain versions (`compare_k7`; f32 with its near-ties).
+    Returns the line's text (tag, plan, errors) and the max errors of the
+    forward, the Function's y, the backward and the Function's grads."""
     import torch
 
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
     from paddle_tpu_torch.tools import near_ties as NT
 
-    for dt, n in ((torch.float32, 2), (torch.bfloat16, 128)):
-        for hw, cin, cm, cout, proj in K7_GEOMETRIES:
-            d = dname(dt)
-            x, ws, affs, dy = k7_inputs(rnd, n, hw, cin, cm, cout, proj, dt)
-            w4 = ws[3] if proj else None
-            aff = FB._pack_affines(affs, cout)
-            tag = (f"K7 {hw}^2 {cin}/{cm}/{cout} {'proj' if proj else 'id'} "
-                   f"n={n} {d}")
-            rows_n = n * hw * hw
-            y = FB._launch_fwd(x, *ws[:3], w4, aff, proj)
-            y_ref = FB.fused_bottleneck_fwd_ref(x, *ws[:3], w4, aff, proj)
-            ties = (NT.NearTies(x, *ws[:3], w4, aff, proj, False, y, y_ref)
-                    if dt == torch.float32 else None)
-            err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties,
-                               "y")
-            got = FB._launch_bwd(x, dy, *ws[:3], w4, aff, proj)
-            want = FB.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj)
-            err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures,
-                               ties, "dx")
-            for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"),
-                                  got[1:], want[1:]):
-                if g is not None:
-                    err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d,
-                                                  rows_n, failures, ties))
-            # through the Function: y and every grad, in the primals' dtype
-            fn = FB.fused_bottleneck_proj if proj else FB.fused_bottleneck
-            leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
-            out = fn(*leaves)
-            err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1,
-                                failures, ties, "y")
-            grads = torch.autograd.grad(out, leaves, dy)
-            err_fg = 0.0
-            cmw = [want[0], *want[1:4]] + ([want[4]] if proj else [])
-            daff = want[5]
-            cmw += [daff[0, :cm], daff[1, :cm], daff[2, :cm], daff[3, :cm],
-                    daff[4], daff[5]] + ([daff[6], daff[7]] if proj else [])
-            for i, (g, w) in enumerate(zip(grads, cmw)):
-                if g.dtype != leaves[i].dtype:
-                    failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
-                err_fg = max(err_fg, compare_k7(
-                    f"{tag} Function grad {i}", g, w.to(g.dtype), d,
-                    1 if i == 0 else rows_n, failures, ties,
-                    "dx" if i == 0 else "sum"))
-            del leaves, out, grads, got, want, cmw
-            msg = (f"{tag}: max_err fwd {err_f:.3e} bwd {err_b:.3e} "
-                   f"Function y {err_fy:.3e} grads {err_fg:.3e}")
-            if ties is not None:
-                msg += f"; {ties}"
-            if dt == torch.bfloat16:
-                timed = k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm,
-                                 cout)
-                msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
-                                       else f"{k} {v}"
-                                       for k, v in timed.items())
-                if not proj and hw == 56:
-                    common = dict(route="cuda",
-                                  source="paddle_tpu_torch/csrc/"
-                                         "fused_bottleneck.cu")
-                    shape = (f"x [128, 56, 56, 256], Cm 64 (stage 1 identity "
-                             "block) bf16")
-                    rows["fused_bottleneck_fwd"] = dict(
-                        name="K7 fused_bottleneck_fwd",
-                        replaces="paddle_tpu/kernels/fused_bottleneck.py:180",
-                        max_abs_err=max(err_f, err_fy), ms=timed["fwd_ms"],
-                        plain_ms=timed["plain_fwd_ms"],
-                        bound_ms=timed["fwd_bound_ms"],
-                        bound_by=timed["fwd_bound_by"],
-                        library_ms=timed["cudnn_fwd_ms"], shape=shape
-                        + "; library: the cuDNN composition (3 convs + "
-                          "elementwise), not one call", **common)
-                    rows["fused_bottleneck_bwd"] = dict(
-                        name="K7 fused_bottleneck_bwd",
-                        replaces="paddle_tpu/kernels/fused_bottleneck.py:205",
-                        max_abs_err=max(err_b, err_fg), ms=timed["bwd_ms"],
-                        plain_ms=timed["plain_bwd_ms"],
-                        bound_ms=timed["bwd_bound_ms"],
-                        bound_by=timed["bwd_bound_by"],
-                        library_ms=timed["cudnn_bwd_ms"], shape=shape
-                        + "; kernel_ms is both backward kernels and the "
-                          "wrapper's zeroed grad buffers; library: the cuDNN "
-                          "composition's backward", **common)
-            log(msg)
-            del x, ws, affs, dy, aff, y, y_ref
-            torch.cuda.empty_cache()
+    hw, cin, cm, cout, proj = geo
+    dt, n = x.dtype, x.shape[0]
+    d = dname(dt)
+    w4 = ws[3] if proj else None
+    aff = FB._pack_affines(affs, cout)
+    tag = k7_tag(geo, x)
+    rows_n = n * hw * hw
+    plan = FB.block_plan(n, hw, hw, cin, cm, cout, proj, dt)
+    y = FB._launch_fwd(x, *ws[:3], w4, aff, proj)
+    y_ref = FB.fused_bottleneck_fwd_ref(x, *ws[:3], w4, aff, proj)
+    ties = (NT.NearTies(x, *ws[:3], w4, aff, proj, False, y, y_ref)
+            if dt == torch.float32 else None)
+    err_f = compare_k7(tag + " y", y, y_ref, d, 1, failures, ties, "y")
+    got = FB._launch_bwd(x, dy, *ws[:3], w4, aff, proj)
+    want = FB.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj)
+    err_b = compare_k7(tag + " dx", got[0], want[0], d, 1, failures, ties,
+                       "dx")
+    for name, g, w in zip(("dw1", "dw2", "dw3", "dw4", "daff"), got[1:],
+                          want[1:]):
+        if g is not None:
+            err_b = max(err_b, compare_k7(f"{tag} {name}", g, w, d, rows_n,
+                                          failures, ties))
+    # through the Function: y and every grad, in the primals' dtype
+    fn = FB.fused_bottleneck_proj if proj else FB.fused_bottleneck
+    leaves = [t.clone().requires_grad_() for t in [x] + ws + affs]
+    out = fn(*leaves)
+    err_fy = compare_k7(tag + " Function y", out, y_ref, d, 1, failures,
+                        ties, "y")
+    grads = torch.autograd.grad(out, leaves, dy)
+    err_fg = 0.0
+    cmw = [want[0], *want[1:4]] + ([want[4]] if proj else [])
+    daff = want[5]
+    cmw += [daff[0, :cm], daff[1, :cm], daff[2, :cm], daff[3, :cm],
+            daff[4], daff[5]] + ([daff[6], daff[7]] if proj else [])
+    for i, (g, w) in enumerate(zip(grads, cmw)):
+        if g.dtype != leaves[i].dtype:
+            failures.append(f"{tag} Function grad {i} dtype {g.dtype}")
+        err_fg = max(err_fg, compare_k7(
+            f"{tag} Function grad {i}", g, w.to(g.dtype), d,
+            1 if i == 0 else rows_n, failures, ties,
+            "dx" if i == 0 else "sum"))
+    msg = (f"{tag}: {plan_text(plan)}; max_err fwd {err_f:.3e} bwd "
+           f"{err_b:.3e} Function y {err_fy:.3e} grads {err_fg:.3e}")
+    if ties is not None:
+        msg += f"; {ties}"
+    return msg, (err_f, err_fy, err_b, err_fg)
+
+
+def k7_bf16_times(rnd, failures, check=None):
+    """K7 at each geometry in bfloat16, batch 128, inputs drawn from
+    `rnd`: `check(geo, x, ws, affs, aff, dy)` (default: y and dx against
+    the plain versions; only the launchers, so that `compare` can run it
+    on an older package) gives the start of the geometry's line, then
+    `k7_times`; finally K7's forward and backward summed over the 13
+    launches of a full-fused ResNet-50 step.  Returns each geometry's
+    times."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    def check_y_dx(geo, x, ws, affs, aff, dy):
+        hw, cin, cm, cout, proj = geo
+        args = list(ws[:3]) + [ws[3] if proj else None]
+        tag = k7_tag(geo, x)
+        compare_k7(tag + " y", FB._launch_fwd(x, *args, aff, proj),
+                   FB.fused_bottleneck_fwd_ref(x, *args, aff, proj),
+                   "bfloat16", 1, failures)
+        compare_k7(tag + " dx", FB._launch_bwd(x, dy, *args, aff, proj)[0],
+                   FB.fused_bottleneck_bwd_ref(x, dy, *args, aff, proj)[0],
+                   "bfloat16", 1, failures)
+        return tag
+
+    step, out = {"fwd_ms": 0.0, "bwd_ms": 0.0}, {}
+    for geo in K7_GEOMETRIES:
+        hw, cin, cm, cout, proj = geo
+        x, ws, affs, dy = k7_inputs(rnd, 128, hw, cin, cm, cout, proj,
+                                    torch.bfloat16)
+        aff = FB._pack_affines(affs, cout)
+        text = (check or check_y_dx)(geo, x, ws, affs, aff, dy)
+        out[geo] = k7_times(x, ws, affs, aff, dy, proj, 128, hw, cin, cm,
+                            cout)
+        add_step(step, out[geo], proj, hw)
+        log(f"{text}; {timed_text(out[geo])}")
+        del x, ws, affs, dy, aff
+        torch.cuda.empty_cache()
+    log(step_text(step))
+    return out
 
 
 def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
@@ -965,6 +1075,9 @@ def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
                                                    proj), 5, graph=False)
     out["bwd_ms"] = time_ms(lambda: FB._launch_bwd(x, dy, *ws[:3], w4, aff,
                                                    proj), 5, graph=False)
+    out["bwd_split_ms"] = bwd_split(
+        lambda: FB._launch_bwd(x, dy, *ws[:3], w4, aff, proj),
+        "block_bwd2_kernel")
     out["plain_fwd_ms"] = time_ms(lambda: FB.fused_bottleneck_fwd_ref(
         x, *ws[:3], w4, aff, proj), 3, graph=False)
     out["plain_bwd_ms"] = time_ms(lambda: FB.fused_bottleneck_bwd_ref(
@@ -994,12 +1107,30 @@ def k7_times(x, ws, affs, aff, dy, proj, n, hw, cin, cm, cout):
     return out
 
 
+def plan_text(plan):
+    """One line of a K7 / K8 launch plan (`block_plan`, `down_plan`)."""
+    return (f"plan tile px fwd/B1/B2 {plan['tile_px']} blocks "
+            f"{plan['blocks']} per SM {plan['per_sm']} smem {plan['smem']} "
+            f"dW1-4 K slices {plan['slices']} ({plan['wgrad_items']} items, "
+            f"{plan['partials']} f32 partials) scratch "
+            f"{plan['scratch_mb']:.1f} MB")
+
+
 # K8 at ResNet-50's three stride-2 transitions: (H = W, Cin, Cm, Cout)
 K8_GEOMETRIES = ((56, 256, 128, 512), (28, 512, 256, 1024),
                  (14, 1024, 512, 2048))
-# k8_numerics: the kernel's error against float64 products may exceed the
-# plain f32 version's by at most this factor on each output
+# block_numerics: on the caller's draw the kernel's error against float64
+# products may exceed the plain f32 version's by at most this factor on
+# each output ...
 K8_P64_RATIO = 1.5
+# ... unless the relu masks account for the excess: every mask the kernel
+# set otherwise than the float64 products is a near-tie, |u| <= TIE_BF16
+# of the sum of the magnitudes of u's terms (each term's bf16 operand one
+# rounding step off moves u by at most that much), such flips are at
+# most FLIP_SHARE_MAX of the relu inputs, and with each side's masks
+# imposed on the float64 products the ratio holds
+TIE_BF16 = 2.0 ** -7
+FLIP_SHARE_MAX = 2e-5
 # k8_precision: the kernel's error against float64 products is the tensor
 # core model's within this relative band on each output, and its y is the
 # model's in all but this share of the elements
@@ -1096,20 +1227,15 @@ def fused_bottleneck_down_checks(rows, failures, rnd):
                 1 if i == 0 else rows_n, failures, ties,
                 "dx" if i == 0 else "sum"))
         del leaves, out, grads, got, want, cmw
-        msg = (f"{tag}: plan tile px fwd/B1/B2 {plan['tile_px']} blocks "
-               f"{plan['blocks']} dW1-4 K slices {plan['slices']} "
-               f"({plan['wgrad_items']} items, {plan['partials']} f32 "
-               f"partials) scratch {plan['scratch_mb']:.1f} MB; max_err "
-               f"fwd {err_f:.3e} bwd {err_b:.3e} Function y "
-               f"{err_fy:.3e} grads {err_fg:.3e}")
+        msg = (f"{tag}: {plan_text(plan)}; max_err fwd {err_f:.3e} bwd "
+               f"{err_b:.3e} Function y {err_fy:.3e} grads {err_fg:.3e}")
         if ties is not None:
             msg += f"; {ties}"
         if dt == torch.bfloat16 and n == 128:
-            msg += "; " + k8_numerics(x, dy, ws, aff, cm, failures, tag)
+            msg += "; " + block_numerics("down", x, dy, ws, aff, cm,
+                                         failures, tag)
             timed = k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout)
-            msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
-                                   else f"{k} {v}"
-                                   for k, v in timed.items())
+            msg += "; " + timed_text(timed)
             if hw == 56:
                 common = dict(route="cuda",
                               source="paddle_tpu_torch/csrc/"
@@ -1160,7 +1286,8 @@ def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
                             graph=False)
     out["bwd_ms"] = time_ms(lambda: FB._launch_down_bwd(x, dy, *ws, aff), 5,
                             graph=False)
-    out["bwd_split_ms"] = k8_bwd_split(x, dy, ws, aff)
+    out["bwd_split_ms"] = bwd_split(
+        lambda: FB._launch_down_bwd(x, dy, *ws, aff), "down_bwd2_kernel")
     out["plain_fwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_fwd_ref(
         x, *ws, aff), 3, graph=False)
     out["plain_bwd_ms"] = time_ms(lambda: FB.fused_bottleneck_down_bwd_ref(
@@ -1193,25 +1320,70 @@ def k8_times(x, ws, affs, aff, dy, n, hw, cin, cm, cout):
 K8_OUTPUTS = ("y", "dx", "dw1", "dw2", "dw3", "dw4", "daff")
 
 
-def k8_outs(x, dy, ws, aff, cm, dot=None):
-    """K8's y, dx, dW1-4 and its eight affine-grad rows: the kernel's
-    with `dot` "kernel", else the plain version's with its products
-    taken by `dot` (None: its own f32 `_dot`)."""
+def block_names(kind):
+    """The outputs `block_outs` gives for K7 ("id", "proj") or K8
+    ("down"), in order; the identity block has no dW4."""
+    return tuple(n for n in K8_OUTPUTS if kind != "id" or n != "dw4")
+
+
+def block_outs(kind, x, dy, ws, aff, cm, dot=None, masks=None, keep=None):
+    """K7's (kind "id" or "proj") or K8's ("down") y, dx, dW1-4 (the
+    identity block: dW1-3) and its affine-grad rows (8; the identity
+    block: 6): the kernel's with `dot` "kernel", else the plain
+    version's with its products taken by `dot` (None: its own f32
+    `_dot`) and its relu masks `masks` (None: its own); `keep` receives
+    the backward's h0, h1, dc0, dc1, dc2, dc4 (`_launch_bwd`)."""
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
 
-    fwd = FB.fused_bottleneck_down_fwd_ref
-    bwd = FB.fused_bottleneck_down_bwd_ref
-    if dot == "kernel":
-        fwd, bwd, dot = FB._launch_down_fwd, FB._launch_down_bwd, None
+    kernel = dot == "kernel"
+    kw = dict(keep=keep) if kernel else dict(masks=masks, keep=keep)
+    if kind == "down":
+        fwd = FB._launch_down_fwd if kernel else \
+            FB.fused_bottleneck_down_fwd_ref
+        bwd = FB._launch_down_bwd if kernel else \
+            FB.fused_bottleneck_down_bwd_ref
+        args = list(ws)
+    else:
+        proj = kind == "proj"
+        f7 = FB._launch_fwd if kernel else FB.fused_bottleneck_fwd_ref
+        b7 = FB._launch_bwd if kernel else FB.fused_bottleneck_bwd_ref
+
+        def fwd(*a):
+            return f7(*a, proj)
+
+        def bwd(*a, **kw):
+            return b7(*a, proj, **kw)
+
+        args = list(ws[:3]) + [ws[3] if proj else None]
     own = FB._dot
-    FB._dot = dot or own
+    FB._dot = (None if kernel else dot) or own
     try:
-        y = fwd(x, *ws, aff)
-        dx, dw1, dw2, dw3, dw4, daff = bwd(x, dy, *ws, aff)
+        y = fwd(x, *args, aff)
+        dx, dw1, dw2, dw3, dw4, daff = bwd(x, dy, *args, aff, **kw)
     finally:
         FB._dot = own
-    rows = [daff[i, :cm] if i < 4 else daff[i] for i in range(8)]
-    return [y, dx, dw1, dw2, dw3, dw4], rows
+    outs = [y, dx, dw1, dw2, dw3] + ([] if kind == "id" else [dw4])
+    rows = [daff[i, :cm] if i < 4 else daff[i]
+            for i in range(6 if kind == "id" else 8)]
+    return outs, rows
+
+
+def relu_inputs(kind, x, ws, aff, dot=None):
+    """The three relu inputs u0, u1, pre of K7 (kind "id", "proj") or K8
+    ("down") and the sums of the magnitudes of their terms
+    (`near_ties.preactivations`), with the products taken by `dot`
+    (None: the plain version's f32), each pair [R, C]."""
+    from paddle_tpu_torch.tools import near_ties as NT
+
+    own = NT._dot
+    NT._dot = dot or own
+    try:
+        got = NT.preactivations(x, *ws[:3], ws[3] if kind != "id" else None,
+                                aff, kind != "id", kind == "down")
+    finally:
+        NT._dot = own
+    return [(u.reshape(-1, u.shape[-1]), m.reshape(-1, m.shape[-1]))
+            for u, m in got]
 
 
 def dot64(a, b):
@@ -1225,51 +1397,155 @@ def rel_err(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def k8_errs(outs, ref):
-    """rel_err of each K8 output against ref's (the affine grads: the
-    worst of the eight rows), in K8_OUTPUTS order."""
+def block_errs(outs, ref):
+    """rel_err of each output of `block_outs` against ref's (the affine
+    grads: the worst of the rows), in `block_names` order."""
     errs = [rel_err(a, b) for a, b in zip(outs[0], ref[0])]
     errs.append(max(rel_err(a, b) for a, b in zip(outs[1], ref[1])))
     return errs
 
 
-def k8_numerics(x, dy, ws, aff, cm, failures, tag):
-    """K8's bf16 error against float64 products: the relative Frobenius
-    error of y, dx, dW1-4 and the affine grads (the worst of the eight
-    rows) for the kernel against the plain version, the kernel against
-    the plain version with float64 products (`p64`), and the plain
-    version against p64.  Fails unless a second run gives dW1-4 bitwise
-    equal (the slice sums are taken in a fixed order), and where the
-    kernel's error against p64 exceeds K8_P64_RATIO times the plain
-    version's on any output."""
+def relu_masks(kind, x, dy, ws, aff, cm, dot=None):
+    """`block_outs` with the relu masks its backward chose, read from what
+    it keeps (the kernel's scratch, or the plain version's): h0 > 0, h1 >
+    0 and dc2 != 0 (pre's mask shows only where dy is nonzero); and the
+    elements where dc0 or dc1 pass a gradient though h0 or h1 is 0 (none,
+    when the backward masked with the same u0, u1 it rounded to h0,
+    h1)."""
+    keep = []
+    outs = block_outs(kind, x, dy, ws, aff, cm, dot, keep=keep)
+    h0, h1, dc0, dc1, dc2 = keep[:5]
+    masks = [h0 > 0, h1 > 0, dc2 != 0]
+    stray = int(((dc0 != 0) & ~masks[0]).sum()
+                + ((dc1 != 0) & ~masks[1]).sum())
+    return outs, masks, stray
+
+
+class Precision:
+    """The reference side of `block_numerics` on one draw: the plain f32
+    version's outputs and masks, and those of the plain version with
+    float64 products (p64), with p64's relu inputs and their sums of
+    |terms|."""
+
+    def __init__(self, kind, x, dy, ws, aff, cm):
+        self.args = (kind, x, dy, ws, aff, cm)
+        self.names = block_names(kind)
+        self.plain, self.plain_masks, _ = relu_masks(*self.args)
+        self.p64 = block_outs(*self.args, dot64)
+        self.p64_in = relu_inputs(kind, x, ws, aff, dot64)
+        self.dy_nonzero = dy.reshape(-1, dy.shape[-1]) != 0
+        self.plain_err = block_errs(self.plain, self.p64)
+        self.plain_flips = self.flips(self.plain_masks)
+        self.plain_matched = block_errs(self.plain, block_outs(
+            *self.args, dot64, self.plain_masks))
+
+    def flips(self, masks):
+        """Per relu (u0, u1, pre): the elements where `masks` differ from
+        p64's u > 0 (pre's where dy is nonzero), and the largest |u| /
+        sum|terms| among them."""
+        out = []
+        for r, (m, (u, s)) in enumerate(zip(masks, self.p64_in)):
+            flip = m != (u > 0)
+            if r == 2:
+                flip &= self.dy_nonzero
+            n = int(flip.sum())
+            out.append((n, float((u.abs() / s.clamp_min(1e-30))[flip].max())
+                        if n else 0.0))
+        return out
+
+    def gate(self, outs, masks):
+        """The outputs on which `outs` (relu masks `masks`) fail, each
+        with why, and the line's text: the errors against p64 with p64's
+        masks and with each side's own, and the mask flips."""
+        err = block_errs(outs, self.p64)
+        matched = block_errs(outs, block_outs(*self.args, dot64, masks))
+        flips = self.flips(masks)
+        share = (sum(n for n, _ in flips)
+                 / sum(u.numel() for u, _ in self.p64_in))
+        worst = max(w for _, w in flips)
+        foot = None
+        if worst > TIE_BF16:
+            foot = (f"a flipped mask at |u| {worst:.2e} of its sum of "
+                    f"|terms| > {TIE_BF16:g}")
+        elif share > FLIP_SHARE_MAX:
+            foot = (f"flipped masks {share:.2e} of the relu inputs > "
+                    f"{FLIP_SHARE_MAX:g}")
+        bad = []
+        for name, k, p, km, pm in zip(self.names, err, self.plain_err,
+                                      matched, self.plain_matched):
+            if k <= K8_P64_RATIO * p:
+                continue
+            why = (f"error against float64 products {k:.2e} > "
+                   f"{K8_P64_RATIO} x the plain version's {p:.2e}")
+            if foot:
+                bad.append((name, f"{why}; {foot}"))
+            elif km > K8_P64_RATIO * pm:
+                bad.append((name, f"{why}; with each side's relu masks "
+                            f"{km:.2e} > {K8_P64_RATIO} x {pm:.2e}"))
+
+        def errs(v):
+            return " ".join(f"{n} {e:.2e}" for n, e in zip(self.names, v))
+
+        def flip_text(f):
+            return " ".join(f"{r} {n} ({w:.1e})" for r, (n, w) in
+                            zip(("u0", "u1", "pre"), f))
+
+        return bad, (
+            f"against p64 [{errs(err)}] plain [{errs(self.plain_err)}]; "
+            f"own masks [{errs(matched)}] plain "
+            f"[{errs(self.plain_matched)}]; masks off p64's (worst "
+            f"|u|/sum|terms|) [{flip_text(flips)}] plain "
+            f"[{flip_text(self.plain_flips)}], share {share:.1e}")
+
+
+def block_numerics(kind, x, dy, ws, aff, cm, failures, tag, controls=False):
+    """K7's (kind "id", "proj") or K8's ("down") bf16 precision on the
+    caller's draw of x and dy: per output (y, dx, dW1-4, the affine
+    grads: the worst of the rows) the relative Frobenius error against
+    the plain version with float64 products (p64), for the kernel and
+    for the plain f32 version.  An output fails where the kernel's
+    exceeds K8_P64_RATIO times the plain version's, unless the relu
+    masks account for the excess (TIE_BF16, FLIP_SHARE_MAX): each
+    side's masks (`relu_masks`: for the kernel read from its scratch)
+    are imposed on p64, and the ratio must then hold.  Also fails where
+    the kernel passes a gradient through a relu whose output it kept as
+    0, where a second run gives dW1-4 that are not bitwise equal (the
+    slice sums are taken in a fixed order), and, with `controls`, where
+    the gate passes the plain version on one of CONTROLS' lower-precision
+    sums."""
     import torch
 
-    kern = k8_outs(x, dy, ws, aff, cm, "kernel")
-    again = k8_outs(x, dy, ws, aff, cm, "kernel")
-    plain = k8_outs(x, dy, ws, aff, cm)
-    p64 = k8_outs(x, dy, ws, aff, cm, dot64)
+    t0 = time.perf_counter()
+    kern, masks, stray = relu_masks(kind, x, dy, ws, aff, cm, "kernel")
+    again = block_outs(kind, x, dy, ws, aff, cm, "kernel")
     same = all(torch.equal(a, b) for a, b in zip(kern[0][2:], again[0][2:]))
+    del again
     if not same:
         failures.append(f"{tag}: dW1-4 differ between two runs")
-    errs = [k8_errs(*pair) for pair in ((kern, plain), (kern, p64),
-                                        (plain, p64))]
-    parts = [" ".join(f"{n} {v:.2e}" for n, v in zip(K8_OUTPUTS, e))
-             for e in errs]
-    for name, k, p in zip(K8_OUTPUTS, errs[1], errs[2]):
-        if k > K8_P64_RATIO * p:
-            failures.append(f"{tag} {name}: kernel error against float64 "
-                            f"products {k:.2e} > {K8_P64_RATIO} x the "
-                            f"plain version's {p:.2e}")
-    return (f"rel Frobenius kernel-plain [{parts[0]}] kernel-p64 "
-            f"[{parts[1]}] plain-p64 [{parts[2]}]; dW1-4 bitwise "
-            f"repeatable {same}")
+    if stray:
+        failures.append(f"{tag}: dc0 or dc1 nonzero at {stray} elements "
+                        "where the kernel's h0 or h1 is 0")
+    ref = Precision(kind, x, dy, ws, aff, cm)
+    bad, text = ref.gate(kern, masks)
+    failures += [f"{tag} {name}: kernel {why}" for name, why in bad]
+    text = f"precision kernel {text}; dW1-4 bitwise repeatable {same}"
+    for name, dot in (CONTROLS if controls else ()):
+        cbad, ctext = ref.gate(*relu_masks(kind, x, dy, ws, aff, cm, dot)[:2])
+        if not cbad:
+            failures.append(f"{tag}: the precision gate passes the control "
+                            f"{name}")
+        text += (f"; control {name}: fails on "
+                 f"[{' '.join(n for n, _ in cbad)}] {ctext}")
+    return text + f"; {time.perf_counter() - t0:.1f} s"
 
 
-def hmma_dot(toward_zero):
+def hmma_dot(toward_zero, accumulate=False):
     """A model of the sums of `pt::tc::product` (csrc/mma.cuh) for the
     plain version's products: each 16-deep group of K summed exactly
     (float64), rounded to f32 as one mma returns it (toward zero, or to
-    nearest), and the groups added in K order in f32."""
+    nearest), and the groups added in K order in f32.  With
+    `accumulate`, the mma's own accumulation instead: each group added
+    exactly to the running f32 sum and the result rounded so."""
     import torch
 
     def dot(a, b):
@@ -1277,14 +1553,29 @@ def hmma_dot(toward_zero):
         acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
         for k0 in range(0, a.shape[1], 16):
             s = a[:, k0:k0 + 16] @ b[k0:k0 + 16]
+            if accumulate:
+                s = s + acc.double()
             f = s.float()
             if toward_zero:
                 f = torch.where(f.double().abs() > s.abs(),
                                 torch.nextafter(f, torch.zeros_like(f)), f)
-            acc += f
+            acc = f if accumulate else acc + f
         return acc
 
     return dot
+
+
+def dot_bf16(a, b):
+    """The plain version's products with each sum rounded to bf16."""
+    import torch
+
+    return torch.matmul(a.float(), b.float()).to(torch.bfloat16).float()
+
+
+# block_numerics' controls: the plain version on sums of lower precision,
+# which its gate must fail
+CONTROLS = (("bf16 sums", dot_bf16),
+            ("the mma's own accumulation", hmma_dot(True, accumulate=True)))
 
 
 def k8_precision(failures, seed):
@@ -1321,12 +1612,11 @@ def k8_precision(failures, seed):
     dy = torch.randn((n, hw // 2, hw // 2, cout), device="cuda",
                      dtype=torch.bfloat16,
                      generator=torch.Generator(device="cuda").manual_seed(1))
-    p64 = k8_outs(x, dy, ws, aff, cm, dot64)
-    runs = {"kernel": k8_outs(x, dy, ws, aff, cm, "kernel"),
-            "plain": k8_outs(x, dy, ws, aff, cm),
-            "rz": k8_outs(x, dy, ws, aff, cm, hmma_dot(True)),
-            "rn": k8_outs(x, dy, ws, aff, cm, hmma_dot(False))}
-    errs = {k: k8_errs(v, p64) for k, v in runs.items()}
+    p64 = block_outs("down", x, dy, ws, aff, cm, dot64)
+    runs = {k: block_outs("down", x, dy, ws, aff, cm, d) for k, d in (
+        ("kernel", "kernel"), ("plain", None), ("rz", hmma_dot(True)),
+        ("rn", hmma_dot(False)))}
+    errs = {k: block_errs(v, p64) for k, v in runs.items()}
     y = runs["kernel"][0][0]
     off = {k: torch.ne(v[0][0], y).float().mean().item()
            for k, v in runs.items() if k != "kernel"}
@@ -1345,23 +1635,22 @@ def k8_precision(failures, seed):
             "kernel's: " + " ".join(f"{k} {v:.2e}" for k, v in off.items()))
 
 
-def k8_bwd_split(x, dy, ws, aff):
-    """Device ms of one K8 backward by kernel (torch.profiler): B1, B2,
-    the weight-gradient GEMM (W), its slice sum (R) and the rest (the
-    wrapper's zeroed affine grads)."""
+def bwd_split(run, b2):
+    """Device ms of one K7 or K8 backward, `run()`, by kernel
+    (torch.profiler): B1, B2 (the kernel named `b2`), the weight-gradient
+    GEMM (W), its slice sum (R) and the rest (the wrapper's zeroed affine
+    grads)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.kernels import fused_bottleneck as FB
-
-    FB._launch_down_bwd(x, dy, *ws, aff)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        FB._launch_down_bwd(x, dy, *ws, aff)
+        run()
         torch.cuda.synchronize()
     parts = {"B1": 0.0, "B2": 0.0, "W": 0.0, "R": 0.0, "rest": 0.0}
-    names = {"down_bwd1_kernel": "B1", "down_bwd2_kernel": "B2",
-             "down_wgrad_kernel": "W", "down_wsum_kernel": "R"}
+    names = {"block_bwd1_kernel": "B1", b2: "B2", "wgrad_kernel": "W",
+             "wsum_kernel": "R"}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA \
                 or e.self_device_time_total <= 0:
@@ -1529,7 +1818,7 @@ def k9_times(c, aff, dy):
 
 
 # ---------------------------------------------------------------------------
-# phase 2b: the probes P1 and P2, the K7 split, the port's probe tool
+# phase 2b: the probes P1 and P2, K7 beside them, the port's probe tool
 # ---------------------------------------------------------------------------
 
 def probes_phase(failures):
@@ -1537,13 +1826,15 @@ def probes_phase(failures):
     plain versions on the card, in f32 at batch 2 and bf16 at the tool's
     batch 8 and ResNet-50's batch 128 (ResNet-50 stage 1: 56^2, Cin 256,
     Cm 64), and at a ragged 11 x 7 in both dtypes; their times beside
-    the plain versions, a library yardstick and the bound; K7's stage-1 identity forward on the same x, w1, w2,
-    w3, split into P1, P2 and the rest; then the port's probe tool, all
-    seven probes, each of which must exit 0 having launched its kernel.
+    the plain versions, a library yardstick and the bound; K7's stage-1
+    identity forward on the same x, w1, w2, w3 beside them, each with the
+    routine it runs on; then the port's probe tool, all seven probes,
+    each of which must exit 0 having launched its kernel.
     The inputs come from a generator of their own, so the kernel phase's
     draws are those of earlier runs."""
     import torch
 
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
     from paddle_tpu_torch.kernels import fused_probe as FP
 
     dev = torch.device("cuda")
@@ -1574,10 +1865,11 @@ def probes_phase(failures):
                        FP.matmul_chain_probe(x2, w1, w3),
                        FP.matmul_chain_probe_ref(x2, w1, w3), d, failures)
         ths, blocks = FP.probe_tiles(h, w, cm, dt)
+        k7 = FB.block_plan(n, h, w, cin, cm, cin, False, dt)["per_sm"][0]
         log(f"P1 [{n}, {h}, {w}, {cm}] {d}: max_err {err1:.3e}; P2 "
             f"[{n}, {h}, {w}, {cin}] -> {cm} {d}: max_err {err2:.3e}; "
             f"tiles (P1, P2) {ths}, blocks per SM (K7 forward, P1, P2) "
-            f"{blocks}")
+            f"{(k7, *blocks)}")
         if h != hw and not all(t and h % t for t in ths):
             failures.append(f"P1/P2 [{n}, {h}, {w}]: tile rows {ths} leave "
                             "no partial tile")
@@ -1608,7 +1900,9 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
     """Device ms at batch 128 bf16 of P1 and P2, their plain versions,
     their library yardsticks and bounds, and the K7 stage-1 identity
     forward on the same x2, w1, w2, w3 (affines near (1, 0)); prints the
-    split line."""
+    three side by side.  P1 and P2 run on the CUDA-core `gemm`, K7 on the
+    tensor cores, so K7 - P1 - P2 would mean nothing: the split returns
+    when the probes move onto K7's tiles."""
     import torch
     import torch.nn.functional as TF
 
@@ -1646,7 +1940,6 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
     aff = FB._pack_affines(affs, cin)
     o["k7_ms"] = time_ms(lambda: FB._launch_fwd(x2, w1, w2, w3, None, aff,
                                                 False), 10, graph=False)
-    o["rest_ms"] = o["k7_ms"] - o["p1_ms"] - o["p2_ms"]
     log(f"P1 [{n}, {hw}, {hw}, {cm}] bf16: kernel_ms {o['p1_ms']:.4f} "
         f"plain_ms {o['p1_plain']:.4f} library_ms {o['p1_lib']:.4f} "
         f"bound_ms {o['p1_bound']:.5f} ({o['p1_by']})")
@@ -1654,11 +1947,12 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
         f"{o['p2_ms']:.4f} plain_ms {o['p2_plain']:.4f} library_ms "
         f"{o['p2_lib']:.4f} bound_ms {o['p2_bound']:.5f} ({o['p2_by']})")
     k7_flop = 2.0 * r * (2 * cin * cm + 9 * cm * cm)
-    log(f"K7 split, stage-1 identity forward [{n}, {hw}, {hw}, {cin}] Cm "
-        f"{cm} bf16: K7 {o['k7_ms']:.4f} ms = P1 (3x3) {o['p1_ms']:.4f} + "
-        f"P2 (1x1 chain) {o['p2_ms']:.4f} + rest {o['rest_ms']:.4f} (the "
-        f"halo's w1 recompute, affines, loaders); K7 "
-        f"{k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without its halo")
+    log(f"K7 beside P1/P2, stage-1 identity forward [{n}, {hw}, {hw}, "
+        f"{cin}] Cm {cm} bf16: K7 {o['k7_ms']:.4f} ms (tensor cores, "
+        f"csrc/mma.cuh; {k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without "
+        f"its halo), P1 (3x3) {o['p1_ms']:.4f} ms and P2 (1x1 chain) "
+        f"{o['p2_ms']:.4f} ms (CUDA-core gemm, csrc/fused_bottleneck.cu); "
+        "no split until P1/P2 move onto K7's tiles")
     return o
 
 
@@ -1804,6 +2098,28 @@ def profile_train_step(step, state, batch, host_ms, label="train"):
     for us, count, key in sorted(rows, reverse=True)[:14]:
         log(f"  {us / 1e3:9.4f} ms  {us / device_ms / 10:5.1f}%  "
             f"{count:5d}x  {key[:90]}")
+    shares = []
+    for fam, pattern in KERNEL_FAMILIES:
+        ms = sum(r[0] for r in rows if re.search(pattern, r[2])) / 1e3
+        if ms:
+            shares.append(f"{fam} {ms:.3f} ms ({ms / device_ms:.1%})")
+    if shares:
+        log(f"{label} step device time by kernel: " + ", ".join(shares))
+
+
+# device time of a step by the port's kernels: K7 (the stride-1 block:
+# its former CUDA-core kernels, or the stride-1 instances of
+# csrc/block_tc.cuh and K7's B2), K8 (the stride-2 instances and K8's B2,
+# or its former kernels), the slice sums both share, K9 (profiler keys
+# print template arguments as "<T, 1, ...>")
+KERNEL_FAMILIES = (
+    ("K7", r"bottleneck_(fwd|bwd1|bwd2)_kernel|block_(fwd|bwd1)_kernel<[^,]+,"
+           r" 1,|block_bwd2_kernel|wgrad_kernel<[^,]+, 1>"),
+    ("K8", r"down_(fwd|bwd1|bwd2|wgrad|wsum)_kernel|block_(fwd|bwd1)_kernel"
+           r"<[^,]+, 2,|wgrad_kernel<[^,]+, 2>"),
+    ("slice sums (K7, K8)", r"(?<!down_)wsum_kernel"),
+    ("K9", r"stem_(fwd|bwd|sum)_kernel"),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -2856,7 +3172,80 @@ def check_phase(failures):
                             f"with margin {margin:.3e} > 1e-3")
 
 
+# launches of each K7 geometry (side, projection) in one full-fused
+# ResNet-50 step
+K7_STEP_LAUNCHES = {(56, False): 2, (28, False): 3, (14, False): 5,
+                    (7, False): 2, (56, True): 1}
+
+
+def add_step(step, timed, proj, hw):
+    """Adds one geometry's K7 times, times its launches in a full-fused
+    step, to `step`."""
+    k = K7_STEP_LAUNCHES[hw, proj]
+    for key in step:
+        step[key] += k * timed[key]
+
+
+def step_text(step):
+    return (f"K7 per full-fused ResNet-50 step (13 launches, bf16 batch "
+            f"128): fwd {step['fwd_ms']:.3f} ms, bwd {step['bwd_ms']:.3f} "
+            f"ms, sum {step['fwd_ms'] + step['bwd_ms']:.3f} ms")
+
+
+def timed_text(timed):
+    return " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in timed.items())
+
+
+def compare_one(tree):
+    """`compare` for one tree: its package (`tree`/paddle_tpu_torch) built
+    and run by this script's `k7_bf16_times` and `resnet_run` (full fused
+    and `id`)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+
+    log(f"compare {tree}: package {backend.__file__}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt)
+
+    failures = []
+    k7_bf16_times(rnd, failures)
+    for mode in ("full", "id"):
+        _, ms, peak = resnet_run(mode, failures)
+        log(f"compare {tree} resnet {mode}: step {ms:.3f} ms, peak "
+            f"{peak / 2 ** 30:.3f} GiB")
+    for f in failures:
+        log(f"compare {tree} FAIL: {f}")
+    return 1 if failures else 0
+
+
+def compare_main(trees):
+    """`python3 chip_smoke.py compare TREE [TREE ...]`: the trees (each a
+    directory holding a paddle_tpu_torch package: this checkout's `.`, an
+    unpacked parent commit) in the order given, each in a process of its
+    own, so that two versions are timed in turns on one card (parent,
+    change, change, parent)."""
+    log(f"card: {card_line()}")
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, __file__, "compare-one",
+                              tree]).returncode
+    return rc
+
+
 def main():
+    if sys.argv[1:2] == ["compare"]:
+        return compare_main(sys.argv[2:])
+    if sys.argv[1:2] == ["compare-one"]:
+        return compare_one(sys.argv[2])
     try:
         import torch
     except ImportError:

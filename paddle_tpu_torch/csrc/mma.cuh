@@ -1,6 +1,6 @@
-// The tensor-core tile product of the port's Hopper kernels: K8's, and
-// the routine K7 and the probes may adopt in place of their CUDA-core
-// `gemm` (csrc/fused_bottleneck.cu).
+// The tensor-core tile product of the port's Hopper kernels: K7's and
+// K8's (csrc/block_tc.cuh), and the routine the probes P1/P2 may adopt in
+// place of their CUDA-core `gemm` (csrc/fused_bottleneck.cu).
 //
 // `product` computes C[m, n] = sum_k A(m, k) B(k, n) for m < M, n < N, k <
 // K over a 256-thread block and hands every element to an epilogue.  The
@@ -16,7 +16,10 @@
 // tensor cores, mma.sync.aligned.m16n8k16 (f32 accumulate) fed by
 // ldmatrix (.trans for the KM / KN layouts).  Each of the 8 warps owns 16
 // of the 128 columns and all 64 rows, as four 16-row fragments; a fragment
-// at or past M is skipped, so M pads to 16, not 64.  Each mma starts from
+// at or past M is skipped, so M pads to 16, not 64.  A tile of at most 64
+// columns (N = 64: the stride-1 block's Cm at ResNet-50's stage 1) would
+// leave half the warps idle, so there each warp owns 16 of the 64 columns
+// and 32 of the rows (two fragments).  Each mma starts from
 // a zero accumulator and its 16-deep result is added to the element's sum
 // by an f32 add (round to nearest): the tensor core's own accumulation
 // rounds differently (measured on the H100: twice the plain f32 version's
@@ -221,7 +224,9 @@ __device__ void product(int M, int N, int K, bool vec, const AF& a,
       }
 
       if (kMma) {
-        // warp w: columns n0 + 16 w .. + 15, all 64 rows (4 fragments)
+        // warp w: columns n0 + 16 w .. + 15, all 64 rows (fragments 0-3);
+        // in a tile of at most 64 columns, columns n0 + 16 (w % 4) .. + 15
+        // and fragments 2 (w / 4), + 1
         float acc[4][2][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -229,7 +234,10 @@ __device__ void product(int M, int N, int K, bool vec, const AF& a,
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-        const int wn = warp * 16;
+        const bool narrow = N - n0 <= kBN / 2;
+        const int wn = narrow ? (warp & 3) * 16 : warp * 16;
+        const int f0 = narrow ? (warp >> 2) * 2 : 0;
+        const int nf = narrow ? 2 : 4;
         const bool live = n0 + wn < N;
         for (int kc = 0; kc < nk; ++kc) {
           cp_async_wait<S - 2>();
@@ -254,8 +262,9 @@ __device__ void product(int M, int N, int K, bool vec, const AF& a,
                                       kk + (lm & 1) * 8);
             }
 #pragma unroll
-            for (int mf = 0; mf < 4; ++mf) {
-              if (m0 + mf * 16 >= M) continue;
+            for (int i = 0; i < 4; ++i) {
+              const int mf = f0 + i;
+              if (i >= nf || m0 + mf * 16 >= M) continue;
               uint32_t af[4];
               if (direct_a) {
                 const int m = m0 + mf * 16 + li + (lm & 1) * 8;
@@ -279,7 +288,7 @@ __device__ void product(int M, int N, int K, bool vec, const AF& a,
                 float part[4] = {0.f, 0.f, 0.f, 0.f};
                 mma_bf16(part, af, bf[2 * nt], bf[2 * nt + 1]);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mf][nt][e] += part[e];
+                for (int e = 0; e < 4; ++e) acc[i][nt][e] += part[e];
               }
             }
           }
@@ -287,14 +296,14 @@ __device__ void product(int M, int N, int K, bool vec, const AF& a,
         if (live) {
           const int g = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
-          for (int mf = 0; mf < 4; ++mf)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const int m = m0 + mf * 16 + g + (e >> 1) * 8;
+                const int m = m0 + (f0 + i) * 16 + g + (e >> 1) * 8;
                 const int n = n0 + wn + nt * 8 + t2 + (e & 1);
-                if (m < M && n < N) epi(m, n, acc[mf][nt][e]);
+                if (i < nf && m < M && n < N) epi(m, n, acc[i][nt][e]);
               }
         }
       } else {

@@ -40,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # every csrc/*.cu source, one shared library each
 SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode",
-           "fused_bottleneck", "fused_down", "fused_stem_tail",
-           "topk_threshold")
+           "fused_block", "fused_bottleneck", "fused_down",
+           "fused_stem_tail", "topk_threshold")
 
 LAUNCHES = collections.Counter()
 # compiler output (ptxas register / shared-memory / spill report) per

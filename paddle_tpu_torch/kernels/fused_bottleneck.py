@@ -1,12 +1,15 @@
 """Fused ResNet blocks for Hopper: K7, K8 and K9, forward and backward.
 
 Port of paddle_tpu/kernels/fused_bottleneck.py (`fused_bottleneck` :399,
-`fused_bottleneck_proj` :436).  The kernels are CUDA C++ in
-`paddle_tpu_torch/csrc/fused_bottleneck.cu` (built and bound by
+`fused_bottleneck_proj` :436).  K7's kernels are CUDA C++ in
+`paddle_tpu_torch/csrc/fused_block.cu` on the tensor-core pieces it
+shares with K8 (`csrc/block_tc.cuh`, `csrc/mma.cuh`; built and bound by
 `backend`): one forward kernel (the Pallas `_fwd_kernel` :180, `_fwd`
 :335) and a backward entry (the Pallas `_bwd_kernel` :205, `_bwd` :357)
-that runs its two kernels in a row.  A stride-1 block over NHWC rows,
-f32 accumulation, the activations rounded to x's dtype where the Pallas
+that runs its two activation-gradient kernels, one batch-wide
+weight-gradient GEMM and its slice-order sum in a row, into scratch
+that `block_plan` sizes.  A stride-1 block over NHWC rows, f32
+accumulation, the activations rounded to x's dtype where the Pallas
 kernels round them:
 
     y  = relu(a3 * (h1 @ w3) + b3 + s),   s = x  or  a4 * (x @ w4) + b4
@@ -49,9 +52,10 @@ Pallas `_stem_bwd_kernel` :775), not to the first.  Above a side of 112
 the reference dispatches to its XLA composition (`_stem_tail_xla`
 :892), whose pool gradient goes to the first maximum; the port keeps
 that dispatch (it decides the tie rule), with its own `pool2d` in the
-composition.  K8's CUDA kernels are in `csrc/fused_down.cu`, on the
-tensor-core product routine of `csrc/mma.cuh` (its backward writes
-scratch that `down_plan` sizes), K9's in `csrc/fused_stem_tail.cu`.
+composition.  K8's CUDA kernels are in `csrc/fused_down.cu`, the
+stride-2 instances of the pieces it shares with K7 (`csrc/block_tc.cuh`
+on `csrc/mma.cuh`; its backward writes scratch that `down_plan` sizes),
+K9's in `csrc/fused_stem_tail.cu`.
 """
 
 import ctypes
@@ -64,13 +68,11 @@ from . import backend
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {
-    "pt_fused_bottleneck_fwd": [_P] * 7 + [_I] * 9 + [_P],
-    "pt_fused_bottleneck_bwd": [_P] * 15 + [_I] * 9 + [_P],
-    # P1 and P2 (`fused_probe.py`) live in this library, on K7's routine
-    "pt_probe_conv3x3": [_P] * 3 + [_I] * 5 + [_P],
-    "pt_probe_matmuls": [_P] * 4 + [_I] * 6 + [_P],
-    "pt_probe_tiles": [_I] * 4 + [_P],
+# K7 (csrc/fused_block.cu)
+_BLOCK_SIGS = {
+    "pt_fused_block_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    "pt_fused_block_bwd": [_P] * 20 + [_I] * 9 + [_P],
+    "pt_fused_block_plan": [_I] * 8 + [_P],
 }
 # K8 (csrc/fused_down.cu)
 _DOWN_SIGS = {
@@ -145,13 +147,19 @@ def fused_bottleneck_fwd_ref(x, w1, w2, w3, w4, aff, proj):
     return torch.clamp_min(pre, 0.0).to(dt).reshape(n, h, w, cout)
 
 
-def fused_bottleneck_bwd_ref(x, dy, w1, w2, w3, w4, aff, proj):
+def fused_bottleneck_bwd_ref(x, dy, w1, w2, w3, w4, aff, proj,
+                             masks=None, keep=None):
     """Plain version of the backward kernel (the Pallas `_bwd_kernel`):
     recomputes the forward and returns (dx in x's dtype, dW1, dW2, dW3,
     dW4, daff [8, width]), the weight and affine grads in f32 (dW4 is
     None for the identity block).  c0, c1, c2, c4 are rounded to x's
     dtype before the affine-grad sums, dc2, dc1, dc0, dc4 before their
-    products, as in the reference."""
+    products, as in the reference.  `masks`, if given, are the three
+    relu masks (bool [R, Cm], [R, Cm], [R, Cout]) taken in place of
+    u0 > 0, u1 > 0 and pre > 0: a check that holds a kernel to this
+    version on the masks the kernel chose.  `keep`, if a list, receives
+    h0, h1, dc0, dc1, dc2 and dc4 (the identity block: dz3) in x's
+    dtype, as the kernel's scratch (`_launch_bwd`)."""
     dt = x.dtype
     n, h, w, cin = x.shape
     cm, cout = w1.shape[1], w3.shape[1]
@@ -181,17 +189,18 @@ def fused_bottleneck_bwd_ref(x, dy, w1, w2, w3, w4, aff, proj):
         s = xm.float()
     pre = c2 * a3 + b3 + s
     c2 = c2.to(dt)
+    m0, m1, m2 = masks or (u0 > 0.0, u1 > 0.0, pre > 0.0)
 
     # the backward chain
     dyf = dy.reshape(r, cout).float()
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    dz3 = torch.where(pre > 0.0, dyf, zero)
+    dz3 = torch.where(m2, dyf, zero)
     daff[4, :cout] = (dz3 * c2.float()).sum(0)
     daff[5, :cout] = dz3.sum(0)
     dc2 = (dz3 * a3).to(dt)
     dw3 = _dot(h1.t(), dc2)
     dh1 = _dot(dc2, w3.t())
-    du1 = torch.where(u1 > 0.0, dh1, zero)
+    du1 = torch.where(m1, dh1, zero)
     daff[2, :cm] = (du1 * c1.float()).sum(0)
     daff[3, :cm] = du1.sum(0)
     dc1 = (du1 * a2).to(dt)
@@ -199,7 +208,7 @@ def fused_bottleneck_bwd_ref(x, dy, w1, w2, w3, w4, aff, proj):
     pr = _im2col(_pad_hw(dc1.reshape(n, h, w, cm)), n, h, w, cm)
     w2t = w2.flip(0, 1).transpose(2, 3).reshape(9 * cm, cm)
     dh0 = _dot(pr, w2t)
-    du0 = torch.where(u0 > 0.0, dh0, zero)
+    du0 = torch.where(m0, dh0, zero)
     daff[0, :cm] = (du0 * c0.float()).sum(0)
     daff[1, :cm] = du0.sum(0)
     dc0 = (du0 * a1).to(dt)
@@ -215,6 +224,8 @@ def fused_bottleneck_bwd_ref(x, dy, w1, w2, w3, w4, aff, proj):
     else:
         dx_res = dz3
     dx = (dx_main + dx_res).to(dt).reshape(n, h, w, cin)
+    if keep is not None:
+        keep.extend([h0, h1, dc0, dc1, dc2, dc4 if proj else dz3.to(dt)])
     return dx, dw1, dw2, dw3, dw4, daff
 
 
@@ -259,7 +270,17 @@ def _check(x, w1, w2, w3, w4, proj, batch_tile):
         raise ValueError(f"batch_tile={batch_tile} does not divide batch {n}")
 
 
+# the CUDA route's short pixel tables (csrc/block_tc.cuh `geo_ok`)
+_MAX_W = 32767 // 8
+
+
 def _check_launch(x, *ws):
+    """What K7's and K8's CUDA route refuses, as ValueError: Cm not a power
+    of two, inputs that are not contiguous, W above 4095 (its pixel
+    tables hold shorts) or 2^31 pixels and more.  Any channel count and
+    alignment is taken: 16-byte groups where every channel count is a
+    multiple of 8 (bf16) or 4 (f32) and every pointer is 16-byte
+    aligned, single elements otherwise."""
     cm = ws[0].shape[1]
     if cm & (cm - 1):
         raise ValueError(f"fused_bottleneck: the CUDA kernel needs Cm a "
@@ -268,6 +289,13 @@ def _check_launch(x, *ws):
         if not t.is_contiguous():
             raise ValueError("fused_bottleneck: the CUDA kernel needs "
                              "contiguous inputs")
+    n, h, w, _ = x.shape
+    if w > _MAX_W:
+        raise ValueError(f"fused_bottleneck: the CUDA kernel needs W <= "
+                         f"{_MAX_W}, got {w}")
+    if n * h * w >= 2 ** 31:
+        raise ValueError(f"fused_bottleneck: the CUDA kernel needs fewer "
+                         f"than 2^31 pixels, got {n * h * w}")
 
 
 def _dims(x, w1, w3, aff, proj):
@@ -276,15 +304,61 @@ def _dims(x, w1, w3, aff, proj):
             _DTYPE_CODES[x.dtype], int(proj))
 
 
+def _device_index(device):
+    index = torch.device("cuda" if device is None else device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def _plan_dict(out, n, h, w, cm, cout, s, dtype):
+    """The 18 values of a plan entry (`plan_out`, csrc/block_tc.cuh) as a
+    dict, with the backward's scratch in MB: h0, dc0 [R_in, Cm]; h1, dc1
+    [R_out, Cm]; dc2, dc4 [R_out, Cout] in the activation dtype, and the
+    float32 partials (R_out = R_in / s^2)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    r_in, r_out = n * h * w, n * (h // s) * (w // s)
+    scratch = (2 * r_in * cm + 2 * r_out * cm + 2 * r_out * cout) * elt
+    return dict(tile_rows=tuple(out[0:3]),
+                tile_px=tuple(t * (w // s) for t in out[0:3]),
+                blocks=tuple(out[3:6]), smem=tuple(out[6:9]),
+                per_sm=tuple(out[15:18]), slices=tuple(out[9:13]),
+                partials=out[13], wgrad_items=out[14],
+                scratch_mb=(scratch + 4 * out[13]) / 1e6)
+
+
+def block_plan(n, h, w, cin, cm, cout, proj, dtype, device=None):
+    """K7's launch plan on a CUDA device (default: the current one;
+    `pt_fused_block_plan`): per kernel (forward, B1, B2) the rows and
+    pixels of a tile, the blocks, the shared memory and the blocks that
+    fit on one SM; the K slices of dW1..dW4 (dW4's unused by the
+    identity block) and the weight-gradient GEMM's items; the float32
+    partials those slices store (one per slice per weight element, summed
+    in slice order) and the backward's scratch in MB.  Planned once per
+    device, geometry and dtype."""
+    return dict(_block_plan(_device_index(device), n, h, w, cin, cm, cout,
+                            bool(proj), dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_plan(index, n, h, w, cin, cm, cout, proj, dtype):
+    lib = backend.load("fused_block", _BLOCK_SIGS)
+    out = (ctypes.c_longlong * 18)()
+    with torch.cuda.device(index):
+        status = lib.pt_fused_block_plan(n, h, w, cin, cm, cout,
+                                         _DTYPE_CODES[dtype], int(proj),
+                                         ctypes.addressof(out))
+    backend.check(status, "fused_block_plan")
+    return _plan_dict(list(out), n, h, w, cm, cout, 1, dtype)
+
+
 def _launch_fwd(x, w1, w2, w3, w4, aff, proj):
     w4 = w4 if proj else w1          # never read by the identity kernel
     _check_launch(x, w1, w2, w3, w4)
     aff = aff.contiguous()
-    lib = backend.load("fused_bottleneck", _SIGS)
+    lib = backend.load("fused_block", _BLOCK_SIGS)
     n, h, w, _ = x.shape
     y = torch.empty((n, h, w, w3.shape[1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        status = lib.pt_fused_bottleneck_fwd(
+        status = lib.pt_fused_block_fwd(
             x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
             w4.data_ptr(), aff.data_ptr(), y.data_ptr(),
             *_dims(x, w1, w3, aff, proj), backend.stream_handle(x.device))
@@ -293,31 +367,43 @@ def _launch_fwd(x, w1, w2, w3, w4, aff, proj):
     return y
 
 
-def _launch_bwd(x, dy, w1, w2, w3, w4, aff, proj):
-    w4 = w4 if proj else w1
+def _launch_bwd(x, dy, w1, w2, w3, w4, aff, proj, keep=None):
+    """K7's backward on the card.  `keep`, if a list, receives the
+    scratch h0, h1, dc0, dc1, dc2 and dc4 (the identity block: dz3): dc0,
+    dc1 and dc2 are nonzero exactly where the kernel's relu masks pass
+    a gradient."""
+    w4 = w4 if proj else w1          # never read by the identity kernels
     _check_launch(x, w1, w2, w3, w4)
     dy, aff = dy.contiguous(), aff.contiguous()
-    lib = backend.load("fused_bottleneck", _SIGS)
+    lib = backend.load("fused_block", _BLOCK_SIGS)
     n, h, w, cin = x.shape
     cm, cout = w1.shape[1], w3.shape[1]
+    r = n * h * w
+    partials = block_plan(n, h, w, cin, cm, cout, proj, x.dtype,
+                          x.device)["partials"]
     f32 = dict(dtype=torch.float32, device=x.device)
+    act = dict(dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    dw1 = torch.zeros(w1.shape, **f32)
-    dw2 = torch.zeros(w2.shape, **f32)
-    dw3 = torch.zeros(w3.shape, **f32)
-    dw4 = torch.zeros(w4.shape, **f32) if proj else dw1
+    dw1, dw2 = torch.empty(w1.shape, **f32), torch.empty(w2.shape, **f32)
+    dw3 = torch.empty(w3.shape, **f32)
+    dw4 = torch.empty(w4.shape, **f32) if proj else dw1   # never written
     daff = torch.zeros(aff.shape, **f32)
-    dc1 = torch.empty((n * h * w, cm), dtype=x.dtype, device=x.device)
-    mask = torch.empty((n * h * w, cout), dtype=torch.uint8, device=x.device)
+    # h0, h1, dc0, dc1 [R, Cm]; dc2, and dc4 (the identity block: dz3)
+    # [R, Cout]; the weight-gradient slices' partials
+    scratch = [torch.empty((r, cm), **act) for _ in range(4)] + [
+        torch.empty((r, cout), **act), torch.empty((r, cout), **act),
+        torch.empty(partials, **f32)]
     with torch.cuda.device(x.device):
-        status = lib.pt_fused_bottleneck_bwd(
+        status = lib.pt_fused_block_bwd(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             w3.data_ptr(), w4.data_ptr(), aff.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), dw4.data_ptr(),
-            daff.data_ptr(), dc1.data_ptr(), mask.data_ptr(),
+            daff.data_ptr(), *(t.data_ptr() for t in scratch),
             *_dims(x, w1, w3, aff, proj), backend.stream_handle(x.device))
     backend.check(status, "fused_bottleneck_bwd")
     backend.LAUNCHES["fused_bottleneck_bwd"] += 1
+    if keep is not None:
+        keep.extend(scratch[:6])
     return dx, dw1, dw2, dw3, (dw4 if proj else None), daff
 
 
@@ -449,14 +535,17 @@ def fused_bottleneck_down_fwd_ref(x, w1, w2, w3, w4, aff):
         n, h // 2, w // 2, w3.shape[1])
 
 
-def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
+def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff, masks=None,
+                                  keep=None):
     """Plain version of the K8 backward kernel (the Pallas
     `_bwd_kernel_down`): recomputes the forward and returns (dx in x's
     dtype, dW1, dW2, dW3, dW4, daff [8, width]), the weight and affine
     grads in f32.  c0, c1, c2, c4 are rounded to x's dtype before the
     affine-grad sums, dc2, dc1, dc0, dc4 before their products; dh0 is
     the stride-2 3x3 conv transposed, and the shortcut's dx lands on the
-    even rows and columns only."""
+    even rows and columns only.  `masks` and `keep` as in
+    `fused_bottleneck_bwd_ref` (the masks bool [R_in, Cm], [R_out, Cm],
+    [R_out, Cout])."""
     dt = x.dtype
     n, h, w, cin = x.shape
     cm, cout = w1.shape[1], w3.shape[1]
@@ -465,11 +554,12 @@ def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
     c0, u0, h0, p, c1, u1, h1, c2, xs2, c4, pre = _down_recompute(
         x, w1, w2, w3, w4, aff)
     c0, c1, c2, c4 = c0.to(dt), c1.to(dt), c2.to(dt), c4.to(dt)
+    m0, m1, m2 = masks or (u0 > 0.0, u1 > 0.0, pre > 0.0)
     daff = torch.zeros_like(aff, dtype=torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     dyf = dy.reshape(n * ho * wo, cout).float()
-    dz3 = torch.where(pre > 0.0, dyf, zero)
+    dz3 = torch.where(m2, dyf, zero)
     daff[4, :cout] = (dz3 * c2.float()).sum(0)
     daff[5, :cout] = dz3.sum(0)
     daff[6, :cout] = (dz3 * c4.float()).sum(0)
@@ -477,7 +567,7 @@ def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
     dc2 = (dz3 * a3).to(dt)
     dw3 = _dot(h1.t(), dc2)
     dh1 = _dot(dc2, w3.t())
-    du1 = torch.where(u1 > 0.0, dh1, zero)
+    du1 = torch.where(m1, dh1, zero)
     daff[2, :cm] = (du1 * c1.float()).sum(0)
     daff[3, :cm] = du1.sum(0)
     dc1 = (du1 * a2).to(dt)
@@ -497,50 +587,41 @@ def fused_bottleneck_down_bwd_ref(x, dy, w1, w2, w3, w4, aff):
             dh0[:, ky:ky + 2 * ho:2, kx:kx + 2 * wo:2, :] += _dot(
                 dc1, w2[ky, kx].t()).reshape(n, ho, wo, cm)
     dh0 = dh0[:, 1:h + 1, 1:w + 1, :].reshape(n * h * w, cm)
-    du0 = torch.where(u0 > 0.0, dh0, zero)
+    du0 = torch.where(m0, dh0, zero)
     daff[0, :cm] = (du0 * c0.float()).sum(0)
     daff[1, :cm] = du0.sum(0)
     dc0 = (du0 * a1).to(dt)
     xm = x.reshape(n * h * w, cin)
     dw1 = _dot(xm.t(), dc0)
     dx = (_dot(dc0, w1.t()).reshape(n, h, w, cin) + dx).to(dt)
+    if keep is not None:
+        keep.extend([h0, h1, dc0, dc1, dc2, dc4])
     return dx, dw1, dw2, dw3, dw4, daff
 
 
 def down_plan(n, h, w, cin, cm, cout, dtype, device=None):
     """K8's launch plan on a CUDA device (default: the current one;
-    `pt_fused_down_plan`): per kernel (forward, B1, B2) the output rows
-    and pixels of a tile, the blocks and the shared memory; the K slices
-    of dW1..dW4 and the weight-gradient GEMM's items; the float32 partials
-    those slices store (one per slice per weight element, summed in slice
-    order) and the backward's scratch in MB (h0, dc0 [R_in, Cm]; h1, dc1
-    [R_out, Cm]; dc2, dc4 [R_out, Cout] in the activation dtype, and the
-    partials).  Planned once per device, geometry and dtype."""
-    index = torch.device("cuda" if device is None else device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    return dict(_down_plan(index, n, h, w, cin, cm, cout, dtype))
+    `pt_fused_down_plan`), as `block_plan` gives K7's: per kernel
+    (forward, B1, B2) the output rows and pixels of a tile, the blocks,
+    the shared memory and the blocks per SM; the K slices of dW1..dW4 and
+    the weight-gradient GEMM's items; the float32 partials and the
+    backward's scratch in MB (h0, dc0 [R_in, Cm]; h1, dc1 [R_out, Cm];
+    dc2, dc4 [R_out, Cout] in the activation dtype, and the partials).
+    Planned once per device, geometry and dtype."""
+    return dict(_down_plan(_device_index(device), n, h, w, cin, cm, cout,
+                           dtype))
 
 
 @functools.lru_cache(maxsize=None)
 def _down_plan(index, n, h, w, cin, cm, cout, dtype):
     lib = backend.load("fused_down", _DOWN_SIGS)
-    out = (ctypes.c_longlong * 15)()
+    out = (ctypes.c_longlong * 18)()
     with torch.cuda.device(index):
         status = lib.pt_fused_down_plan(n, h, w, cin, cm, cout,
                                         _DTYPE_CODES[dtype],
                                         ctypes.addressof(out))
     backend.check(status, "fused_down_plan")
-    out = list(out)
-    elt = torch.empty((), dtype=dtype).element_size()
-    r_in, r_out = n * h * w, n * (h // 2) * (w // 2)
-    scratch = (2 * r_in * cm + 2 * r_out * cm + 2 * r_out * cout) * elt
-    return dict(tile_rows=tuple(out[0:3]),
-                tile_px=tuple(t * (w // 2) for t in out[0:3]),
-                blocks=tuple(out[3:6]), smem=tuple(out[6:9]),
-                slices=tuple(out[9:13]), partials=out[13],
-                wgrad_items=out[14],
-                scratch_mb=(scratch + 4 * out[13]) / 1e6)
+    return _plan_dict(list(out), n, h, w, cm, cout, 2, dtype)
 
 
 def _launch_down_fwd(x, w1, w2, w3, w4, aff):
@@ -561,7 +642,8 @@ def _launch_down_fwd(x, w1, w2, w3, w4, aff):
     return y
 
 
-def _launch_down_bwd(x, dy, w1, w2, w3, w4, aff):
+def _launch_down_bwd(x, dy, w1, w2, w3, w4, aff, keep=None):
+    """K8's backward on the card; `keep` as in `_launch_bwd`."""
     _check_launch(x, w1, w2, w3, w4)
     dy, aff = dy.contiguous(), aff.contiguous()
     lib = backend.load("fused_down", _DOWN_SIGS)
@@ -593,6 +675,8 @@ def _launch_down_bwd(x, dy, w1, w2, w3, w4, aff):
             backend.stream_handle(x.device))
     backend.check(status, "fused_bottleneck_down_bwd")
     backend.LAUNCHES["fused_bottleneck_down_bwd"] += 1
+    if keep is not None:
+        keep.extend(scratch[:6])
     return dx, dw1, dw2, dw3, dw4, daff
 
 

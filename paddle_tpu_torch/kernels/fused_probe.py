@@ -13,9 +13,10 @@ Port of the two stripped Pallas kernels of tools/fused_probe.py:
         in f32 before the last round.
 
 The kernels are CUDA C++ in `paddle_tpu_torch/csrc/fused_bottleneck.cu`
-beside K7 (`probe_conv3x3_kernel`, `probe_matmuls_kernel`), on K7's own
-GEMM routine, tiles and loaders, so their times split K7's forward
-between its 3x3 product and its 1x1 chain.  On CPU tensors the wrappers
+(`probe_conv3x3_kernel`, `probe_matmuls_kernel`) on the CUDA-core GEMM
+routine `gemm`, tiles and loaders K7 ran on before it moved to the
+tensor cores (`csrc/fused_block.cu`); their times split K7's forward
+again once they move onto K7's tiles.  On CPU tensors the wrappers
 run the plain versions (`conv3x3_probe_ref`, `matmul_chain_probe_ref`);
 on CUDA tensors they launch the kernels or raise.  The Pallas probes
 have no backward, and neither do these.
@@ -26,7 +27,15 @@ import ctypes
 import torch
 
 from . import backend
-from .fused_bottleneck import _DTYPE_CODES, _SIGS, _dot, _im2col, _pad_hw
+from .fused_bottleneck import _DTYPE_CODES, _dot, _im2col, _pad_hw
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# csrc/fused_bottleneck.cu
+_SIGS = {
+    "pt_probe_conv3x3": [_P] * 3 + [_I] * 5 + [_P],
+    "pt_probe_matmuls": [_P] * 4 + [_I] * 6 + [_P],
+    "pt_probe_tiles": [_I] * 4 + [_P],
+}
 
 
 def conv3x3_probe_ref(x, w2):
@@ -116,9 +125,9 @@ def matmul_chain_probe(x, w1, w3):
 def probe_tiles(h, w, cm, dtype):
     """How the launches lay out on the current CUDA device for sides h x
     w and Cm channels: ((rows per tile of P1, of P2), (blocks that fit on
-    one SM for K7's identity forward, P1, P2)); 0 where nothing fits."""
+    one SM for P1, P2)); 0 where nothing fits."""
     lib = backend.load("fused_bottleneck", _SIGS)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 4)()
     backend.check(lib.pt_probe_tiles(h, w, cm, _DTYPE_CODES[dtype],
                                      ctypes.addressof(out)), "probe_tiles")
     return tuple(out[:2]), tuple(out[2:])

@@ -19,6 +19,8 @@ exactly in practice).
 the card; it needs a GPU and skips here.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,13 +35,19 @@ from paddle_tpu_torch.kernels import fused_bottleneck as TK
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
-def _args(seed, proj, n=8, h=8, w=8, c=32, cm=8, cin=16):
+def _args(seed, proj, n=8, h=8, w=8, c=32, cm=8, cin=16, he=False):
+    """x, the weights and the affines as numpy; with `he`, the weights
+    take a ResNet's fan-in scale (1 / sqrt(fan-in)) in place of 0.2."""
     g = np.random.default_rng(seed).standard_normal
     cin = cin if proj else c
-    arrs = [g((n, h, w, cin)) * 0.5, g((cin, cm)) * 0.2,
-            g((3, 3, cm, cm)) * 0.2, g((cm, c)) * 0.2]
+
+    def s(fan_in):
+        return fan_in ** -0.5 if he else 0.2
+
+    arrs = [g((n, h, w, cin)) * 0.5, g((cin, cm)) * s(cin),
+            g((3, 3, cm, cm)) * s(9 * cm), g((cm, c)) * s(cm)]
     if proj:
-        arrs.append(g((cin, c)) * 0.2)
+        arrs.append(g((cin, c)) * s(cin))
     affs = [g(cm) * 0.3 + 1, g(cm) * 0.1, g(cm) * 0.3 + 1, g(cm) * 0.1,
             g(c) * 0.3 + 1, g(c) * 0.1]
     if proj:
@@ -137,12 +145,48 @@ def test_k7_batch_tile_and_unported_variants():
         x, torch.stack([a3, b3])))
 
 
+def _kernel_body(text, name):
+    start = text.index(f"\n{name}(")
+    return text[start:text.index("\n}\n", start)]
+
+
 def test_k7_source_and_launch_counters():
-    assert "fused_bottleneck" in backend.SOURCES
-    text = (backend.CSRC / "fused_bottleneck.cu").read_text()
-    for entry in ("pt_fused_bottleneck_fwd", "pt_fused_bottleneck_bwd"):
+    """K7 is csrc/fused_block.cu on the tensor-core pieces it shares with
+    K8 (csrc/block_tc.cuh): every K7 kernel that multiplies reaches
+    `pt::tc::product`, no kernel adds a weight gradient with atomics
+    (the only atomic targets are the affine grads and their shared-memory
+    partials), and csrc/fused_bottleneck.cu keeps P1 and P2 alone, on
+    their CUDA-core `gemm`, with no stride-2 code left."""
+    assert "fused_block" in backend.SOURCES
+    text = (backend.CSRC / "fused_block.cu").read_text()
+    for entry in ("pt_fused_block_fwd", "pt_fused_block_bwd",
+                  "pt_fused_block_plan"):
         assert f'extern "C" int {entry}' in text
     assert "cudaGetLastError" in text
+    assert '#include "block_tc.cuh"' in text
+    shared = (backend.CSRC / "block_tc.cuh").read_text()
+    assert '#include "mma.cuh"' in shared
+    both = text + shared
+    for kernel in ("block_fwd_kernel", "block_bwd1_kernel",
+                   "block_bwd2_kernel", "wgrad_kernel"):
+        assert "product<" in _kernel_body(both, kernel), kernel
+    assert set(re.findall(r"atomicAdd\((\w+)", both)) <= {"daff", "dA",
+                                                           "dC"}
+    # one copy of the shared pieces: K8 includes them, defines none
+    down = (backend.CSRC / "fused_down.cu").read_text()
+    assert '#include "block_tc.cuh"' in down
+    for piece in ("struct Geo", "struct Tile", "struct Carve",
+                  "struct WPlan", "res_ld(", "wgrad_kernel(",
+                  "wsum_kernel(", "block_bwd1_kernel("):
+        assert shared.count(piece) == 1, piece
+        assert piece not in down and piece not in text, piece
+    probes = (backend.CSRC / "fused_bottleneck.cu").read_text()
+    assert "kDown" not in probes and "pt_fused_bottleneck" not in probes
+    for kernel in ("bottleneck_fwd_kernel", "bottleneck_bwd1_kernel",
+                   "bottleneck_bwd2_kernel"):
+        assert kernel not in probes
+    for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel"):
+        assert "gemm<" in _kernel_body(probes, kernel), kernel
     # the plain versions run on CPU tensors and count no launch
     backend.reset_launches()
     args = [torch.from_numpy(a).requires_grad_() for a in _args(2, False)]
@@ -153,11 +197,18 @@ def test_k7_source_and_launch_counters():
 
 @pytest.mark.cuda
 def test_k7_on_card():
-    """K7 forward and backward on the card, raw and through the
-    Functions, against the plain versions.  f32: 2e-5, the weight and
-    affine grads (f32 sums over rows, atomics in any order) with atol
-    2e-5 * sqrt(rows), outside the footprint of the near-ties that
-    `near_ties.NearTies` names (PERF.md Tolerances)."""
+    """K7 forward and backward on the card, through the Functions,
+    against the plain versions.  f32: 2e-5, the weight grads (f32 sums
+    over rows in K slices) and the affine grads (atomics in any order)
+    with atol 2e-5 * sqrt(rows), outside the footprint of the near-ties
+    that `near_ties.NearTies` names (PERF.md Tolerances).  Then bf16 at
+    batch 4, ResNet-50's stage-2 widths (28^2, 512/128/512) with weights
+    at a ResNet's fan-in scale, identity and projection (Cin 256), by the
+    bf16 rule of chip_smoke.compare_k7 (>= 99% of the elements within
+    3e-2, the sums x sqrt(rows); <= 1e-2 relative Frobenius error),
+    dW1-4 bitwise equal over two runs (the slice-order sum), and the
+    relu masks read from the kept scratch (`keep`) the plain version's in
+    all but 1e-4 of the elements."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
                     "mode (chip_smoke.py runs them on the card)")
@@ -188,6 +239,43 @@ def test_k7_on_card():
         for i, (g, w) in enumerate(zip(got, want)):
             why = NT.hold(g.cpu(), w, ties, "dx" if i == 0 else "sum", rows)
             assert why is None, (i, why, str(ties))
+    for proj in (False, True):
+        args = [torch.from_numpy(a).to(dev, torch.bfloat16)
+                for a in _args(7, proj, n=4, h=28, w=28, c=512, cm=128,
+                               cin=256, he=True)]
+        nw = 4 if proj else 3
+        x, ws, affs = args[0], args[1:1 + nw], args[1 + nw:]
+        w4 = ws[3] if proj else None
+        aff = TK._pack_affines(affs, 512)
+        dy = torch.randn((4, 28, 28, 512), device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+        y = TK._launch_fwd(x, *ws[:3], w4, aff, proj)
+        got = TK._launch_bwd(x, dy, *ws[:3], w4, aff, proj)
+        kept = []
+        again = TK._launch_bwd(x, dy, *ws[:3], w4, aff, proj, keep=kept)
+        assert all(torch.equal(a, b) for a, b in zip(got[1:5], again[1:5])
+                   if a is not None)
+        # the kept scratch dc0, dc1, dc2 is nonzero where the kernel's relu
+        # masks pass a gradient: where the plain version's do, but for
+        # near-ties
+        plain = []
+        TK.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj,
+                                    keep=plain)
+        for t, u in zip(kept[2:5], plain[2:5]):
+            off = ((t != 0) != (u != 0)).float().mean()
+            assert off <= 1e-4, (proj, off.item())
+        y_ref = TK.fused_bottleneck_fwd_ref(x, *ws[:3], w4, aff, proj)
+        want = TK.fused_bottleneck_bwd_ref(x, dy, *ws[:3], w4, aff, proj)
+        rows = 4 * 28 * 28
+        for i, (g, w) in enumerate(zip([y, *got], [y_ref, *want])):
+            if g is None:
+                continue
+            g, w = g.float(), w.float()
+            atol = 3e-2 * (1.0 if i < 2 else rows ** 0.5)
+            bad = ((g - w).abs() > atol + 3e-2 * w.abs()).float().mean()
+            rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+            assert torch.isfinite(g).all() and bad <= 1e-2 and rel <= 1e-2, (
+                proj, i, bad.item(), rel)
     torch.cuda.synchronize()
-    assert backend.LAUNCHES["fused_bottleneck_fwd"] == 2
-    assert backend.LAUNCHES["fused_bottleneck_bwd"] == 2
+    assert backend.LAUNCHES["fused_bottleneck_fwd"] == 4
+    assert backend.LAUNCHES["fused_bottleneck_bwd"] == 6

@@ -260,13 +260,20 @@ def test_k8_k9_sources_and_launch_counters():
         assert f'extern "C" int {entry}' in text
     assert "cudaGetLastError" in text
     assert "mma.sync" in text or "wgmma" in text
-    # K7 and the probes stay on their CUDA-core `gemm`; K8's old
-    # instantiation is gone from their library
+    # K8's own B2 and the stride-2 instances of the pieces it shares with
+    # K7 (csrc/block_tc.cuh) all reach the tensor-core product
+    for kernel in ("down_bwd2_kernel", "block_fwd_kernel",
+                   "block_bwd1_kernel", "wgrad_kernel"):
+        assert "product<" in _kernel_body(text, kernel), kernel
+    for inst in ("launch_fwd<float, 2, true>", "launch_bwd<T, 2, true>",
+                 "plan_out<float, 2, true>"):
+        assert inst in text, inst
+    # K7 moved to the same pieces (csrc/fused_block.cu); only the probes
+    # stay on the CUDA-core `gemm`, and K8's old instantiation is gone
     text = (backend.CSRC / "fused_bottleneck.cu").read_text()
-    for kernel in ("bottleneck_fwd_kernel", "bottleneck_bwd1_kernel",
-                   "bottleneck_bwd2_kernel", "probe_conv3x3_kernel",
-                   "probe_matmuls_kernel"):
+    for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel"):
         assert "gemm<" in _kernel_body(text, kernel), kernel
+    assert "bottleneck_fwd_kernel" not in text
     assert "pt_fused_bottleneck_down" not in text
     text = (backend.CSRC / "fused_stem_tail.cu").read_text()
     for entry in ("pt_fused_stem_tail_fwd", "pt_fused_stem_tail_bwd"):
