@@ -9,12 +9,13 @@ Phases (any failure makes the script exit non-zero without a result):
    off, build the CUDA kernels (one nvcc per source, in parallel) and
    print the build time and the compiler's register/spill report.
 1b. SASS: `cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
-   libraries; every bf16 K7 and K8 kernel that runs a product, and the
-   bf16 K1 and K3 kernels at each head dim, must hold tensor-core
-   instructions (HMMA / HGMMA); the f32 K1/K3, K2 and P1/P2 counts are
-   printed as read (0 expected).  K1's and K3's registers and spills per
-   head dim from the ptxas report, the bf16 ones not spilling at head
-   dim 64; K7's printed as read.
+   libraries; every bf16 K7 and K8 kernel that runs a product, the bf16
+   K1, K2 and K3 kernels at each head dim, and bf16 P1 must hold
+   tensor-core instructions (HMMA / HGMMA); the f32
+   K1-K3 and P2 counts are printed as read (0 expected).  K1's, K2's and
+   K3's registers and spills per head dim from the ptxas report, the
+   bf16 ones not spilling at head dim 64, and P1's, the bf16 one not
+   spilling; K7's printed as read.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -32,11 +33,12 @@ Phases (any failure makes the script exit non-zero without a result):
    and non-causal at head_dim 128 and 256; their library yardstick is
    the backward of `F.scaled_dot_product_attention` / `F.layer_norm`,
    timed as `torch.autograd.grad(out, inputs, dout, retain_graph=True)`.
-   bf16 K1 and K3 run on the tensor cores: `flash_precision` holds each
-   of O, lse, dK, dV at the train shape and non-causal at head dims 128
-   and 256 to at most 1.5x the error of the rounding model (the plain
-   versions with the reference's bf16 roundings of p and ds) against
-   float64 products.
+   bf16 K1, K2 and K3 run on the tensor cores: `flash_precision` holds
+   each of O, lse, dQ, dK, dV at the train shape and non-causal at head
+   dims 128 and 256 to at most 1.5x the error of the rounding model (the
+   plain versions with the reference's bf16 roundings of p and ds)
+   against float64 products, and names the rule by which they sum (in
+   the mma itself).
    K7 is checked at ResNet-50's four identity-block geometries (56^2
    256/64, 28^2 512/128, 14^2 1024/256, 7^2 2048/512) and its stage-1
    block-0 projection geometry (56^2, 64 -> 256, Cm 64), batch 2 in
@@ -77,8 +79,10 @@ Phases (any failure makes the script exit non-zero without a result):
    batches 8 and 128 (3e-2), from a generator of their own; at batch
    128 their times beside the plain versions, a library yardstick
    (`F.conv2d` channels-last; `relu(x @ w1) @ w3 + x`) and the bound;
-   K7's stage-1 identity forward on the same x and weights beside them
-   (K7 on the tensor cores, P1/P2 on the CUDA-core `gemm`, so no split);
+   K7's stage-1 identity forward on the same x and weights beside them,
+   with K7 - P1 (P1 runs K7's conv3x3 at K7's tile rows, checked at
+   batch 128; P2 the CUDA-core `gemm`, so no three-way split yet) and
+   each plan's tile rows and blocks per SM;
    then `python -m paddle_tpu_torch.tools.fused_probe`
    (all seven probes, each in its subprocess), failing unless every
    probe exits 0 having launched its kernel.
@@ -156,8 +160,10 @@ Phases (any failure makes the script exit non-zero without a result):
 tree in turn and in a process of its own (TREE a directory holding a
 paddle_tpu_torch package, e.g. `.` and an unpacked parent commit), K7
 in bf16 at batch 128 at its five geometries and summed over a
-full-fused step, then the full fused and `id` ResNet-50 steps of phase
-4 with their profiles: two versions compared in turns on one card.
+full-fused step, the GPT train step of phase 3 (host ms, device ms and
+K1, K2, K3 per step from its profile), then the full fused and `id`
+ResNet-50 steps of phase 4 with their profiles: two versions compared
+in turns on one card.
 
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
@@ -273,8 +279,9 @@ def compare(name, got, want, dtype, failures):
 
 # per library, the kernels whose bf16 instantiations must hold HMMA: K7's
 # (csrc/fused_block.cu) and K8's (csrc/fused_down.cu) that run a product,
-# most of them the pieces both share (csrc/block_tc.cuh), and K1's and
-# K3's tensor-core kernels (one per head dim)
+# most of them the pieces both share (csrc/block_tc.cuh), K1's, K2's and
+# K3's tensor-core kernels (each at every head dim) and P1 (K7's conv3x3
+# in csrc/fused_bottleneck.cu)
 K7_MMA_KERNELS = ("block_fwd_kernel", "block_bwd1_kernel",
                   "block_bwd2_kernel", "wgrad_kernel")
 MMA_KERNELS = {
@@ -282,14 +289,15 @@ MMA_KERNELS = {
     "fused_down": ("block_fwd_kernel", "block_bwd1_kernel",
                    "down_bwd2_kernel", "wgrad_kernel"),
     "flash_attention": ("flash_fwd_mma_kernel",),
-    "flash_attention_bwd": ("flash_bwd_dkv_mma_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dq_mma_kernel",
+                            "flash_bwd_dkv_mma_kernel"),
+    "fused_bottleneck": ("probe_conv3x3_kernel",),
 }
-# P1 and P2 (csrc/fused_bottleneck.cu) on the CUDA-core `gemm`: counts
-# printed as read (0 expected)
-PROBE_KERNELS = ("probe_conv3x3_kernel", "probe_matmuls_kernel")
-# K1 and K3 in f32 (exact scalar kernels) and K2: counts printed as read
-FLASH_SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                        "flash_bwd_dq_kernel")
+# K1, K2 and K3 in f32 (exact scalar kernels) and P2 (the CUDA-core
+# `gemm` of csrc/fused_bottleneck.cu): counts printed as read (0
+# expected)
+SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel", "probe_matmuls_kernel")
 
 
 def sass_counts(lib_name, failures):
@@ -329,12 +337,12 @@ def sass_counts(lib_name, failures):
 def sass_phase(failures):
     """`cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
     libraries: the HMMA / HGMMA count of every kernel.  Fails unless each
-    bf16 K7 and K8 kernel that runs a product, and the bf16 K1 and K3
-    kernel at each head dim, holds one; the f32 instantiations run on the
-    CUDA cores (exact f32 FMAs), K2, the slice sum and P1/P2 have no
-    tensor-core product, and their counts are printed as read.  Then
-    K1's and K3's registers and spills from the build log (fails if the
-    bf16 kernels spill at head dim 64), and K7's (printed as read)."""
+    bf16 K7 and K8 kernel that runs a product, the bf16 K1, K2 and K3
+    kernels at each head dim, and bf16 P1 hold one; the f32 K1-K3 and P2
+    run on the CUDA cores (exact f32 FMAs), as do the f32 instantiations
+    and the slice sum, and their counts are printed as read.  Then K1's, K2's and K3's registers and spills from
+    the build log (fails if a bf16 one spills at head dim 64), P1's
+    (fails if the bf16 one spills) and K7's (printed as read)."""
     from paddle_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     counts = {}
@@ -347,41 +355,37 @@ def sass_phase(failures):
             if len(bf16) < want or not all(got[n] for n in bf16):
                 failures.append(f"sass: bf16 {kernel} has no tensor-core "
                                 f"instruction ({[got[n] for n in bf16]})")
-    for kernel in FLASH_SCALAR_KERNELS:
-        found = {n: c for n, c in counts.items() if kernel in n}
-        log(f"sass {kernel} (scalar; f32 K1/K3, K2 both dtypes): "
-            f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
-            "instantiations")
-    probes = sass_counts("fused_bottleneck", failures)
-    for kernel in PROBE_KERNELS:
-        found = {n: c for n, c in probes.items() if kernel in n}
-        log(f"sass {kernel} (P1/P2, CUDA-core gemm): "
+    for kernel in SCALAR_KERNELS:
+        found = {n: c for n, c in counts.items() if kernel + "I" in n}
+        log(f"sass {kernel} (CUDA cores: f32 K1-K3, P2 on `gemm`): "
             f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
             "instantiations")
     for kernel in K7_MMA_KERNELS:
         for name, use in ptxas_find("fused_block", kernel):
             log(f"ptxas fused_block {name}: {use.get('registers')} regs, "
                 f"spill {use.get('spill_stores')}/{use.get('spill_loads')} B")
-    for lib_name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
-                             ("flash_attention_bwd",
-                              "flash_bwd_dkv_mma_kernel")):
-        for d in HEAD_DIMS:
-            use = ptxas_usage(lib_name, kernel, d)
-            log(f"ptxas {kernel}<{d}> (bf16): "
-                f"{usage_text(lib_name, kernel, d)}")
-            if d == 64 and use and (use["spill_stores"] or
-                                    use["spill_loads"]):
-                failures.append(f"{kernel}<64> spills: {use}")
+    for lib_name in ("flash_attention", "flash_attention_bwd"):
+        for kernel, d in ((k, d) for k in MMA_KERNELS[lib_name]
+                          for d in HEAD_DIMS):
+            for name, use in ptxas_find(lib_name, f"{kernel}ILi{d}E"):
+                log(f"ptxas {kernel}<{d}> (bf16): {use_text(use)}")
+                if d == 64 and (use.get("spill_stores")
+                                or use.get("spill_loads")):
+                    failures.append(f"{kernel}<64> spills: {use}")
+    for name, use in ptxas_find("fused_bottleneck", "probe_conv3x3_kernel"):
+        bf16 = "nv_bfloat16" in name
+        log(f"ptxas probe_conv3x3_kernel ({'bf16' if bf16 else 'f32'}): "
+            f"{use_text(use)}")
+        if bf16 and (use.get("spill_stores") or use.get("spill_loads")):
+            failures.append(f"probe_conv3x3_kernel (bf16) spills: {use}")
     return counts
 
 
-def ptxas_usage(lib_name, kernel, d, dtype=None):
+def ptxas_usage(lib_name, kernel, d):
     """{registers, spill_stores, spill_loads} of `kernel` at head dim d
-    (dtype "float32" / "bfloat16" for K2's template argument, None for
-    the kernels templated on the head dim alone) from the ptxas report in
-    backend.BUILD_LOG, or None when this run did not build the library."""
-    arg = {None: "", "float32": "f", "bfloat16": "13__nv_bfloat16"}[dtype]
-    found = ptxas_find(lib_name, kernel + "I" + arg + f"Li{d}E")
+    from the ptxas report in backend.BUILD_LOG, or None when this run did
+    not build the library."""
+    found = ptxas_find(lib_name, f"{kernel}ILi{d}E")
     return found[0][1] if found else None
 
 
@@ -417,12 +421,15 @@ def ptxas_find(lib_name, pattern):
     return sorted(found.items())
 
 
-def usage_text(lib_name, kernel, d, dtype=None):
-    use = ptxas_usage(lib_name, kernel, d, dtype)
+def use_text(use):
     if not use:
         return "ptxas n/a"
     return (f"{use.get('registers')} regs, spill {use.get('spill_stores')}/"
             f"{use.get('spill_loads')} B")
+
+
+def usage_text(lib_name, kernel, d):
+    return use_text(ptxas_usage(lib_name, kernel, d))
 
 
 # ---------------------------------------------------------------------------
@@ -621,8 +628,10 @@ def flash_bwd_checks(rows, failures, rnd):
                       if dt == torch.bfloat16 else
                       usage_text("flash_attention_bwd", "flash_bwd_dkv_kernel",
                                  d))
-            use_q = usage_text("flash_attention_bwd", "flash_bwd_dq_kernel",
-                               d, dname(dt))
+            use_q = usage_text("flash_attention_bwd",
+                               "flash_bwd_dq_mma_kernel"
+                               if dt == torch.bfloat16 else
+                               "flash_bwd_dq_kernel", d)
             log(f"{tag}: K2 kernel_ms {ms_q:.4f} bound_ms {bq:.5f} ({byq}) "
                 f"max_err {err_q:.3e} ({use_q}); K3 kernel_ms {ms_kv:.4f} "
                 f"bound_ms {bkv:.5f} ({bykv}) max_err {err_kv:.3e} "
@@ -654,7 +663,7 @@ def flash_bwd_checks(rows, failures, rnd):
 FLASH_TRAIN = ((48, 12, 512, 64), True)
 FLASH_PRECISION_CASES = (FLASH_TRAIN, ((1, 4, 256, 128), False),
                          ((1, 4, 256, 256), False))
-FLASH_OUTPUTS = ("O", "lse", "dK", "dV")
+FLASH_OUTPUTS = ("O", "lse", "dQ", "dK", "dV")
 FLASH_MODEL_RATIO = 1.5
 
 
@@ -671,11 +680,11 @@ def flash_inputs(shape, seed):
 
 
 def flash_outs(q, k, v, do, causal, lse, delta, how):
-    """O, lse (K1) and dK, dV (K3) of one route: "kernel" (K1, then K3 on
-    the given lse and delta), or the plain versions with p and ds rounded
-    to bf16 where the reference rounds them (the rounding model) at the
-    inputs' own precision (pass float64 inputs for float64 products), or
-    without the rounding ("plain")."""
+    """O, lse (K1) and dQ (K2), dK, dV (K3) of one route: "kernel" (K1,
+    then K2 and K3 on the given lse and delta), or the plain versions
+    with p and ds rounded to bf16 where the reference rounds them (the
+    rounding model) at the inputs' own precision (pass float64 inputs for
+    float64 products), or without the rounding ("plain")."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -683,13 +692,14 @@ def flash_outs(q, k, v, do, causal, lse, delta, how):
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if how == "kernel":
         out, l = FA._launch_fwd(q, k, v, causal, scale)
+        dq = FA._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
         dk, dv = FA._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-        return out, l, dk, dv
+        return out, l, dq, dk, dv
     rt = None if how == "plain" else torch.bfloat16
     out, l = FA.flash_attention_ref(q, k, v, causal, scale, round_to=rt)
-    _, dk, dv = FA.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal,
-                                           scale, round_to=rt)
-    return out, l, dk, dv
+    dq, dk, dv = FA.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal,
+                                            scale, round_to=rt)
+    return out, l, dq, dk, dv
 
 
 def flash_errs(q, k, v, do, causal):
@@ -697,8 +707,8 @@ def flash_errs(q, k, v, do, causal):
     computed in float64 on the same bf16 inputs, lse and delta, p and ds
     unrounded) of the kernel, the rounding model in f32 and the plain f32
     version, per output (FLASH_OUTPUTS).  The model is no copy of the
-    kernel's roundings: it rounds p against the row's final max, the
-    kernel against the running max of its 64-key tiles."""
+    kernel's roundings: it rounds p against the row's final max, K1
+    against the running max of its 64-key tiles."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -718,10 +728,12 @@ def flash_errs(q, k, v, do, causal):
 
 
 def flash_precision(failures):
-    """bf16 K1 and K3 against float64 products at the train shape and
+    """bf16 K1, K2 and K3 against float64 products at the train shape and
     non-causal at head dims 128 and 256: fails where the kernel's error on
     any output exceeds FLASH_MODEL_RATIO x the rounding model's (the plain
-    versions with the reference's bf16 roundings of p and ds, in f32)."""
+    versions with the reference's bf16 roundings of p and ds, in f32).
+    K1's O, K2's dQ and K3's dK, dV accumulate in the mma itself over the
+    key (K1, K2) or query (K3) tiles; the line names that rule."""
     for i, (shape, causal) in enumerate(FLASH_PRECISION_CASES):
         q, k, v, do = flash_inputs(shape, 100 + i)
         errs = flash_errs(q, k, v, do, causal)
@@ -740,7 +752,9 @@ def flash_precision(failures):
             f"{n} {e:.3e}" for n, e in zip(FLASH_OUTPUTS, v)) + "]"
             for how, v in errs.items()]
         log(f"{tag}: rel Frobenius {' '.join(parts)}; kernel / model "
-            f"worst {FLASH_OUTPUTS[worst]} {ratios[worst]:.3f}")
+            f"worst {FLASH_OUTPUTS[worst]} {ratios[worst]:.3f}; sums "
+            "(O, dQ, dK, dV) accumulated in the mma")
+        del q, k, v, do
 
 
 def layer_norm_bwd_checks(rows, failures, rnd):
@@ -1865,14 +1879,19 @@ def probes_phase(failures):
                        FP.matmul_chain_probe(x2, w1, w3),
                        FP.matmul_chain_probe_ref(x2, w1, w3), d, failures)
         ths, blocks = FP.probe_tiles(h, w, cm, dt)
-        k7 = FB.block_plan(n, h, w, cin, cm, cin, False, dt)["per_sm"][0]
+        k7 = FB.block_plan(n, h, w, cin, cm, cin, False, dt)
         log(f"P1 [{n}, {h}, {w}, {cm}] {d}: max_err {err1:.3e}; P2 "
             f"[{n}, {h}, {w}, {cin}] -> {cm} {d}: max_err {err2:.3e}; "
-            f"tiles (P1, P2) {ths}, blocks per SM (K7 forward, P1, P2) "
-            f"{(k7, *blocks)}")
+            f"tile rows (K7 forward, P1, P2) "
+            f"{(k7['tile_rows'][0], *ths)}, blocks per SM "
+            f"{(k7['per_sm'][0], *blocks)}")
         if h != hw and not all(t and h % t for t in ths):
             failures.append(f"P1/P2 [{n}, {h}, {w}]: tile rows {ths} leave "
                             "no partial tile")
+        if n == 128 and ths[0] != k7["tile_rows"][0]:
+            # K7 - P1 splits K7's forward only at one tiling
+            failures.append(f"P1 [{n}, {h}, {w}] {d}: tile rows {ths[0]}, "
+                            f"K7's forward {k7['tile_rows'][0]}")
         if n == 128:
             out = probe_times(x1, w2, x2, w1, w3, rnd)
             common = dict(route="cuda",
@@ -1900,9 +1919,10 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
     """Device ms at batch 128 bf16 of P1 and P2, their plain versions,
     their library yardsticks and bounds, and the K7 stage-1 identity
     forward on the same x2, w1, w2, w3 (affines near (1, 0)); prints the
-    three side by side.  P1 and P2 run on the CUDA-core `gemm`, K7 on the
-    tensor cores, so K7 - P1 - P2 would mean nothing: the split returns
-    when the probes move onto K7's tiles."""
+    three side by side.  P1 runs K7's conv3x3 on the tensor cores at K7's
+    forward tile rows (probes_phase checks them), so K7 - P1 is K7's 1x1
+    chain, its halo's h0 product and the rest; P2 still runs the
+    CUDA-core `gemm`, so the three-way split waits for it."""
     import torch
     import torch.nn.functional as TF
 
@@ -1947,12 +1967,16 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
         f"{o['p2_ms']:.4f} plain_ms {o['p2_plain']:.4f} library_ms "
         f"{o['p2_lib']:.4f} bound_ms {o['p2_bound']:.5f} ({o['p2_by']})")
     k7_flop = 2.0 * r * (2 * cin * cm + 9 * cm * cm)
+    p1_flop = 2.0 * r * 9 * cm * cm
     log(f"K7 beside P1/P2, stage-1 identity forward [{n}, {hw}, {hw}, "
-        f"{cin}] Cm {cm} bf16: K7 {o['k7_ms']:.4f} ms (tensor cores, "
-        f"csrc/mma.cuh; {k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without "
-        f"its halo), P1 (3x3) {o['p1_ms']:.4f} ms and P2 (1x1 chain) "
-        f"{o['p2_ms']:.4f} ms (CUDA-core gemm, csrc/fused_bottleneck.cu); "
-        "no split until P1/P2 move onto K7's tiles")
+        f"{cin}] Cm {cm} bf16: K7 {o['k7_ms']:.4f} ms "
+        f"({k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without its halo); "
+        f"P1 (its 3x3 on K7's conv3x3) {o['p1_ms']:.4f} ms "
+        f"({p1_flop / o['p1_ms'] / 1e9:.2f} TFLOP/s); K7 - P1 (the 1x1 "
+        f"chain, the halo's h0 product and the rest) "
+        f"{o['k7_ms'] - o['p1_ms']:.4f} ms; P2 (1x1 chain, CUDA-core "
+        f"gemm) {o['p2_ms']:.4f} ms: no three-way split until P2 moves "
+        "onto K7's tiles")
     return o
 
 
@@ -2000,7 +2024,13 @@ H100_BF16_FLOPS = 989e12
 def train_phase(failures):
     """bench.py's headline configuration (bench_bert): BERT-base geometry
     GPT in bf16, batch 48 x seq 512, AdamW(1e-4), through the port's
-    make_train_step."""
+    make_train_step.  Returns the launches of its timed steps."""
+    return train_run(failures)["launches"]
+
+
+def train_run(failures):
+    """The train phase's run: {launches, step_ms (host, mean), profile
+    (`profile_train_step`'s device ms per step and per kernel family)}."""
     import torch
 
     from paddle_tpu_torch.kernels import backend
@@ -2069,16 +2099,17 @@ def train_phase(failures):
     for name in TRAIN_LAUNCHES:
         if launches.get(name, 0) < 1:
             failures.append(f"{name} never launched on the train path")
-    profile_train_step(step, state, (x, y), mean_ms)
+    prof = profile_train_step(step, state, (x, y), mean_ms)
     del model, state, step
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches=launches, step_ms=mean_ms, profile=prof)
 
 
 def profile_train_step(step, state, batch, host_ms, label="train"):
     """Where a train step's time goes: device time per step and the
     busiest kernels (torch.profiler, kernel events only), against the
-    step's host-clock time measured without the profiler."""
+    step's host-clock time measured without the profiler.  Returns
+    {"device": ms, family: ms} (KERNEL_FAMILIES found in the step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2098,21 +2129,27 @@ def profile_train_step(step, state, batch, host_ms, label="train"):
     for us, count, key in sorted(rows, reverse=True)[:14]:
         log(f"  {us / 1e3:9.4f} ms  {us / device_ms / 10:5.1f}%  "
             f"{count:5d}x  {key[:90]}")
-    shares = []
+    shares, found = [], {"device": device_ms}
     for fam, pattern in KERNEL_FAMILIES:
         ms = sum(r[0] for r in rows if re.search(pattern, r[2])) / 1e3
         if ms:
+            found[fam] = ms
             shares.append(f"{fam} {ms:.3f} ms ({ms / device_ms:.1%})")
     if shares:
         log(f"{label} step device time by kernel: " + ", ".join(shares))
+    return found
 
 
-# device time of a step by the port's kernels: K7 (the stride-1 block:
-# its former CUDA-core kernels, or the stride-1 instances of
-# csrc/block_tc.cuh and K7's B2), K8 (the stride-2 instances and K8's B2,
-# or its former kernels), the slice sums both share, K9 (profiler keys
-# print template arguments as "<T, 1, ...>")
+# device time of a step by the port's kernels: K1, K2, K3 (the scalar or
+# the tensor-core kernel), K7 (the stride-1 block: its former CUDA-core
+# kernels, or the stride-1 instances of csrc/block_tc.cuh and K7's B2), K8
+# (the stride-2 instances and K8's B2, or its former kernels), the slice
+# sums both share, K9 (profiler keys print template arguments as "<T, 1,
+# ...>")
 KERNEL_FAMILIES = (
+    ("K1", r"flash_fwd_(mma_)?kernel"),
+    ("K2", r"flash_bwd_dq_(mma_)?kernel"),
+    ("K3", r"flash_bwd_dkv_(mma_)?kernel"),
     ("K7", r"bottleneck_(fwd|bwd1|bwd2)_kernel|block_(fwd|bwd1)_kernel<[^,]+,"
            r" 1,|block_bwd2_kernel|wgrad_kernel<[^,]+, 1>"),
     ("K8", r"down_(fwd|bwd1|bwd2|wgrad|wsum)_kernel|block_(fwd|bwd1)_kernel"
@@ -3199,7 +3236,8 @@ def timed_text(timed):
 
 def compare_one(tree):
     """`compare` for one tree: its package (`tree`/paddle_tpu_torch) built
-    and run by this script's `k7_bf16_times` and `resnet_run` (full fused
+    and run by this script's `k7_bf16_times`, `train_run` (the GPT train
+    step: host and device ms, K2 per step) and `resnet_run` (full fused
     and `id`)."""
     sys.path.insert(0, tree)
     import torch
@@ -3218,6 +3256,12 @@ def compare_one(tree):
 
     failures = []
     k7_bf16_times(rnd, failures)
+    gpt = train_run(failures)
+    prof = gpt["profile"]
+    log(f"compare {tree} train: step {gpt['step_ms']:.3f} ms (host, mean "
+        f"of 5), device {prof['device']:.3f} ms, K2 {prof.get('K2', 0):.3f} "
+        f"ms per step (12 launches), K1 {prof.get('K1', 0):.3f}, K3 "
+        f"{prof.get('K3', 0):.3f}")
     for mode in ("full", "id"):
         _, ms, peak = resnet_run(mode, failures)
         log(f"compare {tree} resnet {mode}: step {ms:.3f} ms, peak "

@@ -1,107 +1,93 @@
 // P1 and P2: the two stripped kernels of the fused-block probe tool, for
-// Hopper (sm_90a), on the CUDA-core `gemm` below.
+// Hopper (sm_90a).
 //
 // They replace the two Pallas probes of tools/fused_probe.py
 // (`p4_conv_only`, pallas_call :88; `p5_matmuls`, pallas_call :114), which
 // cut the stride-1 fused bottleneck block's forward in two, so that its
 // time splits between the 3x3 product and the 1x1 chain:
 //   P1  y = round(conv3x3(zero_pad(x), w2))     x, y [N, H, W, Cm]
-//       a block stages TH rows of x and their one-row halo (zero outside
-//       the image) in shared memory and runs the im2col `gemm` against w2
-//       viewed as [9 Cm, Cm]; TH by the rule of `pick_th` with a halo;
 //   P2  h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x)
-//       x, y [N, H, W, Cin], w1 [Cin, Cm], w3 [Cm, Cin]; a block takes TH
-//       rows (no halo), writes h0 to shared memory in the first `gemm`'s
-//       epilogue and adds x from device memory in the second's.
+//       x, y [N, H, W, Cin], w1 [Cin, Cm], w3 [Cm, Cin]
 // No affines and no relu in P1, none but the one relu in P2, as in the
 // Pallas probes.  "round" is the cast to the dtype T (bf16 or f32).
 //
-// The products.  Every product is one routine, `gemm`: a 256-thread block
-// computes a [M, N] result in 64 x 64 output tiles, each thread a 4 x 4
-// patch of f32 accumulators on the CUDA cores (fmaf), over K in 32-deep
-// chunks staged in shared memory as f32 by loader functions that gather
-// the operand from wherever it lives (device memory, the staged x tile,
-// an im2col view of it, the weights).  An epilogue function gets each
-// finished element.  This is the routine K7 ran before it moved to the
-// tensor cores (csrc/fused_block.cu on csrc/mma.cuh); the probes time it
-// no more against K7's own products until they move onto K7's tiles.
+// P1 (`probe_conv3x3_kernel`) runs K7's forward code path for its 3x3
+// (csrc/block_tc.cuh, the stride-1 pieces): a block takes th rows of one
+// image (`tile_of<1>`, `fill_tables`), stages x over its th + 2 halo rows
+// into a resident tile in the layout K7 keeps h0 in (rows of Cm padded by
+// 16 bytes, `res_ld`; zero rows outside the image; 16 bytes a cp.async
+// where `vec` holds), then runs K7's `conv3x3<T, 1>`, the implicit GEMM on
+// `pt::tc::product` (csrc/mma.cuh: bf16 mma.sync m16n8k16 fed by
+// ldmatrix straight from the halo tile, w2 through a cp.async ring; f32
+// the same tiles with exact CUDA-core FMAs), whose epilogue writes
+// round(v).  Its tile height follows `make_plan`'s rule (block_tc.cuh
+// `pick_th`: the least tensor-core work, M padded to 16, among the heights
+// whose shared memory fits, ties to the larger height), with the own
+// pixels' cost alone, since P1 has no halo product.  At ResNet-50's stage
+// 1 in bf16 that is K7's forward tiling, 8 rows at one block per SM
+// (`pt_probe_tiles` reports the heights and blocks per SM).
+//
+// P2 (`probe_matmuls_kernel`) still runs the CUDA-core `gemm` below, the
+// routine K7 ran on before it moved to the tensor cores: a 256-thread
+// block computes a [M, N] result in 64 x 64 output tiles, each thread a
+// 4 x 4 patch of f32 accumulators (fmaf), over K in 32-deep chunks staged
+// in shared memory as f32 by loader functions; an epilogue function gets
+// each finished element.  A block takes th rows (no halo), writes h0 to
+// shared memory in the first `gemm`'s epilogue and adds x from device
+// memory in the second's; its tile height follows the same rule, each
+// tile's own pixels padded to `gemm`'s 64-row output tiles.  So K7's
+// stage-1 forward minus P1 is the 1x1 chain, the halo's h0 product and
+// the rest; the three-way split waits for P2 to move onto K7's tiles.
 //
 // Bound at ResNet-50's stage 1, batch 128 bf16: P1 moves 102.8 MB (0.0307
-// ms at 3.35 TB/s) for 29.6 GFLOP; P2 411.0 MB (0.1227 ms) for 26.3
-// GFLOP: both byte-bound, and both run far above that on the CUDA cores.
+// ms at 3.35 TB/s) for 29.6 GFLOP (0.0299 ms at 989 TFLOP/s); P2 411.0 MB
+// (0.1227 ms) for 26.3 GFLOP: both byte-bound.  P1's halo rows are read
+// (th + 2) / th times, from L2 where its neighbours fetched them, and each
+// 64-pixel M tile streams all of w2 (73.7 KB) through the ring.
 
 #include <cstdint>
 
+#include "block_tc.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kTM = 64;             // output tile rows of `gemm`
 constexpr int kTN = 64;             // output tile columns
 constexpr int kTK = 32;             // K chunk staged in shared memory
 constexpr int kAStride = kTM + 1;   // As [kTK][kTM+1]: conflict-free fills
 constexpr int kBStride = kTN + 4;   // Bs [kTK][kTN+4]: float4-aligned rows
-constexpr int kMaxTH = 8;
 
-struct Geo {
-  int n, h, w, cin, cm, lgcm, cout, aw, th, tiles_per_img;
+// P1: the ring of `product`, the pixel tables and the x halo tile.
+struct ConvLayout {
+  size_t ring, row, col, x, total;
 };
 
-// A tile: rows [r0, r0 + rows) of image img, P = rows * w pixels; `own` is
-// the index of its first pixel in the [N*H*W] pixel order.  Its halo is
-// rows r0 - 1 .. r0 + rows: halo pixel hp (0 <= hp < P2) lies in the image
-// iff lo <= hp < hi, and `xb` is the pixel index of halo pixel 0.
-struct Tile {
-  int img, r0, rows, wo, P, P2, lo, hi;
-  long long own, xb;
-};
-
-__device__ __forceinline__ Tile tile_of(const Geo& g) {
-  Tile t;
-  t.wo = g.w;
-  t.img = blockIdx.x / g.tiles_per_img;
-  t.r0 = (blockIdx.x % g.tiles_per_img) * g.th;
-  t.rows = min(g.th, g.h - t.r0);
-  t.P = t.rows * t.wo;
-  t.P2 = (t.rows + 2) * g.w;
-  t.lo = t.r0 == 0 ? g.w : 0;
-  t.hi = t.r0 + t.rows >= g.h ? (t.rows + 1) * g.w : t.P2;
-  t.own = (static_cast<long long>(t.img) * g.h + t.r0) * t.wo;
-  t.xb = (static_cast<long long>(t.img) * g.h + t.r0 - 1) * g.w;
-  return t;
-}
-
-// Shared-memory layout: the same code sizes it on the host and carves it
-// on the device.
-__host__ __device__ inline size_t up16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
-}
-
-struct Carve {
-  size_t off = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    const size_t o = off;
-    off += up16(bytes);
-    return o;
-  }
-};
-
-// P1 stages the tile's x over its halo rows; P2 keeps h0 of its own rows.
-struct ProbeLayout {
-  size_t as, bs, row, col, t, total;
-};
-
-__host__ __device__ inline ProbeLayout probe_layout(int th, int w, int cm,
-                                                    int tsz, bool conv) {
+template <typename T>
+__host__ __device__ inline ConvLayout conv_layout(int th, int w, int cm) {
   Carve c;
-  ProbeLayout l;
-  const size_t own = size_t(th) * w, halo = size_t(th + 2) * w;
+  ConvLayout l;
+  l.ring = c.take(pt::tc::Cfg<T>::kRingBytes);
+  l.row = c.take(sizeof(short) * own_px<1>(th, w));
+  l.col = c.take(sizeof(short) * own_px<1>(th, w));
+  l.x = c.take(sizeof(T) * halo_px<1>(th, w) * res_ld<T>(cm));
+  l.total = c.off;
+  return l;
+}
+
+// P2: `gemm`'s staging tiles and h0 of the tile's own rows.
+struct MmLayout {
+  size_t as, bs, h0, total;
+};
+
+__host__ __device__ inline MmLayout mm_layout(int th, int w, int cm,
+                                              int tsz) {
+  Carve c;
+  MmLayout l;
   l.as = c.take(sizeof(float) * kTK * kAStride);
   l.bs = c.take(sizeof(float) * kTK * kBStride);
-  l.row = c.take(conv ? sizeof(short) * own : 0);
-  l.col = c.take(conv ? sizeof(short) * own : 0);
-  l.t = c.take(tsz * (conv ? halo : own) * cm);
+  l.h0 = c.take(size_t(tsz) * th * w * cm);
   l.total = c.off;
   return l;
 }
@@ -167,63 +153,63 @@ __device__ void gemm(int M, int N, int K, const ALoad& a, const BLoad& b,
   }
 }
 
-// Row and column of each own pixel, so the loaders divide by no runtime
-// width.
-__device__ __forceinline__ void fill_tables(const Tile& t, short* rowt,
-                                            short* colt) {
-  for (int p = threadIdx.x; p < t.P; p += kThreads) {
-    rowt[p] = static_cast<short>(p / t.wo);
-    colt[p] = static_cast<short>(p % t.wo);
-  }
-}
-
-// im2col view of the staged tile: own pixel p, k = tap * Cm + c with tap =
-// dy * 3 + dx; row r of the tile reads halo row r + dy, column col + dx - 1.
-template <typename T>
-__device__ __forceinline__ float patch(const Geo& g, const short* rowt,
-                                       const short* colt, const T* xs, int p,
-                                       int k) {
-  const int tap = k >> g.lgcm, c = k & (g.cm - 1);
-  const int dy = tap / 3, dx = tap - 3 * dy;
-  const int cc = colt[p] + dx - 1;
-  if (cc < 0 || cc >= g.w) return 0.f;
-  return pt::to_f32(xs[((rowt[p] + dy) * g.w + cc) * g.cm + c]);
-}
-
 // ---------------------------------------------------------------------------
 // the probes: K7's 3x3 product alone (P1) and its 1x1 chain alone (P2)
 // ---------------------------------------------------------------------------
 
-// P1: y = round(conv3x3(zero_pad(x), w2)), g.cin == g.cm == g.cout.
+// x over the tile's halo rows into the resident tile xs (row stride
+// res_ld), zero rows outside the image (the conv's padding); with vec 16
+// bytes a cp.async, waited for here, so the product's leading barrier
+// publishes them.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ void stage_halo(const Geo& g, const Tile& t, const T* x, T* xs) {
+  const int ld = res_ld<T>(g.cm);
+  if (g.vec) {
+    constexpr int kLgV = sizeof(T) == 2 ? 3 : 2;  // log2 of a group
+    const int lgg = g.lgcm - kLgV;                // groups per pixel
+    for (int i = threadIdx.x; i < (t.P2 << lgg); i += kThreads) {
+      const int m = i >> lgg, c = (i & ((1 << lgg) - 1)) << kLgV;
+      T* dst = xs + m * ld + c;
+      if (m >= t.lo && m < t.hi)
+        pt::tc::cp_async16(dst, x + (t.xb + m) * g.cm + c);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+    pt::tc::cp_async_commit();
+    pt::tc::cp_async_wait<0>();
+  } else {
+    for (int i = threadIdx.x; i < (t.P2 << g.lgcm); i += kThreads) {
+      const int m = i >> g.lgcm, c = i & (g.cm - 1);
+      xs[m * ld + c] = m >= t.lo && m < t.hi ? x[(t.xb + m) * g.cm + c]
+                                             : pt::from_f32<T>(0.f);
+    }
+  }
+}
+
+// P1: y = round(conv3x3(zero_pad(x), w2)), g.cin == g.cm == g.cout; K7's
+// forward path for its 3x3, the halo tile holding x where K7's holds h0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 probe_conv3x3_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w2,
                      T* __restrict__ y) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const ProbeLayout L = probe_layout(g.th, g.w, g.cm, sizeof(T), true);
-  float* As = reinterpret_cast<float*>(smem + L.as);
-  float* Bs = reinterpret_cast<float*>(smem + L.bs);
+  const ConvLayout L = conv_layout<T>(g.th, g.w, g.cm);
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
   short* rowt = reinterpret_cast<short*>(smem + L.row);
   short* colt = reinterpret_cast<short*>(smem + L.col);
-  T* xs = reinterpret_cast<T*>(smem + L.t);
-  const Tile t = tile_of(g);
+  T* xs = reinterpret_cast<T*>(smem + L.x);
+  const Tile t = tile_of<1>(g);
 
-  fill_tables(t, rowt, colt);
-  // x over the halo rows, zero outside the image (the conv's padding);
-  // gemm's leading barrier orders these stores before the patch loads
-  for (int i = threadIdx.x; i < t.P2 * g.cm; i += kThreads) {
-    const int m = i >> g.lgcm;
-    xs[i] = (m >= t.lo && m < t.hi) ? x[t.xb * g.cm + i] : pt::from_f32<T>(0.f);
-  }
-  gemm<false, false>(
-      t.P, g.cm, 9 * g.cm,
-      [&](int m, int k) { return patch(g, rowt, colt, xs, m, k); },
-      [&](int k, int n) { return pt::to_f32(w2[size_t(k) * g.cm + n]); },
+  fill_tables(g, t, rowt, colt);
+  pt::tc::zero_row(ring);
+  stage_halo(g, t, x, xs);
+  conv3x3<T, 1>(
+      g, t, rowt, colt, xs, w2,
       [&](int m, int n, float v) {
         y[(t.own + m) * g.cm + n] = pt::from_f32<T>(v);
       },
-      As, Bs);
+      ring);
 }
 
 // P2: h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x), g.cout == g.cin.
@@ -233,11 +219,11 @@ probe_matmuls_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w1,
                      const T* __restrict__ w3, T* __restrict__ y) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const ProbeLayout L = probe_layout(g.th, g.w, g.cm, sizeof(T), false);
+  const MmLayout L = mm_layout(g.th, g.w, g.cm, sizeof(T));
   float* As = reinterpret_cast<float*>(smem + L.as);
   float* Bs = reinterpret_cast<float*>(smem + L.bs);
-  T* h0s = reinterpret_cast<T*>(smem + L.t);
-  const Tile t = tile_of(g);
+  T* h0s = reinterpret_cast<T*>(smem + L.h0);
+  const Tile t = tile_of<1>(g);
 
   gemm<false, false>(
       t.P, g.cm, g.cin,
@@ -259,86 +245,38 @@ probe_matmuls_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------
-// launchers
+// plans and launchers
 // ---------------------------------------------------------------------------
 
-int max_smem() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v;
-}
-
-// Over `rows` image rows, the TH <= 8 whose shared memory fits and whose
-// tiles compute the fewest rows, ceil(rows / TH) (TH + halo) (P1: TH + 2
-// staged rows); ties go to the larger TH.  Without a halo (P2) the
-// fewest tiles come first.  0 when none fits.
-template <class Bytes>
-int pick_th(int rows, int halo, const Bytes& bytes) {
-  const size_t limit = static_cast<size_t>(max_smem());
-  int best = 0;
-  long long best_cost = 0;
-  for (int th = 1; th <= (rows < kMaxTH ? rows : kMaxTH); ++th) {
-    if (bytes(th) > limit) continue;
-    const long long tiles = (rows + th - 1) / th;
-    const long long cost = tiles * (th + halo) +
-                           (halo == 0 ? tiles * kMaxTH * rows : 0);
-    if (best == 0 || cost <= best_cost) {
-      best = th;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-Geo make_geo(int n, int h, int w, int cin, int cm, int cout, int aw,
-             int th) {
-  int lg = 0;
-  while ((1 << lg) < cm) ++lg;
-  return Geo{n, h, w, cin, cm, lg, cout, aw, th, (h + th - 1) / th};
-}
-
-bool geo_ok(int n, int h, int w, int cin, int cm) {
-  if (n < 1 || h < 1 || w < 1 || cin < 1 || cm < 1) return false;
-  if (cm & (cm - 1)) return false;                 // Cm a power of two
-  if (w * kMaxTH > 32767) return false;            // short pixel tables
-  return true;
-}
-
-template <class Kernel>
-cudaError_t set_smem(Kernel k, size_t bytes) {
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// The probes' tile heights: P1 by the halo rule (halo 2), P2 by the
-// no-halo rule (fewest tiles).
-struct ProbeThs {
-  int conv, mm;
-};
-
+// P1's tile height (0 when none fits): the heights <= 8 whose shared
+// memory fits one block, the least tensor-core work (each tile's own
+// pixels padded to 16 rows), ties to the larger height.
 template <typename T>
-ProbeThs pick_probe_ths(int h, int w, int cm) {
-  ProbeThs r;
-  r.conv = pick_th(h, 2, [&](int t) {
-    return probe_layout(t, w, cm, sizeof(T), true).total;
-  });
-  r.mm = pick_th(h, 0, [&](int t) {
-    return probe_layout(t, w, cm, sizeof(T), false).total;
-  });
-  return r;
+int conv_th(int h, int w, int cm) {
+  return pick_th(
+      h, [&](int t) { return conv_layout<T>(t, w, cm).total; },
+      [&](int rows) { return up_to(own_px<1>(rows, w), 16); });
+}
+
+// P2's: the same rule, each tile's own pixels padded to `gemm`'s 64 rows.
+template <typename T>
+int mm_th(int h, int w, int cm) {
+  return pick_th(
+      h, [&](int t) { return mm_layout(t, w, cm, sizeof(T)).total; },
+      [&](int rows) { return up_to(own_px<1>(rows, w), kTM); });
 }
 
 template <typename T>
 cudaError_t launch_probe_conv(const void* x, const void* w2, void* y, int n,
                               int h, int w, int cm, cudaStream_t st) {
-  const int th = pick_probe_ths<T>(h, w, cm).conv;
+  const int th = conv_th<T>(h, w, cm);
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cm, cm, cm, cm, th);
-  const size_t smem = probe_layout(th, w, cm, sizeof(T), true).total;
+  const Geo g = make_geo<1>(h, w, cm, cm, cm, cm, th,
+                            vec_ok<T>(cm, cm, cm, {x, w2, y}));
+  const size_t smem = conv_layout<T>(th, w, cm).total;
   cudaError_t err = set_smem(probe_conv3x3_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  probe_conv3x3_kernel<T><<<n * g.tiles_per_img, kThreads, smem, st>>>(
+  probe_conv3x3_kernel<T><<<n * g.tiles, kThreads, smem, st>>>(
       g, static_cast<const T*>(x), static_cast<const T*>(w2),
       static_cast<T*>(y));
   return cudaGetLastError();
@@ -348,41 +286,28 @@ template <typename T>
 cudaError_t launch_probe_mm(const void* x, const void* w1, const void* w3,
                             void* y, int n, int h, int w, int cin, int cm,
                             cudaStream_t st) {
-  const int th = pick_probe_ths<T>(h, w, cm).mm;
+  const int th = mm_th<T>(h, w, cm);
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo(n, h, w, cin, cm, cin, cin, th);
-  const size_t smem = probe_layout(th, w, cm, sizeof(T), false).total;
+  const Geo g = make_geo<1>(h, w, cin, cm, cin, cin, th, false);
+  const size_t smem = mm_layout(th, w, cm, sizeof(T)).total;
   cudaError_t err = set_smem(probe_matmuls_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  probe_matmuls_kernel<T><<<n * g.tiles_per_img, kThreads, smem, st>>>(
+  probe_matmuls_kernel<T><<<n * g.tiles, kThreads, smem, st>>>(
       g, static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(w3), static_cast<T*>(y));
   return cudaGetLastError();
 }
 
-template <class Kernel>
-int blocks_per_sm(Kernel k, size_t smem) {
-  int b = 0;
-  if (set_smem(k, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, kThreads, smem) !=
-          cudaSuccess)
-    return 0;
-  return b;
-}
-
 template <typename T>
 int probe_tiles(int h, int w, int cm, int* out) {
-  const ProbeThs r = pick_probe_ths<T>(h, w, cm);
-  out[0] = r.conv;
-  out[1] = r.mm;
-  out[2] = r.conv ? blocks_per_sm(probe_conv3x3_kernel<T>,
-                                  probe_layout(r.conv, w, cm, sizeof(T), true)
-                                      .total)
+  out[0] = conv_th<T>(h, w, cm);
+  out[1] = mm_th<T>(h, w, cm);
+  out[2] = out[0] ? blocks_per_sm(probe_conv3x3_kernel<T>,
+                                  conv_layout<T>(out[0], w, cm).total)
                   : 0;
-  out[3] = r.mm ? blocks_per_sm(probe_matmuls_kernel<T>,
-                                probe_layout(r.mm, w, cm, sizeof(T), false)
-                                    .total)
-                : 0;
+  out[3] = out[1] ? blocks_per_sm(probe_matmuls_kernel<T>,
+                                  mm_layout(out[1], w, cm, sizeof(T)).total)
+                  : 0;
   return int(cudaGetLastError());
 }
 
@@ -393,8 +318,7 @@ int probe_tiles(int h, int w, int cm, int* out) {
 extern "C" int pt_probe_conv3x3(const void* x, const void* w2, void* y, int n,
                                 int h, int w, int cm, int dtype,
                                 void* stream) {
-  if (!geo_ok(n, h, w, cm, cm))
-    return int(cudaErrorInvalidValue);
+  if (!geo_ok(n, h, w, cm, cm, cm, cm)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32)
     return int(launch_probe_conv<float>(x, w2, y, n, h, w, cm, st));
@@ -408,8 +332,7 @@ extern "C" int pt_probe_conv3x3(const void* x, const void* w2, void* y, int n,
 extern "C" int pt_probe_matmuls(const void* x, const void* w1, const void* w3,
                                 void* y, int n, int h, int w, int cin, int cm,
                                 int dtype, void* stream) {
-  if (!geo_ok(n, h, w, cin, cm))
-    return int(cudaErrorInvalidValue);
+  if (!geo_ok(n, h, w, cin, cm, cin, cin)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32)
     return int(launch_probe_mm<float>(x, w1, w3, y, n, h, w, cin, cm, st));

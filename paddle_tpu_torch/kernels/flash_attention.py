@@ -18,8 +18,8 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
   and `_flash_lse`): forward K1, backward K2 + K3.  delta = rowsum(dO *
   O) in f32 is computed with torch outside the kernels, as the
   reference's `_bwd` does, and the lse cotangent folds into delta -
-  dlse.  K3 in bf16 runs on the tensor cores (P^T and dS^T kept in
-  registers); K2, and K3 in f32, are exact scalar kernels.  See
+  dlse.  In bf16 both run on the tensor cores (K2: dS kept in
+  registers; K3: P^T and dS^T), in f32 on exact scalar kernels.  See
   csrc/flash_attention_bwd.cu.
 - K6 `flash_decode` replaces the Pallas `_decode_kernel`: one query row
   per (b, h) against a KV cache, keys past `lengths[b]` never read.
@@ -207,6 +207,7 @@ def _bwd_args(q, k, v, do, lse, delta, causal, sm_scale):
 def _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
     """K2 alone: dq."""
     _check_bwd(q, k, v, do, lse, delta)
+    _check_aligned("flash_attention_bwd_dq", (q, k, v, do, lse, delta))
     lib = backend.load("flash_attention_bwd", _BWD_SIGS)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, sm_scale)
     dq = torch.empty_like(q)

@@ -12,14 +12,16 @@ Port of the two stripped Pallas kernels of tools/fused_probe.py:
         f32 (`_dot` :134), relu and round between them, the residual added
         in f32 before the last round.
 
-The kernels are CUDA C++ in `paddle_tpu_torch/csrc/fused_bottleneck.cu`
-(`probe_conv3x3_kernel`, `probe_matmuls_kernel`) on the CUDA-core GEMM
-routine `gemm`, tiles and loaders K7 ran on before it moved to the
-tensor cores (`csrc/fused_block.cu`); their times split K7's forward
-again once they move onto K7's tiles.  On CPU tensors the wrappers
-run the plain versions (`conv3x3_probe_ref`, `matmul_chain_probe_ref`);
-on CUDA tensors they launch the kernels or raise.  The Pallas probes
-have no backward, and neither do these.
+The kernels are CUDA C++ in `paddle_tpu_torch/csrc/fused_bottleneck.cu`.
+P1 (`probe_conv3x3_kernel`) runs K7's forward path for its 3x3
+(`csrc/block_tc.cuh`: x's halo rows staged where K7 keeps h0, then
+`conv3x3<T, 1>` on the tensor-core product of `csrc/mma.cuh`), so K7's
+stage-1 forward minus P1 is K7's 1x1 chain, its halo's h0 product and
+the rest.  P2 (`probe_matmuls_kernel`) still runs the CUDA-core GEMM
+routine `gemm` K7 ran on before it moved to the tensor cores.  On CPU
+tensors the wrappers run the plain versions (`conv3x3_probe_ref`,
+`matmul_chain_probe_ref`); on CUDA tensors they launch the kernels or
+raise.  The Pallas probes have no backward, and neither do these.
 """
 
 import ctypes
@@ -125,7 +127,10 @@ def matmul_chain_probe(x, w1, w3):
 def probe_tiles(h, w, cm, dtype):
     """How the launches lay out on the current CUDA device for sides h x
     w and Cm channels: ((rows per tile of P1, of P2), (blocks that fit on
-    one SM for P1, P2)); 0 where nothing fits."""
+    one SM for P1, P2)); 0 where nothing fits.  Both take K7's rule (the
+    least work among the heights whose shared memory fits, ties to the
+    larger height), P1 on its own pixels padded to 16 rows, P2 to
+    `gemm`'s 64."""
     lib = backend.load("fused_bottleneck", _SIGS)
     out = (ctypes.c_int * 4)()
     backend.check(lib.pt_probe_tiles(h, w, cm, _DTYPE_CODES[dtype],

@@ -20,6 +20,14 @@ is no further from the kernel than the default is.  f32: 2e-5, and
 `round_to=torch.float32` is the default bit for bit.  The default
 (`round_to=None`) is held bitwise to the plain versions as they were
 before the option (`_fwd_before`, `_bwd_before` below).
+
+`_dq_tile_model` is a CPU model of the bf16 tensor-core K2's tile
+schedule (64-query x 64-key tiles in the kernel's order, the diagonal
+tile the only one masked, ds rounded per tile, dq summed in f32 and
+rounded once); it is held against the Pallas `_bwd_dq_kernel` (interpret
+mode, `_bwd_core` with block_q = block_k = 64) on the same lse and
+delta at 2e-3, the bound above, and the card's bf16 K2 is held to it at
+one bf16 ulp (tests/test_torch_kernels.py `test_kernels_on_card`).
 """
 
 import math
@@ -31,7 +39,7 @@ import pytest
 import torch
 
 from paddle_tpu.kernels.flash_attention import (
-    flash_attention_with_lse as j_flash_lse)
+    _bwd_core as j_bwd_core, flash_attention_with_lse as j_flash_lse)
 
 from paddle_tpu_torch.kernels import flash_attention as TFA
 
@@ -158,8 +166,67 @@ def test_round_to_runs_in_float64():
         torch.testing.assert_close(a.double(), b, atol=2e-3, rtol=2e-3)
 
 
+def _dq_tile_model(q, k, v, do, lse, delta, causal, sm_scale, tile=64):
+    """K2's tile schedule on the CPU: per `tile`-row query tile, the key
+    tiles the kernel visits, in its order (0 up; causal: up to the
+    diagonal tile, the only one masked), s and dp in f32, p = exp(s -
+    lse), ds = p (dp - delta) sm_scale rounded to q's dtype per tile, dq
+    summed over the tiles in f32 and rounded once.  Runs on q's device
+    (tests/test_torch_kernels.py holds the card's K2 to it)."""
+    b, h, n, d = q.shape
+    dev = q.device
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dq = torch.empty(b, h, n, d, device=dev)
+    live = torch.ones(tile, tile, dtype=torch.bool, device=dev).tril()
+    for qt in range(n // tile):
+        rows = slice(qt * tile, (qt + 1) * tile)
+        acc = torch.zeros(b, h, tile, d, device=dev)
+        for kt in range(qt + 1 if causal else n // tile):
+            cols = slice(kt * tile, (kt + 1) * tile)
+            s = torch.matmul(qf[..., rows, :],
+                             kf[..., cols, :].transpose(-1, -2)) * sm_scale
+            if causal and kt == qt:
+                s = torch.where(live, s, torch.full_like(s, TFA.NEG_INF))
+            p = torch.exp(s - lse[..., rows, None])
+            dp = torch.matmul(dof[..., rows, :],
+                              vf[..., cols, :].transpose(-1, -2))
+            ds = p * (dp - delta[..., rows, None]) * sm_scale
+            acc = acc + torch.matmul(ds.to(q.dtype).float(), kf[..., cols, :])
+        dq[..., rows, :] = acc
+    return dq.to(q.dtype)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_tile_model_matches_pallas_dq(causal, d, s):
+    shape = (1, 2, s, d)
+    q, k, v, do = (_t(_rand(shape, 40 + i), "bfloat16") for i in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = TFA.flash_attention_ref(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1) - torch.from_numpy(
+        _rand(shape[:3], 44))
+    want = j_bwd_core(scale, causal, 64, 64,
+                      *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                        for t in (q, k, v, do)),
+                      jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()))[0]
+    got = _dq_tile_model(q, k, v, do, lse, delta, causal, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    # and nearer the kernel than the plain version without the rounding
+    # of ds: no further at worst, closer on average
+    base = TFA.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal,
+                                       scale)[0]
+    assert _max_err(got, want) <= _max_err(base, want)
+    w = np.asarray(want.astype(jnp.float32))
+    assert (np.abs(got.float().numpy() - w).mean()
+            < np.abs(base.float().numpy() - w).mean())
+
+
 def test_bf16_launchers_need_aligned_inputs():
-    """The bf16 tensor-core K1 and K3 load 16 bytes a cp.async: their
+    """The bf16 tensor-core K1, K2 and K3 load 16 bytes a cp.async: their
     launchers raise on a misaligned input before reaching the library."""
     base = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16)
     bad = base[1:].view(1, 2, 128, 64)          # contiguous, 2 bytes off
@@ -169,3 +236,6 @@ def test_bf16_launchers_need_aligned_inputs():
     lse = torch.zeros(1, 2, 128)
     with pytest.raises(ValueError, match="16-byte aligned"):
         TFA._launch_bwd_dkv(good, good, good, bad, lse, lse, True, 0.125)
+    for args in ((bad, good, good, good), (good, good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            TFA._launch_bwd_dq(*args, lse, lse, True, 0.125)

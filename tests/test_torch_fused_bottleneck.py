@@ -155,8 +155,9 @@ def test_k7_source_and_launch_counters():
     K8 (csrc/block_tc.cuh): every K7 kernel that multiplies reaches
     `pt::tc::product`, no kernel adds a weight gradient with atomics
     (the only atomic targets are the affine grads and their shared-memory
-    partials), and csrc/fused_bottleneck.cu keeps P1 and P2 alone, on
-    their CUDA-core `gemm`, with no stride-2 code left."""
+    partials), and csrc/fused_bottleneck.cu keeps P1 and P2 alone (P1 on
+    K7's `conv3x3`, P2 on its CUDA-core `gemm`), with no stride-2 code
+    left."""
     assert "fused_block" in backend.SOURCES
     text = (backend.CSRC / "fused_block.cu").read_text()
     for entry in ("pt_fused_block_fwd", "pt_fused_block_bwd",
@@ -185,8 +186,10 @@ def test_k7_source_and_launch_counters():
     for kernel in ("bottleneck_fwd_kernel", "bottleneck_bwd1_kernel",
                    "bottleneck_bwd2_kernel"):
         assert kernel not in probes
-    for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel"):
-        assert "gemm<" in _kernel_body(probes, kernel), kernel
+    assert "conv3x3<T, 1>(" in _kernel_body(probes, "probe_conv3x3_kernel")
+    assert "gemm<" in _kernel_body(probes, "probe_matmuls_kernel")
+    for piece in ("struct Geo", "struct Tile", "struct Carve", "res_ld("):
+        assert piece not in probes, piece
     # the plain versions run on CPU tensors and count no launch
     backend.reset_launches()
     args = [torch.from_numpy(a).requires_grad_() for a in _args(2, False)]

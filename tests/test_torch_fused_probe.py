@@ -201,11 +201,15 @@ def test_probe_wrappers_check_shapes_and_count_no_cpu_launch():
     text = (backend.CSRC / "fused_bottleneck.cu").read_text()
     for entry in FP._SIGS:
         assert f'extern "C" int {entry}' in text
-    # P1 and P2 run on K7's one GEMM routine, not a copy of it
+    # P1 runs K7's forward path for its 3x3 (csrc/block_tc.cuh's conv3x3
+    # on the tensor-core product), P2 the one CUDA-core `gemm` of the file
+    assert '#include "block_tc.cuh"' in text
     assert text.count("__device__ void gemm(") == 1
-    for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel"):
-        body = text.split(f"{kernel}(Geo g")[1].split("\n}\n")[0]
-        assert "gemm<" in body
+    body = {kernel: text.split(f"{kernel}(Geo g")[1].split("\n}\n")[0]
+            for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel")}
+    assert "conv3x3<T, 1>(" in body["probe_conv3x3_kernel"]
+    assert "gemm<" not in body["probe_conv3x3_kernel"]
+    assert "gemm<" in body["probe_matmuls_kernel"]
 
 
 # ---------------------------------------------------------------------------
@@ -278,11 +282,15 @@ def _card_args(seed, shapes, dtype):
 @pytest.mark.cuda
 def test_p1_on_card():
     """P1 on the card against its plain version: f32 2e-5, bf16 3e-2, at
-    a square, a ragged (H % TH != 0) and the tool's geometry."""
+    a square, ragged 11 x 7 (H % TH != 0), ResNet-50's stage 1 (the tool's
+    geometry in bf16) and Cm 4 in bf16 (no 16-byte groups: the
+    element-wise loaders)."""
     _needs_card()
     backend.reset_launches()
     cases = [((2, 8, 8, 16), torch.float32), ((2, 11, 7, 32), torch.float32),
-             ((8, 56, 56, 64), torch.bfloat16)]
+             ((2, 11, 7, 64), torch.float32), ((2, 11, 7, 64), torch.bfloat16),
+             ((2, 56, 56, 64), torch.float32), ((8, 56, 56, 64), torch.bfloat16),
+             ((2, 5, 6, 4), torch.bfloat16)]
     for shape, dt in cases:
         cm = shape[-1]
         x, w2 = _card_args(1, [shape, (3, 3, cm, cm)], dt)

@@ -16,10 +16,11 @@ backward kernels in interpret mode: f32 atol = rtol = 2e-5, bf16 3e-2
 port keeps them in f32).
 
 `test_kernels_on_card` and `test_kernel_grads_on_card` hold the CUDA and
-Triton kernels against the plain versions on the card, K1 and K3 at head
-dims 64, 128 and 256, causal and not, and in bf16 also against the
+Triton kernels against the plain versions on the card, K1, K2 and K3 at
+head dims 64, 128 and 256, causal and not, and in bf16 also against the
 rounding model (`round_to`, tests/test_torch_flash_rounding.py) within
-one bf16 ulp; they need a GPU and skip here.
+one bf16 ulp, raw K2 against that file's model of its tile schedule
+(`_dq_tile_model`); they need a GPU and skip here.
 """
 
 import ast
@@ -44,6 +45,7 @@ from paddle_tpu_torch.kernels import flash_attention as TFA
 from paddle_tpu_torch.kernels import layer_norm as TLN
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops import nn_ops as t_ops
+from test_torch_flash_rounding import _dq_tile_model
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]
@@ -446,6 +448,21 @@ def test_kernels_on_card():
                                                rtol=MODEL_TOL)
                     torch.testing.assert_close(lse, model_lse, atol=2e-5,
                                                rtol=2e-5)
+                # K2 raw, on the plain forward's lse and delta
+                do = _t(_rand((2, 3, 256, d), 7)).to(dev, dt)
+                delta = (do.float() * want.float()).sum(-1)
+                args = (q, k, v, do, want_lse, delta, causal, d ** -0.5)
+                dq = TFA._launch_bwd_dq(*args)
+                torch.testing.assert_close(
+                    dq.float(), TFA.flash_attention_bwd_ref(*args)[0].float(),
+                    atol=TOL[dtype], rtol=TOL[dtype])
+                if dtype == "bfloat16":
+                    # the model of K2's tile schedule, itself held
+                    # against the Pallas kernel (test_torch_flash_rounding)
+                    model = _dq_tile_model(*args)
+                    torch.testing.assert_close(dq.float(), model.float(),
+                                               atol=MODEL_TOL,
+                                               rtol=MODEL_TOL)
             # the first query row, made contiguous (K6's launcher takes
             # only contiguous inputs)
             q = _t(_rand((2, 3, 256, 64), 1)[:, :, :1]).to(dev, dt)
@@ -464,6 +481,8 @@ def test_kernels_on_card():
     torch.cuda.synchronize()
     assert backend.LAUNCHES["flash_attention_fwd"] == 2 * len(
         CARD_FLASH_CASES)
+    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 2 * len(
+        CARD_FLASH_CASES)
     assert backend.LAUNCHES["flash_decode"] == 2
     assert backend.LAUNCHES["layer_norm_fwd"] == 2
 
@@ -472,7 +491,7 @@ def test_kernels_on_card():
 def test_kernel_grads_on_card():
     """K1 + K2 + K3 and K4 + K5 through their autograd Functions on the
     card, against the plain backward versions on the same inputs; bf16
-    dK and dV (K3) also against the rounding model."""
+    dQ (K2) and dK, dV (K3) also against the rounding model."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA and Triton kernels have "
                     "no CPU mode (chip_smoke.py runs them on the card)")
@@ -495,12 +514,14 @@ def test_kernel_grads_on_card():
             for g, w in zip(got, want):
                 torch.testing.assert_close(g.float(), w.float(), **tol)
             if dtype == "bfloat16":
-                # K3 alone, on the model's own lse and delta
+                # K2 and K3 alone, on the model's own lse and delta
+                dq = TFA._launch_bwd_dq(q, k, v, do, lse, delta, causal,
+                                        d ** -0.5)
                 dk, dv = TFA._launch_bwd_dkv(q, k, v, do, lse, delta, causal,
                                              d ** -0.5)
                 model = TFA.flash_attention_bwd_ref(q, k, v, do, lse, delta,
                                                     causal, round_to=dt)
-                for g, w in zip((dk, dv), model[1:]):
+                for g, w in zip((dq, dk, dv), model):
                     torch.testing.assert_close(g.float(), w.float(),
                                                atol=MODEL_TOL, rtol=MODEL_TOL)
         x = _t(_rand((300, 768), 58, 2.0)).to(dev, dt)
@@ -514,6 +535,6 @@ def test_kernel_grads_on_card():
             torch.testing.assert_close(a.float(), w.to(dt).float(), **tol)
     torch.cuda.synchronize()
     n = len(CARD_FLASH_CASES)
-    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 2 * n
+    assert backend.LAUNCHES["flash_attention_bwd_dq"] == 3 * n
     assert backend.LAUNCHES["flash_attention_bwd_dkv"] == 3 * n
     assert backend.LAUNCHES["layer_norm_bwd"] == 2
