@@ -10,12 +10,12 @@ Phases (any failure makes the script exit non-zero without a result):
    print the build time and the compiler's register/spill report.
 1b. SASS: `cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
    libraries; every bf16 K7 and K8 kernel that runs a product, the bf16
-   K1, K2 and K3 kernels at each head dim, and bf16 P1 must hold
+   K1, K2 and K3 kernels at each head dim, and bf16 P1 and P2 must hold
    tensor-core instructions (HMMA / HGMMA); the f32
-   K1-K3 and P2 counts are printed as read (0 expected).  K1's, K2's and
+   K1-K3 counts are printed as read (0 expected).  K1's, K2's and
    K3's registers and spills per head dim from the ptxas report, the
-   bf16 ones not spilling at head dim 64, and P1's, the bf16 one not
-   spilling; K7's printed as read.
+   bf16 ones not spilling at head dim 64, and P1's and P2's, the bf16
+   ones not spilling; K7's and K6's printed as read.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -39,6 +39,14 @@ Phases (any failure makes the script exit non-zero without a result):
    plain versions with the reference's bf16 roundings of p and ds)
    against float64 products, and names the rule by which they sum (in
    the mma itself).
+   K6 (one launch split over the cache, `flash_attention.decode_plan`)
+   is timed with L2 flushed at the generate decode shape (q [4, 12, 1,
+   64], T 384, lengths 320; also at head dims 128 and 256), the engine's
+   ragged [8, 12, 1, 64] over T 1024, one row over T 2048 (length 2000)
+   and batch 32 over T 1024, each with its chunk, splits and blocks and
+   bitwise equal over two calls; in bf16 again at planner targets of 1,
+   2, 4 and 8 blocks per SM; then untimed at lengths 0, 1, the chunk
+   boundary +-1, T and past T, and two geometries back to back.
    K7 is checked at ResNet-50's four identity-block geometries (56^2
    256/64, 28^2 512/128, 14^2 1024/256, 7^2 2048/512) and its stage-1
    block-0 projection geometry (56^2, 64 -> 256, Cm 64), batch 2 in
@@ -80,9 +88,10 @@ Phases (any failure makes the script exit non-zero without a result):
    128 their times beside the plain versions, a library yardstick
    (`F.conv2d` channels-last; `relu(x @ w1) @ w3 + x`) and the bound;
    K7's stage-1 identity forward on the same x and weights beside them,
-   with K7 - P1 (P1 runs K7's conv3x3 at K7's tile rows, checked at
-   batch 128; P2 the CUDA-core `gemm`, so no three-way split yet) and
-   each plan's tile rows and blocks per SM;
+   split three ways: P1 (the 3x3), P2 (the 1x1 chain and the residual)
+   and K7 - P1 - P2 (the halo's h0 product, the affines and the rest);
+   both probes run K7's pieces at K7's forward tile rows and blocks per
+   SM, checked at batch 128; each plan's tile rows and blocks per SM;
    then `python -m paddle_tpu_torch.tools.fused_probe`
    (all seven probes, each in its subprocess), failing unless every
    probe exits 0 having launched its kernel.
@@ -140,7 +149,7 @@ Phases (any failure makes the script exit non-zero without a result):
    128/256/512) over 16 seeded requests.  The launch counts are zeroed
    just before and read just after; every kernel must have launched.  A
    torch.profiler window over 16 decode steps then says where a step's
-   time goes.
+   time goes, K6's device ms per step among it.
 7. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -156,14 +165,17 @@ Phases (any failure makes the script exit non-zero without a result):
    `generate()`'s top-2 logit margin at that step is above 1e-3
    relative (a real disagreement, not a near-tie).
 
-`python3 chip_smoke.py compare TREE [TREE ...]` instead times, for each
-tree in turn and in a process of its own (TREE a directory holding a
-paddle_tpu_torch package, e.g. `.` and an unpacked parent commit), K7
-in bf16 at batch 128 at its five geometries and summed over a
-full-fused step, the GPT train step of phase 3 (host ms, device ms and
-K1, K2, K3 per step from its profile), then the full fused and `id`
-ResNet-50 steps of phase 4 with their profiles: two versions compared
-in turns on one card.
+`python3 chip_smoke.py compare [--parts P,...] TREE [TREE ...]` instead
+times, for each tree in turn and in a process of its own (TREE a
+directory holding a paddle_tpu_torch package, e.g. `.` and an unpacked
+parent commit), the parts named (all by default): `k7`, K7 in bf16 at
+batch 128 at its five geometries and summed over a full-fused step;
+`train`, the GPT train step of phase 3 (host ms, device ms and K1, K2,
+K3 per step from its profile); `resnet`, the full fused and `id`
+ResNet-50 steps of phase 4 with their profiles; `probes`, P1, P2 and
+K7's stage-1 forward of phase 2b; `decode`, the decode-step profile of
+phase 6 (host and device ms per step, K6's share): two versions
+compared in turns on one card.
 
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
@@ -209,11 +221,18 @@ def time_ms(fn, iters=20, flush=None, graph=True):
     overwritten before each replay and only the replay is timed.
     graph=False times `iters` plain calls between two events instead
     (for calls through autograd, at shapes where each call takes
-    milliseconds and the launch gaps do not count)."""
+    milliseconds and the launch gaps do not count).  The warm-up calls
+    run on the stream the graph captures on, as PyTorch's CUDA-graph
+    notes advise, so what a wrapper sets up once per stream (K6's
+    counters) is not captured into the graph."""
     import torch
 
-    for _ in range(3):
-        fn()
+    main = torch.cuda.current_stream()
+    stream = _capture_stream() if graph else main
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
     if not graph:
         start = torch.cuda.Event(enable_timing=True)
@@ -225,7 +244,7 @@ def time_ms(fn, iters=20, flush=None, graph=True):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters if flush is None else 1):
             fn()
     graph.replay()
@@ -249,6 +268,18 @@ def time_ms(fn, iters=20, flush=None, graph=True):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+_STREAMS = []
+
+
+def _capture_stream():
+    """One side stream for every graph capture of `time_ms`."""
+    import torch
+
+    if not _STREAMS:
+        _STREAMS.append(torch.cuda.Stream())
+    return _STREAMS[0]
 
 
 def bound(nbytes, ops, dtype):
@@ -280,8 +311,8 @@ def compare(name, got, want, dtype, failures):
 # per library, the kernels whose bf16 instantiations must hold HMMA: K7's
 # (csrc/fused_block.cu) and K8's (csrc/fused_down.cu) that run a product,
 # most of them the pieces both share (csrc/block_tc.cuh), K1's, K2's and
-# K3's tensor-core kernels (each at every head dim) and P1 (K7's conv3x3
-# in csrc/fused_bottleneck.cu)
+# K3's tensor-core kernels (each at every head dim) and P1 and P2 (K7's
+# conv3x3 and 1x1 products in csrc/fused_bottleneck.cu)
 K7_MMA_KERNELS = ("block_fwd_kernel", "block_bwd1_kernel",
                   "block_bwd2_kernel", "wgrad_kernel")
 MMA_KERNELS = {
@@ -291,13 +322,12 @@ MMA_KERNELS = {
     "flash_attention": ("flash_fwd_mma_kernel",),
     "flash_attention_bwd": ("flash_bwd_dq_mma_kernel",
                             "flash_bwd_dkv_mma_kernel"),
-    "fused_bottleneck": ("probe_conv3x3_kernel",),
+    "fused_bottleneck": ("probe_conv3x3_kernel", "probe_matmuls_kernel"),
 }
-# K1, K2 and K3 in f32 (exact scalar kernels) and P2 (the CUDA-core
-# `gemm` of csrc/fused_bottleneck.cu): counts printed as read (0
+# K1, K2 and K3 in f32 (exact scalar kernels): counts printed as read (0
 # expected)
 SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel", "probe_matmuls_kernel")
+                  "flash_bwd_dkv_kernel")
 
 
 def sass_counts(lib_name, failures):
@@ -338,11 +368,12 @@ def sass_phase(failures):
     """`cuobjdump -sass` of K7's, K8's, K1's, K2/K3's and P1/P2's
     libraries: the HMMA / HGMMA count of every kernel.  Fails unless each
     bf16 K7 and K8 kernel that runs a product, the bf16 K1, K2 and K3
-    kernels at each head dim, and bf16 P1 hold one; the f32 K1-K3 and P2
+    kernels at each head dim, and bf16 P1 and P2 hold one; the f32 K1-K3
     run on the CUDA cores (exact f32 FMAs), as do the f32 instantiations
-    and the slice sum, and their counts are printed as read.  Then K1's, K2's and K3's registers and spills from
-    the build log (fails if a bf16 one spills at head dim 64), P1's
-    (fails if the bf16 one spills) and K7's (printed as read)."""
+    and the slice sum, and their counts are printed as read.  Then K1's,
+    K2's and K3's registers and spills from the build log (fails if a
+    bf16 one spills at head dim 64), P1's and P2's (fails if a bf16 one
+    spills), K7's and K6's (printed as read)."""
     from paddle_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
     counts = {}
@@ -357,7 +388,7 @@ def sass_phase(failures):
                                 f"instruction ({[got[n] for n in bf16]})")
     for kernel in SCALAR_KERNELS:
         found = {n: c for n, c in counts.items() if kernel + "I" in n}
-        log(f"sass {kernel} (CUDA cores: f32 K1-K3, P2 on `gemm`): "
+        log(f"sass {kernel} (CUDA cores: f32 K1-K3): "
             f"{sorted(found.values())} HMMA/HGMMA in {len(found)} "
             "instantiations")
     for kernel in K7_MMA_KERNELS:
@@ -372,12 +403,15 @@ def sass_phase(failures):
                 if d == 64 and (use.get("spill_stores")
                                 or use.get("spill_loads")):
                     failures.append(f"{kernel}<64> spills: {use}")
-    for name, use in ptxas_find("fused_bottleneck", "probe_conv3x3_kernel"):
-        bf16 = "nv_bfloat16" in name
-        log(f"ptxas probe_conv3x3_kernel ({'bf16' if bf16 else 'f32'}): "
-            f"{use_text(use)}")
-        if bf16 and (use.get("spill_stores") or use.get("spill_loads")):
-            failures.append(f"probe_conv3x3_kernel (bf16) spills: {use}")
+    for kernel in MMA_KERNELS["fused_bottleneck"]:
+        for name, use in ptxas_find("fused_bottleneck", kernel):
+            bf16 = "nv_bfloat16" in name
+            log(f"ptxas {kernel} ({'bf16' if bf16 else 'f32'}): "
+                f"{use_text(use)}")
+            if bf16 and (use.get("spill_stores") or use.get("spill_loads")):
+                failures.append(f"{kernel} (bf16) spills: {use}")
+    for name, use in ptxas_find("flash_decode", "flash_decode_kernel"):
+        log(f"ptxas flash_decode {name}: {use_text(use)}")
     return counts
 
 
@@ -514,21 +548,64 @@ def kernel_phase(failures):
                     shape="x [24576, 768] bf16 (train step)")
 
     # K6 ------------------------------------------------------------------
-    k6_cases = [
-        (4, 384, [320] * 4, "generate decode, cache 256+128"),
-        (8, 1024, [1, 77, 512, 1024, 300, 640, 900, 129],
-         "engine decode, ragged slots"),
-    ]
+    rows["flash_decode"] = k6_checks(failures, rnd, flush)
+    flash_bwd_checks(rows, failures, rnd)
+    flash_precision(failures)
+    layer_norm_bwd_checks(rows, failures, rnd)
+    fused_bottleneck_checks(rows, failures, rnd)
+    fused_bottleneck_down_checks(rows, failures, rnd)
+    stem_tail_checks(rows, failures, rnd)
+    return rows
+
+
+# K6's timed cases: (batch, heads, head dim, cache depth T, lengths,
+# what); the first two draw from the kernel phase's generator, the others
+# from their own, so every later check keeps the draws of earlier runs
+K6_CASES = (
+    (4, 12, 64, 384, [320] * 4, "generate decode, cache 256+128"),
+    (8, 12, 64, 1024, [1, 77, 512, 1024, 300, 640, 900, 129],
+     "engine decode, ragged slots"),
+    (4, 12, 128, 384, [320] * 4, "head dim 128"),
+    (4, 12, 256, 384, [320] * 4, "head dim 256"),
+    (1, 12, 64, 2048, [2000], "one row, long cache"),
+    (32, 12, 64, 1024, [(37 * i) % 1024 + 1 for i in range(32)],
+     "batch 32, ragged"),
+)
+
+
+def k6_checks(failures, rnd, flush):
+    """K6 against its plain version at K6_CASES in bf16 and f32, two
+    calls bitwise equal, timed with L2 flushed beside its plain version,
+    SDPA with the live mask (the yardstick) and the bytes bound, with its
+    plan (chunk, splits, blocks); then untimed at lengths 0, 1, the chunk
+    boundary +-1, T and past T, and at two geometries of other (b*h, S)
+    back to back, the first again bitwise.  Returns the kernel table's
+    row (the generate decode shape in bf16)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def own(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    row = None
     for dt in (torch.bfloat16, torch.float32):
-        for b, t, lens, what in k6_cases:
-            h, d = 12, 64
-            q = rnd((b, h, 1, d), dt)
-            k, v = rnd((b, h, t, d), dt), rnd((b, h, t, d), dt)
+        for i, (b, h, d, t, lens, what) in enumerate(K6_CASES):
+            r = rnd if i < 2 else own
+            q = r((b, h, 1, d), dt)
+            k, v = r((b, h, t, d), dt), r((b, h, t, d), dt)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             out = FA.flash_decode(q, k, v, lengths)
             ref = FA.flash_decode_ref(q, k, v, lengths)
-            tag = f"K6 q [{b}, {h}, 1, {d}] T={t} lengths={lens} {dname(dt)}"
+            tag = f"K6 q [{b}, {h}, 1, {d}] T={t} {what} {dname(dt)}"
             err = compare(tag, out, ref, dname(dt), failures)
+            if not torch.equal(out, FA.flash_decode(q, k, v, lengths)):
+                failures.append(f"{tag}: two calls differ")
             live = (torch.arange(t, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
             ms = time_ms(lambda: FA.flash_decode(q, k, v, lengths),
@@ -541,25 +618,93 @@ def kernel_phase(failures):
             nbytes = (2 * n_live * d + 2 * b * h * d) * q.element_size() \
                 + 4 * b
             bms, by = bound(nbytes, 4 * n_live * d, dname(dt))
+            chunk, splits = FA.decode_plan(b * h, t, sms)
             log(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                f"{lib:.4f} bound_ms {bms:.5f} ({by}) max_err {err:.3e} "
-                f"(L2 flushed)")
-            if b == 4 and dt == torch.bfloat16:
-                rows["flash_decode"] = dict(
+                f"{lib:.4f} (SDPA) bound_ms {bms:.5f} ({by}) max_err "
+                f"{err:.3e}; chunk {chunk}, S {splits}, {b * h * splits} "
+                f"blocks on {sms} SMs; {ms / bms:.1f}x bound, "
+                f"{ms / lib:.2f}x SDPA (L2 flushed)")
+            if dt == torch.bfloat16 and i == 0:
+                row = dict(
                     name="K6 flash_decode", route="cuda",
                     source="paddle_tpu_torch/csrc/flash_decode.cu",
                     replaces="paddle_tpu/kernels/flash_attention.py:379",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib,
                     shape=f"q [4, 12, 1, 64], cache T=384, lengths 320, "
-                          "bf16 (generate decode)")
-    flash_bwd_checks(rows, failures, rnd)
-    flash_precision(failures)
-    layer_norm_bwd_checks(rows, failures, rnd)
-    fused_bottleneck_checks(rows, failures, rnd)
-    fused_bottleneck_down_checks(rows, failures, rnd)
-    stem_tail_checks(rows, failures, rnd)
-    return rows
+                          f"bf16 (generate decode); chunk {chunk}, S "
+                          f"{splits}")
+    k6_plan_sweep(own, flush, sms)
+    k6_edges(failures, sms)
+    return row
+
+
+def k6_plan_sweep(rnd, flush, sms, targets=(1, 2, 4, 8)):
+    """K6's time in bf16 at K6_CASES (L2 flushed) with the planner's
+    blocks-per-SM target (flash_attention.DECODE_BLOCKS_PER_SM) at each
+    of `targets`, the default restored after."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    default = FA.DECODE_BLOCKS_PER_SM
+    try:
+        for b, h, d, t, lens, what in K6_CASES:
+            q = rnd((b, h, 1, d), torch.bfloat16)
+            k, v = (rnd((b, h, t, d), torch.bfloat16) for _ in range(2))
+            n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = []
+            for per in targets:
+                FA.DECODE_BLOCKS_PER_SM = per
+                ms = time_ms(lambda: FA.flash_decode(q, k, v, n), flush=flush)
+                chunk, splits = FA.decode_plan(b * h, t, sms)
+                got.append(f"{per}/SM chunk {chunk} S {splits} {ms:.4f}")
+            log(f"K6 plan sweep q [{b}, {h}, 1, {d}] T={t} {what} bf16 "
+                f"(ms, L2 flushed): " + "; ".join(got))
+    finally:
+        FA.DECODE_BLOCKS_PER_SM = default
+
+
+def k6_edges(failures, sms):
+    """K6 at lengths 0, 1, the 64-key chunk boundary +-1, two chunks + 1,
+    T and past T (T 256, S 4), D 64/128/256, f32 and bf16, against its
+    plain version, the empty row exactly 0; then two geometries of other
+    (b*h, S) back to back and the first again, bitwise."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    lens = torch.tensor([0, 1, 63, 64, 65, 129, 256, 265], dtype=torch.int32,
+                        device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (64, 128, 256):
+            q, k, v = (rnd((8, 2, s, d), dt) for s in (1, 256, 256))
+            out = FA.flash_decode(q, k, v, lens)
+            tag = f"K6 edges q [8, 2, 1, {d}] T=256 {dname(dt)}"
+            err = compare(tag, out, FA.flash_decode_ref(q, k, v, lens),
+                          dname(dt), failures)
+            if float(out[0].abs().max()) != 0.0:
+                failures.append(f"{tag}: length 0 gives {out[0]}")
+            log(f"{tag}: lengths {lens.tolist()}, S "
+                f"{FA.decode_plan(16, 256, sms)[1]}: max_err {err:.3e}")
+        runs = []
+        for b, t in ((2, 384), (4, 1024), (2, 384)):
+            g = torch.Generator(device=dev).manual_seed(b)
+            q, k = (torch.randn(s, generator=g, device=dev).to(dt)
+                    for s in ((b, 3, 1, 64), (b, 3, t, 64)))
+            n = torch.tensor([t - 1, 70, 0, t][:b], dtype=torch.int32,
+                             device=dev)
+            runs.append(FA.flash_decode(q, k, k, n))
+        if not torch.equal(runs[0], runs[2]):
+            failures.append(f"K6 {dname(dt)}: a call at S "
+                            f"{FA.decode_plan(6, 384, sms)[1]} after one at S "
+                            f"{FA.decode_plan(12, 1024, sms)[1]} differs")
 
 
 def flash_bwd_checks(rows, failures, rnd):
@@ -1888,10 +2033,13 @@ def probes_phase(failures):
         if h != hw and not all(t and h % t for t in ths):
             failures.append(f"P1/P2 [{n}, {h}, {w}]: tile rows {ths} leave "
                             "no partial tile")
-        if n == 128 and ths[0] != k7["tile_rows"][0]:
-            # K7 - P1 splits K7's forward only at one tiling
-            failures.append(f"P1 [{n}, {h}, {w}] {d}: tile rows {ths[0]}, "
-                            f"K7's forward {k7['tile_rows'][0]}")
+        if n == 128 and (ths[0] != k7["tile_rows"][0]
+                         or (ths[1], blocks[1]) != (k7["tile_rows"][0],
+                                                    k7["per_sm"][0])):
+            # K7 - P1 - P2 splits K7's forward only at one tiling
+            failures.append(f"P1/P2 [{n}, {h}, {w}] {d}: tile rows {ths}, "
+                            f"P2 blocks per SM {blocks[1]}; K7's forward "
+                            f"{k7['tile_rows'][0]}, {k7['per_sm'][0]}")
         if n == 128:
             out = probe_times(x1, w2, x2, w1, w3, rnd)
             common = dict(route="cuda",
@@ -1918,11 +2066,11 @@ def probes_phase(failures):
 def probe_times(x1, w2, x2, w1, w3, rnd):
     """Device ms at batch 128 bf16 of P1 and P2, their plain versions,
     their library yardsticks and bounds, and the K7 stage-1 identity
-    forward on the same x2, w1, w2, w3 (affines near (1, 0)); prints the
-    three side by side.  P1 runs K7's conv3x3 on the tensor cores at K7's
-    forward tile rows (probes_phase checks them), so K7 - P1 is K7's 1x1
-    chain, its halo's h0 product and the rest; P2 still runs the
-    CUDA-core `gemm`, so the three-way split waits for it."""
+    forward on the same x2, w1, w2, w3 (affines near (1, 0)), split three
+    ways: P1 (K7's conv3x3), P2 (K7's 1x1 products with the residual on
+    the own pixels) and K7 - P1 - P2 (the halo's h0 product, the affines
+    and the rest).  Both probes run K7's pieces at K7's forward tile rows
+    and blocks per SM (probes_phase checks them)."""
     import torch
     import torch.nn.functional as TF
 
@@ -1968,15 +2116,18 @@ def probe_times(x1, w2, x2, w1, w3, rnd):
         f"{o['p2_lib']:.4f} bound_ms {o['p2_bound']:.5f} ({o['p2_by']})")
     k7_flop = 2.0 * r * (2 * cin * cm + 9 * cm * cm)
     p1_flop = 2.0 * r * 9 * cm * cm
-    log(f"K7 beside P1/P2, stage-1 identity forward [{n}, {hw}, {hw}, "
+    p2_flop = 2.0 * r * 2 * cin * cm
+    rest = o["k7_ms"] - o["p1_ms"] - o["p2_ms"]
+    log(f"K7 split three ways, stage-1 identity forward [{n}, {hw}, {hw}, "
         f"{cin}] Cm {cm} bf16: K7 {o['k7_ms']:.4f} ms "
-        f"({k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without its halo); "
-        f"P1 (its 3x3 on K7's conv3x3) {o['p1_ms']:.4f} ms "
-        f"({p1_flop / o['p1_ms'] / 1e9:.2f} TFLOP/s); K7 - P1 (the 1x1 "
-        f"chain, the halo's h0 product and the rest) "
-        f"{o['k7_ms'] - o['p1_ms']:.4f} ms; P2 (1x1 chain, CUDA-core "
-        f"gemm) {o['p2_ms']:.4f} ms: no three-way split until P2 moves "
-        "onto K7's tiles")
+        f"({k7_flop / o['k7_ms'] / 1e9:.2f} TFLOP/s without its halo) = "
+        f"P1 (the 3x3) {o['p1_ms']:.4f} ms "
+        f"({p1_flop / o['p1_ms'] / 1e9:.2f} TFLOP/s, "
+        f"{o['p1_ms'] / o['k7_ms']:.1%}) + P2 (the 1x1 chain and the "
+        f"residual) {o['p2_ms']:.4f} ms "
+        f"({p2_flop / o['p2_ms'] / 1e9:.2f} TFLOP/s, "
+        f"{o['p2_ms'] / o['k7_ms']:.1%}) + the rest (the halo's h0 "
+        f"product, the affines) {rest:.4f} ms ({rest / o['k7_ms']:.1%})")
     return o
 
 
@@ -2864,11 +3015,7 @@ def path_phase(failures):
     for name in ("flash_attention_fwd", "layer_norm_fwd", "flash_decode"):
         if launches.get(name, 0) < 1:
             failures.append(f"{name} never launched on the main path")
-    params = G.build_decode_params(model)
-    with torch.inference_mode():
-        cache = G.init_cache(params.cfg, 4, 384, device="cuda")
-        logits = G.prefill(params, torch.as_tensor(prompts, device="cuda"),
-                           cache)
+    params, cache, logits = decode_prefill(model, prompts)
     if tuple(logits.shape) != (4, cfg.vocab_size) \
             or not bool(torch.isfinite(logits.float()).all()):
         failures.append("prefill logits not finite or misshapen")
@@ -2880,8 +3027,9 @@ def path_phase(failures):
 
 def profile_decode(params, cache, logits, steps=16):
     """Where a generate() decode step's time goes: host time per step
-    (timed without the profiler), device time per step and the busiest
-    kernels (torch.profiler, kernel events only)."""
+    (timed without the profiler), device time per step, K6's device time
+    and launches per step and the busiest kernels (torch.profiler,
+    kernel events only).  Returns {host, device, k6} ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2889,32 +3037,37 @@ def profile_decode(params, cache, logits, steps=16):
 
     token = torch.argmax(logits, dim=-1).to(torch.int32)
 
-    def run(first):
+    def run(first, n=steps):
         tok = token
-        for i in range(steps):
+        for i in range(n):
             tok = torch.argmax(G.decode_step(params, tok, cache, first + i),
                                dim=-1).to(torch.int32)
         torch.cuda.synchronize()
 
     with torch.inference_mode():
-        torch.cuda.synchronize()
+        run(256, 4)                      # warm-up
         t0 = time.perf_counter()
-        run(256)
+        run(260)
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(256 + steps)
+            run(260 + steps)
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
+    k6 = [r for r in rows if "flash_decode_kernel" in r[2]]
+    k6_ms = sum(r[0] for r in k6) / 1e3 / steps
     log(f"decode step profile (batch 4, cache 384, {steps} steps): host "
         f"{host_ms:.3f} ms/step, device {device_ms:.3f} ms/step, device "
-        f"busy {device_ms / host_ms:.1%}")
+        f"busy {device_ms / host_ms:.1%}; K6 {k6_ms:.4f} ms/step "
+        f"({sum(r[1] for r in k6) / steps:.1f} launches/step, "
+        f"{k6_ms / device_ms:.1%} of the device time)")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3 / steps:8.4f} ms/step  {count / steps:5.1f}/step  "
             f"{key[:90]}")
+    return {"host": host_ms, "device": device_ms, "k6": k6_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -3234,11 +3387,43 @@ def timed_text(timed):
                     for k, v in timed.items())
 
 
-def compare_one(tree):
+COMPARE_PARTS = ("k7", "train", "resnet", "probes", "decode")
+
+
+def decode_prefill(model, prompts):
+    """`model`'s decode params and a 384-deep cache after the prefill of
+    `prompts` [4, 256]: (params, cache, logits)."""
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+
+    params = G.build_decode_params(model)
+    with torch.inference_mode():
+        cache = G.init_cache(params.cfg, 4, 384, device="cuda")
+        logits = G.prefill(params, torch.as_tensor(prompts, device="cuda"),
+                           cache)
+    return params, cache, logits
+
+
+def decode_run():
+    """Phase 6's model and prompts (GPT-2 small in bf16, seeded), then
+    `profile_decode`: its {host, device, k6} ms per step."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+
+    cfg = GPTConfig(dtype="bfloat16")
+    model = GPT(cfg, device="cuda", generator=make_generator(0)).eval()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 256), dtype=np.int32)
+    return profile_decode(*decode_prefill(model, prompts))
+
+
+def compare_one(tree, parts=COMPARE_PARTS):
     """`compare` for one tree: its package (`tree`/paddle_tpu_torch) built
     and run by this script's `k7_bf16_times`, `train_run` (the GPT train
-    step: host and device ms, K2 per step) and `resnet_run` (full fused
-    and `id`)."""
+    step: host and device ms, K2 per step), `resnet_run` (full fused and
+    `id`), `probes_phase`'s timing (P1, P2 and K7's stage-1 forward) and
+    `decode_run` (the decode step and K6's share), those of `parts`."""
     sys.path.insert(0, tree)
     import torch
 
@@ -3255,33 +3440,63 @@ def compare_one(tree):
                 ).to(dt)
 
     failures = []
-    k7_bf16_times(rnd, failures)
-    gpt = train_run(failures)
-    prof = gpt["profile"]
-    log(f"compare {tree} train: step {gpt['step_ms']:.3f} ms (host, mean "
-        f"of 5), device {prof['device']:.3f} ms, K2 {prof.get('K2', 0):.3f} "
-        f"ms per step (12 launches), K1 {prof.get('K1', 0):.3f}, K3 "
-        f"{prof.get('K3', 0):.3f}")
-    for mode in ("full", "id"):
-        _, ms, peak = resnet_run(mode, failures)
-        log(f"compare {tree} resnet {mode}: step {ms:.3f} ms, peak "
-            f"{peak / 2 ** 30:.3f} GiB")
+    if "k7" in parts:
+        k7_bf16_times(rnd, failures)
+    if "train" in parts:
+        gpt = train_run(failures)
+        prof = gpt["profile"]
+        log(f"compare {tree} train: step {gpt['step_ms']:.3f} ms (host, "
+            f"mean of 5), device {prof['device']:.3f} ms, K2 "
+            f"{prof.get('K2', 0):.3f} ms per step (12 launches), K1 "
+            f"{prof.get('K1', 0):.3f}, K3 {prof.get('K3', 0):.3f}")
+    if "resnet" in parts:
+        for mode in ("full", "id"):
+            _, ms, peak = resnet_run(mode, failures)
+            log(f"compare {tree} resnet {mode}: step {ms:.3f} ms, peak "
+                f"{peak / 2 ** 30:.3f} GiB")
+    if "probes" in parts:
+        hw, cin, cm = 56, 256, 64
+        dt = torch.bfloat16
+        x1 = rnd((128, hw, hw, cm), dt)
+        w2 = rnd((3, 3, cm, cm), dt, (9 * cm) ** -0.5)
+        x2 = rnd((128, hw, hw, cin), dt)
+        w1 = rnd((cin, cm), dt, cin ** -0.5)
+        w3 = rnd((cm, cin), dt, cm ** -0.5)
+        o = probe_times(x1, w2, x2, w1, w3, rnd)
+        log(f"compare {tree} probes: K7 {o['k7_ms']:.4f} ms, P1 "
+            f"{o['p1_ms']:.4f}, P2 {o['p2_ms']:.4f}, K7 - P1 - P2 "
+            f"{o['k7_ms'] - o['p1_ms'] - o['p2_ms']:.4f}")
+        del x1, w2, x2, w1, w3
+        torch.cuda.empty_cache()
+    if "decode" in parts:
+        o = decode_run()
+        log(f"compare {tree} decode: host {o['host']:.3f} ms/step, device "
+            f"{o['device']:.3f}, K6 {o['k6']:.4f} ms/step")
     for f in failures:
         log(f"compare {tree} FAIL: {f}")
     return 1 if failures else 0
 
 
-def compare_main(trees):
-    """`python3 chip_smoke.py compare TREE [TREE ...]`: the trees (each a
-    directory holding a paddle_tpu_torch package: this checkout's `.`, an
-    unpacked parent commit) in the order given, each in a process of its
-    own, so that two versions are timed in turns on one card (parent,
-    change, change, parent)."""
+def compare_main(args):
+    """`python3 chip_smoke.py compare [--parts P,...] TREE [TREE ...]`:
+    the trees (each a directory holding a paddle_tpu_torch package: this
+    checkout's `.`, an unpacked parent commit) in the order given, each
+    in a process of its own, so that two versions are timed in turns on
+    one card (parent, change, change, parent); `parts` of
+    COMPARE_PARTS, all by default."""
+    parts = ",".join(COMPARE_PARTS)
+    if args[:1] == ["--parts"]:
+        parts, args = args[1], args[2:]
+    unknown = set(parts.split(",")) - set(COMPARE_PARTS)
+    if unknown or not args:
+        print(f"chip_smoke compare: parts {sorted(unknown)} not in "
+              f"{COMPARE_PARTS}, or no tree", file=sys.stderr)
+        return 2
     log(f"card: {card_line()}")
     rc = 0
-    for tree in trees:
+    for tree in args:
         rc |= subprocess.run([sys.executable, __file__, "compare-one",
-                              tree]).returncode
+                              tree, parts]).returncode
     return rc
 
 
@@ -3289,7 +3504,7 @@ def main():
     if sys.argv[1:2] == ["compare"]:
         return compare_main(sys.argv[2:])
     if sys.argv[1:2] == ["compare-one"]:
-        return compare_one(sys.argv[2])
+        return compare_one(sys.argv[2], sys.argv[3].split(","))
     try:
         import torch
     except ImportError:

@@ -27,17 +27,22 @@
 // 1 in bf16 that is K7's forward tiling, 8 rows at one block per SM
 // (`pt_probe_tiles` reports the heights and blocks per SM).
 //
-// P2 (`probe_matmuls_kernel`) still runs the CUDA-core `gemm` below, the
-// routine K7 ran on before it moved to the tensor cores: a 256-thread
-// block computes a [M, N] result in 64 x 64 output tiles, each thread a
-// 4 x 4 patch of f32 accumulators (fmaf), over K in 32-deep chunks staged
-// in shared memory as f32 by loader functions; an epilogue function gets
-// each finished element.  A block takes th rows (no halo), writes h0 to
-// shared memory in the first `gemm`'s epilogue and adds x from device
-// memory in the second's; its tile height follows the same rule, each
-// tile's own pixels padded to `gemm`'s 64-row output tiles.  So K7's
-// stage-1 forward minus P1 is the 1x1 chain, the halo's h0 product and
-// the rest; the three-way split waits for P2 to move onto K7's tiles.
+// P2 (`probe_matmuls_kernel`) runs K7's identity forward without the
+// halo, the 3x3 and the affines, on the same pieces: a block takes th rows
+// of one image (`tile_of<1>`); h0 = round(relu(x @ w1)) over the tile's
+// own pixels on `pt::tc::product` (A read from x in device memory, as
+// K7's `halo_h0` reads it) into a resident tile where K7 keeps h1 (rows
+// of Cm padded by 16 bytes); then per 128-column chunk of Cout the
+// product h0 @ w3, whose epilogue adds x from device memory in f32 and
+// rounds once (K7's identity epilogue without the affine and the relu).
+// f32 takes the same tiles with `product`'s exact CUDA-core FMAs.  Its
+// shared memory is K7's forward layout (`fwd_layout<T, 1>`, the halo
+// region unused), so it runs at K7's tiling and occupancy; its tile
+// height follows the same rule as P1's.  At ResNet-50's stage 1 in bf16
+// both probes run K7's forward tiling, 8 rows at one block per SM, so
+// K7's stage-1 forward splits three ways on the same inputs: P1 (the
+// 3x3), P2 (the 1x1 chain and the residual on the own pixels) and K7 -
+// P1 - P2 (the halo's h0 product, the affines and the rest).
 //
 // Bound at ResNet-50's stage 1, batch 128 bf16: P1 moves 102.8 MB (0.0307
 // ms at 3.35 TB/s) for 29.6 GFLOP (0.0299 ms at 989 TFLOP/s); P2 411.0 MB
@@ -52,12 +57,6 @@
 #include "mma.cuh"
 
 namespace {
-
-constexpr int kTM = 64;             // output tile rows of `gemm`
-constexpr int kTN = 64;             // output tile columns
-constexpr int kTK = 32;             // K chunk staged in shared memory
-constexpr int kAStride = kTM + 1;   // As [kTK][kTM+1]: conflict-free fills
-constexpr int kBStride = kTN + 4;   // Bs [kTK][kTN+4]: float4-aligned rows
 
 // P1: the ring of `product`, the pixel tables and the x halo tile.
 struct ConvLayout {
@@ -74,83 +73,6 @@ __host__ __device__ inline ConvLayout conv_layout(int th, int w, int cm) {
   l.x = c.take(sizeof(T) * halo_px<1>(th, w) * res_ld<T>(cm));
   l.total = c.off;
   return l;
-}
-
-// P2: `gemm`'s staging tiles and h0 of the tile's own rows.
-struct MmLayout {
-  size_t as, bs, h0, total;
-};
-
-__host__ __device__ inline MmLayout mm_layout(int th, int w, int cm,
-                                              int tsz) {
-  Carve c;
-  MmLayout l;
-  l.as = c.take(sizeof(float) * kTK * kAStride);
-  l.bs = c.take(sizeof(float) * kTK * kBStride);
-  l.h0 = c.take(size_t(tsz) * th * w * cm);
-  l.total = c.off;
-  return l;
-}
-
-// C[m, n] = sum_k A(m, k) B(k, n) for m < M, n < N, in f32; epi(m, n, v)
-// receives each element.  kAFastM / kBFastK say which index of each
-// operand is contiguous where the loader reads it, so the fill walks it
-// with neighbouring threads.  Starts with a barrier, so the loaders may
-// read what an earlier epilogue wrote to shared memory; an epilogue must
-// not write what its own loaders read.
-template <bool kAFastM, bool kBFastK, class ALoad, class BLoad, class Epi>
-__device__ void gemm(int M, int N, int K, const ALoad& a, const BLoad& b,
-                     const Epi& epi, float* As, float* Bs) {
-  const int tid = threadIdx.x;
-  const int tm = tid >> 4, tn = tid & 15;
-  for (int m0 = 0; m0 < M; m0 += kTM) {
-    for (int n0 = 0; n0 < N; n0 += kTN) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += kTK) {
-        __syncthreads();
-        for (int i = tid; i < kTM * kTK; i += kThreads) {
-          const int mm = kAFastM ? i % kTM : i / kTK;
-          const int kk = kAFastM ? i / kTM : i % kTK;
-          const int m = m0 + mm, k = k0 + kk;
-          As[kk * kAStride + mm] = (m < M && k < K) ? a(m, k) : 0.f;
-        }
-        for (int i = tid; i < kTK * kTN; i += kThreads) {
-          const int nn = kBFastK ? i / kTK : i % kTN;
-          const int kk = kBFastK ? i % kTK : i / kTN;
-          const int n = n0 + nn, k = k0 + kk;
-          Bs[kk * kBStride + nn] = (n < N && k < K) ? b(k, n) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < kTK; ++kk) {
-          const float4 bv =
-              *reinterpret_cast<const float4*>(Bs + kk * kBStride + tn * 4);
-          const float* ar = As + kk * kAStride + tm * 4;
-          const float av[4] = {ar[0], ar[1], ar[2], ar[3]};
-          const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + tm * 4 + i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + tn * 4 + j;
-          if (n < N) epi(m, n, acc[i][j]);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -212,58 +134,68 @@ probe_conv3x3_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w2,
       ring);
 }
 
-// P2: h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x), g.cout == g.cin.
+// P2: h0 = round(relu(x @ w1)); y = round(h0 @ w3 + x), g.cout == g.cin;
+// K7's identity forward without the halo, the 3x3 and the affines, h0
+// kept where K7 keeps h1.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 probe_matmuls_kernel(Geo g, const T* __restrict__ x, const T* __restrict__ w1,
                      const T* __restrict__ w3, T* __restrict__ y) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const MmLayout L = mm_layout(g.th, g.w, g.cm, sizeof(T));
-  float* As = reinterpret_cast<float*>(smem + L.as);
-  float* Bs = reinterpret_cast<float*>(smem + L.bs);
-  T* h0s = reinterpret_cast<T*>(smem + L.h0);
+  const FwdLayout L = fwd_layout<T, 1>(g.th, g.w, g.cm, false);
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
+  T* h0s = reinterpret_cast<T*>(smem + L.h1);
   const Tile t = tile_of<1>(g);
+  const int ld = res_ld<T>(g.cm);
 
-  gemm<false, false>(
-      t.P, g.cm, g.cin,
-      [&](int m, int k) { return pt::to_f32(x[(t.own + m) * g.cin + k]); },
-      [&](int k, int n) { return pt::to_f32(w1[size_t(k) * g.cm + n]); },
+  pt::tc::zero_row(ring);
+  product<T, false, true, false>(
+      t.P, g.cm, g.cin, g.vec,
+      [&](int m, int k) -> const T* { return x + (t.own + m) * g.cin + k; },
+      [&](int k, int n) -> const T* { return w1 + size_t(k) * g.cm + n; },
       [&](int m, int n, float v) {
-        h0s[m * g.cm + n] = pt::from_f32<T>(fmaxf(v, 0.f));
+        h0s[m * ld + n] = pt::from_f32<T>(fmaxf(v, 0.f));
       },
-      As, Bs);
-  gemm<false, false>(
-      t.P, g.cout, g.cm,
-      [&](int m, int k) { return pt::to_f32(h0s[m * g.cm + k]); },
-      [&](int k, int n) { return pt::to_f32(w3[size_t(k) * g.cout + n]); },
-      [&](int m, int n, float v) {
-        const long long at = (t.own + m) * g.cout + n;
-        y[at] = pt::from_f32<T>(v + pt::to_f32(x[at]));
-      },
-      As, Bs);
+      ring);
+  for (int j0 = 0; j0 < g.cout; j0 += kBN) {
+    const int nc = min(kBN, g.cout - j0);
+    product<T, false, true, true>(
+        t.P, nc, g.cm, g.vec,
+        [&](int m, int k) -> const T* { return h0s + m * ld + k; },
+        [&](int k, int n) -> const T* {
+          return w3 + size_t(k) * g.cout + j0 + n;
+        },
+        [&](int m, int n, float v) {
+          const long long at = (t.own + m) * g.cout + j0 + n;
+          y[at] = pt::from_f32<T>(v + pt::to_f32(x[at]));
+        },
+        ring);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // plans and launchers
 // ---------------------------------------------------------------------------
 
-// P1's tile height (0 when none fits): the heights <= 8 whose shared
-// memory fits one block, the least tensor-core work (each tile's own
-// pixels padded to 16 rows), ties to the larger height.
-template <typename T>
-int conv_th(int h, int w, int cm) {
-  return pick_th(
-      h, [&](int t) { return conv_layout<T>(t, w, cm).total; },
-      [&](int rows) { return up_to(own_px<1>(rows, w), 16); });
+// A probe's tile height (0 when none fits): the heights <= 8 whose shared
+// memory (`bytes(th)`) fits one block, the least tensor-core work (each
+// tile's own pixels padded to 16 rows), ties to the larger height.
+template <class Bytes>
+int probe_th(int h, int w, const Bytes& bytes) {
+  return pick_th(h, bytes,
+                 [&](int rows) { return up_to(own_px<1>(rows, w), 16); });
 }
 
-// P2's: the same rule, each tile's own pixels padded to `gemm`'s 64 rows.
+template <typename T>
+int conv_th(int h, int w, int cm) {
+  return probe_th(h, w, [&](int t) { return conv_layout<T>(t, w, cm).total; });
+}
+
 template <typename T>
 int mm_th(int h, int w, int cm) {
-  return pick_th(
-      h, [&](int t) { return mm_layout(t, w, cm, sizeof(T)).total; },
-      [&](int rows) { return up_to(own_px<1>(rows, w), kTM); });
+  return probe_th(
+      h, w, [&](int t) { return fwd_layout<T, 1>(t, w, cm, false).total; });
 }
 
 template <typename T>
@@ -288,8 +220,9 @@ cudaError_t launch_probe_mm(const void* x, const void* w1, const void* w3,
                             cudaStream_t st) {
   const int th = mm_th<T>(h, w, cm);
   if (th == 0) return cudaErrorInvalidValue;
-  const Geo g = make_geo<1>(h, w, cin, cm, cin, cin, th, false);
-  const size_t smem = mm_layout(th, w, cm, sizeof(T)).total;
+  const Geo g = make_geo<1>(h, w, cin, cm, cin, cin, th,
+                            vec_ok<T>(cin, cm, cin, {x, w1, w3, y}));
+  const size_t smem = fwd_layout<T, 1>(th, w, cm, false).total;
   cudaError_t err = set_smem(probe_matmuls_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   probe_matmuls_kernel<T><<<n * g.tiles, kThreads, smem, st>>>(
@@ -306,7 +239,7 @@ int probe_tiles(int h, int w, int cm, int* out) {
                                   conv_layout<T>(out[0], w, cm).total)
                   : 0;
   out[3] = out[1] ? blocks_per_sm(probe_matmuls_kernel<T>,
-                                  mm_layout(out[1], w, cm, sizeof(T)).total)
+                                  fwd_layout<T, 1>(out[1], w, cm, false).total)
                   : 0;
   return int(cudaGetLastError());
 }

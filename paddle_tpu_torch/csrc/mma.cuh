@@ -1,6 +1,6 @@
 // The tensor-core tile product of the port's Hopper kernels: K7's and
-// K8's (csrc/block_tc.cuh), and the routine the probes P1/P2 may adopt in
-// place of their CUDA-core `gemm` (csrc/fused_bottleneck.cu).
+// K8's (csrc/block_tc.cuh), and the probes P1/P2 that run K7's pieces
+// (csrc/fused_bottleneck.cu).
 //
 // `product` computes C[m, n] = sum_k A(m, k) B(k, n) for m < M, n < N, k <
 // K over a 256-thread block and hands every element to an epilogue.  The

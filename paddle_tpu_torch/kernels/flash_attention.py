@@ -22,7 +22,9 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
   registers; K3: P^T and dS^T), in f32 on exact scalar kernels.  See
   csrc/flash_attention_bwd.cu.
 - K6 `flash_decode` replaces the Pallas `_decode_kernel`: one query row
-  per (b, h) against a KV cache, keys past `lengths[b]` never read.
+  per (b, h) against a KV cache, keys past `lengths[b]` never read.  One
+  launch splits each row's cache into chunks (`decode_plan`), one block
+  each; the last block of a row merges the partials in split order.
   See csrc/flash_decode.cu.
 
 Each wrapper checks its envelope (shapes, dtypes, devices, contiguity)
@@ -56,7 +58,11 @@ _BWD_SIGS = {
                          _F, _P],
 }
 _DECODE_SIGS = {"pt_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _F, _P]}
+                                    _F, _I, _P, _P, _P]}
+# K6's split of the cache (csrc/flash_decode.cu): chunks of at least 64
+# keys, a multiple of 64, enough of them for about two blocks per SM
+DECODE_MIN_CHUNK = 64
+DECODE_BLOCKS_PER_SM = 2
 
 
 def _check_common(name, tensors):
@@ -357,17 +363,64 @@ def flash_decode_ref(q, k, v, lengths, sm_scale=None):
     return (torch.matmul(p, v.float()) / l_safe).to(q.dtype)
 
 
+def decode_plan(bh, t, sms):
+    """K6's split of a T-deep cache over `bh` = b * h rows on a card of
+    `sms` SMs: (chunk, splits).  The chunk is the largest multiple of 64
+    keys for which bh * splits reaches DECODE_BLOCKS_PER_SM blocks per
+    SM, and at least 64; splits = ceil(t / chunk).  It depends on T and
+    bh alone: the host does not read the lengths."""
+    want = -(-DECODE_BLOCKS_PER_SM * sms // bh)
+    chunk = max(DECODE_MIN_CHUNK,
+                t // want // DECODE_MIN_CHUNK * DECODE_MIN_CHUNK)
+    return chunk, -(-t // chunk)
+
+
+_SMS = {}
+# per (device index, stream): K6's arrival counters, zeroed once (every
+# launch leaves them 0); a set outgrown is kept alive behind the new one,
+# since a CUDA graph that captured a launch keeps its pointer
+_DECODE_COUNTERS = {}
+
+
+def _sm_count(device):
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+def _decode_counters(device, stream, n_rows):
+    held = _DECODE_COUNTERS.setdefault((device.index, stream.value), [])
+    if not held or held[-1].numel() < n_rows:
+        size = max(n_rows, 2 * held[-1].numel()) if held else n_rows
+        held.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return held[-1]
+
+
 def _launch_decode(q, k, v, lengths, sm_scale):
     _check_launch("flash_decode", (q, k, v))
+    for t_ in (k, v):
+        if t_.data_ptr() % 16:
+            raise ValueError("flash_decode: the kernel needs 16-byte aligned "
+                             "caches")
     b, h, _, d = q.shape
     t = k.shape[-2]
+    chunk, splits = decode_plan(b * h, t, _sm_count(q.device))
     lib = backend.load("flash_decode", _DECODE_SIGS)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        stream = backend.stream_handle(q.device)
+        ws_ptr = counters_ptr = None
+        if splits > 1:   # the partials (written before read), the counters
+            ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                             device=q.device)
+            ws_ptr = ws.data_ptr()
+            counters_ptr = _decode_counters(q.device, stream,
+                                            b * h).data_ptr()
         status = lib.pt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
-            float(sm_scale), backend.stream_handle(q.device))
+            float(sm_scale), chunk, ws_ptr, counters_ptr, stream)
     backend.check(status, "flash_decode")
     backend.LAUNCHES["flash_decode"] += 1
     return out

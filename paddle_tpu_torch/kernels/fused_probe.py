@@ -12,13 +12,16 @@ Port of the two stripped Pallas kernels of tools/fused_probe.py:
         f32 (`_dot` :134), relu and round between them, the residual added
         in f32 before the last round.
 
-The kernels are CUDA C++ in `paddle_tpu_torch/csrc/fused_bottleneck.cu`.
-P1 (`probe_conv3x3_kernel`) runs K7's forward path for its 3x3
-(`csrc/block_tc.cuh`: x's halo rows staged where K7 keeps h0, then
-`conv3x3<T, 1>` on the tensor-core product of `csrc/mma.cuh`), so K7's
-stage-1 forward minus P1 is K7's 1x1 chain, its halo's h0 product and
-the rest.  P2 (`probe_matmuls_kernel`) still runs the CUDA-core GEMM
-routine `gemm` K7 ran on before it moved to the tensor cores.  On CPU
+The kernels are CUDA C++ in `paddle_tpu_torch/csrc/fused_bottleneck.cu`,
+both on K7's pieces (`csrc/block_tc.cuh`) and K7's tiling.  P1
+(`probe_conv3x3_kernel`) runs K7's forward path for its 3x3 (x's halo
+rows staged where K7 keeps h0, then `conv3x3<T, 1>` on the tensor-core
+product of `csrc/mma.cuh`).  P2 (`probe_matmuls_kernel`) runs K7's
+identity forward without the halo, the 3x3 and the affines: x @ w1 on
+the same product over the tile's own pixels, h0 kept where K7 keeps h1,
+then h0 @ w3 per 128-column chunk with the residual in its epilogue.  So
+K7's stage-1 forward splits three ways on the same inputs: P1, P2 and K7
+- P1 - P2 (the halo's h0 product, the affines and the rest).  On CPU
 tensors the wrappers run the plain versions (`conv3x3_probe_ref`,
 `matmul_chain_probe_ref`); on CUDA tensors they launch the kernels or
 raise.  The Pallas probes have no backward, and neither do these.
@@ -129,8 +132,8 @@ def probe_tiles(h, w, cm, dtype):
     w and Cm channels: ((rows per tile of P1, of P2), (blocks that fit on
     one SM for P1, P2)); 0 where nothing fits.  Both take K7's rule (the
     least work among the heights whose shared memory fits, ties to the
-    larger height), P1 on its own pixels padded to 16 rows, P2 to
-    `gemm`'s 64."""
+    larger height) on their own pixels padded to 16 rows; P2's shared
+    memory is K7's forward layout."""
     lib = backend.load("fused_bottleneck", _SIGS)
     out = (ctypes.c_int * 4)()
     backend.check(lib.pt_probe_tiles(h, w, cm, _DTYPE_CODES[dtype],

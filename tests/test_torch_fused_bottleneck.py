@@ -156,8 +156,8 @@ def test_k7_source_and_launch_counters():
     `pt::tc::product`, no kernel adds a weight gradient with atomics
     (the only atomic targets are the affine grads and their shared-memory
     partials), and csrc/fused_bottleneck.cu keeps P1 and P2 alone (P1 on
-    K7's `conv3x3`, P2 on its CUDA-core `gemm`), with no stride-2 code
-    left."""
+    K7's `conv3x3`, P2 on the tensor-core `product` in K7's forward
+    layout), with no stride-2 code left."""
     assert "fused_block" in backend.SOURCES
     text = (backend.CSRC / "fused_block.cu").read_text()
     for entry in ("pt_fused_block_fwd", "pt_fused_block_bwd",
@@ -187,7 +187,9 @@ def test_k7_source_and_launch_counters():
                    "bottleneck_bwd2_kernel"):
         assert kernel not in probes
     assert "conv3x3<T, 1>(" in _kernel_body(probes, "probe_conv3x3_kernel")
-    assert "gemm<" in _kernel_body(probes, "probe_matmuls_kernel")
+    body = _kernel_body(probes, "probe_matmuls_kernel")
+    assert "product<" in body and "fwd_layout<T, 1>(" in body
+    assert "gemm" not in probes
     for piece in ("struct Geo", "struct Tile", "struct Carve", "res_ld("):
         assert piece not in probes, piece
     # the plain versions run on CPU tensors and count no launch

@@ -268,12 +268,13 @@ def test_k8_k9_sources_and_launch_counters():
     for inst in ("launch_fwd<float, 2, true>", "launch_bwd<T, 2, true>",
                  "plan_out<float, 2, true>"):
         assert inst in text, inst
-    # K7 moved to the same pieces (csrc/fused_block.cu), and P1 runs its
-    # stride-1 conv3x3; only P2 stays on the CUDA-core `gemm`, and K8's
-    # old instantiation is gone
+    # K7 moved to the same pieces (csrc/fused_block.cu), P1 runs its
+    # stride-1 conv3x3 and P2 its tensor-core product; the CUDA-core
+    # `gemm` and K8's old instantiation are gone
     text = (backend.CSRC / "fused_bottleneck.cu").read_text()
     assert "conv3x3<T, 1>(" in _kernel_body(text, "probe_conv3x3_kernel")
-    assert "gemm<" in _kernel_body(text, "probe_matmuls_kernel")
+    assert "product<" in _kernel_body(text, "probe_matmuls_kernel")
+    assert "gemm" not in text
     assert "bottleneck_fwd_kernel" not in text
     assert "pt_fused_bottleneck_down" not in text
     text = (backend.CSRC / "fused_stem_tail.cu").read_text()

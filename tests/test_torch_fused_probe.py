@@ -202,14 +202,17 @@ def test_probe_wrappers_check_shapes_and_count_no_cpu_launch():
     for entry in FP._SIGS:
         assert f'extern "C" int {entry}' in text
     # P1 runs K7's forward path for its 3x3 (csrc/block_tc.cuh's conv3x3
-    # on the tensor-core product), P2 the one CUDA-core `gemm` of the file
+    # on the tensor-core product), P2 K7's identity forward without the
+    # halo, the 3x3 and the affines: two tensor-core products in K7's
+    # forward layout at K7's one block per SM; no CUDA-core `gemm`
     assert '#include "block_tc.cuh"' in text
-    assert text.count("__device__ void gemm(") == 1
+    assert "gemm" not in text
     body = {kernel: text.split(f"{kernel}(Geo g")[1].split("\n}\n")[0]
             for kernel in ("probe_conv3x3_kernel", "probe_matmuls_kernel")}
     assert "conv3x3<T, 1>(" in body["probe_conv3x3_kernel"]
-    assert "gemm<" not in body["probe_conv3x3_kernel"]
-    assert "gemm<" in body["probe_matmuls_kernel"]
+    assert body["probe_matmuls_kernel"].count("product<T, false, true") == 2
+    assert "fwd_layout<T, 1>(" in body["probe_matmuls_kernel"]
+    assert "__launch_bounds__(kThreads, 1)\nprobe_matmuls_kernel" in text
 
 
 # ---------------------------------------------------------------------------
@@ -304,12 +307,22 @@ def test_p1_on_card():
 
 @pytest.mark.cuda
 def test_p2_on_card():
-    """P2 on the card against its plain version: f32 2e-5, bf16 3e-2."""
+    """P2 on the card against its plain version: f32 2e-5, bf16 3e-2, at
+    ResNet-50's stage-2 widths (28^2, 512 -> 128 -> 512), a ragged 11 x 7
+    (H % TH != 0), the tool's stage-1 geometry and Cin 12 (no 16-byte
+    groups: the element-wise loaders); at stage 1 in bf16 its tile rows
+    and blocks per SM are K7's forward's."""
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
     _needs_card()
     backend.reset_launches()
     cases = [((2, 8, 8, 32), 16, torch.float32),
              ((2, 11, 7, 64), 32, torch.float32),
-             ((8, 56, 56, 256), 64, torch.bfloat16)]
+             ((2, 11, 7, 256), 64, torch.bfloat16),
+             ((2, 28, 28, 512), 128, torch.float32),
+             ((4, 28, 28, 512), 128, torch.bfloat16),
+             ((8, 56, 56, 256), 64, torch.bfloat16),
+             ((2, 5, 6, 12), 4, torch.bfloat16)]
     for shape, cm, dt in cases:
         cin = shape[-1]
         x, w1, w3 = _card_args(2, [shape, (cin, cm), (cm, cin)], dt)
@@ -319,3 +332,6 @@ def test_p2_on_card():
                                    atol=tol, rtol=tol)
     torch.cuda.synchronize()
     assert backend.LAUNCHES["probe_matmuls"] == len(cases)
+    ths, per_sm = FP.probe_tiles(56, 56, 64, torch.bfloat16)
+    k7 = FB.block_plan(128, 56, 56, 256, 64, 256, False, torch.bfloat16)
+    assert (ths[1], per_sm[1]) == (k7["tile_rows"][0], k7["per_sm"][0])

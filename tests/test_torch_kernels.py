@@ -20,7 +20,9 @@ Triton kernels against the plain versions on the card, K1, K2 and K3 at
 head dims 64, 128 and 256, causal and not, and in bf16 also against the
 rounding model (`round_to`, tests/test_torch_flash_rounding.py) within
 one bf16 ulp, raw K2 against that file's model of its tile schedule
-(`_dq_tile_model`); they need a GPU and skip here.
+(`_dq_tile_model`), K6 against the model of its split schedule
+(tests/test_torch_flash_decode.py `_decode_split_model`); they need a GPU
+and skip here.
 """
 
 import ast
@@ -45,6 +47,7 @@ from paddle_tpu_torch.kernels import flash_attention as TFA
 from paddle_tpu_torch.kernels import layer_norm as TLN
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops import nn_ops as t_ops
+from test_torch_flash_decode import _decode_split_model
 from test_torch_flash_rounding import _dq_tile_model
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -463,15 +466,7 @@ def test_kernels_on_card():
                     torch.testing.assert_close(dq.float(), model.float(),
                                                atol=MODEL_TOL,
                                                rtol=MODEL_TOL)
-            # the first query row, made contiguous (K6's launcher takes
-            # only contiguous inputs)
-            q = _t(_rand((2, 3, 256, 64), 1)[:, :, :1]).to(dev, dt)
-            kc = _t(_rand((2, 3, 384, 64), 4)).to(dev, dt)
-            lens = torch.tensor([5, 300], dtype=torch.int32, device=dev)
-            torch.testing.assert_close(
-                TFA.flash_decode(q, kc, kc, lens).float(),
-                TFA.flash_decode_ref(q, kc, kc, lens).float(),
-                atol=TOL[dtype], rtol=TOL[dtype])
+            _decode_on_card(dev, dt, dtype)
             x = _t(_rand((300, 768), 5, 2.0)).to(dev, dt)
             g = _t(_rand((768,), 6)).to(dev, dt)
             torch.testing.assert_close(
@@ -483,8 +478,50 @@ def test_kernels_on_card():
         CARD_FLASH_CASES)
     assert backend.LAUNCHES["flash_attention_bwd_dq"] == 2 * len(
         CARD_FLASH_CASES)
-    assert backend.LAUNCHES["flash_decode"] == 2
+    assert backend.LAUNCHES["flash_decode"] == 2 * DECODE_CARD_LAUNCHES
     assert backend.LAUNCHES["layer_norm_fwd"] == 2
+
+
+# K6 on the card: lengths 0, 1, the 64-key chunk boundary +-1, two
+# chunks + 1, T and past T, over a 256-deep cache (S = 4 splits)
+DECODE_LENGTHS = np.array([0, 1, 63, 64, 65, 129, 256, 265], np.int32)
+DECODE_CARD_LAUNCHES = 9
+
+
+def _decode_on_card(dev, dt, dtype):
+    """K6 against its plain version (TOL) and the model of its split
+    schedule at the card's SM count (f32 2e-5, bf16 one ulp: both keep p
+    in f32 and round O once), at D 64, 128, 256; bitwise equal over two
+    calls; then two geometries with other (b*h, S) back to back and the
+    first again, bitwise: a counter left non-zero would lose a merge."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    model_tol = MODEL_TOL if dtype == "bfloat16" else TOL[dtype]
+    lens = torch.from_numpy(DECODE_LENGTHS).to(dev)
+    for d in (64, 128, 256):
+        q = _t(_rand((8, 2, 1, d), 11)).to(dev, dt)
+        k, v = (_t(_rand((8, 2, 256, d), s)).to(dev, dt) for s in (12, 13))
+        got = TFA.flash_decode(q, k, v, lens)
+        torch.testing.assert_close(
+            got.float(), TFA.flash_decode_ref(q, k, v, lens).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+        model = _decode_split_model(*(t.cpu() for t in (q, k, v, lens)),
+                                    sms=sms)
+        torch.testing.assert_close(got.cpu().float(), model.float(),
+                                   atol=model_tol, rtol=model_tol)
+        assert float(got[0].abs().max()) == 0.0      # the l == 0 guard
+        assert torch.equal(got, TFA.flash_decode(q, k, v, lens))
+    runs = []
+    for b, t, seed in ((2, 384, 14), (4, 1024, 15), (2, 384, 14)):
+        q = _t(_rand((b, 3, 1, 64), seed)).to(dev, dt)
+        k = _t(_rand((b, 3, t, 64), seed + 1)).to(dev, dt)
+        n = torch.tensor([t - 1, 70, 0, t][:b], dtype=torch.int32,
+                         device=dev)
+        assert TFA.decode_plan(3 * b, t, sms)[1] > 1
+        runs.append(TFA.flash_decode(q, k, k, n))
+        torch.testing.assert_close(
+            runs[-1].float(), TFA.flash_decode_ref(q, k, k, n).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(runs[0], runs[2])
 
 
 @pytest.mark.cuda
