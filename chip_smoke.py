@@ -73,9 +73,12 @@ Phases (any failure makes the script exit non-zero without a result):
    tests' weight scale it must be that of a model of the tensor core's
    sums (`k8_precision`).  K9 is
    checked at the stem's [2 | 128, 112, 112, 64] in float32 | bfloat16
-   on random and tie-heavy inputs (the forward exactly, dc and da/db
-   within the tolerances, raw and through `_StemTail`) and raw at
-   [2, 128, 128, 64] (the kernel has no side limit); its yardstick is
+   on random and tie-heavy inputs (y and dc exactly, da/db within the
+   tolerance and bitwise over two calls, raw and through `_StemTail`),
+   raw at [2, 128, 128, 64] (the kernel has no side limit) and at
+   ragged geometries and tilings (`stem_ragged`), each line with the
+   backward's plan (`stem_plan`); at the stem in bf16 the backward is
+   timed at each of K9_TILINGS (`k9_plan_sweep`); its yardstick is
    `F.max_pool2d(F.relu(c * a + b), 3, 2, 1)` (first-wins gradient).
    The f32 K7/K8 checks name their near-ties (`tools/near_ties.py`):
    relu inputs within the measured card noise of 0, counted on each
@@ -132,7 +135,10 @@ Phases (any failure makes the script exit non-zero without a result):
    Then K10 against its plain version, counts exactly equal, on the 322
    u and v tensors of the DGC state and on synthetic inputs (n = 1, n =
    65,537, all zeros, negative zeros, values on the edges, the largest
-   tensor's 2,359,296 elements, f32 and bf16), its threshold inside the
+   tensor's 2,359,296 elements, f32 and bf16; and explicit edges:
+   unsorted, with NaN, +-inf, +-0 and duplicates, sorted duplicates,
+   all equal, all NaN, over values with NaN, +-inf and -0), its
+   threshold (on the DGC path's edges) inside the
    reference's bracket (at least k kept, at most the elements within
    one bin of the exact k-th |v|); K10's time at the largest tensor
    beside its bound, its plain version and torch.topk(|v|, 2359), and
@@ -174,8 +180,11 @@ batch 128 at its five geometries and summed over a full-fused step;
 K3 per step from its profile); `resnet`, the full fused and `id`
 ResNet-50 steps of phase 4 with their profiles; `probes`, P1, P2 and
 K7's stage-1 forward of phase 2b; `decode`, the decode-step profile of
-phase 6 (host and device ms per step, K6's share): two versions
-compared in turns on one card.
+phase 6 (host and device ms per step, K6's share); `stem`, K9 forward
+and backward at the stem (bf16 batch 128) with the backward's plan;
+`dgc`, the DGC step with K10 of phase 5 (host ms, device ms and K10's
+share per step), K10 at the largest tensor and over the step's 161
+tensors: two versions compared in turns on one card.
 
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
@@ -1841,12 +1850,15 @@ def stem_inputs(rnd, shape, dt, ties):
 
 
 def stem_tail_checks(rows, failures, rnd):
-    """K9 forward and backward against the plain versions: the forward
-    exactly, dc and da/db within the tolerances (da/db are f32 sums over
-    the rows, atol tol * sqrt(rows)), at the ResNet-50 stem's shape in
-    f32 (batch 2) and bf16 (batch 128, timed), on random and tie-heavy
-    inputs, through `_StemTail` as well; and the raw kernel at a side
-    above 112 (the public function takes the composition there)."""
+    """K9 forward and backward against the plain versions: y and dc
+    exactly, da/db within the tolerance (f32 sums over the rows, atol tol
+    * sqrt(rows)) and bitwise equal over two calls, at the ResNet-50
+    stem's shape in f32 (batch 2) and bf16 (batch 128, timed, with the
+    backward's plan and a sweep of its tilings), on random and tie-heavy
+    inputs, through `_StemTail` as well; the raw kernel at a side above
+    112 (the public function takes the composition there); then
+    `stem_ragged` (their own generator, so later checks keep their
+    draws)."""
     import torch
 
     from paddle_tpu_torch.kernels import fused_bottleneck as FB
@@ -1863,19 +1875,7 @@ def stem_tail_checks(rows, failures, rnd):
         rows_n = n * h * w
         tag = f"K9 {list(shape)} {'ties' if ties else 'random'} {d}"
         c, aff, dy = stem_inputs(rnd, shape, dt, ties)
-        y = FB._launch_stem_fwd(c, aff)
-        y_ref = FB.fused_stem_tail_fwd_ref(c, aff)
-        if not torch.equal(y, y_ref):
-            failures.append(f"{tag} y: not exact, max_abs_err "
-                            f"{(y.float() - y_ref.float()).abs().max():.3e}")
-        dc, daff = FB._launch_stem_bwd(c, dy, aff)
-        dc_ref, daff_ref = FB.fused_stem_tail_bwd_ref(c, dy, aff)
-        err = compare_k7(tag + " dc", dc, dc_ref, d, 1, failures)
-        dc_exact = bool(torch.equal(dc, dc_ref))
-        err_a = compare_k7(tag + " da/db", daff, daff_ref, "float32",
-                           rows_n, failures)
-        msg = (f"{tag}: y exact; dc max_err {err:.3e} (exact {dc_exact}) "
-               f"da/db max_err {err_a:.3e}")
+        msg, err_a = stem_check(tag, c, aff, dy, failures)
         if h <= FB._STEM_SIDE_LIMIT:
             leaves = [c.clone().requires_grad_(),
                       aff[0].to(dt).requires_grad_(),
@@ -1901,8 +1901,8 @@ def stem_tail_checks(rows, failures, rnd):
             del leaves, out, got
         if dt == torch.bfloat16 and not ties and h == 112:
             timed = k9_times(c, aff, dy)
-            msg += "; " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
-                                   else f"{k} {v}" for k, v in timed.items())
+            msg += "; " + timed_text(timed)
+            k9_plan_sweep(c, aff, dy)
             common = dict(route="cuda",
                           source="paddle_tpu_torch/csrc/fused_stem_tail.cu",
                           shape="c [128, 112, 112, 64] -> [128, 56, 56, 64] "
@@ -1920,19 +1920,104 @@ def stem_tail_checks(rows, failures, rnd):
             rows["fused_stem_tail_bwd"] = dict(
                 name="K9 fused_stem_tail_bwd",
                 replaces="paddle_tpu/kernels/fused_bottleneck.py:775",
-                max_abs_err=max(err, err_a), ms=timed["bwd_ms"],
+                max_abs_err=err_a, ms=timed["bwd_ms"],
                 plain_ms=timed["plain_bwd_ms"],
                 bound_ms=timed["bwd_bound_ms"],
                 bound_by=timed["bwd_bound_by"],
                 library_ms=timed["library_bwd_ms"], **common)
         log(msg)
-        del c, aff, dy, y, y_ref, dc, dc_ref
+        del c, aff, dy
         torch.cuda.empty_cache()
+    stem_ragged(failures)
+
+
+def stem_text(plan):
+    return (f"plan R {plan['rows']} x Q {plan['cols']} windows x "
+            f"{plan['chans']} channels, {plan['grid']} blocks "
+            f"({plan['blocks_per_sm']} per SM, {plan['smem']} B shared), "
+            f"{plan['tiles']} tiles x {plan['groups']} channel groups")
+
+
+def stem_check(tag, c, aff, dy, failures, tiling=None):
+    """One K9 check on the card: y and dc bitwise the plain versions',
+    da/db within atol 2e-5 * sqrt(rows) (f32 sums in another order) and
+    bitwise equal over two calls.  Returns (the line's text, the da/db
+    error; dc's is 0 when it passes)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    n, h, w, _ = c.shape
+    y = FB._launch_stem_fwd(c, aff)
+    if not torch.equal(y, FB.fused_stem_tail_fwd_ref(c, aff)):
+        failures.append(f"{tag} y: not exact")
+    dc, daff = FB._launch_stem_bwd(c, dy, aff, tiling)
+    dc2, daff2 = FB._launch_stem_bwd(c, dy, aff, tiling)
+    dc_ref, daff_ref = FB.fused_stem_tail_bwd_ref(c, dy, aff)
+    err = (dc.float() - dc_ref.float()).abs().max().item()
+    if not torch.equal(dc, dc_ref):
+        failures.append(f"{tag} dc: not exact, max_abs_err {err:.3e}")
+    if not (torch.equal(dc, dc2) and torch.equal(daff, daff2)):
+        failures.append(f"{tag}: dc or da/db differ over two calls")
+    err_a = compare_k7(tag + " da/db", daff, daff_ref, "float32", n * h * w,
+                       failures)
+    plan = FB.stem_plan(c.shape, c.dtype, tiling)
+    return (f"{tag}: y exact; dc exact; da/db max_err {err_a:.3e}, bitwise "
+            f"over two calls; {stem_text(plan)}", err_a)
+
+
+# K9 backward tilings timed at the stem (bf16): (window rows, window
+# columns, 16-byte channel vectors per block), each within 4 R Q vecs <=
+# 2048 own vectors
+K9_TILINGS = ((8, 14, 4), (4, 28, 4), (8, 28, 2), (4, 14, 8), (16, 14, 2),
+              (2, 56, 4), (4, 56, 2), (4, 14, 4), (2, 28, 4), (16, 28, 1))
+
+
+def k9_plan_sweep(c, aff, dy):
+    """K9 backward's device ms at each of K9_TILINGS on the stem's
+    inputs, with each plan; the default (STEM_BWD_TILING) is the first."""
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    for tiling in K9_TILINGS:
+        ms = time_ms(lambda: FB._launch_stem_bwd(c, dy, aff, tiling))
+        log(f"K9 bwd plan sweep {tiling}: {ms:.4f} ms; "
+            f"{stem_text(FB.stem_plan(c.shape, c.dtype, tiling))}")
+
+
+# K9's ragged geometries: (shape, dtype, tiling); the tiles do not divide
+# Ho or Wo, Ho = 1, Wo = 1, C = 16 and 64, several tilings
+K9_RAGGED = (((4, 16, 12, 16), "float32", None),
+             ((3, 2, 2, 16), "bfloat16", None),
+             ((2, 2, 30, 64), "bfloat16", (1, 4, 2)),
+             ((2, 30, 2, 64), "float32", (4, 1, 8)),
+             ((5, 22, 18, 64), "bfloat16", (4, 4, 4)),
+             ((2, 26, 118, 64), "bfloat16", None),
+             ((3, 18, 34, 16), "float32", (2, 5, 4)),
+             ((7, 112, 112, 64), "bfloat16", (3, 10, 8)))
+
+
+def stem_ragged(failures):
+    """K9 at K9_RAGGED, random and tie-heavy, from a generator of their
+    own: `stem_check` each."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt)
+
+    for shape, d, tiling in K9_RAGGED:
+        for ties in (False, True):
+            c, aff, dy = stem_inputs(rnd, shape, getattr(torch, d), ties)
+            log(stem_check(f"K9 ragged {list(shape)} tiling {tiling} "
+                           f"{'ties' if ties else 'random'} {d}", c, aff,
+                           dy, failures, tiling)[0])
 
 
 def k9_times(c, aff, dy):
-    """Device ms of K9 forward and backward (the backward with its
-    partials' sum), the plain versions and the yardstick max-pool of the
+    """Device ms of K9 forward and backward (one launch each), the plain
+    versions and the yardstick max-pool of the
     relu'd affine (its backward through autograd), and the bounds: bytes
     c + y (forward), c + dy + dc (backward); operations 3 per element of
     c and 8 per element of y (forward: the affine, the relu, the window
@@ -2307,6 +2392,7 @@ KERNEL_FAMILIES = (
            r"<[^,]+, 2,|wgrad_kernel<[^,]+, 2>"),
     ("slice sums (K7, K8)", r"(?<!down_)wsum_kernel"),
     ("K9", r"stem_(fwd|bwd|sum)_kernel"),
+    ("K10", r"count_ge_kernel"),
 )
 
 
@@ -2453,7 +2539,8 @@ def dgc_run(mode, failures, steps=3, batch=128):
     with K10 (`mode` "k10", FLAGS_use_pallas_dgc_topk on) or with
     torch.topk ("topk"), or the dense DataParallelTrainStep ("dense").
     One warm-up step and `steps` timed ones on one seeded batch.  Returns
-    (launches over the timed steps, mean step ms, the step)."""
+    (launches over the timed steps, mean step ms, the step, its profile
+    from `profile_train_step`)."""
     import torch
 
     from paddle_tpu_torch import flags
@@ -2513,61 +2600,86 @@ def dgc_run(mode, failures, steps=3, batch=128):
             f"{launches}; losses {losses}")
         if not all(np.isfinite(losses)):
             failures.append(f"{label} losses not finite: {losses}")
-        profile_train_step(lambda _s, *b: step(*b), None, (x, y), mean_ms,
-                           label=label)
+        prof = profile_train_step(lambda _s, *b: step(*b), None, (x, y),
+                                  mean_ms, label=label)
     finally:
         flags.set_flags({"FLAGS_use_pallas_dgc_topk": False})
     del model, x, y
-    return launches, mean_ms, step
+    return launches, mean_ms, step, prof
 
 
 def k10_synthetic(rnd):
-    """K10's synthetic inputs: (name, tensor, k)."""
+    """K10's synthetic inputs: (name, tensor, k, edges); edges None for
+    the DGC path's (`_edges` of the tensor's max), else explicit edges:
+    unsorted, with duplicates, NaN, +-inf and +-0, all equal, all NaN."""
     import torch
 
     from paddle_tpu_torch.kernels import topk_threshold as K
 
     out = []
+    gen = torch.Generator().manual_seed(12)
+    frac = torch.from_numpy(K.EDGE_FRACTIONS)
     for dt in (torch.float32, torch.bfloat16):
         d = dname(dt)
         big = rnd((K10_LARGEST,), dt)
-        out += [(f"n=1 {d}", rnd((1,), dt), 1),
-                (f"n=65537 {d}", rnd((65537,), dt), 66),
+        out += [(f"n=1 {d}", rnd((1,), dt), 1, None),
+                (f"n=65537 {d}", rnd((65537,), dt), 66, None),
                 (f"all zeros {d}", torch.zeros(4099, dtype=dt,
-                                               device="cuda"), 4),
+                                               device="cuda"), 4, None),
                 (f"negative zeros {d}", -torch.zeros(4099, dtype=dt,
-                                                     device="cuda"), 4),
-                (f"largest [{K10_LARGEST}] {d}", big, 2359)]
+                                                     device="cuda"), 4, None),
+                (f"largest [{K10_LARGEST}] {d}", big, 2359, None)]
         # values drawn from the edges of their own histogram (max 1),
         # both signs
-        frac = torch.from_numpy(K.EDGE_FRACTIONS).to("cuda")
         idx = torch.randint(0, K.NUM_EDGES, (70001,), device="cuda",
                             generator=torch.Generator("cuda").manual_seed(1))
-        on = frac[idx]
+        on = frac.to("cuda")[idx]
         on[0] = 1.0
         sign = torch.where(idx % 2 == 0, 1.0, -1.0).to(dt)
         # f32: exactly on the edges; bf16: rounded next to them
-        out.append((f"on the edges {d}", (on.to(dt) * sign), 70))
+        out.append((f"on the edges {d}", (on.to(dt) * sign), 70, None))
+        # explicit edges over values with NaN, +-inf and -0 among them
+        v = rnd((70001,), dt)
+        v[::977] = float("nan")
+        v[5], v[6], v[7] = float("inf"), -float("inf"), -0.0
+        shuffled = frac[torch.randperm(K.NUM_EDGES, generator=gen)] * 3.0
+        odd = shuffled.clone()
+        odd[:8] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                -0.0, 0.0, 1.5, 1.5, float("nan")])
+        dup = torch.sort(torch.tensor([0.0, 0.5, 1.0, 2.0])[torch.randint(
+            0, 4, (K.NUM_EDGES,), generator=gen)]).values
+        for what, e in (("unsorted", shuffled), ("NaN, +-inf, +-0, dup", odd),
+                        ("sorted duplicates", dup),
+                        ("all equal", torch.full((K.NUM_EDGES,), 0.75)),
+                        ("all NaN", torch.full((K.NUM_EDGES,),
+                                               float("nan")))):
+            out.append((f"{what} edges {d}", v, 0, e.to("cuda")))
+        out.append((f"unsorted edges, largest {d}", big, 0,
+                    shuffled.to("cuda")))
     return out
 
 
-def k10_check(name, v, k, failures):
+def k10_check(name, v, k, failures, edges=None):
     """K10 against the plain version on one tensor: the counts exactly
-    equal; its threshold keeps at least k elements and at most those
-    within one bin of the exact k-th |v|.  Returns the largest count
-    difference (0 when right)."""
+    equal; with the DGC path's edges (`edges` None) its threshold keeps at
+    least k elements and at most those within one bin of the exact k-th
+    |v|.  Returns the largest count difference (0 when right)."""
     import torch
 
     from paddle_tpu_torch.kernels import topk_threshold as K
 
     flat = v.reshape(-1)
     vmax = torch.linalg.vector_norm(flat, float("inf")).float()
-    edges = K._edges(vmax)
+    dgc = edges is None
+    if dgc:
+        edges = K._edges(vmax)
     got = K.count_ge_histogram(flat, edges)
     want = K.count_ge_histogram_ref(flat, edges)
     err = (got - want).abs().max().item()
     if err != 0:
         failures.append(f"K10 {name}: counts differ by up to {err}")
+    if not dgc:
+        return err
     a = flat.float().abs()
     t = K.topk_threshold(flat, k)
     kept = int((a >= t).sum())
@@ -2877,12 +2989,12 @@ def dgc_phase(failures):
     env.init_parallel_env()
     try:
         step_ms = {}
-        launches, step_ms["k10"], step = dgc_run("k10", failures)
+        launches, step_ms["k10"], step, _ = dgc_run("k10", failures)
         state = {"u": step._state[0], "v": step._state[1]}
         del step
         torch.cuda.empty_cache()
         for mode in ("topk", "dense"):
-            _, step_ms[mode], _ = dgc_run(mode, failures)
+            _, step_ms[mode], _, _ = dgc_run(mode, failures)
             torch.cuda.empty_cache()
         log(f"dgc step ms: DGC with K10 {step_ms['k10']:.3f}, DGC with "
             f"torch.topk {step_ms['topk']:.3f}, dense DP "
@@ -2901,8 +3013,8 @@ def dgc_phase(failures):
         gen = torch.Generator(device="cuda").manual_seed(10)
         rnd = lambda shape, dt: torch.randn(shape, generator=gen,
                                             device="cuda").to(dt)
-        for name, v, k in k10_synthetic(rnd):
-            errs.append(k10_check(name, v, k, failures))
+        for name, v, k, edges in k10_synthetic(rnd):
+            errs.append(k10_check(name, v, k, failures, edges))
             log(f"K10 {name}: counts equal: {errs[-1] == 0}")
         largest = max(state["v"].values(), key=lambda t: t.numel())
         timed = k10_times(largest, state["v"])
@@ -3387,7 +3499,7 @@ def timed_text(timed):
                     for k, v in timed.items())
 
 
-COMPARE_PARTS = ("k7", "train", "resnet", "probes", "decode")
+COMPARE_PARTS = ("k7", "train", "resnet", "probes", "decode", "stem", "dgc")
 
 
 def decode_prefill(model, prompts):
@@ -3422,8 +3534,9 @@ def compare_one(tree, parts=COMPARE_PARTS):
     """`compare` for one tree: its package (`tree`/paddle_tpu_torch) built
     and run by this script's `k7_bf16_times`, `train_run` (the GPT train
     step: host and device ms, K2 per step), `resnet_run` (full fused and
-    `id`), `probes_phase`'s timing (P1, P2 and K7's stage-1 forward) and
-    `decode_run` (the decode step and K6's share), those of `parts`."""
+    `id`), `probes_phase`'s timing (P1, P2 and K7's stage-1 forward),
+    `decode_run` (the decode step and K6's share), `stem_compare` (K9)
+    and `dgc_compare` (K10 and the DGC step), those of `parts`."""
     sys.path.insert(0, tree)
     import torch
 
@@ -3472,9 +3585,49 @@ def compare_one(tree, parts=COMPARE_PARTS):
         o = decode_run()
         log(f"compare {tree} decode: host {o['host']:.3f} ms/step, device "
             f"{o['device']:.3f}, K6 {o['k6']:.4f} ms/step")
+    if "stem" in parts:
+        stem_compare(tree, rnd)
+    if "dgc" in parts:
+        dgc_compare(tree, failures)
     for f in failures:
         log(f"compare {tree} FAIL: {f}")
     return 1 if failures else 0
+
+
+def stem_compare(tree, rnd):
+    """`compare`'s stem part: K9 forward and backward at the stem (bf16
+    batch 128, random) with the backward's plan where the tree has one."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_bottleneck as FB
+
+    c, aff, dy = stem_inputs(rnd, (128, 112, 112, 64), torch.bfloat16, False)
+    timed = k9_times(c, aff, dy)
+    plan = (stem_text(FB.stem_plan(c.shape, c.dtype))
+            if hasattr(FB, "stem_plan") else "no plan")
+    log(f"compare {tree} stem: K9 fwd {timed['fwd_ms']:.4f} ms, bwd "
+        f"{timed['bwd_ms']:.4f} ms (bound {timed['bwd_bound_ms']:.4f}, "
+        f"library {timed['library_bwd_ms']:.4f}); {plan}")
+
+
+def dgc_compare(tree, failures):
+    """`compare`'s dgc part: the DGC ResNet-50 step with K10 (phase 5's
+    `dgc_run`: host ms, device ms and K10's share from its profile), then
+    K10 at the largest tensor and over the step's 161 v tensors."""
+    from paddle_tpu_torch.distributed import env
+
+    env.init_parallel_env()
+    try:
+        _, host_ms, step, prof = dgc_run("k10", failures)
+        state_v = step._state[1]
+        largest = max(state_v.values(), key=lambda t: t.numel())
+        timed = k10_times(largest, state_v)
+        log(f"compare {tree} dgc: K10 [{K10_LARGEST}] {timed['ms']:.4f} ms, "
+            f"the 161 tensors {timed['step_ms']:.4f} ms; DGC step with K10 "
+            f"host {host_ms:.3f} ms, device {prof['device']:.3f} ms, K10 "
+            f"{prof.get('K10', 0):.4f} ms per step")
+    finally:
+        env.destroy_parallel_env()
 
 
 def compare_main(args):

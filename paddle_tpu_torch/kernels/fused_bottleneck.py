@@ -82,11 +82,13 @@ _DOWN_SIGS = {
 }
 _STEM_SIGS = {
     "pt_fused_stem_tail_fwd": [_P] * 3 + [_I] * 5 + [_P],
-    "pt_fused_stem_tail_bwd": [_P] * 6 + [_I] * 6 + [_P],
+    "pt_fused_stem_tail_bwd": [_P] * 7 + [_I] * 9 + [_P],
+    "pt_fused_stem_tail_plan": [_I] * 8 + [_P],
 }
-# the backward's per-block da/db partials: a fixed grid, so the sums
-# are taken in one order on every run
-_STEM_BWD_BLOCKS = 1024
+# K9 backward's tiling per dtype: (window rows R, window columns Q,
+# 16-byte channel vectors per block), from chip_smoke.py's stem plan
+# sweep at the ResNet-50 stem
+STEM_BWD_TILING = {torch.bfloat16: (8, 14, 4), torch.float32: (2, 28, 8)}
 # the reference's `_STEM_SIDE_LIMIT` (:890): above it the stem tail is
 # the XLA composition, whose pool gradient goes to the first maximum
 _STEM_SIDE_LIMIT = 112
@@ -811,21 +813,77 @@ def _launch_stem_fwd(c, aff):
     return y
 
 
-def _launch_stem_bwd(c, dy, aff):
+def stem_tiling(shape, dtype, tiling=None):
+    """K9 backward's tiling of c [N, H, W, C] in `dtype`: (R window rows,
+    Q window columns, 16-byte channel vectors per block), `tiling` or
+    STEM_BWD_TILING clamped to the output's size and to C."""
+    rows, cols, vecs = tiling or STEM_BWD_TILING[dtype]
+    _, h, w, cm = shape
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return min(rows, h // 2), min(cols, w // 2), min(vecs, cm // vec)
+
+
+# per (device index, shape, dtype, tiling): K9 backward's plan
+_STEM_PLANS = {}
+
+
+def stem_plan(shape, dtype, tiling=None, device=None):
+    """K9 backward's launch plan for c [N, H, W, C] on the card: the
+    tiling (rows, cols, vecs; chans = channels per block), grid, blocks
+    per SM, shared memory bytes, spatial tiles and channel groups."""
+    device = torch.device(device or "cuda")
+    rows, cols, vecs = stem_tiling(shape, dtype, tiling)
+    key = (device.index, tuple(shape), dtype, (rows, cols, vecs))
+    if key not in _STEM_PLANS:
+        lib = backend.load("fused_stem_tail", _STEM_SIGS)
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            status = lib.pt_fused_stem_tail_plan(
+                *shape, rows, cols, vecs, _DTYPE_CODES[dtype], out)
+        backend.check(status, "fused_stem_tail_plan")
+        vec = 16 // torch.empty((), dtype=dtype).element_size()
+        _STEM_PLANS[key] = dict(
+            rows=rows, cols=cols, vecs=vecs, chans=vecs * vec, grid=out[0],
+            blocks_per_sm=out[1], smem=out[2], tiles=out[3], groups=out[4])
+    return _STEM_PLANS[key]
+
+
+# per (device index, stream): K9 backward's partials and its arrival
+# counter (zeroed once; every launch leaves it 0); a set outgrown is kept
+# alive behind the new one, since a CUDA graph that captured a launch
+# keeps its pointers
+_STEM_SCRATCH = {}
+
+
+def _stem_scratch(device, stream, floats):
+    held = _STEM_SCRATCH.setdefault((device.index, stream.value), [])
+    if not held or held[-1][0].numel() < floats:
+        size = max(floats, 2 * held[-1][0].numel()) if held else floats
+        held.append((torch.empty(size, dtype=torch.float32, device=device),
+                     torch.zeros(1, dtype=torch.int32, device=device)))
+    return held[-1]
+
+
+def _launch_stem_bwd(c, dy, aff, tiling=None):
     _check_stem_launch(c)
     dy, aff = dy.contiguous(), aff.contiguous()
+    if dy.data_ptr() % 16:
+        raise ValueError("fused_stem_tail: the CUDA kernel needs a 16-byte "
+                         "aligned dy")
+    plan = stem_plan(c.shape, c.dtype, tiling, c.device)
     lib = backend.load("fused_stem_tail", _STEM_SIGS)
     n, h, w, cm = c.shape
     dc = torch.empty_like(c)
     daff = torch.empty((2, cm), dtype=torch.float32, device=c.device)
-    part = torch.empty((_STEM_BWD_BLOCKS, 2, cm), dtype=torch.float32,
-                       device=c.device)
     with torch.cuda.device(c.device):
+        stream = backend.stream_handle(c.device)
+        part, counter = _stem_scratch(c.device, stream,
+                                      plan["grid"] * 2 * plan["chans"])
         status = lib.pt_fused_stem_tail_bwd(
             c.data_ptr(), dy.data_ptr(), aff.data_ptr(), dc.data_ptr(),
-            daff.data_ptr(), part.data_ptr(), n, h, w, cm,
-            _STEM_BWD_BLOCKS, _DTYPE_CODES[c.dtype],
-            backend.stream_handle(c.device))
+            daff.data_ptr(), part.data_ptr(), counter.data_ptr(), n, h, w,
+            cm, plan["rows"], plan["cols"], plan["vecs"], plan["grid"],
+            _DTYPE_CODES[c.dtype], stream)
     backend.check(status, "fused_stem_tail_bwd")
     backend.LAUNCHES["fused_stem_tail_bwd"] += 1
     return dc, daff

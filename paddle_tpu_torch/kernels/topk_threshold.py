@@ -11,8 +11,11 @@ k elements and at most the bin that holds the exact k-th value.
 
 On a CUDA tensor `count_ge_histogram` launches K10
 (`csrc/topk_threshold.cu`), which reads the values in their own dtype
-(bf16 or f32), takes |x| after the cast, and counts in integers: the
-counts are exact and do not depend on the order of the sums.  On a CPU
+(bf16 or f32), takes |x| after the cast, finds each element's bin among
+the sorted edges by a binary search and counts in integers: the counts
+are exact and do not depend on the order of the sums.  It is one launch
+per call: its last block writes the float32 counts and clears the
+integer workspace that the wrapper keeps per device and stream.  On a CPU
 tensor it runs the plain version, `count_ge_histogram_ref`, which sorts
 |x| and counts by binary search, also exactly.  Both return float32
 counts, as the reference does.  The reference sums float32 per-tile
@@ -42,7 +45,19 @@ EDGE_FRACTIONS = np.arange(NUM_EDGES, dtype=np.float32) \
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGS = {"pt_count_ge_histogram": [ctypes.c_void_p, ctypes.c_longlong,
                                    ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p]}
+                                   ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p]}
+# per (device index, stream): K10's integer workspace (256 sums and the
+# blocks' arrival counter), zeroed once; every launch leaves it 0
+_WORK = {}
+
+
+def _work(device, stream):
+    key = (device.index, stream.value)
+    if key not in _WORK:
+        _WORK[key] = torch.zeros(NUM_EDGES + 1, dtype=torch.int32,
+                                 device=device)
+    return _WORK[key]
 
 
 def count_ge_histogram_ref(x, edges):
@@ -73,16 +88,17 @@ def _launch(x, edges):
                          f"and takes fewer than 2^31 elements, got "
                          f"{flat.numel()}")
     flat, edges = flat.contiguous(), edges.contiguous()
-    counts = torch.zeros(NUM_EDGES, dtype=torch.int32, device=flat.device)
+    counts = torch.empty(NUM_EDGES, dtype=torch.float32, device=flat.device)
     lib = backend.load("topk_threshold", _SIGS)
     with torch.cuda.device(flat.device):
+        stream = backend.stream_handle(flat.device)
         status = lib.pt_count_ge_histogram(
             flat.data_ptr(), flat.numel(), edges.data_ptr(),
-            counts.data_ptr(), _DTYPE_CODES[flat.dtype],
-            backend.stream_handle(flat.device))
+            counts.data_ptr(), _work(flat.device, stream).data_ptr(),
+            _DTYPE_CODES[flat.dtype], stream)
     backend.check(status, "count_ge_histogram")
     backend.LAUNCHES["topk_threshold"] += 1
-    return counts.float()
+    return counts
 
 
 def count_ge_histogram(flat_abs, edges, block=DEFAULT_BLOCK):

@@ -237,6 +237,134 @@ def test_k9_checks_match_the_reference():
         TK.fused_stem_tail(*map(torch.from_numpy, (c, a, b)), batch_tile=3)
 
 
+def _stem_bwd_tile_model(c, dy, aff, tiling, workers):
+    """CPU model of the K9 backward's tiling (csrc/fused_stem_tail.cu)
+    for c [N, H, W, C], dy and aff [2, C] as torch tensors: each tile of
+    R window rows x Q window columns of one image (`tiling`, clamped as
+    `stem_tiling` clamps it) stages h for its 2R + 3 rows and 2Q + 3
+    columns only (0 outside the image), computes y of its (R + 1) x (Q +
+    1) windows from them alone, takes dy of those windows (0 outside the
+    image) and routes it to its own 2R x 2Q pixels in the reference's
+    order, then the relu mask and dc.  da/db are per-tile partials, summed
+    per worker w over its tiles w, w + workers, ... in order, then over
+    the workers in order.  Returns (dc, daff [2, C] f32)."""
+    n, h, w, cm = c.shape
+    dt = c.dtype
+    ho, wo = h // 2, w // 2
+    R, Q, _ = TK.stem_tiling(c.shape, dt, tiling)
+    tr, tc = -(-ho // R), -(-wo // Q)
+    a, b = aff[0], aff[1]
+    zero = torch.zeros((), dtype=torch.float32)
+    dc = torch.empty_like(c)
+    parts = []
+    for s in range(n * tr * tc):
+        img, rem = divmod(s, tr * tc)
+        i0, j0 = rem // tc * R, rem % tc * Q
+        # staged h: input rows 2 i0 - 1 .. 2 i0 + 2R + 1, columns alike
+        st = torch.zeros((2 * R + 3, 2 * Q + 3, cm), dtype=dt)
+        r0, c0 = 2 * i0 - 1, 2 * j0 - 1
+        rl, rh = max(r0, 0), min(r0 + 2 * R + 3, h)
+        cl, chh = max(c0, 0), min(c0 + 2 * Q + 3, w)
+        st[rl - r0:rh - r0, cl - c0:chh - c0] = torch.clamp_min(
+            c[img, rl:rh, cl:chh].float() * a + b, 0.0).to(dt)
+        y = None
+        for ky in range(3):
+            for kx in range(3):
+                tap = st[ky:ky + 2 * R + 1:2, kx:kx + 2 * Q + 1:2]
+                y = tap if y is None else torch.maximum(y, tap)
+        dyw = torch.zeros((R + 1, Q + 1, cm), dtype=dy.dtype)
+        ih, jh = min(i0 + R + 1, ho), min(j0 + Q + 1, wo)
+        dyw[:ih - i0, :jh - j0] = dy[img, i0:ih, j0:jh]
+        # the own pixels (those past the image's edge are dropped)
+        co = torch.zeros((2 * R, 2 * Q, cm), dtype=dt)
+        oh, ow = min(2 * R, h - 2 * i0), min(2 * Q, w - 2 * j0)
+        co[:oh, :ow] = c[img, 2 * i0:2 * i0 + oh, 2 * j0:2 * j0 + ow]
+        cf = co.float()
+        u = cf * a + b
+        hh = torch.clamp_min(u, 0.0).to(dt)
+        dh = torch.zeros((2 * R, 2 * Q, cm), dtype=torch.float32)
+        # own row 2k + pr is in local window row k (pr 0), or k + 1 then
+        # k (pr 1); the same in the columns
+        for pr in (0, 1):
+            for pc in (0, 1):
+                acc = torch.zeros((R, Q, cm), dtype=torch.float32)
+                for ro in ((0,) if pr == 0 else (1, 0)):
+                    for cof in ((0,) if pc == 0 else (1, 0)):
+                        ysl = y[ro:ro + R, cof:cof + Q]
+                        dsl = dyw[ro:ro + R, cof:cof + Q].float()
+                        acc = acc + torch.where(hh[pr::2, pc::2] == ysl, dsl,
+                                                zero)
+                dh[pr::2, pc::2] = acc
+        du = torch.where(u > 0.0, dh, zero)[:oh, :ow]
+        dc[img, 2 * i0:2 * i0 + oh, 2 * j0:2 * j0 + ow] = (du * a).to(dt)
+        parts.append(torch.stack([(du * cf[:oh, :ow]).sum((0, 1)),
+                                  du.sum((0, 1))]))
+    total = torch.zeros((2, cm), dtype=torch.float32)
+    for wk in range(workers):
+        acc = torch.zeros((2, cm), dtype=torch.float32)
+        for part in parts[wk::workers]:
+            acc = acc + part
+        total = total + acc
+    return dc, total
+
+
+# (shape, tiling): tiles that do not divide Ho or Wo, Ho = 1, Wo = 1,
+# C 16 and 64; None is the dtype's STEM_BWD_TILING clamped to the image
+STEM_TILE_CASES = [((2, 10, 14, 16), (2, 3, 2)), ((3, 2, 6, 64), (2, 2, 4)),
+                   ((2, 8, 2, 16), (3, 1, 1)), ((1, 2, 2, 64), None),
+                   ((2, 12, 18, 64), None), ((1, 14, 10, 64), (4, 2, 8))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "ties"])
+@pytest.mark.parametrize("shape,tiling", STEM_TILE_CASES)
+def test_k9_tile_model_matches_pallas_and_plain(shape, tiling, case, dtype):
+    """The K9 backward's tiling computes the reference's function: dc
+    bitwise the plain version's, within the tolerance of the Pallas
+    `_stem_bwd` (interpret mode; XLA may contract c * a + b there), da/db
+    within atol 2e-5 * sqrt(rows) of both, at several worker counts."""
+    c, a, b = _stem_args(11, shape=shape,
+                         levels=(-1, 0, 1, 2) if case == "ties" else None)
+    n, h, w, cm = shape
+    dy = np.random.default_rng(12).standard_normal(
+        (n, h // 2, w // 2, cm)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tc, tdy = torch.from_numpy(c).to(tdt), torch.from_numpy(dy).to(tdt)
+    aff = torch.from_numpy(np.stack([a, b]))
+    want_dc, want_daff = TK.fused_stem_tail_bwd_ref(tc, tdy, aff)
+    jdc, jdaff = JK._stem_bwd(jnp.asarray(c, jdt), jnp.asarray(dy, jdt),
+                              jnp.asarray(np.stack([a, b])), None)
+    rows = n * h * w
+    for workers in (1, 2, 5):
+        got_dc, got_daff = _stem_bwd_tile_model(tc, tdy, aff, tiling,
+                                                workers)
+        assert got_dc.dtype == tdt
+        assert torch.equal(got_dc, want_dc), workers
+        np.testing.assert_allclose(got_dc.float().numpy(), _f32(jdc),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        for ref in (want_daff.numpy(), np.asarray(jdaff)):
+            np.testing.assert_allclose(got_daff.numpy(), ref,
+                                       atol=2e-5 * rows ** 0.5, rtol=2e-5)
+
+
+def test_stem_tiling_clamps_to_the_image_and_channels():
+    assert TK.STEM_BWD_TILING[torch.bfloat16] == (8, 14, 4)
+    assert TK.stem_tiling((128, 112, 112, 64), torch.bfloat16) == (8, 14, 4)
+    assert TK.stem_tiling((128, 112, 112, 64), torch.float32) == (2, 28, 8)
+    # Ho = Wo = 1 and C = 16 (two bf16 vectors, four f32 ones)
+    assert TK.stem_tiling((3, 2, 2, 16), torch.bfloat16) == (1, 1, 2)
+    assert TK.stem_tiling((3, 2, 2, 16), torch.float32) == (1, 1, 4)
+    assert TK.stem_tiling((1, 8, 60, 64), torch.bfloat16,
+                          (2, 56, 8)) == (2, 30, 8)
+    # one backward launch: no second summing kernel, and the only atomic
+    # is the blocks' arrival counter (da/db are summed in a fixed order)
+    text = (backend.CSRC / "fused_stem_tail.cu").read_text()
+    assert "stem_sum_kernel" not in text
+    assert 'extern "C" int pt_fused_stem_tail_plan' in text
+    body = _kernel_body(text, "stem_bwd_kernel")
+    assert body.count("atomicAdd(") == 1 and "atomicAdd(counter, 1u)" in body
+
+
 def _with_includes(name):
     """A csrc source and the csrc headers it includes."""
     text = (backend.CSRC / name).read_text()
@@ -391,7 +519,11 @@ def test_k8_on_card():
 @pytest.mark.cuda
 def test_k9_on_card():
     """K9 forward and backward on the card against the plain versions,
-    on random and tie-heavy inputs; the forward is exact."""
+    on random and tie-heavy inputs; the forward is exact.  Then the raw
+    backward at STEM_TILE_CASES (tiles that do not divide Ho or Wo, Ho =
+    1, Wo = 1, C 16 and 64) and at the default tiling, f32 and bf16: y
+    and dc bitwise the plain versions' on the card, da/db within atol
+    2e-5 * sqrt(rows) of them and bitwise equal over two calls."""
     _needs_card()
     backend.reset_launches()
     for levels in (None, (-1, 0, 1, 2)):
@@ -400,3 +532,24 @@ def test_k9_on_card():
     torch.cuda.synchronize()
     assert backend.LAUNCHES["fused_stem_tail_fwd"] == 2
     assert backend.LAUNCHES["fused_stem_tail_bwd"] == 2
+    dev = torch.device("cuda")
+    for shape, tiling in STEM_TILE_CASES + [((3, 22, 30, 64), None)]:
+        for levels in (None, (-1, 0, 1, 2)):
+            c, a, b = _stem_args(7, shape=shape, levels=levels)
+            n, h, w, cm = shape
+            dy = np.random.default_rng(8).standard_normal(
+                (n, h // 2, w // 2, cm)).astype(np.float32)
+            aff = torch.from_numpy(np.stack([a, b])).to(dev)
+            for dt in (torch.float32, torch.bfloat16):
+                tc = torch.from_numpy(c).to(dev, dt)
+                tdy = torch.from_numpy(dy).to(dev, dt)
+                y = TK._launch_stem_fwd(tc, aff)
+                assert torch.equal(y, TK.fused_stem_tail_fwd_ref(tc, aff))
+                dc, daff = TK._launch_stem_bwd(tc, tdy, aff, tiling)
+                dc2, daff2 = TK._launch_stem_bwd(tc, tdy, aff, tiling)
+                want_dc, want_daff = TK.fused_stem_tail_bwd_ref(tc, tdy, aff)
+                case = (shape, tiling, levels, dt)
+                assert torch.equal(dc, want_dc), case
+                assert torch.equal(dc2, dc) and torch.equal(daff2, daff), case
+                torch.testing.assert_close(daff, want_daff, rtol=2e-5,
+                                           atol=2e-5 * (n * h * w) ** 0.5)

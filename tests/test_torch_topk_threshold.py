@@ -185,6 +185,99 @@ def test_flag_routes_dgc_topk_mask_through_k10_and_back(dtype, monkeypatch):
     assert tstrategies.dgc_topk_mask(tv, 0.99).sum() == exact.sum()
 
 
+def _inorder(k):
+    """csrc/topk_threshold.cu `inorder`: the sorted position of node k
+    (1..255) of the depth-8 search tree stored breadth-first."""
+    level = k.bit_length() - 1
+    return ((2 * (k - (1 << level)) + 1) << (7 - level)) - 1
+
+
+def _bin_count_model(x, edges):
+    """CPU model of K10's bin count (csrc/topk_threshold.cu), in numpy:
+    the edges sorted with their indices (NaN last), each |x| searched down
+    the breadth-first tree of the first 255 sorted edges and compared with
+    the last (m = the number of sorted edges <= |x|, 0 for a NaN), per-bin
+    counts, suffix sums (sorted edge r counts the elements in bins m > r)
+    mapped back to the edges' own order.  Returns float32 counts."""
+    a = np.abs(np.asarray(x, np.float32).reshape(-1))
+    edges = np.asarray(edges, np.float32)
+    order = np.argsort(edges, kind="stable")          # NaN sorts last
+    key = edges[order]
+    tree = np.zeros(256, np.float32)
+    tree[1:] = key[[_inorder(k) for k in range(1, 256)]]
+    k = np.ones(a.shape, np.int64)
+    with np.errstate(invalid="ignore"):
+        for _ in range(8):
+            k = 2 * k + (tree[k] <= a)
+        m = np.where(key[255] <= a, 256, k - 256)
+    bins = np.bincount(m, minlength=257)
+    suffix = np.cumsum(bins[::-1])[::-1]              # suffix[r] = bins[r:]
+    counts = np.zeros(256, np.int64)
+    counts[order] = suffix[1:]
+    return counts.astype(np.float32)
+
+
+def _edge_cases():
+    """(name, edges): sorted, unsorted, duplicated, NaN, +-inf, +-0, all
+    zero, all NaN."""
+    rng = np.random.default_rng(21)
+    lin = T.EDGE_FRACTIONS * np.float32(2.5)
+    odd = rng.permutation(lin)
+    odd[:9] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1.25, 1.25, np.nan, 0.5]
+    dup = np.sort(rng.choice(np.float32([0.0, 0.5, 1.0, 2.0]), 256))
+    return [("sorted", lin), ("unsorted", rng.permutation(lin)),
+            ("duplicates", dup), ("nan inf zero dup", odd),
+            ("all zero", np.zeros(256, np.float32)),
+            ("all nan", np.full(256, np.nan, np.float32))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge_case", [c[0] for c in _edge_cases()])
+def test_bin_count_model_is_bitwise_the_reference(edge_case, dtype):
+    """The K10 design's counts (search, bins, suffix sums, mapped back)
+    equal the Pallas kernel's (interpret mode) and the plain version's bit
+    for bit, with NaN, -0 and +inf elements among the values.  At an edge
+    <= -1 (here -inf) the Pallas kernel also counts the -1.0 padding of
+    its last tile (117 elements at n 5003, block 1024), which the port's
+    function, |x| >= edge over the n elements, does not; the DGC path's
+    edges are >= 0."""
+    edges = dict(_edge_cases())[edge_case].astype(np.float32)
+    x = np.abs(_values(5003, 22)) * np.float32(1.3)
+    x[[3, 700, 4001]] = np.nan
+    x[[5, 6]] = -0.0
+    x[[7, 8]] = np.inf
+    x[9] = np.float32(1.25)
+    if dtype == "bfloat16":
+        x = _bf16(x)
+    want = np.asarray(J.count_ge_histogram(
+        jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(edges), block=1024))
+    plain = T.count_ge_histogram_ref(
+        torch.from_numpy(x).to(getattr(torch, dtype)),
+        torch.from_numpy(edges)).numpy()
+    got = _bin_count_model(x, edges)
+    padded = edges <= -1.0
+    np.testing.assert_array_equal(got[~padded], want[~padded])
+    np.testing.assert_array_equal(got[padded] + (-x.size) % 1024,
+                                  want[padded])
+    np.testing.assert_array_equal(got, plain)
+    assert (got[np.isnan(edges)] == 0).all()
+
+
+def test_search_tree_layout():
+    """Every sorted position but the last is a node of the tree once, and
+    the breadth-first walk visits the root's in-order neighbours in
+    order (node 2k left of k, 2k + 1 right of it)."""
+    pos = [_inorder(k) for k in range(1, 256)]
+    assert sorted(pos) == list(range(255))
+    for k in range(1, 128):
+        assert _inorder(2 * k) < _inorder(k) < _inorder(2 * k + 1)
+    text = (backend.CSRC / "topk_threshold.cu").read_text()
+    assert "((2 * (k - (1 << l)) + 1) << (7 - l)) - 1" in text
+    # integer atomics only (shared bins, the workspace, the counter)
+    assert "atomicAdd(h + m" in text and "float* counts" in text
+    assert "atomicAdd(counts" not in text
+
+
 def test_kernel_route_refuses_what_it_does_not_take():
     x = torch.zeros(8, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -197,7 +290,10 @@ def test_kernel_route_refuses_what_it_does_not_take():
 @pytest.mark.cuda
 def test_k10_on_card():
     """K10 against the plain version on the card: counts exactly equal,
-    f32 and bf16, at the sizes of chip_smoke.py's synthetic checks."""
+    f32 and bf16, at the sizes of chip_smoke.py's synthetic checks, with
+    the DGC path's edges and with `_edge_cases` (unsorted, duplicated,
+    NaN, +-inf edges) over values with NaN, -0 and +inf among them; and
+    over a view that is not 16-byte aligned."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode "
                     "(chip_smoke.py runs it on the card)")
@@ -212,3 +308,12 @@ def test_k10_on_card():
             assert backend.LAUNCHES["topk_threshold"] == 1
             want = T.count_ge_histogram_ref(v, edges)
             assert torch.equal(got, want), (n, kind, dt)
+            x = _values(n + 3, 7, kind)
+            x[:: 97] = np.nan
+            x[1:3] = [-0.0, np.inf]
+            for name, e in _edge_cases():
+                xt = torch.from_numpy(x).to("cuda", dt)[3:]
+                et = torch.from_numpy(e.astype(np.float32)).to("cuda")
+                got = T.count_ge_histogram(xt, et)
+                want = T.count_ge_histogram_ref(xt, et)
+                assert torch.equal(got, want), (n, kind, dt, name)
