@@ -17,7 +17,10 @@ Phases (any failure makes the script exit non-zero without a result):
    bf16 ones not spilling at head dim 64, and P1's and P2's, the bf16
    ones not spilling; K7's and K6's printed as read.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
-   backward, CUDA), K4/K5 (LayerNorm forward/backward, Triton), K6
+   backward, CUDA), K4 (LayerNorm forward, Triton), K5 (its backward,
+   CUDA; `layer_norm_bwd_checks`: K5_SHAPES and K5_MORE_SHAPES, the
+   plan model, bitwise repeats, a NaN's footprint, a team-size sweep,
+   occupancy), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
    (the stride-2 transition block) and K9 (the stem's batch-norm, relu
    and max-pool tail), each forward and backward in CUDA (K10 is held
@@ -106,7 +109,9 @@ Phases (any failure makes the script exit non-zero without a result):
    512 tokens.  Printed: step ms, tokens/s, MFU (bench.py's FLOP count
    over 989 TFLOP/s), peak memory and a torch.profiler breakdown of one
    step.  Fails unless every loss is finite, the last loss is below the
-   first, and every step launches exactly K1, K2, K3 x12 and K4, K5 x25.
+   first, every step launches exactly K1, K2, K3 x12 and K4, K5 x25, and
+   each of the profiled step's 25 LayerNorm backwards (autograd nodes
+   `_LayerNormBackward`) launches exactly one kernel, K5's.
 4. ResNet-50 train path (`bench.py` `resnet50_time_config`, the
    `bench_resnet50_fused` row): ResNet-50, bfloat16, NHWC, ghost batch
    norm over 16 samples, `fused=True`, seeded weights, one warm-up step
@@ -176,8 +181,10 @@ times, for each tree in turn and in a process of its own (TREE a
 directory holding a paddle_tpu_torch package, e.g. `.` and an unpacked
 parent commit), the parts named (all by default): `k7`, K7 in bf16 at
 batch 128 at its five geometries and summed over a full-fused step;
-`train`, the GPT train step of phase 3 (host ms, device ms and K1, K2,
-K3 per step from its profile); `resnet`, the full fused and `id`
+`train`, the GPT train step of phase 3 (host ms, device ms, K1, K2,
+K3 and K5 per step from its profile, its kernel count and the kernels
+of each LayerNorm backward); `ln`, the tree's `_launch_bwd` (K5) at
+[24576, 768] bf16, in L2 and L2 flushed; `resnet`, the full fused and `id`
 ResNet-50 steps of phase 4 with their profiles; `probes`, P1, P2 and
 K7's stage-1 forward of phase 2b; `decode`, the decode-step profile of
 phase 6 (host and device ms per step, K6's share); `stem`, K9 forward
@@ -911,50 +918,100 @@ def flash_precision(failures):
         del q, k, v, do
 
 
+# K5's checks: (rows, D).  The train step's [24576, 768] (timed, the JSON
+# row, the plan sweep); the serving widths; 300 x 1024 (several warps per
+# row in f32).  These draw from the kernel phase's generator in the order
+# earlier versions of this script drew them, so the checks after them keep
+# their inputs; K5_MORE_SHAPES draw from a generator of their own: D 128
+# (half a warp idle in bf16); D 4096 (4 or 8 warps per row); rows 1, 7 and
+# 5, fewer than a block's 8 warps; 6272 and 8320 (the wide kernel in f32,
+# both; 8 warps per row in bf16 at 6272)
+K5_SHAPES = ((24576, 768), (1024, 768), (512, 768), (8, 768), (300, 1024))
+K5_MORE_SHAPES = ((4096, 128), (1024, 4096), (1, 768), (7, 768), (5, 768),
+                  (64, 6272), (64, 8320))
+
+
+def ln_plan_text(plan):
+    return (f"plan: {plan.warps_per_row} warps/row, "
+            f"{plan.vecs_per_thread or 'wide'} vectors/thread, "
+            f"{plan.warps_per_block} warps/block, {plan.blocks} blocks, "
+            f"{plan.stages} stages, G {plan.group} x {plan.groups} groups")
+
+
 def layer_norm_bwd_checks(rows, failures, rnd):
-    """K5: raw launch and the Function's backward against the plain
-    backward, and its time.  dgamma/dbeta are f32 sums over the rows,
-    taken in another order: atol 2e-5 * sqrt(rows), rtol 2e-5."""
+    """K5 (csrc/layer_norm_bwd.cu) at K5_SHAPES and K5_MORE_SHAPES, f32 and
+    bf16: the raw
+    launch against the plain backward (dx 2e-5 / 3e-2; dgamma/dbeta, f32
+    sums over the rows in another order, atol 2e-5 * sqrt(rows), rtol
+    2e-5), against the plan model `_ln_bwd_plan_model` run on the card
+    (the same order of sums: dgamma/dbeta atol 1e-6 * sqrt(rows), rtol
+    1e-6, a few ulps: the kernel contracts products into FMAs), bitwise
+    equal over two calls; through the Function (dx bitwise the raw one,
+    dgamma/dbeta in gamma's dtype, one launch); a NaN in one element of dy
+    confined to its row of dx and its column of dgamma/dbeta; each line
+    with its plan and times.  Then each instantiation's ptxas registers
+    and spills, the occupancy of every plan run against the blocks per SM
+    it counts on, and at [24576, 768] bf16 the time at each team size."""
     import torch
     import torch.nn.functional as TF
 
+    from paddle_tpu_torch.kernels import backend
     from paddle_tpu_torch.kernels import layer_norm as LN
 
-    def compare_sum(name, got, want, n_rows, failures):
+    sms = backend.sm_count(torch.device("cuda"))
+
+    def compare_sum(name, got, want, n_rows, failures, atol=2e-5, rtol=2e-5):
         err = (got.float() - want.float()).abs().max().item()
-        atol = 2e-5 * n_rows ** 0.5
+        atol = atol * n_rows ** 0.5
         if not torch.allclose(got.float(), want.float(), atol=atol,
-                              rtol=2e-5):
+                              rtol=rtol):
             failures.append(f"{name}: max_abs_err {err:.3e} > atol {atol}")
         return err
 
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def own(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    used = set()
     for dt in (torch.bfloat16, torch.float32):
-        for n_rows, d in ((24576, 768), (1024, 768), (512, 768), (8, 768),
-                          (300, 1024)):
-            x, dy = rnd((n_rows, d), dt), rnd((n_rows, d), dt)
-            g, bta = rnd((d,), dt), rnd((d,), dt)
+        for n_rows, d in K5_SHAPES + K5_MORE_SHAPES:
+            draw = rnd if (n_rows, d) in K5_SHAPES else own
+            x, dy = draw((n_rows, d), dt), draw((n_rows, d), dt)
+            g, bta = draw((d,), dt), draw((d,), dt)
+            plan = LN.ln_bwd_plan(n_rows, d, dt, sms)
+            used.add((dt, plan.vecs_per_thread, plan.smem))
             tag = f"K5 [{n_rows}, {d}] {dname(dt)}"
             dx, dg, db = LN._launch_bwd(x, g, dy, 1e-5)
+            again = LN._launch_bwd(x, g, dy, 1e-5)
             want = LN.layer_norm_bwd_ref(x, g, dy)
+            model = LN._ln_bwd_plan_model(x, g, dy, plan)
             err = compare(tag + " dx", dx, want[0], dname(dt), failures)
             err_s = max(compare_sum(tag + " dgamma", dg, want[1], n_rows,
                                     failures),
                         compare_sum(tag + " dbeta", db, want[2], n_rows,
                                     failures))
+            err_m = max(compare_sum(f"{tag} {name} vs model", a, w, n_rows,
+                                    failures, 1e-6, 1e-6)
+                        for name, a, w in (("dgamma", dg, model[1]),
+                                           ("dbeta", db, model[2])))
+            if not (torch.equal(dg, again[1]) and torch.equal(db, again[2])):
+                failures.append(f"{tag}: dgamma/dbeta differ over two calls")
             leaves = [t.clone().requires_grad_() for t in (x, g, bta)]
-            got = torch.autograd.grad(LN.fused_layer_norm(*leaves), leaves,
-                                      dy)
-            err_f = compare(tag + " Function dx", got[0], want[0], dname(dt),
-                            failures)
-            for name, a, w in (("dgamma", got[1], want[1]),
-                               ("dbeta", got[2], want[2])):
-                # the Function returns them in gamma's dtype
-                if dt == torch.float32:
-                    compare_sum(f"{tag} Function {name}", a, w, n_rows,
-                                failures)
-                else:
-                    compare(f"{tag} Function {name}", a, w.to(dt),
-                            dname(dt), failures)
+            y = LN.fused_layer_norm(*leaves)
+            before = backend.LAUNCHES["layer_norm_bwd"]
+            got = torch.autograd.grad(y, leaves, dy)
+            made = backend.LAUNCHES["layer_norm_bwd"] - before
+            if made != 1:
+                failures.append(f"{tag}: the Function's backward launched "
+                                f"K5 {made} times")
+            if not torch.equal(got[0], dx):
+                failures.append(f"{tag}: the Function's dx is not the raw "
+                                "launch's")
+            for name, a, w in (("dgamma", got[1], dg), ("dbeta", got[2], db)):
+                if a.dtype != dt or not torch.equal(a, w.to(dt)):
+                    failures.append(f"{tag} Function {name}: not the raw "
+                                    f"launch's sum in {dt} ({a.dtype})")
             ms = time_ms(lambda: LN._launch_bwd(x, g, dy, 1e-5))
             plain = time_ms(lambda: LN.layer_norm_bwd_ref(x, g, dy))
             lx, lg, lb = (t.clone().requires_grad_() for t in (x, g, bta))
@@ -966,17 +1023,58 @@ def layer_norm_bwd_checks(rows, failures, rnd):
             bms, by = bound(nbytes, 12 * n_rows * d, dname(dt))
             log(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                 f"{lib:.4f} bound_ms {bms:.5f} ({by}) max_err dx "
-                f"{err:.3e} dgamma/dbeta {err_s:.3e} Function {err_f:.3e}")
+                f"{err:.3e} dgamma/dbeta {err_s:.3e} vs model {err_m:.3e}; "
+                f"{ln_plan_text(plan)}")
             if (n_rows, d) == (24576, 768) and dt == torch.bfloat16:
                 rows["layer_norm_bwd"] = dict(
-                    name="K5 layer_norm_bwd", route="triton",
-                    source="paddle_tpu_torch/kernels/layer_norm.py",
+                    name="K5 layer_norm_bwd", route="cuda",
+                    source="paddle_tpu_torch/csrc/layer_norm_bwd.cu",
                     replaces="paddle_tpu/kernels/layer_norm.py:60",
-                    max_abs_err=max(err, err_f), ms=ms, plain_ms=plain,
+                    max_abs_err=err, ms=ms, plain_ms=plain,
                     bound_ms=bms, bound_by=by, library_ms=lib,
-                    shape="x, dy [24576, 768] bf16 (train step); kernel_ms "
-                          "includes the wrapper's two partial-sum "
-                          "reductions")
+                    shape="x, dy [24576, 768] bf16 (train step)")
+                for w in (1, 2, 4, 8):
+                    p_w = LN.ln_bwd_plan(n_rows, d, dt, sms, warps_per_row=w)
+                    used.add((dt, p_w.vecs_per_thread, p_w.smem))
+                    ms_w = time_ms(lambda: LN._launch_bwd(
+                        x, g, dy, 1e-5, plan=p_w))
+                    log(f"{tag} sweep: kernel_ms {ms_w:.4f} "
+                        f"({bms / ms_w:.1%} of the bound); "
+                        f"{ln_plan_text(p_w)}")
+            if (n_rows, d) == (1024, 768):
+                ln_nan_check(tag, x, g, dy, failures)
+            del x, dy, got, leaves, y, lout, lx, lg, lb, model, want
+    for name, use in ptxas_find("layer_norm_bwd", "ln_bwd"):
+        log(f"ptxas layer_norm_bwd {name}: {use_text(use)}")
+    for dt, nv, smem in sorted(used, key=str):
+        occ = LN.ln_bwd_occupancy(dt, nv, smem)
+        want = LN.LN_BWD_BLOCKS_PER_SM[dt][nv]
+        log(f"K5 occupancy {dname(dt)} {nv or 'wide'} vectors/thread, smem "
+            f"{smem} B: {occ} blocks/SM (plan counts on {want})")
+        if occ < want:
+            failures.append(f"K5 {dname(dt)} nv {nv}: {occ} blocks per SM "
+                            f"resident, the plan counts on {want}")
+
+
+def ln_nan_check(tag, x, g, dy, failures):
+    """A NaN in dy[row 17, column 100] must make row 17 of dx and column 100
+    of dgamma/dbeta NaN and nothing else, as in the plain version."""
+    import torch
+
+    from paddle_tpu_torch.kernels import layer_norm as LN
+
+    dy = dy.clone()
+    dy[17, 100] = float("nan")
+    got = LN._launch_bwd(x, g, dy, 1e-5)
+    want = LN.layer_norm_bwd_ref(x, g, dy)
+    same = all(torch.equal(torch.isnan(a), torch.isnan(w))
+               for a, w in zip(got, want))
+    counts = [int(torch.isnan(a).sum()) for a in got]
+    log(f"{tag} NaN in dy[17, 100]: NaN counts dx/dgamma/dbeta {counts}, "
+        f"pattern as plain {same}")
+    if not same or counts != [x.shape[1], 1, 1]:
+        failures.append(f"{tag}: a NaN in dy[17, 100] gave NaN counts "
+                        f"{counts} (plain's pattern: {same})")
 
 
 # K7 at ResNet-50's four identity-block geometries and its stage-1 block-0
@@ -2260,8 +2358,17 @@ H100_BF16_FLOPS = 989e12
 def train_phase(failures):
     """bench.py's headline configuration (bench_bert): BERT-base geometry
     GPT in bf16, batch 48 x seq 512, AdamW(1e-4), through the port's
-    make_train_step.  Returns the launches of its timed steps."""
-    return train_run(failures)["launches"]
+    make_train_step.  Fails unless the profiled step's 25 LayerNorm
+    backwards launch exactly one kernel each, K5's.  Returns the launches
+    of its timed steps."""
+    gpt = train_run(failures)
+    ln = gpt["profile"]["ln_bwd"]
+    if len(ln) != TRAIN_LAUNCHES["layer_norm_bwd"] or any(
+            len(k) != 1 or not re.search(r"ln_bwd(_wide)?_kernel", k[0])
+            for k in ln):
+        failures.append(f"train step: a LayerNorm backward is not exactly "
+                        f"one K5 kernel: {ln}")
+    return gpt["launches"]
 
 
 def train_run(failures):
@@ -2336,6 +2443,10 @@ def train_run(failures):
         if launches.get(name, 0) < 1:
             failures.append(f"{name} never launched on the train path")
     prof = profile_train_step(step, state, (x, y), mean_ms)
+    ln = prof["ln_bwd"]
+    log(f"train step: {prof['kernels']} kernels; {len(ln)} LayerNorm "
+        f"backwards, kernels each {sorted({len(k) for k in ln})}: "
+        f"{sorted({n[:40] for k in ln for n in k})}")
     del model, state, step
     torch.cuda.empty_cache()
     return dict(launches=launches, step_ms=mean_ms, profile=prof)
@@ -2365,7 +2476,9 @@ def profile_train_step(step, state, batch, host_ms, label="train"):
     for us, count, key in sorted(rows, reverse=True)[:14]:
         log(f"  {us / 1e3:9.4f} ms  {us / device_ms / 10:5.1f}%  "
             f"{count:5d}x  {key[:90]}")
-    shares, found = [], {"device": device_ms}
+    shares = []
+    found = {"device": device_ms, "kernels": sum(r[1] for r in rows),
+             "ln_bwd": ln_backward_kernels(prof)}
     for fam, pattern in KERNEL_FAMILIES:
         ms = sum(r[0] for r in rows if re.search(pattern, r[2])) / 1e3
         if ms:
@@ -2376,16 +2489,31 @@ def profile_train_step(step, state, batch, host_ms, label="train"):
     return found
 
 
+def ln_backward_kernels(prof):
+    """The device kernels each LayerNorm backward (an autograd node
+    `_LayerNormBackward` of the profile) launched, itself and through the
+    ops under it: [[kernel name, ...] per node]."""
+    def kernels(evt):
+        return [k.name for k in evt.kernels] + [
+            n for c in evt.cpu_children for n in kernels(c)]
+
+    return [kernels(e) for e in prof.events()
+            if e.name == "_LayerNormBackward"]
+
+
 # device time of a step by the port's kernels: K1, K2, K3 (the scalar or
-# the tensor-core kernel), K7 (the stride-1 block: its former CUDA-core
-# kernels, or the stride-1 instances of csrc/block_tc.cuh and K7's B2), K8
-# (the stride-2 instances and K8's B2, or its former kernels), the slice
-# sums both share, K9 (profiler keys print template arguments as "<T, 1,
-# ...>")
+# the tensor-core kernel), K4, K5 (its CUDA kernels, or the Triton kernel
+# of earlier trees without the sums beside it), K7 (the stride-1 block:
+# its former CUDA-core kernels, or the stride-1 instances of
+# csrc/block_tc.cuh and K7's B2), K8 (the stride-2 instances and K8's B2,
+# or its former kernels), the slice sums both share, K9 (profiler keys
+# print template arguments as "<T, 1, ...>")
 KERNEL_FAMILIES = (
     ("K1", r"flash_fwd_(mma_)?kernel"),
     ("K2", r"flash_bwd_dq_(mma_)?kernel"),
     ("K3", r"flash_bwd_dkv_(mma_)?kernel"),
+    ("K4", r"_ln_fwd_kernel"),
+    ("K5", r"ln_bwd(_wide)?_kernel"),
     ("K7", r"bottleneck_(fwd|bwd1|bwd2)_kernel|block_(fwd|bwd1)_kernel<[^,]+,"
            r" 1,|block_bwd2_kernel|wgrad_kernel<[^,]+, 1>"),
     ("K8", r"down_(fwd|bwd1|bwd2|wgrad|wsum)_kernel|block_(fwd|bwd1)_kernel"
@@ -3499,7 +3627,8 @@ def timed_text(timed):
                     for k, v in timed.items())
 
 
-COMPARE_PARTS = ("k7", "train", "resnet", "probes", "decode", "stem", "dgc")
+COMPARE_PARTS = ("k7", "train", "ln", "resnet", "probes", "decode", "stem",
+                 "dgc")
 
 
 def decode_prefill(model, prompts):
@@ -3533,7 +3662,8 @@ def decode_run():
 def compare_one(tree, parts=COMPARE_PARTS):
     """`compare` for one tree: its package (`tree`/paddle_tpu_torch) built
     and run by this script's `k7_bf16_times`, `train_run` (the GPT train
-    step: host and device ms, K2 per step), `resnet_run` (full fused and
+    step: host and device ms, K2 and K5 per step), `ln_compare` (K5),
+    `resnet_run` (full fused and
     `id`), `probes_phase`'s timing (P1, P2 and K7's stage-1 forward),
     `decode_run` (the decode step and K6's share), `stem_compare` (K9)
     and `dgc_compare` (K10 and the DGC step), those of `parts`."""
@@ -3560,8 +3690,13 @@ def compare_one(tree, parts=COMPARE_PARTS):
         prof = gpt["profile"]
         log(f"compare {tree} train: step {gpt['step_ms']:.3f} ms (host, "
             f"mean of 5), device {prof['device']:.3f} ms, K2 "
-            f"{prof.get('K2', 0):.3f} ms per step (12 launches), K1 "
-            f"{prof.get('K1', 0):.3f}, K3 {prof.get('K3', 0):.3f}")
+            f"{prof.get('K2', 0):.3f} ms per step (12 launches), K5 "
+            f"{prof.get('K5', 0):.3f} (25 launches), K1 "
+            f"{prof.get('K1', 0):.3f}, K3 {prof.get('K3', 0):.3f}; "
+            f"{prof['kernels']} kernels, per LayerNorm backward "
+            f"{sorted({len(k) for k in prof['ln_bwd']})}")
+    if "ln" in parts:
+        ln_compare(tree, rnd)
     if "resnet" in parts:
         for mode in ("full", "id"):
             _, ms, peak = resnet_run(mode, failures)
@@ -3592,6 +3727,24 @@ def compare_one(tree, parts=COMPARE_PARTS):
     for f in failures:
         log(f"compare {tree} FAIL: {f}")
     return 1 if failures else 0
+
+
+def ln_compare(tree, rnd):
+    """`compare`'s ln part: the tree's `_launch_bwd` (K5 and whatever the
+    tree's wrapper launches beside it) at the train step's [24576, 768]
+    bf16, inputs in L2 and L2 flushed."""
+    import torch
+
+    from paddle_tpu_torch.kernels import layer_norm as LN
+
+    x, dy = rnd((24576, 768), torch.bfloat16), rnd((24576, 768),
+                                                  torch.bfloat16)
+    g = rnd((768,), torch.bfloat16)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: LN._launch_bwd(x, g, dy, 1e-5))
+    cold = time_ms(lambda: LN._launch_bwd(x, g, dy, 1e-5), flush=flush)
+    log(f"compare {tree} ln: K5 [24576, 768] bf16 {ms:.4f} ms, L2 flushed "
+        f"{cold:.4f} ms")
 
 
 def stem_compare(tree, rnd):

@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every csrc/*.cu source, one shared library each
 SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode",
            "fused_block", "fused_bottleneck", "fused_down",
-           "fused_stem_tail", "topk_threshold")
+           "fused_stem_tail", "layer_norm_bwd", "topk_threshold")
 
 LAUNCHES = collections.Counter()
 # compiler output (ptxas register / shared-memory / spill report) per
@@ -50,12 +50,22 @@ BUILD_LOG = {}
 
 _lock = threading.Lock()
 _libs = {}
+_sms = {}
 
 
 def is_hopper():
     """True when a CUDA device of compute capability 9.x is present."""
     return (torch.cuda.is_available()
             and torch.cuda.get_device_capability()[0] == 9)
+
+
+def sm_count(device):
+    """The SM count of CUDA device `device`, read once per device (the
+    planners size their grids from it)."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def reset_launches():

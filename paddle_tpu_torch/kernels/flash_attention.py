@@ -375,18 +375,11 @@ def decode_plan(bh, t, sms):
     return chunk, -(-t // chunk)
 
 
-_SMS = {}
+_sm_count = backend.sm_count
 # per (device index, stream): K6's arrival counters, zeroed once (every
 # launch leaves them 0); a set outgrown is kept alive behind the new one,
 # since a CUDA graph that captured a launch keeps its pointer
 _DECODE_COUNTERS = {}
-
-
-def _sm_count(device):
-    if device.index not in _SMS:
-        _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device.index]
 
 
 def _decode_counters(device, stream, n_rows):

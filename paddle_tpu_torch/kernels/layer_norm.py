@@ -1,4 +1,4 @@
-"""K4 / K5: fused LayerNorm forward and backward for Hopper, in Triton.
+"""K4 / K5: fused LayerNorm forward (Triton) and backward (CUDA C++), Hopper.
 
 Port of paddle_tpu/kernels/layer_norm.py: K4 replaces `_fwd_kernel`
 (driven by `_fwd`), K5 replaces `_bwd_kernel` (driven by `_bwd`); public
@@ -12,41 +12,41 @@ input dtype; the statistics are not stored.  `fused_layer_norm` is a
 reference's custom VJP): forward K4, saving x and gamma only; backward
 K5, which recomputes mean and rstd from x and writes
 dx = rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat)), wdy = dy * gamma,
-plus per-program f32 partial sums of dgamma = sum(dy * xhat) and
-dbeta = sum(dy).
+and dgamma = sum(dy * xhat), dbeta = sum(dy) over the rows.
 
-K4 design.  One Triton program per row holds the whole row in one
+K4 design (Triton).  One program per row holds the whole row in one
 masked block of next_pow2(D) lanes, so x is read once and y written
-once; the two reductions run on the block in registers.
+once; the two reductions run on the block in registers.  Triton serves
+here as well as CUDA C++: one row reduction and an elementwise pass.
+`triton` is imported inside `_kernel()`, never when this module is
+imported, so the CPU tests import it freely.
 
-K5 design.  Each program takes a block of ROWS consecutive rows and
-walks them one at a time with the whole row in one masked block of
-next_pow2(D) lanes: it recomputes the statistics, writes dx, and adds
-the row's dy * xhat and dy to two [BLOCK] f32 accumulators in
-registers.  At the end it writes them to row `pid` of two f32
-[n_programs, D] scratch arrays, which the wrapper sums with torch, as
-the reference sums its [groups, D] accumulator outside the kernel: no
-atomics, so the sums are deterministic.  ROWS trades the scratch's size
-against parallelism: it is the power of two that gives at least
-`_MIN_PROGRAMS` programs, at most 32 (the train step's 24576 rows take
-32, so the scratch is 1/(12 * 32) of x's bytes in bf16), since a
-program's rows run one after another.  Padded rows and columns are
-masked with `tl.where`, never a multiply, so NaN padding cannot leak.
+K5 design (CUDA C++, `csrc/layer_norm_bwd.cu`): one launch per call and
+no torch op beside it.  A warp (a team of `warps_per_row` warps for wide
+rows) owns a row held in registers; its three reductions are shuffle
+butterflies; persistent blocks of 8 warps load the next row before the
+current row's math; dgamma/dbeta are summed per thread over its rows,
+per block in team order, then merged in groups of G blocks and across
+groups by the last blocks to arrive (atomic tickets), in one fixed order
+per plan, and written in the dtype asked for.  `ln_bwd_plan` sets the
+plan from the rows, D, the dtype and the SM count; `_ln_bwd_plan_model`
+is that plan's order of sums in f32 torch (the tests' and the chip
+run's yardstick).  The partial rows and the tickets live in a workspace
+kept per device and stream (`_bwd_work`).
 
 Bound on the H100: device-memory bytes for both kernels.  K4 reads x
 and writes y once, about 2 * rows * D * bytes; K5 reads x and dy and
-writes dx, about 3 * rows * D * bytes plus the scratch (2 * 4 * D
-bytes per program).  At the serving shapes (rows = slots or batch *
-seq, D = 768) the launch itself costs as much as the data; fusing the
-norm into its neighbours is later work.
+writes dx, about 3 * rows * D * bytes.  At the serving shapes (rows =
+slots or batch * seq, D = 768) the launch itself costs as much as the
+data.
 
-Triton serves as well as CUDA C++ here: each kernel is row reductions
-and an elementwise pass, needs no tensor cores and no hand staging of
-shared memory.  `triton` is imported inside the function that builds
-the kernels, never when this module is imported, so the CPU tests
-import it freely.  On CPU tensors the Function runs the plain versions
-`layer_norm_ref` and `layer_norm_bwd_ref`.
+On CPU tensors the Function runs the plain versions `layer_norm_ref` and
+`layer_norm_bwd_ref`.
 """
+
+import collections
+import ctypes
+import math
 
 import torch
 
@@ -56,17 +56,83 @@ from . import backend
 tl = None
 _KERNEL = None
 _DTYPES = (torch.float32, torch.bfloat16)
-# K5: at most this many rows per program (a power of two), and about
-# two programs per SM of an H100 where the rows allow
-_MAX_ROWS = 32
-_MIN_PROGRAMS = 264
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K5's plan (csrc/layer_norm_bwd.cu): warps per block; the most 16-byte
+# vectors of a row a thread holds in registers (kMaxVecs*); the blocks per
+# SM each kernel's registers allow (kBlocks*: __launch_bounds__), by vectors
+# per thread, index 0 the wide kernel (rows wider than 8 warps' registers)
+LN_BWD_WARPS = 8
+LN_BWD_MAX_VECS = {torch.float32: 6, torch.bfloat16: 4}
+LN_BWD_BLOCKS_PER_SM = {torch.float32: (2, 4, 3, 2, 2, 1, 1),
+                        torch.bfloat16: (2, 4, 2, 2, 1)}
+_BWD_SIGS = {
+    "pt_layer_norm_bwd": [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "pt_layer_norm_bwd_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)],
+}
+# per (device index, stream): K5's workspace, (f32 partial and group rows,
+# int32 tickets zeroed once; every launch leaves them 0); one outgrown is
+# kept alive behind the new one, since a CUDA graph that captured a launch
+# keeps its pointers
+_BWD_WORK = {}
+
+LnBwdPlan = collections.namedtuple("LnBwdPlan", (
+    "vecs_per_thread",   # 16-byte vectors per thread; 0: the wide kernel
+    "warps_per_row",
+    "warps_per_block",
+    "blocks",
+    "stages",            # rows in flight per team (the current, the next)
+    "group",             # blocks per merge group
+    "groups",
+    "smem",              # dynamic shared memory bytes per block
+))
 
 
-def _bwd_rows(rows):
-    r = 1
-    while r < _MAX_ROWS and rows >= 2 * r * _MIN_PROGRAMS:
-        r *= 2
-    return r
+def ln_bwd_plan(rows, d, dtype, sms, warps_per_row=None):
+    """K5's launch plan for x [rows, d] of `dtype` on a card of `sms` SMs.
+
+    A team of `warps_per_row` warps owns a row: the fewest (1, 2, 4 or 8)
+    whose threads hold the row's 16-byte vectors in at most
+    LN_BWD_MAX_VECS each; wider rows take the wide kernel (one team of 8
+    warps per block, `vecs_per_thread` 0).  `warps_per_row` forces a team
+    size instead (the chip run's sweep).  Blocks of 8 warps, as many as
+    the rows need, at most the blocks per SM the kernel is held to times
+    `sms`; team g of the grid takes rows g, g + teams, ...  Merge groups of
+    G = ceil(sqrt(blocks)) blocks."""
+    nvec = d * dtype.itemsize // 16
+    most = LN_BWD_MAX_VECS[dtype]
+    if warps_per_row is None:
+        w = 1
+        while w < LN_BWD_WARPS and -(-nvec // (32 * w)) > most:
+            w *= 2
+    elif warps_per_row in (1, 2, 4, 8):
+        w = warps_per_row
+    else:
+        raise ValueError(f"ln_bwd_plan: warps_per_row {warps_per_row} not "
+                         "in 1, 2, 4, 8")
+    nv = -(-nvec // (32 * w))
+    if nv > most:
+        w, nv = LN_BWD_WARPS, 0
+    teams = LN_BWD_WARPS // w
+    blocks = max(1, min(-(-rows // teams),
+                        sms * LN_BWD_BLOCKS_PER_SM[dtype][nv]))
+    group = math.isqrt(blocks - 1) + 1
+    # gamma as f32; with several teams, then their sums [2, d]
+    smem = 0 if nv == 0 else (8 if teams > 1 else 4) * d
+    return LnBwdPlan(nv, w, LN_BWD_WARPS, blocks, 2 if nv else 1, group,
+                     -(-blocks // group), smem)
+
+
+def _ln_bwd_teams(plan, rows):
+    """[teams in the grid, k] int64: the rows of each team in the order it
+    takes them (team g: g, g + teams, ...), -1 past the last row."""
+    teams = plan.blocks * plan.warps_per_block // plan.warps_per_row
+    k = -(-rows // teams)
+    idx = torch.arange(k * teams).reshape(k, teams).T
+    return torch.where(idx < rows, idx, -1)
 
 
 def _kernel():
@@ -95,40 +161,7 @@ def _kernel():
             tl.store(y_ptr + row * d + cols,
                      y.to(y_ptr.dtype.element_ty), mask=mask)
 
-        @triton.jit
-        def _ln_bwd_kernel(x_ptr, g_ptr, dy_ptr, dx_ptr, dg_ptr, db_ptr,
-                           rows, d, eps, ROWS: tl.constexpr,
-                           BLOCK: tl.constexpr):
-            pid = tl.program_id(0)
-            cols = tl.arange(0, BLOCK)
-            cmask = cols < d
-            g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-            dg_acc = tl.zeros([BLOCK], dtype=tl.float32)
-            db_acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for i in range(ROWS):
-                row = pid.to(tl.int64) * ROWS + i
-                mask = cmask & (row < rows)
-                off = row * d + cols
-                x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-                dy = tl.load(dy_ptr + off, mask=mask,
-                             other=0.0).to(tl.float32)
-                mean = tl.sum(x, axis=0) / d
-                xc = tl.where(mask, x - mean, 0.0)
-                var = tl.sum(xc * xc, axis=0) / d
-                rstd = tl.rsqrt(var + eps)
-                xhat = xc * rstd
-                wdy = tl.where(mask, dy * g, 0.0)
-                c1 = tl.sum(wdy, axis=0) / d
-                c2 = tl.sum(wdy * xhat, axis=0) / d
-                dx = rstd * (wdy - c1 - xhat * c2)
-                tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty),
-                         mask=mask)
-                dg_acc += tl.where(mask, dy * xhat, 0.0)
-                db_acc += tl.where(mask, dy, 0.0)
-            tl.store(dg_ptr + pid * d + cols, dg_acc, mask=cmask)
-            tl.store(db_ptr + pid * d + cols, db_acc, mask=cmask)
-
-        _KERNEL = (triton, _ln_fwd_kernel, _ln_bwd_kernel)
+        _KERNEL = (triton, _ln_fwd_kernel)
     return _KERNEL
 
 
@@ -169,7 +202,7 @@ def _check_contiguous(tensors):
 
 def _launch(x, gamma, beta, eps):
     _check_contiguous((x, gamma, beta))
-    triton, kernel, _ = _kernel()
+    triton, kernel = _kernel()
     rows, d = x.shape
     y = torch.empty_like(x)
     block = triton.next_power_of_2(d)
@@ -197,26 +230,137 @@ def layer_norm_bwd_ref(x, gamma, dy, eps=1e-5):
     return dx.to(x.dtype), (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
-def _launch_bwd(x, gamma, dy, eps):
+def _ln_bwd_plan_model(x, gamma, dy, plan, eps=1e-5):
+    """K5's sums in the order of `plan`, in f32 torch (any device):
+    (dx in x.dtype, dgamma, dbeta in f32).
+
+    Thread (w, lane) of a row's team holds the vectors j * 32 W + 32 w +
+    lane of the row (16 bytes each, zeros past D); each row reduction sums
+    a thread's values in (vector, element) order, then the lanes by the
+    xor butterfly, then the team's warps in warp order.  dgamma/dbeta:
+    each team sums its rows (`_ln_bwd_teams`) in order, a block its teams
+    in team order (a block with no rows gives zeros), a merge group of G
+    its blocks in block order, then the groups in group order.  The
+    kernel contracts some products into FMAs where this rounds twice."""
+    rows, d = x.shape
+    vec = 16 // x.element_size()
+    w, tpr = plan.warps_per_row, 32 * plan.warps_per_row
+    nv = -(-(d // vec) // tpr)
+    width = nv * tpr * vec
+
+    def own(a):
+        a = torch.nn.functional.pad(a, (0, width - d))
+        return a.reshape(a.shape[0], nv, w, 32, vec)
+
+    lane = torch.arange(32, device=x.device)
+
+    def team_sum(v):
+        s = torch.zeros(v.shape[0], w, 32, device=x.device)
+        for j in range(nv):
+            for e in range(vec):
+                s = s + v[:, j, :, :, e]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[..., lane ^ o]
+        out = s[:, 0, 0]
+        for q in range(1, w):
+            out = out + s[:, q, 0]
+        return out[:, None, None, None, None]
+
+    xs, dys = own(x.float()), own(dy.float())
+    gs = own(gamma.float()[None])
+    live = own(torch.ones(1, d, device=x.device)) > 0
+    mean = team_sum(xs) / d
+    xc = torch.where(live, xs - mean, 0.0)
+    rstd = torch.rsqrt(team_sum(xc * xc) / d + eps)
+    xhat = xc * rstd
+    wdy = dys * gs
+    c1, c2 = team_sum(wdy) / d, team_sum(wdy * xhat) / d
+    dx = (rstd * (wdy - c1 - xhat * c2)).reshape(rows, width)[:, :d]
+
+    terms = torch.stack([(dys * xhat).reshape(rows, width)[:, :d],
+                         dys.reshape(rows, width)[:, :d]], 1)
+    terms = torch.cat([terms, terms.new_zeros(1, 2, d)])   # row -1: none
+    order = _ln_bwd_teams(plan, rows).to(x.device)
+    acc = terms.new_zeros(order.shape[0], 2, d)
+    for i in range(order.shape[1]):
+        acc = acc + terms[order[:, i]]
+    acc = acc.reshape(plan.blocks, -1, 2, d)
+    part = acc[:, 0]
+    for q in range(1, acc.shape[1]):
+        part = part + acc[:, q]
+    part = torch.cat([part, part.new_zeros(
+        plan.groups * plan.group - plan.blocks, 2, d)])
+    part = part.reshape(plan.groups, plan.group, 2, d)
+    grow = part[:, 0]
+    for b in range(1, plan.group):
+        grow = grow + part[:, b]
+    out = grow[0]
+    for g in range(1, plan.groups):
+        out = out + grow[g]
+    return dx.to(x.dtype), out[0], out[1]
+
+
+def _bwd_work(device, stream, plan, d):
+    """K5's workspace on (device, stream) for `plan` at width d: (f32
+    partial and group rows, int32 tickets)."""
+    floats, tickets = (plan.blocks + plan.groups) * 2 * d, plan.groups + 1
+    held = _BWD_WORK.setdefault((device.index, stream.value), [])
+    if not held or held[-1][0].numel() < floats \
+            or held[-1][1].numel() < tickets:
+        if held:
+            floats = max(floats, 2 * held[-1][0].numel())
+            tickets = max(tickets, 2 * held[-1][1].numel())
+        held.append((torch.empty(floats, dtype=torch.float32, device=device),
+                     torch.zeros(tickets, dtype=torch.int32, device=device)))
+    return held[-1]
+
+
+def ln_bwd_occupancy(dtype, vecs_per_thread, smem):
+    """Blocks of 8 warps per SM that K5's kernel for (dtype,
+    vecs_per_thread) keeps resident with `smem` bytes of dynamic shared
+    memory, on the current device."""
+    lib = backend.load("layer_norm_bwd", _BWD_SIGS)
+    out = ctypes.c_int(0)
+    backend.check(lib.pt_layer_norm_bwd_occupancy(
+        _DTYPE_CODES[dtype], vecs_per_thread, smem, ctypes.byref(out)),
+        "layer_norm backward occupancy")
+    return out.value
+
+
+def _launch_bwd(x, gamma, dy, eps, out_dtype=torch.float32, plan=None):
+    """K5 on the card: (dx in x.dtype, dgamma, dbeta in `out_dtype`), one
+    launch.  `plan` overrides `ln_bwd_plan`'s (the chip run's sweep)."""
     _check_contiguous((x, gamma, dy))
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"fused_layer_norm backward: dy {tuple(dy.shape)} "
                          f"{dy.dtype} does not match x {tuple(x.shape)} "
                          f"{x.dtype}")
-    triton, _, kernel = _kernel()
+    if gamma.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_layer_norm backward: gamma {gamma.dtype} and "
+                        f"the grads' {out_dtype} must be float32/bfloat16")
+    if any(t.data_ptr() % 16 for t in (x, gamma, dy)):
+        raise ValueError("fused_layer_norm backward: the kernel needs "
+                         "16-byte aligned x, gamma and dy")
     rows, d = x.shape
+    if plan is None:
+        plan = ln_bwd_plan(rows, d, x.dtype, backend.sm_count(x.device))
     dx = torch.empty_like(x)
-    per_program = _bwd_rows(rows)
-    programs = triton.cdiv(rows, per_program)
-    dg = torch.empty((programs, d), dtype=torch.float32, device=x.device)
-    db = torch.empty_like(dg)
-    block = triton.next_power_of_2(d)
+    dg = torch.empty(d, dtype=out_dtype, device=x.device)
+    db = torch.empty(d, dtype=out_dtype, device=x.device)
+    lib = backend.load("layer_norm_bwd", _BWD_SIGS)
     with torch.cuda.device(x.device):
-        kernel[(programs,)](x, gamma, dy, dx, dg, db, rows, d, float(eps),
-                            ROWS=per_program, BLOCK=block,
-                            num_warps=4 if block <= 1024 else 8)
+        stream = backend.stream_handle(x.device)
+        ws, tickets = _bwd_work(x.device, stream, plan, d)
+        status = lib.pt_layer_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dg.data_ptr(), db.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            rows, d, float(eps), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[gamma.dtype], _DTYPE_CODES[out_dtype],
+            plan.vecs_per_thread, plan.warps_per_row, plan.blocks,
+            plan.group, stream)
+    backend.check(status, "layer_norm backward")
     backend.LAUNCHES["layer_norm_bwd"] += 1
-    return dx, dg.sum(dim=0), db.sum(dim=0)
+    return dx, dg, db
 
 
 def _fwd(x, gamma, beta, eps):
@@ -241,9 +385,8 @@ class _LayerNorm(torch.autograd.Function):
         dy = dy.contiguous()
         if x.device.type == "cpu":
             dx, dg, db = layer_norm_bwd_ref(x, gamma, dy, ctx.eps)
-        else:
-            dx, dg, db = _launch_bwd(x, gamma, dy, ctx.eps)
-        return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
+            return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
+        return (*_launch_bwd(x, gamma, dy, ctx.eps, gamma.dtype), None)
 
 
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
