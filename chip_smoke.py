@@ -18,7 +18,8 @@ Phases (any failure makes the script exit non-zero without a result):
    ones not spilling; K7's and K6's printed as read.
 2. Kernels: hold K1 (flash-attention forward, CUDA), K2/K3 (its
    backward, CUDA), K4 (LayerNorm forward, Triton), K5 (its backward,
-   CUDA; `layer_norm_bwd_checks`: K5_SHAPES and K5_MORE_SHAPES, the
+   CUDA; K4 at K4_SHAPES and K4_MORE_SHAPES, K5 in
+   `layer_norm_bwd_checks`: K5_SHAPES and K5_MORE_SHAPES, the
    plan model, bitwise repeats, a NaN's footprint, a team-size sweep,
    occupancy), K6
    (flash decode, CUDA), K7 (the fused ResNet bottleneck block), K8
@@ -161,7 +162,25 @@ Phases (any failure makes the script exit non-zero without a result):
    just before and read just after; every kernel must have launched.  A
    torch.profiler window over 16 decode steps then says where a step's
    time goes, K6's device ms per step among it.
-7. Checks in float32: the train geometry at full width and depth 2
+7. Static-graph path: the static zoo's GPT at BERT-base widths
+   (`static_zoo.build_gpt(t=512, d=768, heads=12, vocab=32768)`, one
+   transformer layer, float32: the static path has no AMP yet) through
+   `Executor.run` on the card: its startup, one warm-up and 5 timed Adam
+   steps at batch 8, ids and targets uniform over the vocab
+   (`static_feed`).  Printed: host ms per step, device
+   ms per step and the top kernels (torch.profiler over 2 steps),
+   kernels and Executor ops per step, peak memory.  Fails unless every
+   loss is finite and each step launches exactly K4 and K5 twice (its
+   two layer_norm ops).  Then card against CPU in float32 (`static_check`):
+   3 steps of mlp, lenet, resnet, bert, gpt and word2vec at zoo size
+   (batch 8) and of `build_gpt(t=128, d=768, heads=12, vocab=1024)` at
+   batch 2 (K4/K5 on the card, their plain versions on the CPU), from
+   the same startup values; fetches within 1e-4 relative at the first
+   step and 1e-3 after, persistables per tensor in norm, and each
+   persistable's update within 0.1 of the CPU's in norm (an Adam
+   parameter's element by element, where only elements whose gradient
+   lies near 0 on the measured card-vs-CPU difference may be off).
+8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
    first step's grads and the params must agree.  A shallow NHWC
@@ -191,13 +210,16 @@ phase 6 (host and device ms per step, K6's share); `stem`, K9 forward
 and backward at the stem (bf16 batch 128) with the backward's plan;
 `dgc`, the DGC step with K10 of phase 5 (host ms, device ms and K10's
 share per step), K10 at the largest tensor and over the step's 161
-tensors: two versions compared in turns on one card.
+tensors; `static`, the static GPT step of phase 7 (host and device ms
+per step, kernels per step; trees that have the static path): two
+versions compared in turns on one card.
 
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
-the GPT train, the two fused ResNet runs, the serving paths and the
-probe tool's runs, K10's over the DGC run with K10, P1's and P2's over
-the probe tool's), the card line and {"ok": true, "device": {...}}.
+the GPT train, the two fused ResNet runs, the serving paths, the
+static GPT's 5 timed steps and the probe tool's runs, K10's over the DGC
+run with K10, P1's and P2's over the probe tool's), the card line and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -538,11 +560,16 @@ def kernel_phase(failures):
                     shape=f"q,k,v {list(shape)} causal bf16 (train step)")
 
     # K4 ------------------------------------------------------------------
+    gen4 = torch.Generator(device="cuda").manual_seed(4)
+
+    def own4(shape, dt):
+        return torch.randn(shape, generator=gen4, device="cuda").to(dt)
+
     for dt in (torch.bfloat16, torch.float32):
-        for n_rows, d in ((24576, 768), (1024, 768), (512, 768), (8, 768),
-                          (300, 1024)):
-            x = rnd((n_rows, d), dt)
-            g, bta = rnd((d,), dt), rnd((d,), dt)
+        for n_rows, d in K4_SHAPES + K4_MORE_SHAPES:
+            draw = rnd if (n_rows, d) in K4_SHAPES else own4
+            x = draw((n_rows, d), dt)
+            g, bta = draw((d,), dt), draw((d,), dt)
             y = LN.fused_layer_norm(x, g, bta)
             ref = LN.layer_norm_ref(x, g, bta)
             tag = f"K4 [{n_rows}, {d}] {dname(dt)}"
@@ -572,6 +599,14 @@ def kernel_phase(failures):
     fused_bottleneck_down_checks(rows, failures, rnd)
     stem_tail_checks(rows, failures, rnd)
     return rows
+
+
+# K4's checks: (rows, D).  K4_SHAPES draw from the kernel phase's
+# generator in the order earlier versions of this script drew them, so
+# the checks after them keep their inputs; K4_MORE_SHAPES draw from a
+# generator of their own: [4096, 768], the static GPT's LayerNorm rows
+K4_SHAPES = ((24576, 768), (1024, 768), (512, 768), (8, 768), (300, 1024))
+K4_MORE_SHAPES = ((4096, 768),)
 
 
 # K6's timed cases: (batch, heads, head dim, cache depth T, lengths,
@@ -925,10 +960,11 @@ def flash_precision(failures):
 # their inputs; K5_MORE_SHAPES draw from a generator of their own: D 128
 # (half a warp idle in bf16); D 4096 (4 or 8 warps per row); rows 1, 7 and
 # 5, fewer than a block's 8 warps; 6272 and 8320 (the wide kernel in f32,
-# both; 8 warps per row in bf16 at 6272)
+# both; 8 warps per row in bf16 at 6272); 4096 x 768, the static GPT's
+# LayerNorm rows
 K5_SHAPES = ((24576, 768), (1024, 768), (512, 768), (8, 768), (300, 1024))
 K5_MORE_SHAPES = ((4096, 128), (1024, 4096), (1, 768), (7, 768), (5, 768),
-                  (64, 6272), (64, 8320))
+                  (64, 6272), (64, 8320), (4096, 768))
 
 
 def ln_plan_text(plan):
@@ -2382,7 +2418,7 @@ def train_run(failures):
         init_train_state, make_train_step,
     )
     from paddle_tpu_torch.nn import make_generator
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.functional import AdamW
 
     cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=12,
                     num_heads=12, max_seq_len=512, dtype="bfloat16")
@@ -2452,30 +2488,34 @@ def train_run(failures):
     return dict(launches=launches, step_ms=mean_ms, profile=prof)
 
 
-def profile_train_step(step, state, batch, host_ms, label="train"):
+def profile_train_step(step, state, batch, host_ms, label="train", steps=1):
     """Where a train step's time goes: device time per step and the
-    busiest kernels (torch.profiler, kernel events only), against the
-    step's host-clock time measured without the profiler.  Returns
-    {"device": ms, family: ms} (KERNEL_FAMILIES found in the step)."""
+    busiest kernels (torch.profiler over `steps` steps, kernel events
+    only), against the step's host-clock time measured without the
+    profiler.  Returns {"device": ms, "kernels": launches, family: ms}
+    per step (KERNEL_FAMILIES found in the window) and "ln_bwd", the
+    kernels of each LayerNorm backward in the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, *batch)
+        for _ in range(steps):
+            step(state, *batch)
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count, e.key)
+    rows = [(e.self_device_time_total / steps,
+             e.count / steps if steps > 1 else e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_ms = sum(r[0] for r in rows) / 1e3
-    log(f"{label} step profile: host {host_ms:.3f} ms/step (mean, no "
-        f"profiler), device {device_ms:.3f} ms/step, device busy "
-        f"{device_ms / host_ms:.1%}; {sum(r[1] for r in rows)} kernel "
-        f"launches")
+    log(f"{label} step profile ({steps} step{'s' * (steps > 1)}): host "
+        f"{host_ms:.3f} ms/step (mean, no profiler), device "
+        f"{device_ms:.3f} ms/step, device busy {device_ms / host_ms:.1%}; "
+        f"{sum(r[1] for r in rows):g} kernel launches per step")
     for us, count, key in sorted(rows, reverse=True)[:14]:
         log(f"  {us / 1e3:9.4f} ms  {us / device_ms / 10:5.1f}%  "
-            f"{count:5d}x  {key[:90]}")
+            f"{count:7g}x  {key[:90]}")
     shares = []
     found = {"device": device_ms, "kernels": sum(r[1] for r in rows),
              "ln_bwd": ln_backward_kernels(prof)}
@@ -2560,7 +2600,7 @@ def resnet_run(mode, failures, steps=5, batch=128):
     )
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.nn import make_generator
-    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.functional import Momentum
 
     fused = mode != "unfused"
     label = f"resnet {mode}"
@@ -2677,7 +2717,7 @@ def dgc_run(mode, failures, steps=3, batch=128):
     from paddle_tpu_torch.models.resnet import resnet50
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.nn import make_generator
-    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.functional import Momentum
 
     label = f"dgc {mode}"
     model = resnet50(dtype="bfloat16", data_format="NHWC",
@@ -3337,7 +3377,7 @@ def train_check(failures, steps=3, lr=1e-4):
         init_train_state, make_train_step,
     )
     from paddle_tpu_torch.nn import load_param_dict, make_generator
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.functional import AdamW
 
     cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=2,
                     num_heads=12, max_seq_len=512)
@@ -3443,7 +3483,7 @@ def resnet_check(failures, steps=2, lr=1e-5):
         functional as F, functional_call_with_state, load_param_dict,
         make_generator,
     )
-    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.functional import Momentum
 
     os.environ["PADDLE_TPU_FUSED_SUBSET"] = ""
     loss_fn = lambda m, a, b: F.cross_entropy(m(a), b).mean()
@@ -3530,6 +3570,297 @@ def resnet_check(failures, steps=2, lr=1e-5):
         failures.append(f"resnet check buffers differ: {buf_err:.3e}")
     del runs, card, cpu
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the static-graph path (Program -> Executor -> static zoo)
+# ---------------------------------------------------------------------------
+
+STATIC_GPT = dict(t=512, d=768, heads=12, vocab=32768)   # bench.py:169-174
+STATIC_LAUNCHES = {"layer_norm_fwd": 2, "layer_norm_bwd": 2}   # per step
+# the card-vs-CPU families: name -> (builder kwargs, batch, lr, Adam?)
+STATIC_FAMILIES = (
+    ("mlp", {}, 8, 0.01, False),
+    ("lenet", {}, 8, 1e-3, True),
+    ("resnet", {}, 8, 0.01, False),
+    ("bert", {}, 8, 1e-3, True),
+    ("gpt", {}, 8, 1e-3, True),
+    ("word2vec", {}, 8, 0.05, False),
+    ("gpt", dict(t=128, d=768, heads=12, vocab=1024), 2, 1e-3, True),
+)
+
+
+STATIC_UPDATE_RTOL = 0.1
+# the attention's key bias in the bert and gpt builders, and its moments:
+# softmax(q.(k + b)) does not depend on b
+STATIC_ZERO_GRAD = ("fc_1.b_0", "fc_1.b_0_adam_0_moment1",
+                    "fc_1.b_0_adam_0_moment2")
+
+
+ADAM_NEAR = 100.0
+# at most this share of the Adam parameters' elements with a gradient
+# may be near zero: a wrong gradient, or a trajectory gone astray, makes
+# every element "near" (its difference as large as the gradient itself)
+ADAM_NEAR_SHARE = 0.25
+
+
+def near_zero_grad(g_card, g_cpu):
+    """Where the CPU's gradient lies within ADAM_NEAR times the two
+    devices' difference of 0 (and the two differ): Adam's update there
+    may take either sign."""
+    g_card = np.asarray(g_card, np.float64)
+    g_cpu = np.asarray(g_cpu, np.float64)
+    diff = np.abs(g_card - g_cpu)
+    return (diff > 0) & (np.abs(g_cpu) <= ADAM_NEAR * diff)
+
+
+def adam_update_check(card, cpu, start, near, lr_steps):
+    """An Adam parameter's update (its value less `start`) on the card
+    against the CPU's, element by element, except where `near` (a
+    near-zero gradient at some step):
+    |d_card - d_cpu| <= STATIC_UPDATE_RTOL |d_cpu| + 0.01 lr_steps.  Returns (worst ratio to that bound
+    off `near`, elements over it, elements over it off `near`)."""
+    d_cpu = cpu.astype(np.float64) - start
+    d_card = card.astype(np.float64) - start
+    ratio = np.abs(d_card - d_cpu) / (STATIC_UPDATE_RTOL * np.abs(d_cpu)
+                                      + 0.01 * lr_steps)
+    over = ratio > 1.0
+    rest = ratio[~near]
+    return (float(rest.max()) if rest.size else 0.0, int(over.sum()),
+            int((over & ~near).sum()))
+
+
+def static_feed(m, vocab, batch, seed):
+    """A feed for the static GPT `m`: ids and targets uniform over
+    [0, vocab), from a numpy generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    return {name: rng.integers(0, vocab, shape).astype(np.int64)
+            for name, shape in m.smoke_feed_shapes(batch).items()}
+
+
+def static_run(failures, steps=5):
+    """The static GPT at BERT-base widths (`static_zoo.build_gpt(512, 768,
+    12, 32768)`, one transformer layer, float32) through `Executor.run`
+    on the card: startup, one warm-up and `steps` timed Adam steps at
+    batch 8 on `static_feed` (ids and targets uniform over the vocab;
+    `smoke_feed` draws them from {0, 1}, traffic no user sends: its
+    embedding backward scatters every row onto two).  Fails unless every
+    loss is finite and each
+    step launches exactly K4 and K5 twice (its two layer_norm ops) and no
+    other kernel of the port.  Returns {launches, host_ms, profile, ops,
+    peak}."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if n in {v.name for v in m.main.all_parameters()})
+    feed = static_feed(m, STATIC_GPT["vocab"], batch=8, seed=0)
+    ops = len(exe._live_ops(m.main, m.fetches))
+    log(f"static: gpt {STATIC_GPT} f32 through Executor.run, batch 8, "
+        f"{n_params} parameters, {ops} ops per step "
+        f"({sum(op.type == 'adam' for op in m.main.global_block().ops)} "
+        f"Adam updates)")
+
+    def run():
+        return exe.run(m.main, feed=feed, fetch_list=m.fetches,
+                       scope=scope)[0]
+
+    t0 = time.perf_counter()
+    losses = [float(run())]
+    log(f"static warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"loss {losses[0]:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms = []
+    for i in range(steps):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(run()))          # the fetch waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
+        made = {n: c for n, c in made.items() if c}
+        if made != STATIC_LAUNCHES:
+            failures.append(f"static step {i} launches {made} != "
+                            f"{STATIC_LAUNCHES}")
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = sum(step_ms) / steps
+    log(f"static: {steps} steps, step ms {[round(t, 3) for t in step_ms]}, "
+        f"mean {host_ms:.3f} ms (host clock, fetch included), min "
+        f"{min(step_ms):.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB")
+    log(f"static losses {losses}")
+    log(f"static path launches ({steps} steps): {launches}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"static losses not finite: {losses}")
+    prof = profile_train_step(lambda _: run(), None, (), host_ms,
+                              label="static", steps=2)
+    log(f"static step: {prof['kernels']:.1f} kernels and {ops} Executor "
+        f"ops per step; {len(prof['ln_bwd']) / 2:.1f} LayerNorm backwards "
+        f"per step, kernels each {sorted({len(k) for k in prof['ln_bwd']})}")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, host_ms=host_ms, profile=prof, ops=ops,
+                peak=peak)
+
+
+def static_check(failures, steps=3):
+    """Card against CPU, float32, `steps` steps of each STATIC_FAMILIES
+    entry from the same startup values (run on the CPU and copied to the
+    card with `interop.scope_from_numpy`); the D-768 GPT runs K4/K5 on
+    the card and their plain versions on the CPU.  Fetches: the first
+    step within 1e-4 relative, later ones 1e-3; persistables per tensor
+    in norm, ||card - CPU|| <= 1e-3 ||CPU|| + atol sqrt(n), atol 1e-5
+    (SGD, Momentum) or 2 lr steps + 1e-5 (Adam, whose first updates are
+    about lr * sign(g): an element whose grad the two devices round to
+    opposite signs moves by up to 2 lr a step), as `train_check` holds
+    the dygraph GPT's params; and each persistable's update over the
+    steps (its value less the startup value) against the CPU's, in norm:
+    ||d_card - d_cpu|| <= 0.1 ||d_cpu||, 0 where the CPU's is 0, which
+    the bound above, twice a whole Adam update, cannot see.
+
+    An Adam parameter is held element by element instead (see
+    `adam_update_check`), since Adam's update jumps at a zero gradient:
+    which near-zero grads the card rounds to the other sign varies
+    between runs (on an H100, lenet's first conv, 150 elements, read
+    0.018 and 0.80 of the norm rule in two runs, and 2 elements off in a
+    third).  Each step fetches every Adam parameter's `@GRAD` on both
+    devices; an element is near zero if at some step the CPU's gradient
+    lies within ADAM_NEAR times the two devices' difference of 0, and at
+    most ADAM_NEAR_SHARE of the elements with a gradient may be.  Every
+    other element's update must agree, |d_card - d_cpu| <= 0.1 |d_cpu| +
+    0.01 lr steps, so a parameter left without its update, or updated
+    wrongly, fails; the moments, continuous in the gradients, keep the
+    norm rule, which holds the gradients themselves.  The update checks
+    skip the attention's key bias and its moments (STATIC_ZERO_GRAD):
+    its gradient is 0 in exact arithmetic, and each device's rounding
+    noise gets an Adam update of its own."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    for name, kw, batch, lr, adam in STATIC_FAMILIES:
+        m = static_zoo.BUILDERS[name](**kw)
+        cpu_exe = fluid.Executor(fluid.CPUPlace())
+        cpu_scope = fluid.Scope()
+        cpu_exe.run(m.startup, scope=cpu_scope)
+        card_exe = fluid.Executor()
+        start = interop.scope_to_numpy(cpu_scope)
+        card_scope = interop.scope_from_numpy(start, fluid.Scope(), "cuda")
+        params = {v.name for v in m.main.all_parameters()}
+        held = sorted(params - set(STATIC_ZERO_GRAD)) if adam else []
+        grads = [n + "@GRAD" for n in held]
+        near = {n: np.zeros(start[n].shape, bool) for n in held}
+        live = {n: np.zeros(start[n].shape, bool) for n in held}
+        fetch_err = []
+        backend.reset_launches()
+        for i in range(steps):
+            feed = m.smoke_feed(batch=batch, seed=i)
+            got = card_exe.run(m.main, feed=feed,
+                               fetch_list=m.fetches + grads, scope=card_scope)
+            want = cpu_exe.run(m.main, feed=feed,
+                               fetch_list=m.fetches + grads, scope=cpu_scope)
+            k = len(m.fetches)
+            err = max(float(np.abs(g - w).max()
+                            / max(np.abs(w).max(), 1e-6))
+                      for g, w in zip(got[:k], want[:k]))
+            fetch_err.append(err)
+            if not err <= (1e-4 if i == 0 else 1e-3):
+                failures.append(f"static check {name} {kw} step {i}: "
+                                f"fetches differ by {err:.3e} relative")
+            for n, g, w in zip(held, got[k:], want[k:]):
+                near[n] |= near_zero_grad(g, w)
+                live[n] |= (g != 0) | (w != 0)
+        # the D-768 GPT's two layer_norm ops take K4/K5 on the card; the
+        # zoo-size families (D 32) take the eager composition
+        d = kw.get("d")
+        want = ({n: 2 * steps for n in STATIC_LAUNCHES}
+                if d is not None and d % 128 == 0 else {})
+        if dict(backend.LAUNCHES) != want:
+            failures.append(f"static check {name} {kw}: launches "
+                            f"{dict(backend.LAUNCHES)} != {want}")
+        atol = (2 * lr * steps if adam else 0.0) + 1e-5
+        card = interop.scope_to_numpy(card_scope)
+        cpu = interop.scope_to_numpy(cpu_scope)
+        worst, worst_name = 0.0, None
+        for n, w in cpu.items():
+            d = float(np.linalg.norm((card[n] - w).ravel().astype(np.float64)))
+            bound = (1e-3 * float(np.linalg.norm(w.ravel().astype(np.float64)))
+                     + atol * np.sqrt(w.size))
+            if d / bound > worst:
+                worst, worst_name = d / bound, n
+        upd, upd_name = 0.0, None
+        for n, w in cpu.items():
+            if n in STATIC_ZERO_GRAD or n in near or n not in card:
+                continue
+            d_cpu = (w.astype(np.float64) - start[n]).ravel()
+            d_card = (card[n].astype(np.float64) - start[n]).ravel()
+            off = float(np.linalg.norm(d_card - d_cpu))
+            ref = STATIC_UPDATE_RTOL * float(np.linalg.norm(d_cpu))
+            r = off / ref if ref else (0.0 if off == 0 else np.inf)
+            if r > upd:
+                upd, upd_name = r, n
+        elem, elem_name, n_near, n_off, n_bad = 0.0, None, 0, 0, 0
+        n_live = sum(int(v.sum()) for v in live.values())
+        for n in held:
+            r, off, bad = adam_update_check(card[n], cpu[n], start[n],
+                                            near[n], lr * steps)
+            n_near += int(near[n].sum())
+            n_off += off
+            n_bad += bad
+            if r > elem:
+                elem, elem_name = r, n
+        log(f"f32 static check {name} {kw or ''} batch {batch}, {steps} "
+            f"steps, card vs CPU: fetch rel err per step "
+            f"{[f'{e:.2e}' for e in fetch_err]}; {len(cpu)} persistables, "
+            f"worst ||d|| / bound {worst:.3e} ({worst_name}; atol "
+            f"{atol:.1e}); worst update ||d_card - d_cpu|| / (0.1 "
+            f"||d_cpu||) {upd:.3e} ({upd_name}); Adam parameters: "
+            f"{n_near} of {n_live} elements with a gradient near zero, "
+            f"{n_off} updates off by > "
+            f"their bound, {n_bad} of them not near zero, worst other "
+            f"element / bound {elem:.3e} ({elem_name}); launches "
+            f"{dict(backend.LAUNCHES)}")
+        if not upd <= 1.0:
+            failures.append(f"static check {name} {kw}: update of "
+                            f"{upd_name} off by {upd:.3e} of its bound")
+        if n_bad or not elem <= 1.0:
+            failures.append(f"static check {name} {kw}: {n_bad} Adam "
+                            f"parameter elements with a gradient away from "
+                            f"0 updated off their bound (worst {elem:.3e}, "
+                            f"{elem_name})")
+        if n_near > ADAM_NEAR_SHARE * n_live:
+            failures.append(f"static check {name} {kw}: {n_near} of "
+                            f"{n_live} Adam parameter elements with a "
+                            f"gradient near zero, more than "
+                            f"{ADAM_NEAR_SHARE}")
+        if set(card) != set(cpu):
+            failures.append(f"static check {name}: persistables differ "
+                            f"{sorted(set(card) ^ set(cpu))}")
+        if not worst <= 1.0:
+            failures.append(f"static check {name} {kw}: persistable "
+                            f"{worst_name} off by {worst:.3e} of its bound")
+        del card_scope, cpu_scope
+    torch.cuda.empty_cache()
+
+
+def static_phase(failures):
+    """Phase 7: the static GPT's run (`static_run`), then the card-vs-CPU
+    checks of the static families (`static_check`).  Returns the launches
+    of the timed steps."""
+    out = static_run(failures)
+    static_check(failures)
+    return out["launches"]
 
 
 def check_phase(failures):
@@ -3628,7 +3959,7 @@ def timed_text(timed):
 
 
 COMPARE_PARTS = ("k7", "train", "ln", "resnet", "probes", "decode", "stem",
-                 "dgc")
+                 "dgc", "static")
 
 
 def decode_prefill(model, prompts):
@@ -3724,6 +4055,11 @@ def compare_one(tree, parts=COMPARE_PARTS):
         stem_compare(tree, rnd)
     if "dgc" in parts:
         dgc_compare(tree, failures)
+    if "static" in parts:
+        o = static_run(failures)
+        log(f"compare {tree} static: step {o['host_ms']:.3f} ms (host, "
+            f"mean of 5), device {o['profile']['device']:.3f} ms per step, "
+            f"{o['profile']['kernels']:.1f} kernels per step")
     for f in failures:
         log(f"compare {tree} FAIL: {f}")
     return 1 if failures else 0
@@ -3848,7 +4184,8 @@ def main():
               ("probes", probes_phase),
               ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
-              ("path", path_phase), ("checks", check_phase))
+              ("path", path_phase), ("static", static_phase),
+              ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -3876,10 +4213,11 @@ def main():
         row = dict(rows[key])
         # launches on the main paths: the 5 timed GPT train steps, the 5
         # timed steps of each fused ResNet-50 run (full and `id`), the
-        # serving run (generate + engine) and the probe tool's runs (K4,
-        # K7 and K9 forward)
+        # serving run (generate + engine), the 5 timed static GPT steps
+        # (K4, K5) and the probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
-                              for p in ("train", "resnet", "path")) \
+                              for p in ("train", "resnet", "path",
+                                        "static")) \
             + results["probes"]["tool"].get(key, 0)
         kernels.append(row)
     # K10: the 3 timed DGC steps of ResNet-50 with the flag on

@@ -93,3 +93,8 @@ declare_flag("use_pallas_dgc_topk", False,
              "Route DGC top-k gradient selection through the histogram "
              "threshold kernel K10 (kernels/topk_threshold.py) instead of "
              "torch.topk (approximate: keeps >= k elements).")
+
+# Static-graph executor (framework/executor.py).
+declare_flag("global_seed", 0,
+             "Seed of the Executor's generator, which the random init ops "
+             "(uniform_random) and dropout draw from.")

@@ -8,7 +8,10 @@ model, which is how the tests give both packages the same weights;
 `load_jax_buffer_dict` does the same for mutable buffers (batch-norm
 running stats) and `train_state_from_jax` carries a whole train state
 (params, buffers, optimizer state, step) across, so both packages can go
-on from the same point of a run.
+on from the same point of a run.  `scope_from_numpy` and `scope_to_numpy`
+do the same for a static-graph Scope: the tests run the JAX package's
+startup program, read its scope as numpy and seed the port's scope with
+it (the port's `uniform_random` never draws JAX's bits).
 """
 
 import numpy as np
@@ -37,6 +40,32 @@ def params_from_numpy(np_params, device=None, dtype=None):
     dt = None if dtype is None else to_torch_dtype(dtype)
     return {n: _to_tensor(a).to(device=dev, dtype=dt)
             for n, a in np_params.items()}
+
+
+def scope_from_numpy(np_dict, scope, device=None):
+    """Set each {name: np.ndarray} entry in the static-graph `scope` as a
+    tensor on `device` (default `cuda`), in the device dtype of the
+    array's (64-bit narrowed, as the Executor's feeds); returns the
+    scope."""
+    dev = resolve_device(device)
+    for n, a in np_dict.items():
+        t = _to_tensor(a)
+        scope.set_var(n, t.to(device=dev, dtype=to_torch_dtype(t.dtype)))
+    return scope
+
+
+def scope_to_numpy(scope):
+    """{name: np.ndarray} of every value in the static-graph `scope`
+    (bfloat16 widened to float32, which is exact)."""
+    out = {}
+    for n, v in scope.vars.items():
+        if v is None:
+            continue
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        out[n] = v.cpu().numpy()
+    return out
 
 
 def load_jax_param_dict(model, np_params):

@@ -1,0 +1,287 @@
+"""Static-graph model zoo (port of paddle_tpu/models/static_zoo.py).
+
+The bundled model families built through the public `fluid.layers`
+Program-recording API, as in the reference: each builder returns a
+:class:`StaticModel` with the main and startup programs, the feed specs
+(name, shape, dtype) a smoke batch needs, and the fetch targets a
+training step asks for.  The builders are hermetic (their own
+unique_name guard and programs), so a port builder and the reference's
+build byte-identical `Program.to_json()`.
+
+Ported: mlp, lenet, resnet, bert, gpt and word2vec (whose ops are a
+subset of bert's and mlp's).  seq2seq and wide_deep need op types not
+ported yet and raise (ROADMAP item 3); the default partition rules wait
+for the sharding tier (item 8).
+"""
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import layers as L
+
+
+class StaticModel:
+    """One built static-graph model: programs + feed/fetch contract."""
+
+    def __init__(self, name, main, startup, feeds, fetches,
+                 loss_name=None):
+        self.name = name
+        self.main = main
+        self.startup = startup
+        self.feeds = list(feeds)          # [(name, shape, dtype)]
+        self.fetches = list(fetches)      # fetch var names
+        self.loss_name = loss_name
+
+    @property
+    def sharding_rules(self):
+        raise NotImplementedError(
+            "the static zoo's default partition rules come with the "
+            "sharding tier (ROADMAP item 8)")
+
+    def partition_rules(self):
+        raise NotImplementedError(
+            "the static zoo's default partition rules come with the "
+            "sharding tier (ROADMAP item 8)")
+
+    def smoke_feed_shapes(self, batch=8):
+        """Concrete feed shapes for one smoke batch."""
+        return {name: tuple(batch if d is None else d for d in shape)
+                for name, shape, _ in self.feeds}
+
+    def op_types(self):
+        """Every op type the model's programs emit (main + startup,
+        all blocks)."""
+        types = set()
+        for prog in (self.main, self.startup):
+            for b in prog.blocks:
+                types.update(op.type for op in b.ops)
+        return types
+
+    def smoke_feed(self, batch=8, seed=0):
+        """A well-shaped random feed dict for one smoke step (numpy, the
+        reference's draws)."""
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        feed = {}
+        for name, shape, dtype in self.feeds:
+            shape = tuple(batch if d is None else d for d in shape)
+            if dtype.startswith("int"):
+                feed[name] = rng.integers(0, 2, shape).astype(dtype)
+            else:
+                feed[name] = rng.standard_normal(shape).astype(dtype)
+        return feed
+
+
+def _train_tail(loss, optimizer):
+    optimizer.minimize(loss)
+    return loss
+
+
+def build_mlp():
+    """fit-a-line style regressor: fc stack + mse (models/mlp.py's
+    static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            x = fluid.data("x", [None, 13])
+            y = fluid.data("y", [None, 1])
+            h = L.fc(x, 32, act="relu")
+            pred = L.fc(h, 1)
+            loss = L.mean(L.square_error_cost(pred, y))
+            _train_tail(loss, fluid.optimizer.SGD(0.01))
+    return StaticModel("mlp", main, startup,
+                       [("x", (None, 13), "float32"),
+                        ("y", (None, 1), "float32")],
+                       [loss.name], loss_name=loss.name)
+
+
+def build_lenet():
+    """recognize-digits convnet: conv/pool x2 + fc + softmax CE
+    (models/lenet.py's static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            img = fluid.data("img", [None, 1, 28, 28])
+            label = fluid.data("label", [None, 1], dtype="int64")
+            c1 = L.conv2d(img, 6, 5, act="relu")
+            p1 = L.pool2d(c1, 2, "max", 2)
+            c2 = L.conv2d(p1, 16, 5, act="relu")
+            p2 = L.pool2d(c2, 2, "max", 2)
+            pred = L.fc(L.flatten(p2), 10, act="softmax")
+            loss = L.mean(L.cross_entropy(pred, label))
+            acc = L.accuracy(pred, label)
+            _train_tail(loss, fluid.optimizer.Adam(1e-3))
+    return StaticModel("lenet", main, startup,
+                       [("img", (None, 1, 28, 28), "float32"),
+                        ("label", (None, 1), "int64")],
+                       [loss.name, acc.name], loss_name=loss.name)
+
+
+def _res_block(x, ch, stride=1):
+    c1 = L.conv2d(x, ch, 3, stride=stride, padding=1, bias_attr=False)
+    b1 = L.batch_norm(c1, act="relu")
+    c2 = L.conv2d(b1, ch, 3, padding=1, bias_attr=False)
+    b2 = L.batch_norm(c2)
+    if stride != 1 or int(x.shape[1]) != ch:
+        x = L.conv2d(x, ch, 1, stride=stride, bias_attr=False)
+        x = L.batch_norm(x)
+    return L.relu(L.elementwise_add(b2, x))
+
+
+def build_resnet():
+    """Small residual convnet (conv+BN blocks with skip adds, global
+    avg pool) — models/resnet.py's static twin at toy scale."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            img = fluid.data("img", [None, 3, 16, 16])
+            label = fluid.data("label", [None, 1], dtype="int64")
+            x = L.batch_norm(
+                L.conv2d(img, 8, 3, padding=1, bias_attr=False),
+                act="relu")
+            x = _res_block(x, 8)
+            x = _res_block(x, 16, stride=2)
+            x = L.pool2d(x, pool_type="avg", global_pooling=True)
+            pred = L.fc(L.flatten(x), 10, act="softmax")
+            loss = L.mean(L.cross_entropy(pred, label))
+            _train_tail(loss, fluid.optimizer.Momentum(0.01, 0.9))
+    return StaticModel("resnet", main, startup,
+                       [("img", (None, 3, 16, 16), "float32"),
+                        ("label", (None, 1), "int64")],
+                       [loss.name], loss_name=loss.name)
+
+
+def _attention(x, d, heads, t):
+    """Static multi-head self-attention over [B, T, D] via matmul +
+    softmax (the transformer core both bert/gpt builders share)."""
+    q = L.fc(x, d, num_flatten_dims=2)
+    k = L.fc(x, d, num_flatten_dims=2)
+    v = L.fc(x, d, num_flatten_dims=2)
+    hd = d // heads
+
+    def _split_heads(z):
+        z = L.reshape(z, shape=[-1, t, heads, hd])
+        return L.transpose(z, perm=[0, 2, 1, 3])
+
+    q, k, v = _split_heads(q), _split_heads(k), _split_heads(v)
+    scores = L.scale(L.matmul(q, k, transpose_y=True),
+                     scale=hd ** -0.5)
+    ctx = L.matmul(L.softmax(scores), v)
+    ctx = L.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = L.reshape(ctx, shape=[-1, t, d])
+    return L.fc(ctx, d, num_flatten_dims=2)
+
+
+def _transformer_layer(x, d, heads, t):
+    a = _attention(x, d, heads, t)
+    x = L.layer_norm(L.elementwise_add(x, a), begin_norm_axis=2)
+    f = L.fc(L.fc(x, d * 4, num_flatten_dims=2, act="gelu"), d,
+             num_flatten_dims=2)
+    return L.layer_norm(L.elementwise_add(x, f), begin_norm_axis=2)
+
+
+def build_bert(t=16, d=32, heads=4, vocab=128):
+    """Tiny BERT-style encoder: embedding + transformer layer + pooled
+    2-class head (models/bert.py's static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            ids = fluid.data("ids", [None, t], dtype="int64")
+            label = fluid.data("label", [None, 1], dtype="int64")
+            tok = L.embedding(ids, size=(vocab, d))
+            x = _transformer_layer(L.layer_norm(tok, begin_norm_axis=2),
+                                   d, heads, t)
+            # reduce_mean's layer leaves the declared shape unknown;
+            # the reshape re-pins it so the fc head can size its W
+            pooled = L.reshape(L.reduce_mean(x, dim=[1]),
+                               shape=[-1, d])
+            logits = L.fc(pooled, 2)
+            loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+            _train_tail(loss, fluid.optimizer.Adam(1e-3))
+    return StaticModel("bert", main, startup,
+                       [("ids", (None, t), "int64"),
+                        ("label", (None, 1), "int64")],
+                       [loss.name], loss_name=loss.name)
+
+
+def build_gpt(t=16, d=32, heads=4, vocab=128):
+    """Tiny GPT-style LM: embedding + transformer layer + tied-width
+    vocab head with per-token CE (models/gpt.py's static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            ids = fluid.data("ids", [None, t], dtype="int64")
+            targets = fluid.data("targets", [None, t, 1], dtype="int64")
+            x = L.embedding(ids, size=(vocab, d))
+            x = _transformer_layer(x, d, heads, t)
+            logits = L.fc(x, vocab, num_flatten_dims=2)
+            loss = L.mean(L.softmax_with_cross_entropy(logits, targets))
+            _train_tail(loss, fluid.optimizer.Adam(1e-3))
+    return StaticModel("gpt", main, startup,
+                       [("ids", (None, t), "int64"),
+                        ("targets", (None, t, 1), "int64")],
+                       [loss.name], loss_name=loss.name)
+
+
+def _not_ported(name, ops):
+    def build(*args, **kwargs):
+        raise NotImplementedError(
+            f"static_zoo.{name} needs the {ops} op(s), not ported to "
+            f"paddle_tpu_torch yet (ROADMAP item 3)")
+
+    build.__name__ = name
+    return build
+
+
+build_seq2seq = _not_ported("build_seq2seq", "concat and expand")
+build_wide_deep = _not_ported(
+    "build_wide_deep", "concat, sigmoid_cross_entropy_with_logits and "
+    "adagrad")
+
+
+def build_word2vec(window=4, vocab=120, d=16):
+    """CBOW word2vec: context embeddings mean-pooled to predict the
+    center word (models/word2vec.py's static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            ctx = fluid.data("context", [None, window], dtype="int64")
+            center = fluid.data("center", [None, 1], dtype="int64")
+            emb = L.embedding(ctx, size=(vocab, d))
+            pooled = L.reshape(L.reduce_mean(emb, dim=[1]),
+                               shape=[-1, d])
+            logits = L.fc(pooled, vocab)
+            loss = L.mean(L.softmax_with_cross_entropy(logits, center))
+            _train_tail(loss, fluid.optimizer.SGD(0.05))
+    return StaticModel("word2vec", main, startup,
+                       [("context", (None, window), "int64"),
+                        ("center", (None, 1), "int64")],
+                       [loss.name], loss_name=loss.name)
+
+
+BUILDERS = {
+    "mlp": build_mlp,
+    "lenet": build_lenet,
+    "resnet": build_resnet,
+    "bert": build_bert,
+    "gpt": build_gpt,
+    "seq2seq": build_seq2seq,
+    "wide_deep": build_wide_deep,
+    "word2vec": build_word2vec,
+}
+
+
+def build(name):
+    """Build one bundled static model by family name."""
+    try:
+        fn = BUILDERS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown static model '{name}'; available: "
+            f"{sorted(BUILDERS)}") from None
+    # called outside the except: a KeyError raised inside a builder
+    # surfaces as itself
+    return fn()
+
+
+def build_all():
+    return {name: fn() for name, fn in BUILDERS.items()}

@@ -1,3 +1,6 @@
-"""Op kernels (port of paddle_tpu/ops, the GPT slice)."""
+"""Op kernels (port of paddle_tpu/ops: the GPT, ResNet and static-zoo
+slices), each registered under its op type in `registry`."""
 
-from . import nn_ops, optimizer_ops  # noqa: F401
+from . import (  # noqa: F401
+    math_ops, nn_ops, optimizer_ops, registry, tensor_ops,
+)

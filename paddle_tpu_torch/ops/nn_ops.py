@@ -1,16 +1,21 @@
-"""Neural-network op kernels (port of the GPT and ResNet slices of
-paddle_tpu/ops/nn_ops.py: `softmax_with_cross_entropy` :161, `conv2d`
-:281, `pool2d` :422, `batch_norm` :488, `layer_norm` :556, `dropout`
-:655 and `lookup_table_v2` :677).
+"""Neural-network op kernels (port of the GPT, ResNet and static-zoo
+slices of paddle_tpu/ops/nn_ops.py: `relu` :32, `gelu` :42, `softmax`
+:129, `cross_entropy` :143, `softmax_with_cross_entropy` :161,
+`square_error_cost` :190, `conv2d` :281, `pool2d` :422, `batch_norm`
+:488, `layer_norm` :556, `dropout` :655, `lookup_table_v2` :677, `top_k`
+:711 and `accuracy` :737).
 
-The ops keep the reference's `(ins, attrs) -> outs` signature.  The
-reference's op registry is not ported; callers import the functions.
+The ops keep the reference's `(ins, attrs) -> outs` signature and are
+registered under their op types (`ops/registry.py`) for the static-graph
+Executor; the dygraph modules call the functions directly.
 """
 
 import torch
 import torch.nn.functional as TF
 
+from ..core.dtype import index_dtype
 from ..kernels.layer_norm import layer_norm_fused
+from .registry import register_op
 
 
 def _use_kernel(x):
@@ -309,3 +314,87 @@ def batch_norm(ins, attrs):
     y = x * a.reshape(bshape) + b.reshape(bshape)
     return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
             "SavedMean": saved_mean, "SavedVariance": saved_var}
+
+
+# ---------------------------------------------------------------------------
+# activations, softmax, losses and metrics of the static zoo
+# ---------------------------------------------------------------------------
+
+@register_op("relu")
+def relu(ins, attrs):
+    return {"Out": torch.relu(ins["X"])}
+
+
+@register_op("gelu")
+def gelu(ins, attrs):
+    """The erf form, or the tanh form when `approximate` (as
+    jax.nn.gelu)."""
+    approximate = "tanh" if attrs.get("approximate", False) else "none"
+    return {"Out": TF.gelu(ins["X"], approximate=approximate)}
+
+
+@register_op("softmax")
+def softmax(ins, attrs):
+    return {"Out": torch.softmax(ins["X"], dim=attrs.get("axis", -1))}
+
+
+@register_op("cross_entropy")
+def cross_entropy(ins, attrs):
+    """operators/cross_entropy_op.cc: X holds probabilities (after a
+    softmax); -log of the picked (hard label) or label-weighted (soft)
+    probability, floored at 1e-20, kept as a size-1 last axis;
+    ignore_index rows give 0."""
+    x, label = ins["X"], ins["Label"]
+    if attrs.get("soft_label", False):
+        out = -(label * torch.log(torch.clamp(x, min=1e-20))).sum(
+            dim=-1, keepdim=True)
+        return {"Y": out}
+    idx = label.long()
+    if idx.dim() == x.dim():
+        idx = idx.squeeze(-1)
+    skip = (idx == attrs.get("ignore_index", -100)).unsqueeze(-1)
+    picked = torch.gather(x, -1, torch.where(skip, 0, idx.unsqueeze(-1)))
+    logp = -torch.log(torch.clamp(picked, min=1e-20))
+    return {"Y": torch.where(skip, torch.zeros_like(logp), logp)}
+
+
+@register_op("square_error_cost")
+def square_error_cost(ins, attrs):
+    return {"Out": torch.square(ins["X"] - ins["Y"])}
+
+
+@register_op("top_k")
+def top_k(ins, attrs):
+    """The k largest along the last axis, sorted; indices in the
+    reference's (narrowed) index dtype."""
+    vals, idx = torch.topk(ins["X"], attrs.get("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx.to(index_dtype())}
+
+
+@register_op("accuracy")
+def accuracy(ins, attrs):
+    """operators/metrics/accuracy_op.cc: the share of rows whose label is
+    among their top-k `Indices`; Accuracy float32, Correct and Total
+    int32, each 0-d as in the reference."""
+    idx, label = ins["Indices"], ins["Label"]
+    if label.dim() < idx.dim():
+        label = label[..., None]
+    correct = (idx == label.to(idx.dtype)).any(dim=-1)
+    total = correct.shape[0]
+    num_correct = correct.to(torch.float32).sum()
+    return {
+        "Accuracy": num_correct / total,
+        "Correct": num_correct.to(torch.int32),
+        "Total": torch.tensor(total, dtype=torch.int32,
+                              device=idx.device),
+    }
+
+
+# the ops of earlier slices, under their op types
+register_op("layer_norm")(layer_norm)
+register_op("dropout", needs_rng=True)(dropout)
+register_op("lookup_table_v2")(lookup_table_v2)
+register_op("softmax_with_cross_entropy")(softmax_with_cross_entropy)
+register_op("conv2d")(conv2d)
+register_op("pool2d")(pool2d)
+register_op("batch_norm", stateful=True)(batch_norm)

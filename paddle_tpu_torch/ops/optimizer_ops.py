@@ -13,11 +13,15 @@ math, which is Paddle's and not `torch.optim`'s:
   Adam's result.
 
 Each op returns new tensors ("ParamOut" etc.); the functional optimizer
-(`paddle_tpu_torch/optimizer/functional.py`) writes them back.  The
-reference's op registry is not ported; callers import the functions.
+(`paddle_tpu_torch/optimizer/functional.py`) writes them back, and the
+static-graph Executor binds them to the names the op's outputs carry.
+The ops are registered under their op types (`ops/registry.py`) as
+stateful: ParamOut and the accumulators' outputs overwrite their inputs.
 """
 
 import torch
+
+from .registry import register_op
 
 
 def _lr(ins):
@@ -69,3 +73,9 @@ def adamw(ins, attrs):
     lr = _lr(ins)
     out["ParamOut"] = out["ParamOut"] - lr * coeff * ins["Param"]
     return out
+
+
+register_op("sgd", stateful=True)(sgd)
+register_op("momentum", stateful=True)(momentum)
+register_op("adam", stateful=True)(adam)
+register_op("adamw", stateful=True)(adamw)

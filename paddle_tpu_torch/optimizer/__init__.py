@@ -1,17 +1,234 @@
-"""Optimizers (port of paddle_tpu/optimizer; this slice: the functional
-optimizers the train step uses).
+"""Optimizers (port of paddle_tpu/optimizer).
 
-`functional` holds `SGD`, `Momentum`, `Adam`, `AdamW` and
-`global_norm_clip` over the update ops in `ops/optimizer_ops.py`.  The
-reference's static-graph optimizer zoo (`Optimizer.minimize` emitting
-update ops into a Program) comes with the static-graph slice (ROADMAP
-queue 1 item 3).
+The top-level names are the static-graph optimizers, as in the
+reference (Paddle-Fluid's fluid/optimizer.py: Optimizer :54, backward
+:607, apply_gradients :671, minimize :779; SGD :828, Momentum :918, Adam
+:1653): `minimize` records a BackwardSection and appends one update op
+per parameter (`sgd`, `momentum`, `adam`, `adamw`, ops/optimizer_ops.py)
+to the Program, with the learning rate and the accumulators (velocity,
+moments, beta powers) as persistable vars filled by the startup program,
+under the reference's names.
+
+`functional` holds the functional optimizers the dygraph train step
+uses (`functional.SGD`, `Momentum`, `Adam`, `AdamW`, `global_norm_clip`).
+
+The rest of the reference's static zoo raises NotImplementedError naming
+its ROADMAP item.
 """
 
+from ..framework import _not_ported, unique_name
+from ..framework.backward import append_backward
+from ..framework.initializer import ConstantInitializer
+from ..framework.program import (Variable, default_main_program,
+                                 default_startup_program)
+from ..layers import tensor as T
 from . import functional  # noqa: F401
-from .functional import (  # noqa: F401
-    SGD, Adam, AdamW, FunctionalOptimizer, Momentum, global_norm_clip,
-)
 
-__all__ = ["functional", "FunctionalOptimizer", "SGD", "Momentum", "Adam",
-           "AdamW", "global_norm_clip"]
+__all__ = [
+    "functional", "Optimizer", "SGD", "SGDOptimizer", "Momentum",
+    "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW",
+    "DGCMomentumOptimizer", "LarsMomentum", "LarsMomentumOptimizer",
+    "Adagrad", "AdagradOptimizer", "Adamax", "AdamaxOptimizer", "Dpsgd",
+    "DpsgdOptimizer", "DecayedAdagrad", "DecayedAdagradOptimizer",
+    "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
+    "FtrlOptimizer", "Lamb", "LambOptimizer", "RecomputeOptimizer",
+    "ExponentialMovingAverage", "LookaheadOptimizer", "ModelAverage",
+    "PipelineOptimizer",
+]
+
+
+class Optimizer:
+    def __init__(self, learning_rate, regularization=None, grad_clip=None,
+                 name=None):
+        if regularization is not None or grad_clip is not None:
+            raise NotImplementedError(
+                "regularization and grad_clip on the static optimizers are "
+                "not ported to paddle_tpu_torch yet (ROADMAP item 3)")
+        self._learning_rate = learning_rate
+        self._name = name or unique_name.generate(type(self).__name__.lower())
+        self._lr_var = None
+        self._accumulators = {}
+
+    # -- LR -------------------------------------------------------------
+
+    def _create_global_learning_rate(self):
+        if self._lr_var is not None:
+            return self._lr_var
+        if isinstance(self._learning_rate, Variable):
+            self._lr_var = self._learning_rate
+        else:
+            self._lr_var = T.create_global_var(
+                [1], float(self._learning_rate), "float32", persistable=True,
+                name=unique_name.generate(self._name + "_lr"))
+        return self._lr_var
+
+    def _param_lr(self, param):
+        base = self._create_global_learning_rate()
+        mult = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
+        if mult == 1.0:
+            return base
+        return T.scale(base, scale=mult)
+
+    # -- accumulators ----------------------------------------------------
+
+    def _add_accumulator(self, name, param, fill_value=0.0, shape=None,
+                         dtype=None):
+        key = (name, param.name)
+        if key in self._accumulators:
+            return self._accumulators[key]
+        vname = f"{param.name}_{self._name}_{name}"
+        shape = shape if shape is not None else list(param.shape)
+        dtype = dtype or param.dtype
+        block = default_main_program().global_block()
+        var = block.create_var(name=vname, shape=shape, dtype=dtype,
+                               persistable=True, stop_gradient=True)
+        sb = default_startup_program().global_block()
+        if vname not in sb.vars:
+            sv = sb.create_var(name=vname, shape=shape, dtype=dtype,
+                               persistable=True, stop_gradient=True)
+            ConstantInitializer(fill_value)(sv, sb)
+        self._accumulators[key] = var
+        return var
+
+    # -- main API --------------------------------------------------------
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, checkpoints=None):
+        return append_backward(loss, parameter_list, no_grad_set,
+                               checkpoints=checkpoints)
+
+    def apply_gradients(self, params_grads):
+        if any(getattr(p, "regularizer", None) is not None
+               for p, _ in params_grads):
+            raise NotImplementedError(
+                "a ParamAttr regularizer on a static-graph parameter is not "
+                "ported to paddle_tpu_torch yet (ROADMAP item 3)")
+        self._create_global_learning_rate()
+        ops = []
+        for p, g in params_grads:
+            if g is None:
+                continue
+            ops.append(self._append_optimize_op(
+                default_main_program().global_block(), (p, g)))
+        return ops
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        opt_ops = self.apply_gradients(params_grads)
+        return opt_ops, params_grads
+
+
+class SGD(Optimizer):
+    """optimizer.py:828 / operators/optimizers/sgd_op.cc"""
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": p, "Grad": g,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p})
+
+
+class Momentum(Optimizer):
+    """optimizer.py:918"""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._add_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p, "VelocityOut": v},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+class Adam(Optimizer):
+    """optimizer.py:1653 — Paddle's Adam (ops/optimizer_ops.py adam): the
+    beta-power accumulators are [1] persistables starting at beta1 and
+    beta2."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_mode=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    _op_type = "adam"
+    _extra_attrs = {}
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._add_accumulator("moment1", p)
+        m2 = self._add_accumulator("moment2", p)
+        b1p = self._add_accumulator("beta1_pow", p, fill_value=self._beta1,
+                                    shape=[1])
+        b2p = self._add_accumulator("beta2_pow", p, fill_value=self._beta2,
+                                    shape=[1])
+        attrs = {"beta1": self._beta1, "beta2": self._beta2,
+                 "epsilon": self._epsilon}
+        attrs.update(self._extra_attrs)
+        return block.append_op(
+            self._op_type,
+            inputs={"Param": p, "Grad": g, "Moment1": m1, "Moment2": m2,
+                    "Beta1Pow": b1p, "Beta2Pow": b2p,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                     "Beta1PowOut": b1p, "Beta2PowOut": b2p},
+            attrs=attrs)
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay (the `adamw` op)."""
+
+    _op_type = "adamw"
+
+    def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, **kw)
+        self._extra_attrs = {"coeff": weight_decay}
+
+
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
+AdamOptimizer = Adam
+
+
+DGCMomentumOptimizer = _not_ported("DGCMomentumOptimizer",
+                                   "8, the static DGC optimizer")
+Adagrad = AdagradOptimizer = _not_ported("Adagrad",
+                                         "3, the rest of the static op set")
+PipelineOptimizer = _not_ported("PipelineOptimizer", "8, pipeline.py")
+LarsMomentum = LarsMomentumOptimizer = _not_ported(
+    "LarsMomentum", "10, the rest of the optimizer zoo")
+Adamax = AdamaxOptimizer = _not_ported("Adamax",
+                                       "10, the rest of the optimizer zoo")
+Dpsgd = DpsgdOptimizer = _not_ported("Dpsgd",
+                                     "10, the rest of the optimizer zoo")
+DecayedAdagrad = DecayedAdagradOptimizer = _not_ported(
+    "DecayedAdagrad", "10, the rest of the optimizer zoo")
+Adadelta = AdadeltaOptimizer = _not_ported(
+    "Adadelta", "10, the rest of the optimizer zoo")
+RMSProp = RMSPropOptimizer = _not_ported("RMSProp",
+                                         "10, the rest of the optimizer zoo")
+Ftrl = FtrlOptimizer = _not_ported("Ftrl",
+                                   "10, the rest of the optimizer zoo")
+Lamb = LambOptimizer = _not_ported("Lamb",
+                                   "10, the rest of the optimizer zoo")
+RecomputeOptimizer = _not_ported("RecomputeOptimizer",
+                                 "10, the rest of the optimizer zoo")
+ExponentialMovingAverage = _not_ported("ExponentialMovingAverage",
+                                       "10, the rest of the optimizer zoo")
+LookaheadOptimizer = _not_ported("LookaheadOptimizer",
+                                 "10, the rest of the optimizer zoo")
+ModelAverage = _not_ported("ModelAverage",
+                           "10, the rest of the optimizer zoo")

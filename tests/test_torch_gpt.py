@@ -250,7 +250,16 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
         "paddle_tpu_torch.models.generate, paddle_tpu_torch.interop, "
         "paddle_tpu_torch.kernels.fused_probe, "
         "paddle_tpu_torch.tools.fused_probe, "
-        "paddle_tpu_torch.tools.near_ties\n"
+        "paddle_tpu_torch.tools.near_ties, paddle_tpu_torch.framework, "
+        "paddle_tpu_torch.layers, paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.executor, paddle_tpu_torch.backward, "
+        "paddle_tpu_torch.layer_helper, paddle_tpu_torch.initializer, "
+        "paddle_tpu_torch.param_attr, paddle_tpu_torch.unique_name, "
+        "paddle_tpu_torch.ops.registry, paddle_tpu_torch.ops.math_ops, "
+        "paddle_tpu_torch.ops.tensor_ops, "
+        "paddle_tpu_torch.models.static_zoo\n"
+        "import paddle_tpu_torch as fluid\n"
+        "fluid.models.static_zoo.build('gpt')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
         "print(bad)\n"
