@@ -171,15 +171,27 @@ Phases (any failure makes the script exit non-zero without a result):
    ms per step and the top kernels (torch.profiler over 2 steps),
    kernels and Executor ops per step, peak memory.  Fails unless every
    loss is finite and each step launches exactly K4 and K5 twice (its
-   two layer_norm ops).  Then card against CPU in float32 (`static_check`):
-   3 steps of mlp, lenet, resnet, bert, gpt and word2vec at zoo size
-   (batch 8) and of `build_gpt(t=128, d=768, heads=12, vocab=1024)` at
-   batch 2 (K4/K5 on the card, their plain versions on the CPU), from
-   the same startup values; fetches within 1e-4 relative at the first
-   step and 1e-3 after, persistables per tensor in norm, and each
-   persistable's update within 0.1 of the CPU's in norm (an Adam
-   parameter's element by element, where only elements whose gradient
-   lies near 0 on the measured card-vs-CPU difference may be off).
+   two layer_norm ops).  The same GPT again, built while
+   `clip.set_gradient_clip(GradientClipByGlobalNorm(1.0))` is set
+   (`static_clip_run`): the same steps, launches and readings, and each
+   step's global norm and clip factor, the factor held against
+   min(1, 1 / norm) recomputed from the fetched `@GRAD`s.  Then the
+   static Wide&Deep at the CTR widths of bench.py's `bench_wide_deep`
+   (`build_wide_deep(fields=26, vocab=1_000_000, dense=13)`, Adagrad,
+   batch 8192, ids uniform over the vocab; `static_wide_deep_run`):
+   samples/s, host and device ms, kernels a step, peak memory; fails on
+   a non-finite loss.  Then card against CPU in float32
+   (`static_check`): 3 steps of mlp, lenet, resnet, bert, gpt, seq2seq,
+   wide_deep and word2vec at zoo size (batch 8), of two small programs
+   with the regularizers and the gradient clips (`clip_decay`,
+   `clip_value`: each clip shown to engage), and of
+   `build_gpt(t=128, d=768, heads=12, vocab=1024)` at batch 2 (K4/K5 on
+   the card, their plain versions on the CPU), from the same startup
+   values; fetches within 1e-4 relative at the first step and 1e-3
+   after, persistables per tensor in norm, and each persistable's update
+   within 0.1 of the CPU's in norm (an Adam or Adagrad parameter's
+   element by element, where only elements whose gradient lies near 0
+   on the measured card-vs-CPU difference may be off).
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -223,6 +235,7 @@ run with K10, P1's and P2's over the probe tool's), the card line and
 """
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -3578,14 +3591,23 @@ def resnet_check(failures, steps=2, lr=1e-5):
 
 STATIC_GPT = dict(t=512, d=768, heads=12, vocab=32768)   # bench.py:169-174
 STATIC_LAUNCHES = {"layer_norm_fwd": 2, "layer_norm_bwd": 2}   # per step
-# the card-vs-CPU families: name -> (builder kwargs, batch, lr, Adam?)
+# bench.py:697-704 (`bench_wide_deep`): 26 sparse fields over 1e6 ids, 13
+# dense features, batch 8192
+STATIC_WIDE_DEEP = dict(fields=26, vocab=1_000_000, dense=13)
+STATIC_WIDE_DEEP_BATCH = 8192
+# the card-vs-CPU families: name -> (builder kwargs, batch, lr, an update
+# about lr * sign(g) early on: Adam, Adagrad)
 STATIC_FAMILIES = (
     ("mlp", {}, 8, 0.01, False),
     ("lenet", {}, 8, 1e-3, True),
     ("resnet", {}, 8, 0.01, False),
     ("bert", {}, 8, 1e-3, True),
     ("gpt", {}, 8, 1e-3, True),
+    ("seq2seq", {}, 8, 1e-3, True),
+    ("wide_deep", {}, 8, 0.05, True),
     ("word2vec", {}, 8, 0.05, False),
+    ("clip_decay", {}, 8, 0.05, False),
+    ("clip_value", {}, 8, 0.1, False),
     ("gpt", dict(t=128, d=768, heads=12, vocab=1024), 2, 1e-3, True),
 )
 
@@ -3615,11 +3637,12 @@ def near_zero_grad(g_card, g_cpu):
 
 
 def adam_update_check(card, cpu, start, near, lr_steps):
-    """An Adam parameter's update (its value less `start`) on the card
-    against the CPU's, element by element, except where `near` (a
-    near-zero gradient at some step):
-    |d_card - d_cpu| <= STATIC_UPDATE_RTOL |d_cpu| + 0.01 lr_steps.  Returns (worst ratio to that bound
-    off `near`, elements over it, elements over it off `near`)."""
+    """An Adam or Adagrad parameter's update (its value less `start`) on
+    the card against the CPU's, element by element, except where `near`
+    (a near-zero gradient at some step):
+    |d_card - d_cpu| <= STATIC_UPDATE_RTOL |d_cpu| + 0.01 lr_steps.
+    Returns (worst ratio to that bound off `near`, elements over it,
+    elements over it off `near`)."""
     d_cpu = cpu.astype(np.float64) - start
     d_card = card.astype(np.float64) - start
     ratio = np.abs(d_card - d_cpu) / (STATIC_UPDATE_RTOL * np.abs(d_cpu)
@@ -3630,6 +3653,95 @@ def adam_update_check(card, cpu, start, near, lr_steps):
             int((over & ~near).sum()))
 
 
+def after_backward(main, op_type):
+    """The outputs of the ops of `op_type` after a Program's first
+    backward section (the clip and decay ops, then the updates)."""
+    pos = main.backward_sections[0].pos
+    return [op.outputs["Out"][0] for op in main.global_block().ops[pos:]
+            if op.type == op_type]
+
+
+def clip_decay_model(clip_norm=0.05):
+    """A small regression Program of the ported builders: an fc whose
+    weight carries its own `ParamAttr(regularizer=L1Decay(1e-3))`, a
+    second fc over two inputs (the `sum` op), `Momentum(0.05, 0.9)` with
+    `regularization=L2Decay(1e-3)` and `GradientClipByGlobalNorm` at
+    `clip_norm`, below the global norm these feeds give (the fetched
+    factor shows it engage).  Fetches the loss and the clip factor."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.models.static_zoo import StaticModel
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 16])
+        z = fluid.data("z", [None, 4])
+        y = fluid.data("y", [None, 1])
+        h = L.fc(x, 32, act="tanh", param_attr=fluid.ParamAttr(
+            regularizer=fluid.regularizer.L1Decay(1e-3)))
+        pred = L.fc([h, z], 1)
+        loss = L.mean(L.square_error_cost(pred, y))
+        fluid.optimizer.Momentum(
+            0.05, 0.9, regularization=fluid.regularizer.L2Decay(1e-3),
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(
+                clip_norm)).minimize(loss)
+    factor = after_backward(main, "elementwise_div")[0]
+    return StaticModel("clip_decay", main, startup,
+                       [("x", (None, 16), "float32"),
+                        ("z", (None, 4), "float32"),
+                        ("y", (None, 1), "float32")],
+                       [loss.name, factor], loss_name=loss.name)
+
+
+def clip_value_model(clip_max=0.02):
+    """A small classifier Program: an fc whose weight carries
+    `ParamAttr(regularizer=L1Decay(1e-3))`, softmax cross entropy, `SGD`
+    with `GradientClipByValue(clip_max)`.  Fetches the loss, that
+    weight's raw gradient and its clipped one."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.models.static_zoo import StaticModel
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 12])
+        label = fluid.data("label", [None, 1], dtype="int64")
+        h = L.fc(x, 10, param_attr=fluid.ParamAttr(
+            regularizer=fluid.regularizer.L1Decay(1e-3)))
+        loss = L.mean(L.softmax_with_cross_entropy(h, label))
+        fluid.optimizer.SGD(0.1, grad_clip=fluid.clip.GradientClipByValue(
+            clip_max)).minimize(loss)
+    clipped = after_backward(main, "clip")[0]
+    return StaticModel("clip_value", main, startup,
+                       [("x", (None, 12), "float32"),
+                        ("label", (None, 1), "int64")],
+                       [loss.name, "fc_0.w_0@GRAD", clipped],
+                       loss_name=loss.name)
+
+
+def clip_factor_engaged(fetched):
+    """clip_decay: the global-norm clip's factor is below 1."""
+    f = float(np.asarray(fetched[1]).reshape(-1)[0])
+    return None if f < 1.0 else f"clip factor {f} not below 1"
+
+
+def clip_value_engaged(fetched, clip_max=0.02):
+    """clip_value: the clipped gradient is the raw one clipped to
+    [-clip_max, clip_max], and differs from it."""
+    raw, clipped = np.asarray(fetched[1]), np.asarray(fetched[2])
+    if np.array_equal(raw, clipped):
+        return "the value clip left the gradient as it was"
+    if not np.array_equal(clipped, np.clip(raw, -clip_max, clip_max)):
+        return "the value clip's output is not the clipped gradient"
+    return None
+
+
+# the card-vs-CPU programs built here: name -> (builder, the check that
+# its clip engaged, on each step's fetches of both devices)
+STATIC_PROGRAMS = {"clip_decay": (clip_decay_model, clip_factor_engaged),
+                   "clip_value": (clip_value_model, clip_value_engaged)}
+
+
 def static_feed(m, vocab, batch, seed):
     """A feed for the static GPT `m`: ids and targets uniform over
     [0, vocab), from a numpy generator seeded with `seed`."""
@@ -3638,7 +3750,7 @@ def static_feed(m, vocab, batch, seed):
             for name, shape in m.smoke_feed_shapes(batch).items()}
 
 
-def static_run(failures, steps=5):
+def static_run(failures, steps=5, clip_norm=None):
     """The static GPT at BERT-base widths (`static_zoo.build_gpt(512, 768,
     12, 32768)`, one transformer layer, float32) through `Executor.run`
     on the card: startup, one warm-up and `steps` timed Adam steps at
@@ -3647,15 +3759,27 @@ def static_run(failures, steps=5):
     embedding backward scatters every row onto two).  Fails unless every
     loss is finite and each
     step launches exactly K4 and K5 twice (its two layer_norm ops) and no
-    other kernel of the port.  Returns {launches, host_ms, profile, ops,
-    peak}."""
+    other kernel of the port.  With `clip_norm`, the GPT is built while
+    `clip.set_gradient_clip(GradientClipByGlobalNorm(clip_norm))` is set
+    (reset after), and each step also fetches the clip's global norm and
+    factor (`static_clip_check`).  Returns {launches, host_ms, profile,
+    ops, peak}."""
     import torch
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels import backend
     from paddle_tpu_torch.models import static_zoo
 
-    m = static_zoo.build_gpt(**STATIC_GPT)
+    label = "static" if clip_norm is None else "static clipped"
+    if clip_norm is None:
+        m = static_zoo.build_gpt(**STATIC_GPT)
+    else:
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(clip_norm))
+        try:
+            m = static_zoo.build_gpt(**STATIC_GPT)
+        finally:
+            fluid.clip.set_gradient_clip(None)
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(m.startup, scope=scope)
@@ -3663,19 +3787,25 @@ def static_run(failures, steps=5):
                    if n in {v.name for v in m.main.all_parameters()})
     feed = static_feed(m, STATIC_GPT["vocab"], batch=8, seed=0)
     ops = len(exe._live_ops(m.main, m.fetches))
-    log(f"static: gpt {STATIC_GPT} f32 through Executor.run, batch 8, "
+    log(f"{label}: gpt {STATIC_GPT} f32 through Executor.run, batch 8, "
         f"{n_params} parameters, {ops} ops per step "
         f"({sum(op.type == 'adam' for op in m.main.global_block().ops)} "
         f"Adam updates)")
+    fetches = list(m.fetches)
+    if clip_norm is not None:
+        fetches += [after_backward(m.main, "sqrt")[0],
+                    after_backward(m.main, "elementwise_div")[0]]
 
     def run():
-        return exe.run(m.main, feed=feed, fetch_list=m.fetches,
-                       scope=scope)[0]
+        return exe.run(m.main, feed=feed, fetch_list=fetches, scope=scope)
+
+    def scalars(out):
+        return [float(np.asarray(v).reshape(-1)[0]) for v in out]
 
     t0 = time.perf_counter()
-    losses = [float(run())]
-    log(f"static warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
-        f"loss {losses[0]:.6f}")
+    outs = [scalars(run())]
+    log(f"{label} warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"loss {outs[0][0]:.6f}")
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
     step_ms = []
@@ -3683,32 +3813,149 @@ def static_run(failures, steps=5):
         before = dict(backend.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(float(run()))          # the fetch waits for the step
+        outs.append(scalars(run()))          # the fetch waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
         made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
         made = {n: c for n, c in made.items() if c}
         if made != STATIC_LAUNCHES:
-            failures.append(f"static step {i} launches {made} != "
+            failures.append(f"{label} step {i} launches {made} != "
                             f"{STATIC_LAUNCHES}")
     launches = dict(backend.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     host_ms = sum(step_ms) / steps
-    log(f"static: {steps} steps, step ms {[round(t, 3) for t in step_ms]}, "
-        f"mean {host_ms:.3f} ms (host clock, fetch included), min "
-        f"{min(step_ms):.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB")
-    log(f"static losses {losses}")
-    log(f"static path launches ({steps} steps): {launches}")
+    losses = [o[0] for o in outs]
+    log(f"{label}: {steps} steps, step ms "
+        f"{[round(t, 3) for t in step_ms]}, mean {host_ms:.3f} ms (host "
+        f"clock, fetch included), min {min(step_ms):.3f} ms; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    log(f"{label} losses {losses}")
+    if clip_norm is not None:
+        log(f"{label} global norm per step {[o[1] for o in outs]}, clip "
+            f"factor per step {[o[2] for o in outs]}")
+        for i, (_, norm, factor) in enumerate(outs):
+            want = min(1.0, clip_norm / norm)
+            if not abs(factor - want) <= 1e-6 * want:
+                failures.append(f"{label} step {i}: clip factor {factor} "
+                                f"!= min(1, {clip_norm} / {norm})")
+    log(f"{label} path launches ({steps} steps): {launches}")
     if not all(np.isfinite(losses)):
-        failures.append(f"static losses not finite: {losses}")
+        failures.append(f"{label} losses not finite: {losses}")
+    if clip_norm is not None:
+        static_clip_check(m, exe, scope, feed, fetches, clip_norm, failures)
     prof = profile_train_step(lambda _: run(), None, (), host_ms,
-                              label="static", steps=2)
-    log(f"static step: {prof['kernels']:.1f} kernels and {ops} Executor "
+                              label=label, steps=2)
+    log(f"{label} step: {prof['kernels']:.1f} kernels and {ops} Executor "
         f"ops per step; {len(prof['ln_bwd']) / 2:.1f} LayerNorm backwards "
         f"per step, kernels each {sorted({len(k) for k in prof['ln_bwd']})}")
     del scope, exe
     torch.cuda.empty_cache()
     return dict(launches=launches, host_ms=host_ms, profile=prof, ops=ops,
                 peak=peak)
+
+
+def static_clip_check(m, exe, scope, feed, fetches, clip_norm, failures):
+    """One more step of the clipped static GPT (after the timed ones)
+    that also fetches every parameter's `@GRAD` as a tensor on the card:
+    the global norm recomputed from them in float64 must match the
+    fetched one within 1e-5 relative (f32 sums of 57.5 M squares in
+    another order), and the fetched factor min(1, clip_norm / norm)."""
+    import torch
+
+    params = [v.name for v in m.main.all_parameters()]
+    out = exe.run(m.main, feed=feed,
+                  fetch_list=fetches + [n + "@GRAD" for n in params],
+                  scope=scope, return_numpy=False)
+    norm, factor = (float(v.reshape(-1)[0]) for v in out[1:3])
+    recomputed = math.sqrt(sum(float(torch.sum(g.double() ** 2))
+                               for g in out[3:]))
+    want = min(1.0, clip_norm / recomputed)
+    log(f"static clipped check: global norm {norm:.6f} fetched, "
+        f"{recomputed:.6f} recomputed from {len(params)} @GRADs; factor "
+        f"{factor:.8f}, min(1, {clip_norm} / norm) {want:.8f}; the clip "
+        f"{'engaged' if want < 1 else 'did not engage'}")
+    if not abs(norm - recomputed) <= 1e-5 * recomputed:
+        failures.append(f"static clipped: global norm {norm} != "
+                        f"{recomputed} recomputed from the @GRADs")
+    if not abs(factor - want) <= 1e-5 * want:
+        failures.append(f"static clipped: clip factor {factor} != "
+                        f"min(1, {clip_norm} / {recomputed})")
+
+
+def static_wide_deep_run(failures, steps=5):
+    """The static Wide&Deep at the CTR widths of bench.py's
+    `bench_wide_deep` (`static_zoo.build_wide_deep(fields=26,
+    vocab=1_000_000, dense=13)`: an embedding table of 1e6 x 8, the zoo's
+    own Adagrad(0.05)) through `Executor.run` on the card at batch 8192:
+    ids uniform over [0, 1e6), dense features standard normal, labels
+    from {0, 1}, all from a numpy seed; startup, one warm-up and `steps`
+    timed steps.  Logs samples/s, host and device ms, kernels and
+    Executor ops a step, peak memory; fails on a non-finite loss or a
+    launch of any kernel of the port (the path has none).  Returns
+    {host_ms, profile, ops, peak}."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    batch = STATIC_WIDE_DEEP_BATCH
+    m = static_zoo.build_wide_deep(**STATIC_WIDE_DEEP)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if n in {v.name for v in m.main.all_parameters()})
+    rng = np.random.default_rng(0)
+    feed = {"ids": rng.integers(0, STATIC_WIDE_DEEP["vocab"],
+                                (batch, STATIC_WIDE_DEEP["fields"])),
+            "dense": rng.standard_normal(
+                (batch, STATIC_WIDE_DEEP["dense"])).astype(np.float32),
+            "label": rng.integers(0, 2, (batch, 1)).astype(np.float32)}
+    ops = len(exe._live_ops(m.main, m.fetches))
+    log(f"static wide_deep: {STATIC_WIDE_DEEP} f32 through Executor.run, "
+        f"batch {batch}, {n_params} parameters, {ops} ops per step "
+        f"({sum(op.type == 'adagrad' for op in m.main.global_block().ops)}"
+        f" Adagrad updates)")
+
+    def run():
+        return exe.run(m.main, feed=feed, fetch_list=m.fetches,
+                       scope=scope)[0]
+
+    t0 = time.perf_counter()
+    losses = [float(run())]
+    log(f"static wide_deep warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {losses[0]:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(run()))          # the fetch waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    made = {n: c for n, c in backend.LAUNCHES.items() if c}
+    if made:
+        failures.append(f"static wide_deep launched kernels of the port: "
+                        f"{made}")
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = sum(step_ms) / steps
+    median = float(np.median(step_ms))
+    log(f"static wide_deep: {steps} steps, step ms "
+        f"{[round(t, 3) for t in step_ms]}, mean {host_ms:.3f} ms (host "
+        f"clock, fetch included), median {median:.3f}, min "
+        f"{min(step_ms):.3f} ms; {batch / host_ms * 1e3:.0f} samples/s at "
+        f"the mean, {batch / median * 1e3:.0f} at the median; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    log(f"static wide_deep losses {losses}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"static wide_deep losses not finite: {losses}")
+    prof = profile_train_step(lambda _: run(), None, (), host_ms,
+                              label="static wide_deep", steps=2)
+    log(f"static wide_deep step: {prof['kernels']:.1f} kernels and {ops} "
+        f"Executor ops per step")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return dict(host_ms=host_ms, profile=prof, ops=ops, peak=peak)
 
 
 def static_check(failures, steps=3):
@@ -3726,8 +3973,9 @@ def static_check(failures, steps=3):
     ||d_card - d_cpu|| <= 0.1 ||d_cpu||, 0 where the CPU's is 0, which
     the bound above, twice a whole Adam update, cannot see.
 
-    An Adam parameter is held element by element instead (see
-    `adam_update_check`), since Adam's update jumps at a zero gradient:
+    An Adam or Adagrad parameter is held element by element instead (see
+    `adam_update_check`), since the update of either jumps at a zero
+    gradient (the first is about lr * sign(g)):
     which near-zero grads the card rounds to the other sign varies
     between runs (on an H100, lenet's first conv, 150 elements, read
     0.018 and 0.80 of the norm rule in two runs, and 2 elements off in a
@@ -3750,7 +3998,9 @@ def static_check(failures, steps=3):
     from paddle_tpu_torch.models import static_zoo
 
     for name, kw, batch, lr, adam in STATIC_FAMILIES:
-        m = static_zoo.BUILDERS[name](**kw)
+        builder, engaged = STATIC_PROGRAMS[name] \
+            if name in STATIC_PROGRAMS else (static_zoo.BUILDERS[name], None)
+        m = builder(**kw)
         cpu_exe = fluid.Executor(fluid.CPUPlace())
         cpu_scope = fluid.Scope()
         cpu_exe.run(m.startup, scope=cpu_scope)
@@ -3781,6 +4031,11 @@ def static_check(failures, steps=3):
             for n, g, w in zip(held, got[k:], want[k:]):
                 near[n] |= near_zero_grad(g, w)
                 live[n] |= (g != 0) | (w != 0)
+            for side, fetched in (("card", got), ("CPU", want)):
+                bad = engaged(fetched) if engaged else None
+                if bad:
+                    failures.append(f"static check {name} step {i} "
+                                    f"({side}): {bad}")
         # the D-768 GPT's two layer_norm ops take K4/K5 on the card; the
         # zoo-size families (D 32) take the eager composition
         d = kw.get("d")
@@ -3825,7 +4080,8 @@ def static_check(failures, steps=3):
             f"{[f'{e:.2e}' for e in fetch_err]}; {len(cpu)} persistables, "
             f"worst ||d|| / bound {worst:.3e} ({worst_name}; atol "
             f"{atol:.1e}); worst update ||d_card - d_cpu|| / (0.1 "
-            f"||d_cpu||) {upd:.3e} ({upd_name}); Adam parameters: "
+            f"||d_cpu||) {upd:.3e} ({upd_name}); Adam or Adagrad "
+            f"parameters: "
             f"{n_near} of {n_live} elements with a gradient near zero, "
             f"{n_off} updates off by > "
             f"their bound, {n_bad} of them not near zero, worst other "
@@ -3835,13 +4091,15 @@ def static_check(failures, steps=3):
             failures.append(f"static check {name} {kw}: update of "
                             f"{upd_name} off by {upd:.3e} of its bound")
         if n_bad or not elem <= 1.0:
-            failures.append(f"static check {name} {kw}: {n_bad} Adam "
-                            f"parameter elements with a gradient away from "
+            failures.append(f"static check {name} {kw}: {n_bad} Adam or "
+                            f"Adagrad parameter elements with a gradient "
+                            f"away from "
                             f"0 updated off their bound (worst {elem:.3e}, "
                             f"{elem_name})")
         if n_near > ADAM_NEAR_SHARE * n_live:
             failures.append(f"static check {name} {kw}: {n_near} of "
-                            f"{n_live} Adam parameter elements with a "
+                            f"{n_live} Adam or Adagrad parameter elements "
+                            f"with a "
                             f"gradient near zero, more than "
                             f"{ADAM_NEAR_SHARE}")
         if set(card) != set(cpu):
@@ -3855,12 +4113,17 @@ def static_check(failures, steps=3):
 
 
 def static_phase(failures):
-    """Phase 7: the static GPT's run (`static_run`), then the card-vs-CPU
+    """Phase 7: the static GPT's run (`static_run`), the same GPT under
+    the global-norm clip (`static_run(clip_norm=1.0)`), the static
+    Wide&Deep at CTR widths (`static_wide_deep_run`), then the card-vs-CPU
     checks of the static families (`static_check`).  Returns the launches
-    of the timed steps."""
+    of the timed steps of both GPT runs."""
     out = static_run(failures)
+    clipped = static_run(failures, clip_norm=1.0)
+    static_wide_deep_run(failures)
     static_check(failures)
-    return out["launches"]
+    return {n: out["launches"].get(n, 0) + clipped["launches"].get(n, 0)
+            for n in set(out["launches"]) | set(clipped["launches"])}
 
 
 def check_phase(failures):
@@ -4213,8 +4476,9 @@ def main():
         row = dict(rows[key])
         # launches on the main paths: the 5 timed GPT train steps, the 5
         # timed steps of each fused ResNet-50 run (full and `id`), the
-        # serving run (generate + engine), the 5 timed static GPT steps
-        # (K4, K5) and the probe tool's runs (K4, K7 and K9 forward)
+        # serving run (generate + engine), the 5 timed steps of each
+        # static GPT run, plain and clipped (K4, K5), and the probe tool's
+        # runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in ("train", "resnet", "path",
                                         "static")) \

@@ -33,10 +33,10 @@ from .framework import (  # noqa: F401
     data, default_main_program, default_startup_program, global_scope,
     gradients, name_scope, program_guard, scope_guard,
 )
-from .framework.param_attr import ParamAttr  # noqa: F401
+from .framework.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import (  # noqa: F401
-    backward, executor, initializer, layer_helper, layers, optimizer,
-    param_attr, unique_name,
+    backward, clip, executor, initializer, layer_helper, layers, optimizer,
+    param_attr, regularizer, unique_name,
 )
 
 __all__ = [
@@ -44,6 +44,7 @@ __all__ = [
     "Program", "Variable", "Parameter", "default_main_program",
     "default_startup_program", "program_guard", "name_scope", "data",
     "Executor", "Scope", "global_scope", "scope_guard", "append_backward",
-    "gradients", "ParamAttr", "backward", "executor", "initializer",
-    "layer_helper", "layers", "optimizer", "param_attr", "unique_name",
+    "gradients", "ParamAttr", "WeightNormParamAttr", "backward", "clip",
+    "executor", "initializer", "layer_helper", "layers", "optimizer",
+    "param_attr", "regularizer", "unique_name",
 ]

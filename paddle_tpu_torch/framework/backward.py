@@ -72,16 +72,45 @@ def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
     """
     targets = targets if isinstance(targets, (list, tuple)) else [targets]
     inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is not None and not isinstance(
+            target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
     program = targets[0].block.program
     block = program.global_block()
     if len(targets) > 1 or target_gradients is not None:
-        # the reference synthesizes d(sum_i <target_i, tg_i>) from
-        # elementwise_mul, reduce_sum and sum ops, which are not ported
-        raise NotImplementedError(
-            "gradients() of several targets or with target_gradients needs "
-            "the elementwise_mul, reduce_sum and sum ops (ROADMAP item 3, "
-            "the rest of the static op set)")
-    loss = targets[0]
+        # reference calc_gradient semantics: d(sum_i <target_i, tg_i>)/d(x)
+        # with tg defaulting to ones.  Synthesize the weighted-sum scalar in
+        # the block so ONE BackwardSection covers all targets.
+        parts = []
+        for i, tgt in enumerate(targets):
+            term = tgt
+            tg = (target_gradients[i]
+                  if target_gradients and i < len(target_gradients) else None)
+            if tg is not None:
+                mul = block.create_var(
+                    name=f"{tgt.name}@weighted_{i}", shape=tgt.shape,
+                    dtype=tgt.dtype, stop_gradient=False)
+                block.append_op("elementwise_mul",
+                                inputs={"X": tgt, "Y": tg},
+                                outputs={"Out": mul}, attrs={"axis": -1})
+                term = mul
+            red = block.create_var(
+                name=f"{tgt.name}@grad_sum_{i}", shape=[1],
+                dtype=tgt.dtype, stop_gradient=False)
+            block.append_op("reduce_sum", inputs={"X": term},
+                            outputs={"Out": red},
+                            attrs={"reduce_all": True, "keep_dim": False})
+            parts.append(red)
+        if len(parts) > 1:
+            loss = block.create_var(
+                name=f"{targets[0].name}@combined_target", shape=[1],
+                dtype=targets[0].dtype, stop_gradient=False)
+            block.append_op("sum", inputs={"X": parts},
+                            outputs={"Out": loss})
+        else:
+            loss = parts[0]
+    else:
+        loss = targets[0]
     names = [v.name if hasattr(v, "name") else v for v in inputs]
     pos = len(block.ops)
     program.backward_sections.append(

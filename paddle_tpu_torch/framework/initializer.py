@@ -4,10 +4,10 @@ Paddle-Fluid's fluid/initializer.py: each initializer appends an init op
 for a parameter into the *startup program*, with the reference's op types
 and attrs (ConstantInitializer, UniformInitializer, NormalInitializer,
 TruncatedNormalInitializer, XavierInitializer, MSRAInitializer,
-NumpyArrayInitializer).  The port's executor runs `fill_constant` and
-`uniform_random`; the other init ops (`gaussian_random`,
-`truncated_gaussian_random`, `assign_value`) are recorded and raise at
-run time until they are ported (ROADMAP item 3).
+NumpyArrayInitializer).  The port's executor runs their ops,
+`fill_constant`, `uniform_random`, `gaussian_random`,
+`truncated_gaussian_random` and `assign_value`, drawing from its own
+generator: the random values cannot match the reference's JAX bits.
 """
 
 import math

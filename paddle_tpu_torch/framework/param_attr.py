@@ -1,8 +1,8 @@
 """ParamAttr — parameter configuration (port of
 paddle_tpu/framework/param_attr.py; Paddle-Fluid's fluid/param_attr.py).
 
-`WeightNormParamAttr` is declared; building a parameter with it raises
-until its ops are ported (ROADMAP item 3).
+`WeightNormParamAttr` reparameterizes the weight as w = g * v / ||v||
+(`LayerHelper._create_weight_norm_parameter`).
 """
 
 

@@ -1,10 +1,11 @@
-"""Layer function library, static graph builders (port of the static-zoo
-slice of paddle_tpu/layers; Paddle-Fluid's fluid/layers).
+"""Layer function library, static graph builders (port of the nn, tensor,
+loss and metric slice of paddle_tpu/layers; Paddle-Fluid's fluid/layers).
 
-The builders the static zoo's mlp, lenet, resnet, bert and gpt call, and
-`data`.  Any other public name of the reference's `layers` namespace
-raises NotImplementedError: the rest of the static op set is ROADMAP item
-3, control flow, rnn, extended, sequence and detection layers item 10.
+Every builder of the reference's `layers.nn`, `layers.tensor`,
+`layers.loss` and `layers.metric_op`, and `data`.  Any other public name
+of the reference's `layers` namespace raises NotImplementedError naming
+ROADMAP item 10: control flow, rnn, extended, sequence and detection
+layers, distributions and the learning-rate schedules.
 """
 
 from ..framework.program import data  # noqa: F401
@@ -24,5 +25,5 @@ def __getattr__(name):
                              f"{name!r}")
     raise NotImplementedError(
         f"layers.{name} is not ported to paddle_tpu_torch yet (ROADMAP item "
-        f"3: the rest of the static op set; item 10: control flow, rnn, "
-        f"extended, sequence and detection layers)")
+        f"10: control flow, rnn, extended, sequence and detection layers, "
+        f"distributions and the learning-rate schedules)")

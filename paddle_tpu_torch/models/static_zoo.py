@@ -8,10 +8,9 @@ training step asks for.  The builders are hermetic (their own
 unique_name guard and programs), so a port builder and the reference's
 build byte-identical `Program.to_json()`.
 
-Ported: mlp, lenet, resnet, bert, gpt and word2vec (whose ops are a
-subset of bert's and mlp's).  seq2seq and wide_deep need op types not
-ported yet and raise (ROADMAP item 3); the default partition rules wait
-for the sharding tier (item 8).
+All eight families are ported: mlp, lenet, resnet, bert, gpt, seq2seq,
+wide_deep and word2vec.  The default partition rules wait for the
+sharding tier (ROADMAP item 8).
 """
 
 import paddle_tpu_torch as fluid
@@ -222,20 +221,60 @@ def build_gpt(t=16, d=32, heads=4, vocab=128):
                        [loss.name], loss_name=loss.name)
 
 
-def _not_ported(name, ops):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"static_zoo.{name} needs the {ops} op(s), not ported to "
-            f"paddle_tpu_torch yet (ROADMAP item 3)")
+def build_seq2seq(t_src=12, t_tgt=8, d=24, vocab=96):
+    """Simplified encoder-decoder: source embedding mean-pooled into a
+    context vector, broadcast-concatenated with the target embedding,
+    per-step vocab CE (models/seq2seq.py's static twin without the
+    recurrent cell — op-vocabulary coverage, not fidelity)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            src = fluid.data("src", [None, t_src], dtype="int64")
+            tgt = fluid.data("tgt", [None, t_tgt], dtype="int64")
+            tgt_next = fluid.data("tgt_next", [None, t_tgt, 1],
+                                  dtype="int64")
+            enc = L.embedding(src, size=(vocab, d))
+            ctx = L.reduce_mean(enc, dim=[1], keep_dim=True)
+            ctx = L.expand(ctx, expand_times=[1, t_tgt, 1])
+            # expand/reduce layers leave declared shapes unknown; the
+            # reshape re-pins [B, T, D] so downstream fc can size W
+            ctx = L.reshape(ctx, shape=[-1, t_tgt, d])
+            dec = L.embedding(tgt, size=(vocab, d))
+            h = L.concat([dec, ctx], axis=2)
+            h = L.fc(h, d, num_flatten_dims=2, act="tanh")
+            logits = L.fc(h, vocab, num_flatten_dims=2)
+            loss = L.mean(L.softmax_with_cross_entropy(logits, tgt_next))
+            _train_tail(loss, fluid.optimizer.Adam(1e-3))
+    return StaticModel("seq2seq", main, startup,
+                       [("src", (None, t_src), "int64"),
+                        ("tgt", (None, t_tgt), "int64"),
+                        ("tgt_next", (None, t_tgt, 1), "int64")],
+                       [loss.name], loss_name=loss.name)
 
-    build.__name__ = name
-    return build
 
-
-build_seq2seq = _not_ported("build_seq2seq", "concat and expand")
-build_wide_deep = _not_ported(
-    "build_wide_deep", "concat, sigmoid_cross_entropy_with_logits and "
-    "adagrad")
+def build_wide_deep(fields=4, vocab=100, dense=8):
+    """Wide&Deep CTR: sparse embeddings summed + dense tower, sigmoid
+    CE (models/wide_deep.py's static twin)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(main, startup):
+            ids = fluid.data("ids", [None, fields], dtype="int64")
+            den = fluid.data("dense", [None, dense])
+            label = fluid.data("label", [None, 1])
+            emb = L.embedding(ids, size=(vocab, 8))
+            deep_in = L.concat(
+                [L.reshape(emb, shape=[-1, fields * 8]), den], axis=1)
+            deep = L.fc(L.fc(deep_in, 32, act="relu"), 16, act="relu")
+            wide = L.fc(den, 1)
+            logit = L.elementwise_add(L.fc(deep, 1), wide)
+            loss = L.mean(
+                L.sigmoid_cross_entropy_with_logits(logit, label))
+            _train_tail(loss, fluid.optimizer.Adagrad(0.05))
+    return StaticModel("wide_deep", main, startup,
+                       [("ids", (None, fields), "int64"),
+                        ("dense", (None, dense), "float32"),
+                        ("label", (None, 1), "float32")],
+                       [loss.name], loss_name=loss.name)
 
 
 def build_word2vec(window=4, vocab=120, d=16):

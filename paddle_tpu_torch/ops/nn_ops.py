@@ -1,15 +1,19 @@
-"""Neural-network op kernels (port of the GPT, ResNet and static-zoo
-slices of paddle_tpu/ops/nn_ops.py: `relu` :32, `gelu` :42, `softmax`
-:129, `cross_entropy` :143, `softmax_with_cross_entropy` :161,
-`square_error_cost` :190, `conv2d` :281, `pool2d` :422, `batch_norm`
-:488, `layer_norm` :556, `dropout` :655, `lookup_table_v2` :677, `top_k`
-:711 and `accuracy` :737).
+"""Neural-network op kernels (port of the GPT, ResNet and static-graph
+slices of paddle_tpu/ops/nn_ops.py: the activations :32-75, `prelu`
+:120, `softmax` :129, `log_softmax` :134, `cross_entropy` :143,
+`softmax_with_cross_entropy` :161, the losses :178-243, `conv2d` :281,
+`depthwise_conv2d` :310, `conv2d_transpose` :319, `pool2d` :422,
+`batch_norm` :488, `layer_norm` :556, `instance_norm` :604, `group_norm`
+:622, `norm` :642, `dropout` :655, `lookup_table_v2` :677, `one_hot`
+:703, `top_k` :711, `accuracy` :737, `pad` / `pad2d` :753-762 and
+`interpolate` :775).
 
 The ops keep the reference's `(ins, attrs) -> outs` signature and are
 registered under their op types (`ops/registry.py`) for the static-graph
 Executor; the dygraph modules call the functions directly.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -325,6 +329,57 @@ def relu(ins, attrs):
     return {"Out": torch.relu(ins["X"])}
 
 
+def _unary(name, fn):
+    register_op(name)(lambda ins, attrs: {"Out": fn(ins["X"])})
+
+
+for _name, _fn in (("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
+                   ("softplus", TF.softplus), ("softsign", TF.softsign),
+                   ("relu6", lambda x: torch.clamp(x, 0.0, 6.0))):
+    _unary(_name, _fn)
+
+
+@register_op("leaky_relu")
+def leaky_relu(ins, attrs):
+    x = ins["X"]
+    return {"Out": torch.where(x >= 0, x, attrs.get("alpha", 0.02) * x)}
+
+
+@register_op("elu")
+def elu(ins, attrs):
+    return {"Out": TF.elu(ins["X"], alpha=attrs.get("alpha", 1.0))}
+
+
+@register_op("hard_sigmoid")
+def hard_sigmoid(ins, attrs):
+    return {"Out": torch.clamp(attrs.get("slope", 0.2) * ins["X"]
+                               + attrs.get("offset", 0.5), 0.0, 1.0)}
+
+
+@register_op("hard_swish")
+def hard_swish(ins, attrs):
+    x = ins["X"]
+    return {"Out": x * torch.clamp(x + attrs.get("offset", 3.0), 0.0,
+                                   attrs.get("threshold", 6.0))
+            / attrs.get("scale", 6.0)}
+
+
+@register_op("swish")
+def swish(ins, attrs):
+    x = ins["X"]
+    return {"Out": x * torch.sigmoid(attrs.get("beta", 1.0) * x)}
+
+
+@register_op("prelu")
+def prelu(ins, attrs):
+    """x where x >= 0, alpha * x elsewhere; alpha one value ("all"), one
+    per channel ("channel", on dim 1) or one per element."""
+    x, alpha = ins["X"], ins["Alpha"]
+    if attrs.get("mode", "all") == "channel" and alpha.dim() == 1:
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": torch.where(x >= 0, x, alpha * x)}
+
+
 @register_op("gelu")
 def gelu(ins, attrs):
     """The erf form, or the tanh form when `approximate` (as
@@ -336,6 +391,11 @@ def gelu(ins, attrs):
 @register_op("softmax")
 def softmax(ins, attrs):
     return {"Out": torch.softmax(ins["X"], dim=attrs.get("axis", -1))}
+
+
+@register_op("log_softmax")
+def log_softmax(ins, attrs):
+    return {"Out": torch.log_softmax(ins["X"], dim=attrs.get("axis", -1))}
 
 
 @register_op("cross_entropy")
@@ -361,6 +421,109 @@ def cross_entropy(ins, attrs):
 @register_op("square_error_cost")
 def square_error_cost(ins, attrs):
     return {"Out": torch.square(ins["X"] - ins["Y"])}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ins, attrs):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), 0 where the label is
+    `ignore_index`; with `normalize`, divided by the count of the other
+    labels (at least 1)."""
+    x, label = ins["X"], ins["Label"]
+    loss = (torch.clamp(x, min=0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = attrs.get("ignore_index", -100)
+    keep = label != ignore
+    loss = torch.where(keep, loss, torch.zeros_like(loss))
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(keep.sum(dtype=torch.int32), min=1)
+    return {"Out": loss}
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss(ins, attrs):
+    """Per row: the sum of 0.5 sigma^2 d^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2, over d = X - Y; Out [N, 1], Diff d."""
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = ins["X"] - ins["Y"]
+    ad = torch.abs(diff)
+    out = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    out = out.sum(dim=tuple(range(1, out.dim()))) if out.dim() > 1 else out
+    return {"Out": out.reshape(-1, 1), "Diff": diff}
+
+
+@register_op("huber_loss")
+def huber_loss(ins, attrs):
+    delta = attrs.get("delta", 1.0)
+    r = ins["Y"] - ins["X"]
+    ar = torch.abs(r)
+    out = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": out, "Residual": r}
+
+
+@register_op("bce_loss")
+def bce_loss(ins, attrs):
+    """The binary cross entropy of X clipped to [1e-12, 1 - 1e-12] (not
+    F.binary_cross_entropy, whose log clamps at -100)."""
+    x, label = ins["X"], ins["Label"]
+    x = torch.clamp(x, 1e-12, 1.0 - 1e-12)
+    return {"Out": -(label * torch.log(x)
+                     + (1 - label) * torch.log(1 - x))}
+
+
+@register_op("log_loss")
+def log_loss(ins, attrs):
+    eps = attrs.get("epsilon", 1e-4)
+    p, label = ins["Predicted"], ins["Labels"]
+    return {"Loss": -label * torch.log(p + eps)
+            - (1 - label) * torch.log(1 - p + eps)}
+
+
+@register_op("label_smooth")
+def label_smooth(ins, attrs):
+    eps = attrs.get("epsilon", 0.0)
+    x = ins["X"]
+    prior = ins.get("PriorDist")
+    if prior is not None:
+        return {"Out": (1 - eps) * x + eps * prior}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}
+
+
+@register_op("kldiv_loss")
+def kldiv_loss(ins, attrs):
+    """target * (log target - x) where target > 0, else 0; reduced by
+    `reduction` (mean, sum, batchmean, or none)."""
+    x, target = ins["X"], ins["Target"]
+    pos = target > 0
+    safe = torch.where(pos, target, torch.ones_like(target))
+    loss = torch.where(pos, target * (torch.log(safe) - x),
+                       torch.zeros_like(x))
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    return {"Loss": loss}
+
+
+@register_op("one_hot_v2")
+def one_hot_v2(ins, attrs):
+    """float32 rows of `depth`, 1 at each id (all 0 for an id outside
+    [0, depth), as jax.nn.one_hot)."""
+    x = ins["X"]
+    depth = attrs.get("depth")
+    hot = x.long().unsqueeze(-1) == torch.arange(depth, device=x.device)
+    return {"Out": hot.to(torch.float32)}
+
+
+@register_op("one_hot")
+def one_hot(ins, attrs):
+    """one_hot_v2 of the ids, a trailing size-1 dim dropped first."""
+    x = ins["X"]
+    if x.dim() > 1 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    return one_hot_v2({"X": x}, attrs)
 
 
 @register_op("top_k")
@@ -390,11 +553,216 @@ def accuracy(ins, attrs):
     }
 
 
+@register_op("pad")
+def pad(ins, attrs):
+    """operators/pad_op.cc: `paddings` [before0, after0, before1, ...]
+    of every dim, filled with `pad_value`."""
+    x = ins["X"]
+    p = attrs.get("paddings")
+    flat = []
+    for i in reversed(range(x.dim())):
+        flat += [int(p[2 * i]), int(p[2 * i + 1])]
+    return {"Out": TF.pad(x, flat, value=attrs.get("pad_value", 0.0))}
+
+
+@register_op("pad2d")
+def pad2d(ins, attrs):
+    """operators/pad2d_op.cc on NCHW: `paddings` [top, bottom, left,
+    right], constant, reflect or edge."""
+    x = ins["X"]
+    t, b, l, r = (int(v) for v in attrs.get("paddings", [0, 0, 0, 0]))
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": TF.pad(x, (l, r, t, b),
+                              value=attrs.get("pad_value", 0.0))}
+    mode = {"reflect": "reflect", "edge": "replicate"}[mode]
+    return {"Out": TF.pad(x, (l, r, t, b), mode=mode)}
+
+
+@register_op("norm")
+def norm(ins, attrs):
+    """l2_normalize: x / sqrt(sum(x^2, axis) + epsilon), and that norm."""
+    x = ins["X"]
+    n = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                             keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+def _affine_c(y, ins, c, ndim):
+    """y * Scale + Bias along dim 1 (either may be absent)."""
+    bshape = (1, c) + (1,) * (ndim - 2)
+    scale, bias = ins.get("Scale"), ins.get("Bias")
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return y
+
+
+def _moments(x, axes):
+    mean = x.mean(dim=axes, keepdim=True)
+    return mean, torch.square(x - mean).mean(dim=axes, keepdim=True)
+
+
+@register_op("instance_norm")
+def instance_norm(ins, attrs):
+    """Normalize each (sample, channel) over its spatial dims (biased
+    variance); SavedMean / SavedVariance keep the reduced dims."""
+    x = ins["X"]
+    mean, var = _moments(x, tuple(range(2, x.dim())))
+    y = (x - mean) / torch.sqrt(var + attrs.get("epsilon", 1e-5))
+    return {"Y": _affine_c(y, ins, x.shape[1], x.dim()),
+            "SavedMean": mean, "SavedVariance": var}
+
+
+@register_op("group_norm")
+def group_norm(ins, attrs):
+    """Normalize each (sample, group of C / groups channels) over its
+    channels and spatial dims; Mean / Variance are [N, groups]."""
+    x = ins["X"]
+    groups = attrs.get("groups", 1)
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    mean, var = _moments(g, tuple(range(2, g.dim())))
+    y = ((g - mean) / torch.sqrt(var + attrs.get("epsilon", 1e-5))).reshape(
+        x.shape)
+    return {"Y": _affine_c(y, ins, c, x.dim()),
+            "Mean": mean.reshape(n, groups),
+            "Variance": var.reshape(n, groups)}
+
+
+def depthwise_conv2d(ins, attrs):
+    """conv2d with one group per input channel."""
+    x = ins["Input"]
+    c = x.shape[-1] if attrs.get("data_format", "NCHW") == "NHWC" \
+        else x.shape[1]
+    return conv2d(ins, dict(attrs, groups=c))
+
+
+def conv2d_transpose(ins, attrs):
+    """operators/conv_transpose_op.cc on NCHW with the filter
+    [Cin, Cout / groups, kh, kw], as the reference computes it: the input
+    dilated by the strides, padded by dilation * (k - 1) - padding on
+    each side (cropped where that is negative), then a stride-1 conv
+    with the filter regrouped to [Cout, Cin / groups, kh, kw] and
+    flipped.  SAME padding counts as 0, as in the reference."""
+    x, w = ins["Input"], ins["Filter"]
+    strides = _pair(attrs.get("strides", [1, 1]))
+    dilations = _pair(attrs.get("dilations", [1, 1]))
+    groups = attrs.get("groups", 1)
+    pad = _conv_pad(attrs.get("paddings", [0, 0]),
+                    attrs.get("padding_algorithm", "EXPLICIT"), 2)
+    if pad == "SAME":
+        pad = [(0, 0), (0, 0)]
+    cin, cout_g, kh, kw = w.shape
+    pads = [(dilations[i] * (k - 1) - pad[i][0],
+             dilations[i] * (k - 1) - pad[i][1])
+            for i, k in enumerate((kh, kw))]
+    if groups > 1:
+        w_t = w.reshape(groups, cin // groups, cout_g, kh, kw).transpose(
+            1, 2).reshape(groups * cout_g, cin // groups, kh, kw)
+    else:
+        w_t = w.transpose(0, 1)
+    w_t = torch.flip(w_t, (2, 3))
+    n, c, h, wd = x.shape
+    sh, sw = strides
+    if (sh, sw) != (1, 1):
+        xd = x.new_zeros((n, c, (h - 1) * sh + 1, (wd - 1) * sw + 1))
+        xd[:, :, ::sh, ::sw] = x
+        x = xd
+    (t, b), (l, r) = pads
+    x = TF.pad(x, (l, r, t, b))
+    out = TF.conv2d(x, w_t, dilation=dilations, groups=groups)
+    return {"Output": out}
+
+
+def _keys_cubic(x):
+    # R. G. Keys' cubic kernel (a = -0.5), as jax.image
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x):
+    return torch.clamp(1.0 - torch.abs(x), min=0.0)
+
+
+def _resize_weights(m, n, kernel, device):
+    """jax.image's [m, n] weights from input size m to output size n:
+    half-pixel centres, the kernel widened by m / n when shrinking (the
+    antialias filter), each column normalized, 0 for a sample outside
+    the input."""
+    inv = 1.0 / (n / m)        # the reference's 1 / scale, rounded as it
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) \
+        * inv - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]) / kscale
+    w = kernel(x)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(torch.abs(total) > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _resize(x, shape, method):
+    """jax.image.resize(x, shape, method) with its default antialias:
+    nearest takes the input pixel under each output pixel's centre;
+    linear and cubic contract each resized dim with `_resize_weights`."""
+    for d in range(x.dim()):
+        m, n = x.shape[d], shape[d]
+        if m == n:
+            continue
+        if method == "nearest":
+            off = torch.floor((torch.arange(n, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * m / n).long()
+            x = x.index_select(d, off)
+            continue
+        kernel = _triangle if method == "linear" else _keys_cubic
+        w = _resize_weights(m, n, kernel, x.device).to(
+            x.dtype if x.is_floating_point() else torch.float32)
+        if not x.is_floating_point():
+            x = x.to(torch.float32)
+        x = torch.tensordot(x, w, dims=([d], [0])).movedim(-1, d)
+    return x
+
+
+def interpolate(ins, attrs):
+    """operators/interpolate_op.cc, as the reference's jax.image.resize:
+    NCHW nearest / bilinear / bicubic and NCDHW trilinear, sized by the
+    out_* attrs or by `scale`."""
+    x = ins["X"]
+    scale = attrs.get("scale", 0.0)
+    method = attrs.get("interp_method", "nearest")
+
+    def _dim(name, axis):
+        v = attrs.get(name, -1)
+        if (v is None or v <= 0) and scale:
+            return int(x.shape[axis] * scale)
+        return int(v)
+
+    if x.dim() == 5 or method == "trilinear":
+        shape = (x.shape[0], x.shape[1], _dim("out_d", 2), _dim("out_h", 3),
+                 _dim("out_w", 4))
+        return {"Out": _resize(x, shape, "linear")}
+    shape = (x.shape[0], x.shape[1], _dim("out_h", 2), _dim("out_w", 3))
+    method = {"nearest": "nearest", "bilinear": "linear",
+              "bicubic": "cubic"}[method]
+    return {"Out": _resize(x, shape, method)}
+
+
 # the ops of earlier slices, under their op types
 register_op("layer_norm")(layer_norm)
 register_op("dropout", needs_rng=True)(dropout)
 register_op("lookup_table_v2")(lookup_table_v2)
 register_op("softmax_with_cross_entropy")(softmax_with_cross_entropy)
 register_op("conv2d")(conv2d)
+register_op("depthwise_conv2d")(depthwise_conv2d)
+register_op("conv2d_transpose")(conv2d_transpose)
+register_op("interpolate")(interpolate)
 register_op("pool2d")(pool2d)
 register_op("batch_norm", stateful=True)(batch_norm)

@@ -1,5 +1,6 @@
-"""Optimizer update ops (port of the train-step slice of
-paddle_tpu/ops/optimizer_ops.py: `sgd`, `momentum`, `adam`, `adamw`).
+"""Optimizer update ops (port of the train-step and static-graph slices of
+paddle_tpu/ops/optimizer_ops.py: `sgd`, `momentum`, `adam`, `adamw`,
+`adagrad`).
 
 The ops keep the reference's `(ins, attrs) -> outs` signature and its
 math, which is Paddle's and not `torch.optim`'s:
@@ -79,3 +80,14 @@ register_op("sgd", stateful=True)(sgd)
 register_op("momentum", stateful=True)(momentum)
 register_op("adam", stateful=True)(adam)
 register_op("adamw", stateful=True)(adamw)
+
+
+@register_op("adagrad", stateful=True)
+def adagrad(ins, attrs):
+    """operators/optimizers/adagrad_op.h: moment += g^2, then
+    param -= lr * g / (sqrt(moment) + epsilon)."""
+    eps = attrs.get("epsilon", 1e-6)
+    p, g, m = ins["Param"], ins["Grad"], ins["Moment"]
+    m_out = m + torch.square(g)
+    return {"ParamOut": p - _lr(ins) * g / (torch.sqrt(m_out) + eps),
+            "MomentOut": m_out}

@@ -47,8 +47,7 @@ def get_op(name):
     except KeyError:
         raise NotImplementedError(
             f"op '{name}' is not ported to paddle_tpu_torch yet (ROADMAP "
-            f"item 3: the rest of the static op set; item 10: the op "
-            f"corpus)") from None
+            f"item 10: the op corpus)") from None
 
 
 def has_op(name):

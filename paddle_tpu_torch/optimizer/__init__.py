@@ -2,12 +2,16 @@
 
 The top-level names are the static-graph optimizers, as in the
 reference (Paddle-Fluid's fluid/optimizer.py: Optimizer :54, backward
-:607, apply_gradients :671, minimize :779; SGD :828, Momentum :918, Adam
-:1653): `minimize` records a BackwardSection and appends one update op
-per parameter (`sgd`, `momentum`, `adam`, `adamw`, ops/optimizer_ops.py)
-to the Program, with the learning rate and the accumulators (velocity,
-moments, beta powers) as persistable vars filled by the startup program,
-under the reference's names.
+:607, apply_gradients :671, minimize :779; SGD :828, Momentum :918,
+Adagrad :1546, Adam :1653): `minimize` records a BackwardSection, clips
+the gradients (the optimizer's `grad_clip`, else the global
+`clip.set_gradient_clip`), adds the weight decay (a parameter's
+`ParamAttr(regularizer=)`, else the optimizer's `regularization`), and
+appends one update op per parameter (`sgd`, `momentum`, `adagrad`,
+`adam`, `adamw`, ops/optimizer_ops.py) to the Program, with the learning
+rate and the accumulators (velocity, moments, beta powers) as
+persistable vars filled by the startup program, under the reference's
+names.
 
 `functional` holds the functional optimizers the dygraph train step
 uses (`functional.SGD`, `Momentum`, `Adam`, `AdamW`, `global_norm_clip`).
@@ -16,12 +20,14 @@ The rest of the reference's static zoo raises NotImplementedError naming
 its ROADMAP item.
 """
 
+from .. import clip as clip_mod
 from ..framework import _not_ported, unique_name
 from ..framework.backward import append_backward
 from ..framework.initializer import ConstantInitializer
 from ..framework.program import (Variable, default_main_program,
                                  default_startup_program)
 from ..layers import tensor as T
+from ..regularizer import append_regularization_ops
 from . import functional  # noqa: F401
 
 __all__ = [
@@ -40,11 +46,9 @@ __all__ = [
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None):
-        if regularization is not None or grad_clip is not None:
-            raise NotImplementedError(
-                "regularization and grad_clip on the static optimizers are "
-                "not ported to paddle_tpu_torch yet (ROADMAP item 3)")
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._name = name or unique_name.generate(type(self).__name__.lower())
         self._lr_var = None
         self._accumulators = {}
@@ -98,11 +102,12 @@ class Optimizer:
                                checkpoints=checkpoints)
 
     def apply_gradients(self, params_grads):
-        if any(getattr(p, "regularizer", None) is not None
-               for p, _ in params_grads):
-            raise NotImplementedError(
-                "a ParamAttr regularizer on a static-graph parameter is not "
-                "ported to paddle_tpu_torch yet (ROADMAP item 3)")
+        # the reference's order: clip first, then decay
+        grad_clip = self._grad_clip or clip_mod.get_gradient_clip()
+        if grad_clip is not None:
+            params_grads = grad_clip.apply(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         self._create_global_learning_rate()
         ops = []
         for p, g in params_grads:
@@ -154,6 +159,26 @@ class Momentum(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class Adagrad(Optimizer):
+    """optimizer.py:1546 / operators/optimizers/adagrad_op.h"""
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._add_accumulator("moment", p, fill_value=self._init_acc)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": p, "Grad": g, "Moment": m,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p, "MomentOut": m},
+            attrs={"epsilon": self._epsilon})
+
+
 class Adam(Optimizer):
     """optimizer.py:1653 — Paddle's Adam (ops/optimizer_ops.py adam): the
     beta-power accumulators are [1] persistables starting at beta1 and
@@ -201,12 +226,11 @@ class AdamW(Adam):
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum
 AdamOptimizer = Adam
+AdagradOptimizer = Adagrad
 
 
 DGCMomentumOptimizer = _not_ported("DGCMomentumOptimizer",
                                    "8, the static DGC optimizer")
-Adagrad = AdagradOptimizer = _not_ported("Adagrad",
-                                         "3, the rest of the static op set")
 PipelineOptimizer = _not_ported("PipelineOptimizer", "8, pipeline.py")
 LarsMomentum = LarsMomentumOptimizer = _not_ported(
     "LarsMomentum", "10, the rest of the optimizer zoo")

@@ -224,8 +224,9 @@ def test_new_ops_are_registered_with_the_reference_flags():
         mine, ref = treg.get_op(name), jreg.get_op(name)
         assert (mine.needs_rng, mine.stateful) == (ref.needs_rng,
                                                    ref.stateful), name
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        treg.get_op("concat")
+    # an op of the corpus not ported yet names its item
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        treg.get_op("sequence_pool")
     with pytest.raises(ValueError, match="already registered"):
         treg.register_op("relu")(lambda ins, attrs: {})
 

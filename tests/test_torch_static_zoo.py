@@ -1,7 +1,8 @@
 """The port's static-graph Executor against the JAX package's, on the
 static zoo.
 
-Per family (mlp, lenet, resnet, bert, gpt, word2vec): the reference's
+Per family (mlp, lenet, resnet, bert, gpt, seq2seq, wide_deep,
+word2vec): the reference's
 startup program runs in JAX; its scope, read as numpy, seeds the port's
 scope (`interop.scope_from_numpy`: the port's `uniform_random` never
 draws JAX's bits); then both executors take the same 3 steps on the
@@ -12,10 +13,10 @@ Tolerances:
 - fetches (the loss; lenet's accuracy too): atol = rtol = 1e-5 (the same
   f32 math summed in another order);
 - persistables after SGD / Momentum steps: atol = rtol = 1e-5;
-- persistables after Adam steps: atol = 2 * lr * k + 1e-5, rtol 1e-5 (the
-  rule of tests/test_torch_train.py: Adam's early update is about
-  lr * sign(g), so a grad element near 0 that the two frameworks round
-  to opposite signs moves by up to 2 lr per step);
+- persistables after Adam or Adagrad steps: atol = 2 * lr * k + 1e-5,
+  rtol 1e-5 (the rule of tests/test_torch_train.py: the early update of
+  either is about lr * sign(g), so a grad element near 0 that the two
+  frameworks round to opposite signs moves by up to 2 lr per step);
 - and every persistable's update over the 3 steps (its value less the
   startup value: a moment's is the moment itself) against the
   reference's, in norm: ||d_port - d_ref|| <= 0.1 ||d_ref|| (exactly 0
@@ -49,10 +50,11 @@ from paddle_tpu_torch.ops import nn_ops
 STEPS = 3
 BATCH = 4
 TOL = 1e-5
-# family -> (learning rate, Adam?)
+# family -> (learning rate, an update about lr * sign(g): Adam, Adagrad)
 OPTIMIZERS = {"mlp": (0.01, False), "lenet": (1e-3, True),
               "resnet": (0.01, False), "bert": (1e-3, True),
-              "gpt": (1e-3, True), "word2vec": (0.05, False)}
+              "gpt": (1e-3, True), "seq2seq": (1e-3, True),
+              "wide_deep": (0.05, True), "word2vec": (0.05, False)}
 
 _REF = {}
 
@@ -119,8 +121,8 @@ def test_three_steps_match_the_reference(name, source):
             assert g.shape == np.shape(w) and g.dtype == np.asarray(w).dtype
             np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL,
                                        err_msg=f"step {step} fetch {n}")
-    lr, adam = OPTIMIZERS[name]
-    atol = 2 * lr * STEPS + TOL if adam else TOL
+    lr, sign_rule = OPTIMIZERS[name]
+    atol = 2 * lr * STEPS + TOL if sign_rule else TOL
     got_state = interop.scope_to_numpy(scope)
     assert set(got_state) == set(want_state)
     for n, w in want_state.items():
