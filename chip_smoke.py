@@ -34,7 +34,10 @@ Phases (any failure makes the script exit non-zero without a result):
    input type).  The backward kernels are checked both as raw launches
    and through their autograd Functions, at the train shapes
    (q [48, 12, 512, 64] causal, x [24576, 768]), at the serving shapes
-   and non-causal at head_dim 128 and 256; their library yardstick is
+   and non-causal at head_dim 128 and 256; K1-K3 also non-causal at the
+   static GPT's attention, [8, 12, 512, 64], bf16 and f32 (inputs from a
+   generator of their own: `flash_static_checks`); their library
+   yardstick is
    the backward of `F.scaled_dot_product_attention` / `F.layer_norm`,
    timed as `torch.autograd.grad(out, inputs, dout, retain_graph=True)`.
    bf16 K1, K2 and K3 run on the tensor cores: `flash_precision` holds
@@ -164,14 +167,22 @@ Phases (any failure makes the script exit non-zero without a result):
    time goes, K6's device ms per step among it.
 7. Static-graph path: the static zoo's GPT at BERT-base widths
    (`static_zoo.build_gpt(t=512, d=768, heads=12, vocab=32768)`, one
-   transformer layer, float32: the static path has no AMP yet) through
+   transformer layer, float32) through
    `Executor.run` on the card: its startup, one warm-up and 5 timed Adam
    steps at batch 8, ids and targets uniform over the vocab
    (`static_feed`).  Printed: host ms per step, device
    ms per step and the top kernels (torch.profiler over 2 steps),
    kernels and Executor ops per step, peak memory.  Fails unless every
    loss is finite and each step launches exactly K4 and K5 twice (its
-   two layer_norm ops).  The same GPT again, built while
+   two layer_norm ops).  The same GPT with FLAGS_amp and
+   FLAGS_graph_opt_fuse on (`static_run(amp=True)`): the Executor runs
+   its AMP-rewritten and fused substitute, which must carry one
+   fused_attention computing in bfloat16, one fused_bias_act and two
+   fused_layer_norm ops; each step must launch exactly K1, K2 and K3
+   once and K4 and K5 twice (STATIC_AMP_LAUNCHES); the same readings,
+   device ms by family (products, K1-K5, copies and casts) and by
+   Executor op type, and one line against the plain run.  The same GPT
+   again, built while
    `clip.set_gradient_clip(GradientClipByGlobalNorm(1.0))` is set
    (`static_clip_run`): the same steps, launches and readings, and each
    step's global norm and clip factor, the factor held against
@@ -186,16 +197,25 @@ Phases (any failure makes the script exit non-zero without a result):
    with the regularizers and the gradient clips (`clip_decay`,
    `clip_value`: each clip shown to engage), and of
    `build_gpt(t=128, d=768, heads=12, vocab=1024)` at batch 2 (K4/K5 on
-   the card, their plain versions on the CPU), from the same startup
+   the card, their plain versions on the CPU), plain and with the fusion
+   tier on (K1-K3 in f32 too), from the same startup
    values; fetches within 1e-4 relative at the first step and 1e-3
    after, persistables per tensor in norm, and each persistable's update
    within 0.1 of the CPU's in norm (an Adam or Adagrad parameter's
    element by element, where only elements whose gradient lies near 0
-   on the measured card-vs-CPU difference may be off).
+   on the measured card-vs-CPU difference may be off).  Then the same
+   GPT with AMP and fusion (`static_amp_check`: K1-K3 in bf16, K4/K5):
+   losses within 3e-2 relative, each persistable's update within 0.1 of
+   the CPU's in norm.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
-   first step's grads and the params must agree.  A shallow NHWC
+   first step's grads and the params must agree.  The same with
+   `make_train_step(amp=True)` (bf16 products, f32 master params):
+   losses within 3e-2, each param's update within 0.1 of the CPU's in
+   norm.  One `amp.make_amp_train_step` step of an MLP under float16
+   autocast and a 2**100 loss scale must overflow, count one bad step
+   and commit nothing.  A shallow NHWC
    ResNet-50 (full widths, depths [2, 2, 2, 2], the full fused program:
    K9, the projection K7, three K8 and four identity K7) takes 2
    Momentum steps at batch 8 x 128 x 128 on the card and on the CPU:
@@ -229,11 +249,13 @@ versions compared in turns on one card.
 The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
 K9 as two rows each, P1, P2; every row with its launches summed over
 the GPT train, the two fused ResNet runs, the serving paths, the
-static GPT's 5 timed steps and the probe tool's runs, K10's over the DGC
+timed steps of the static GPT's three runs (plain, AMP + fusion,
+clipped) and the probe tool's runs, K10's over the DGC
 run with K10, P1's and P2's over the probe tool's), the card line and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -606,6 +628,7 @@ def kernel_phase(failures):
     # K6 ------------------------------------------------------------------
     rows["flash_decode"] = k6_checks(failures, rnd, flush)
     flash_bwd_checks(rows, failures, rnd)
+    flash_static_checks(failures)
     flash_precision(failures)
     layer_norm_bwd_checks(rows, failures, rnd)
     fused_bottleneck_checks(rows, failures, rnd)
@@ -866,6 +889,50 @@ def flash_bwd_checks(rows, failures, rnd):
                     bound_by=bykv, **common)
             del q, k, v, do, out, lse, delta, args, want, dq, dk, dv
             torch.cuda.empty_cache()
+
+
+# the attention shape of the static GPT (`STATIC_GPT`, batch 8), which
+# its fused_attention hands K1-K3 under the fusion tier; drawn from a
+# generator of its own, so every earlier check keeps its inputs
+FLASH_STATIC = (8, 12, 512, 64)
+
+
+def flash_static_checks(failures):
+    """K1 (out, lse), K2 (dq) and K3 (dk, dv) at FLASH_STATIC, non-causal,
+    bf16 and f32, against their plain versions, with their times."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shape = FLASH_STATIC
+    scale = 1.0 / math.sqrt(shape[-1])
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = ((torch.randn(shape, generator=gen, device="cuda")
+                        * 0.5).to(dt) for _ in range(4))
+        tag = f"K1-K3 static GPT {list(shape)} causal=False {dname(dt)}"
+        out, lse = FA.flash_attention_with_lse(q, k, v, causal=False)
+        ref, ref_lse = FA.flash_attention_ref(q, k, v, causal=False)
+        err = max(compare(tag + " out", out, ref, dname(dt), failures),
+                  compare(tag + " lse", lse, ref_lse, "float32", failures))
+        delta = (do.float() * ref.float()).sum(-1)
+        args = (q, k, v, do, ref_lse, delta, False, scale)
+        want = FA.flash_attention_bwd_ref(*args)
+        err_q = compare(tag + " dq", FA._launch_bwd_dq(*args), want[0],
+                        dname(dt), failures)
+        dk, dv = FA._launch_bwd_dkv(*args)
+        err_kv = max(compare(tag + " dk", dk, want[1], dname(dt), failures),
+                     compare(tag + " dv", dv, want[2], dname(dt), failures))
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, False))
+        ms_q = time_ms(lambda: FA._launch_bwd_dq(*args))
+        ms_kv = time_ms(lambda: FA._launch_bwd_dkv(*args))
+        log(f"{tag}: K1 kernel_ms {ms:.4f} max_err {err:.3e}; K2 kernel_ms "
+            f"{ms_q:.4f} max_err {err_q:.3e}; K3 kernel_ms {ms_kv:.4f} "
+            f"max_err {err_kv:.3e}")
+        del q, k, v, do, out, lse, ref, ref_lse, delta, args, want, dk, dv
+    torch.cuda.empty_cache()
 
 
 # the train shape of K1-K3, and the head dims of the non-causal checks
@@ -2501,13 +2568,14 @@ def train_run(failures):
     return dict(launches=launches, step_ms=mean_ms, profile=prof)
 
 
-def profile_train_step(step, state, batch, host_ms, label="train", steps=1):
+def profile_train_step(step, state, batch, host_ms, label="train", steps=1,
+                       families=()):
     """Where a train step's time goes: device time per step and the
     busiest kernels (torch.profiler over `steps` steps, kernel events
     only), against the step's host-clock time measured without the
     profiler.  Returns {"device": ms, "kernels": launches, family: ms}
-    per step (KERNEL_FAMILIES found in the window) and "ln_bwd", the
-    kernels of each LayerNorm backward in the window."""
+    per step (KERNEL_FAMILIES and `families` found in the window) and
+    "ln_bwd", the kernels of each LayerNorm backward in the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2532,7 +2600,7 @@ def profile_train_step(step, state, batch, host_ms, label="train", steps=1):
     shares = []
     found = {"device": device_ms, "kernels": sum(r[1] for r in rows),
              "ln_bwd": ln_backward_kernels(prof)}
-    for fam, pattern in KERNEL_FAMILIES:
+    for fam, pattern in KERNEL_FAMILIES + tuple(families):
         ms = sum(r[0] for r in rows if re.search(pattern, r[2])) / 1e3
         if ms:
             found[fam] = ms
@@ -2574,6 +2642,16 @@ KERNEL_FAMILIES = (
     ("slice sums (K7, K8)", r"(?<!down_)wsum_kernel"),
     ("K9", r"stem_(fwd|bwd|sum)_kernel"),
     ("K10", r"count_ge_kernel"),
+)
+
+
+# more families for the static path's steps: the products (cuBLAS and
+# CUTLASS kernels; the top kernels' names say which are bf16), and the
+# dtype-converting and plain copies (the AMP casts run as
+# `direct_copy_kernel`s)
+STATIC_FAMILIES_MORE = (
+    ("products", r"gemm|nvjet|xmma|cutlass|cublas"),
+    ("copies and casts", r"direct_copy|copy_kernel"),
 )
 
 
@@ -3453,7 +3531,123 @@ def train_check(failures, steps=3, lr=1e-4):
                         f"{atol:.1e}")
     if not card["losses"][-1] < card["losses"][0]:
         failures.append(f"train check loss did not fall: {card['losses']}")
+    cpu_run = dict(cpu, start=start)
     del runs, card, cpu
+    torch.cuda.empty_cache()
+    return cpu_run
+
+
+def amp_train_check(failures, f32_cpu, steps=3, lr=1e-4):
+    """`make_train_step(amp=True)` on the train check's GPT (vocab 32768,
+    hidden 768, 2 layers, f32 master params, the same weights, batch and
+    AdamW(lr)): `steps` steps on the card (bf16 products, K1-K5) against
+    the CPU (plain versions), from the train check's start weights
+    (`f32_cpu`, whose f32 losses are logged beside).  Losses within 3e-2
+    relative; each param's update within STATIC_UPDATE_RTOL of the
+    CPU's in norm, but the k_proj biases (their gradient is 0 in exact
+    arithmetic)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=2,
+                    num_heads=12, max_seq_len=512)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 256), dtype=np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    start = f32_cpu["start"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = GPT(cfg, device=dev, generator=make_generator(2))
+        load_param_dict(model, start)
+        x = torch.as_tensor(ids, device=dev)
+        y = torch.as_tensor(labels, device=dev)
+        opt = AdamW(lr)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, amp=True)
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, x, y)
+            losses.append(float(loss))
+        runs[dev] = dict(losses=losses, params={
+            n: p.detach().cpu().numpy() for n, p in state.params.items()})
+        del model, state
+    card, cpu = runs["cuda"], runs["cpu"]
+    start_np = {n: t.numpy() for n, t in start.items()}
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    worst, worst_name = update_error(
+        start_np, card["params"], cpu["params"],
+        [n for n in cpu["params"] if "k_proj.bias" in n])
+    log(f"amp train check (make_train_step(amp=True), vocab 32768, hidden "
+        f"768, 2 layers, batch 2 x 256, {steps} AdamW({lr}) steps), card vs "
+        f"CPU: losses card {card['losses']} CPU {cpu['losses']} (f32 CPU "
+        f"{f32_cpu['losses']}), max rel err {loss_err:.3e}; worst update "
+        f"||d_card - d_cpu|| / (0.1 ||d_cpu||) {worst:.3e} ({worst_name})")
+    if not loss_err <= 3e-2:
+        failures.append(f"amp train check losses differ: {loss_err:.3e} > "
+                        f"3e-2")
+    if not worst <= 1.0:
+        failures.append(f"amp train check: update of {worst_name} off by "
+                        f"{worst:.3e} of its bound")
+    torch.cuda.empty_cache()
+
+
+def amp_overflow_check(failures):
+    """One `amp.make_amp_train_step` step with FLAGS_amp_dtype=float16
+    and init_scale 2**100 on the card: an MLP (768 -> 3072 gelu -> 10, f32
+    master params) whose cross-entropy runs under `auto_cast` (float16
+    products), batch 256.  The loss scaled by 2**100 overflows float16 in
+    the backward, so the step must report grads_finite False, count one
+    bad step (the scale unchanged: decr_every 2) and commit nothing:
+    params and optimizer state bitwise as they were.  (An MLP: the flash
+    kernels have no float16 version.)"""
+    import torch
+
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    sub = dict(device="cuda", generator=make_generator(3))
+    model = nn.Sequential(nn.Linear(768, 3072, act="gelu", **sub),
+                          nn.Linear(3072, 10, **sub))
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((256, 768), dtype=np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, 10, (256, 1)), device="cuda")
+
+    def loss_fn(m, xb, yb):
+        with amp.auto_cast():
+            return F.cross_entropy(m(xb), yb)
+
+    with tier_flags(amp_dtype="float16"):
+        step, make_state = amp.make_amp_train_step(
+            model, AdamW(1e-4), loss_fn, init_scale=2.0 ** 100)
+        ts, sc = make_state()
+        before = {n: p.clone() for n, p in ts.params.items()}
+        moments = {n: {k: v.clone() for k, v in st.items()}
+                   for n, st in ts.opt_state.items() if n != "__step__"}
+        (ts, sc), loss, finite = step((ts, sc), x, y)
+    kept = all(torch.equal(ts.params[n], p) for n, p in before.items()) \
+        and all(torch.equal(ts.opt_state[n][k], v)
+                for n, st in moments.items() for k, v in st.items())
+    log(f"amp overflow check (float16, init_scale 2**100): loss "
+        f"{float(loss):.6f}, grads_finite {bool(finite)}, scale "
+        f"{float(sc['scale']):.3e}, bad_steps {int(sc['bad_steps'])}, "
+        f"good_steps {int(sc['good_steps'])}, params and moments kept "
+        f"{kept}, optimizer step {int(ts.opt_state['__step__'])}")
+    if bool(finite) or int(sc["bad_steps"]) != 1 or not kept \
+            or float(sc["scale"]) != 2.0 ** 100 \
+            or int(ts.opt_state["__step__"]) != 0:
+        failures.append("amp overflow check: the 2**100-scaled float16 "
+                        "step did not overflow and commit nothing")
+    del model, ts, before, moments
     torch.cuda.empty_cache()
 
 
@@ -3591,6 +3785,16 @@ def resnet_check(failures, steps=2, lr=1e-5):
 
 STATIC_GPT = dict(t=512, d=768, heads=12, vocab=32768)   # bench.py:169-174
 STATIC_LAUNCHES = {"layer_norm_fwd": 2, "layer_norm_bwd": 2}   # per step
+# per step of the same GPT with FLAGS_amp and FLAGS_graph_opt_fuse on: its
+# fused_attention on K1 forward and K2/K3 backward (non-causal [8, 12,
+# 512, 64] bf16), its two fused_layer_norm ops on K4/K5
+STATIC_AMP_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                       "flash_attention_bwd_dkv": 1, "layer_norm_fwd": 2,
+                       "layer_norm_bwd": 2}
+# the fused ops the substitute of the static GPT carries (the counts of
+# the reference's tests/test_fuse.py for its gpt family)
+STATIC_AMP_FUSED = {"fused_attention": 1, "fused_bias_act": 1,
+                    "fused_layer_norm": 2}
 # bench.py:697-704 (`bench_wide_deep`): 26 sparse fields over 1e6 ids, 13
 # dense features, batch 8192
 STATIC_WIDE_DEEP = dict(fields=26, vocab=1_000_000, dense=13)
@@ -3609,7 +3813,14 @@ STATIC_FAMILIES = (
     ("clip_decay", {}, 8, 0.05, False),
     ("clip_value", {}, 8, 0.1, False),
     ("gpt", dict(t=128, d=768, heads=12, vocab=1024), 2, 1e-3, True),
+    # the fusion tier alone (FLAGS_graph_opt_fuse on, AMP off): K1-K3's
+    # f32 path inside the Executor
+    ("gpt", dict(t=128, d=768, heads=12, vocab=1024), 2, 1e-3, True,
+     "fuse"),
 )
+# the AMP + fused static GPT held card against CPU (`static_amp_check`)
+STATIC_AMP_CHECK = (dict(t=128, d=768, heads=12, vocab=1024), 2, 1e-3)
+STATIC_AMP_LOSS_RTOL = 3e-2
 
 
 STATIC_UPDATE_RTOL = 0.1
@@ -3750,7 +3961,69 @@ def static_feed(m, vocab, batch, seed):
             for name, shape in m.smoke_feed_shapes(batch).items()}
 
 
-def static_run(failures, steps=5, clip_norm=None):
+@contextlib.contextmanager
+def tier_flags(amp="off", fuse="off", **more):
+    """FLAGS_amp and FLAGS_graph_opt_fuse (and any `more` flags) set for
+    the block, restored after it."""
+    import paddle_tpu_torch as fluid
+
+    names = {"FLAGS_amp": amp, "FLAGS_graph_opt_fuse": fuse,
+             **{"FLAGS_" + k: v for k, v in more.items()}}
+    entry = fluid.get_flags(list(names))
+    fluid.set_flags(names)
+    try:
+        yield
+    finally:
+        fluid.set_flags(entry)
+
+
+def executor_op_profile(run, label):
+    """Device ms of one step by Executor op type: each op's run wrapped in
+    a `record_function` range (the forward ops and the updates; the
+    backward runs in `torch.autograd.grad`, outside every range, and is
+    the rest of the step).  Returns {op type: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.framework import executor as ex
+
+    inner = ex.run_op
+
+    def traced(op, env, generator):
+        with record_function("op::" + op.type):
+            return inner(op, env, generator)
+
+    ex.run_op = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        ex.run_op = inner
+    # the ranges' host-side events: the device time of the kernels each
+    # launched (the profiler also shows a range as a device-side
+    # annotation spanning its kernels and the gaps between them; those,
+    # keyed alike, are left out)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    by_type = {}
+    for e in prof.events():
+        if e.name.startswith("op::") and e.device_type == cpu:
+            by_type[e.name[4:]] = (by_type.get(e.name[4:], 0.0)
+                                   + e.device_time_total / 1e3)
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == cuda
+                and not e.key.startswith("op::")) / 1e3
+    top = sorted(by_type.items(), key=lambda kv: -kv[1])
+    log(f"{label} device ms by Executor op type (one step): "
+        + ", ".join(f"{t} {ms:.3f}" for t, ms in top[:12])
+        + f"; in op ranges {sum(by_type.values()):.3f} of {total:.3f} ms, "
+        f"the rest (the backward in torch.autograd.grad) "
+        f"{total - sum(by_type.values()):.3f}")
+    return by_type
+
+
+def static_run(failures, steps=5, clip_norm=None, amp=False):
     """The static GPT at BERT-base widths (`static_zoo.build_gpt(512, 768,
     12, 32768)`, one transformer layer, float32) through `Executor.run`
     on the card: startup, one warm-up and `steps` timed Adam steps at
@@ -3762,15 +4035,29 @@ def static_run(failures, steps=5, clip_norm=None):
     other kernel of the port.  With `clip_norm`, the GPT is built while
     `clip.set_gradient_clip(GradientClipByGlobalNorm(clip_norm))` is set
     (reset after), and each step also fetches the clip's global norm and
-    factor (`static_clip_check`).  Returns {launches, host_ms, profile,
-    ops, peak}."""
+    factor (`static_clip_check`).  With `amp`, the same GPT and steps
+    with FLAGS_amp and FLAGS_graph_opt_fuse "on" (restored after): the
+    Executor runs the AMP-rewritten and fused substitute, which must
+    carry STATIC_AMP_FUSED (its fused_attention computing in bfloat16),
+    and each step must launch exactly STATIC_AMP_LAUNCHES; it also logs
+    the substitute's casts and the step's device ms by Executor op type.
+    Returns {launches, host_ms, profile, ops, peak}."""
+    if amp:
+        with tier_flags(amp="on", fuse="on"):
+            return _static_run(failures, steps, clip_norm, amp)
+    return _static_run(failures, steps, clip_norm, amp)
+
+
+def _static_run(failures, steps, clip_norm, amp):
     import torch
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels import backend
     from paddle_tpu_torch.models import static_zoo
 
-    label = "static" if clip_norm is None else "static clipped"
+    label = ("static amp" if amp else "static") if clip_norm is None \
+        else "static clipped"
+    want_launches = STATIC_AMP_LAUNCHES if amp else STATIC_LAUNCHES
     if clip_norm is None:
         m = static_zoo.build_gpt(**STATIC_GPT)
     else:
@@ -3786,8 +4073,27 @@ def static_run(failures, steps=5, clip_norm=None):
     n_params = sum(p.numel() for n, p in scope.vars.items()
                    if n in {v.name for v in m.main.all_parameters()})
     feed = static_feed(m, STATIC_GPT["vocab"], batch=8, seed=0)
-    ops = len(exe._live_ops(m.main, m.fetches))
-    log(f"{label}: gpt {STATIC_GPT} f32 through Executor.run, batch 8, "
+    program = m.main
+    if amp:
+        program = exe._resolve_train_optimized(m.main, list(m.fetches),
+                                               True, True)
+        types = [op.type for op in program.global_block().ops]
+        fused = {t: types.count(t) for t in STATIC_AMP_FUSED}
+        attn = [op for op in program.global_block().ops
+                if op.type == "fused_attention"]
+        casts = types.count("cast")
+        log(f"{label}: substitute of {len(m.main.global_block().ops)} ops "
+            f"-> {len(types)} ops: {casts} casts, fused {fused}, "
+            f"fused_attention attrs {[a.attrs for a in attn]}")
+        if fused != STATIC_AMP_FUSED or any(
+                a.attrs.get("compute_dtype") != "bfloat16" for a in attn):
+            failures.append(f"{label}: substitute carries {fused}, "
+                            f"fused_attention compute dtypes "
+                            f"{[a.attrs.get('compute_dtype') for a in attn]}"
+                            f" != {STATIC_AMP_FUSED}, bfloat16")
+    ops = len(exe._live_ops(program, m.fetches))
+    log(f"{label}: gpt {STATIC_GPT} {'AMP bf16 + fusion' if amp else 'f32'}"
+        f" through Executor.run, batch 8, "
         f"{n_params} parameters, {ops} ops per step "
         f"({sum(op.type == 'adam' for op in m.main.global_block().ops)} "
         f"Adam updates)")
@@ -3817,9 +4123,9 @@ def static_run(failures, steps=5, clip_norm=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
         made = {n: c for n, c in made.items() if c}
-        if made != STATIC_LAUNCHES:
+        if made != want_launches:
             failures.append(f"{label} step {i} launches {made} != "
-                            f"{STATIC_LAUNCHES}")
+                            f"{want_launches}")
     launches = dict(backend.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     host_ms = sum(step_ms) / steps
@@ -3843,10 +4149,13 @@ def static_run(failures, steps=5, clip_norm=None):
     if clip_norm is not None:
         static_clip_check(m, exe, scope, feed, fetches, clip_norm, failures)
     prof = profile_train_step(lambda _: run(), None, (), host_ms,
-                              label=label, steps=2)
+                              label=label, steps=2,
+                              families=STATIC_FAMILIES_MORE)
     log(f"{label} step: {prof['kernels']:.1f} kernels and {ops} Executor "
         f"ops per step; {len(prof['ln_bwd']) / 2:.1f} LayerNorm backwards "
         f"per step, kernels each {sorted({len(k) for k in prof['ln_bwd']})}")
+    if amp:
+        prof["by_op"] = executor_op_profile(run, label)
     del scope, exe
     torch.cuda.empty_cache()
     return dict(launches=launches, host_ms=host_ms, profile=prof, ops=ops,
@@ -3997,139 +4306,248 @@ def static_check(failures, steps=3):
     from paddle_tpu_torch.kernels import backend
     from paddle_tpu_torch.models import static_zoo
 
-    for name, kw, batch, lr, adam in STATIC_FAMILIES:
-        builder, engaged = STATIC_PROGRAMS[name] \
-            if name in STATIC_PROGRAMS else (static_zoo.BUILDERS[name], None)
-        m = builder(**kw)
-        cpu_exe = fluid.Executor(fluid.CPUPlace())
-        cpu_scope = fluid.Scope()
-        cpu_exe.run(m.startup, scope=cpu_scope)
-        card_exe = fluid.Executor()
-        start = interop.scope_to_numpy(cpu_scope)
-        card_scope = interop.scope_from_numpy(start, fluid.Scope(), "cuda")
-        params = {v.name for v in m.main.all_parameters()}
-        held = sorted(params - set(STATIC_ZERO_GRAD)) if adam else []
-        grads = [n + "@GRAD" for n in held]
-        near = {n: np.zeros(start[n].shape, bool) for n in held}
-        live = {n: np.zeros(start[n].shape, bool) for n in held}
-        fetch_err = []
+    for name, kw, batch, lr, adam, *tier in STATIC_FAMILIES:
+        with tier_flags(fuse="on" if tier else "off"):
+            _static_family_check(failures, name, kw, batch, lr, adam,
+                                 bool(tier), steps)
+    torch.cuda.empty_cache()
+
+
+def _static_family_check(failures, name, kw, batch, lr, adam, fused, steps):
+    """One STATIC_FAMILIES entry of `static_check`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    build_fn, engaged = STATIC_PROGRAMS[name] \
+        if name in STATIC_PROGRAMS else (static_zoo.BUILDERS[name], None)
+    m = build_fn(**kw)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_scope = fluid.Scope()
+    cpu_exe.run(m.startup, scope=cpu_scope)
+    card_exe = fluid.Executor()
+    start = interop.scope_to_numpy(cpu_scope)
+    card_scope = interop.scope_from_numpy(start, fluid.Scope(), "cuda")
+    params = {v.name for v in m.main.all_parameters()}
+    held = sorted(params - set(STATIC_ZERO_GRAD)) if adam else []
+    grads = [n + "@GRAD" for n in held]
+    near = {n: np.zeros(start[n].shape, bool) for n in held}
+    live = {n: np.zeros(start[n].shape, bool) for n in held}
+    fetch_err = []
+    backend.reset_launches()
+    for i in range(steps):
+        feed = m.smoke_feed(batch=batch, seed=i)
+        got = card_exe.run(m.main, feed=feed,
+                           fetch_list=m.fetches + grads, scope=card_scope)
+        want = cpu_exe.run(m.main, feed=feed,
+                           fetch_list=m.fetches + grads, scope=cpu_scope)
+        k = len(m.fetches)
+        err = max(float(np.abs(g - w).max()
+                        / max(np.abs(w).max(), 1e-6))
+                  for g, w in zip(got[:k], want[:k]))
+        fetch_err.append(err)
+        if not err <= (1e-4 if i == 0 else 1e-3):
+            failures.append(f"static check {name} {kw} step {i}: "
+                            f"fetches differ by {err:.3e} relative")
+        for n, g, w in zip(held, got[k:], want[k:]):
+            near[n] |= near_zero_grad(g, w)
+            live[n] |= (g != 0) | (w != 0)
+        for side, fetched in (("card", got), ("CPU", want)):
+            bad = engaged(fetched) if engaged else None
+            if bad:
+                failures.append(f"static check {name} step {i} "
+                                f"({side}): {bad}")
+    # the D-768 GPT's two layer_norm ops take K4/K5 on the card, and
+    # fused, its fused_attention K1-K3 (f32, seq 128, head dim 64); the
+    # zoo-size families (D 32) take the eager composition
+    d = kw.get("d")
+    want = ({n: c * steps for n, c in (STATIC_AMP_LAUNCHES if fused
+                                        else STATIC_LAUNCHES).items()}
+            if d is not None and d % 128 == 0 else {})
+    if dict(backend.LAUNCHES) != want:
+        failures.append(f"static check {name} {kw}: launches "
+                        f"{dict(backend.LAUNCHES)} != {want}")
+    atol = (2 * lr * steps if adam else 0.0) + 1e-5
+    card = interop.scope_to_numpy(card_scope)
+    cpu = interop.scope_to_numpy(cpu_scope)
+    worst, worst_name = 0.0, None
+    for n, w in cpu.items():
+        d = float(np.linalg.norm((card[n] - w).ravel().astype(np.float64)))
+        bound = (1e-3 * float(np.linalg.norm(w.ravel().astype(np.float64)))
+                 + atol * np.sqrt(w.size))
+        if d / bound > worst:
+            worst, worst_name = d / bound, n
+    upd, upd_name = update_error(start, card, cpu,
+                                 set(STATIC_ZERO_GRAD) | set(near))
+    elem, elem_name, n_near, n_off, n_bad = 0.0, None, 0, 0, 0
+    n_live = sum(int(v.sum()) for v in live.values())
+    for n in held:
+        r, off, bad = adam_update_check(card[n], cpu[n], start[n],
+                                        near[n], lr * steps)
+        n_near += int(near[n].sum())
+        n_off += off
+        n_bad += bad
+        if r > elem:
+            elem, elem_name = r, n
+    log(f"f32 static check {name} {kw or ''}{' fused' if fused else ''} "
+        f"batch {batch}, {steps} "
+        f"steps, card vs CPU: fetch rel err per step "
+        f"{[f'{e:.2e}' for e in fetch_err]}; {len(cpu)} persistables, "
+        f"worst ||d|| / bound {worst:.3e} ({worst_name}; atol "
+        f"{atol:.1e}); worst update ||d_card - d_cpu|| / (0.1 "
+        f"||d_cpu||) {upd:.3e} ({upd_name}); Adam or Adagrad "
+        f"parameters: "
+        f"{n_near} of {n_live} elements with a gradient near zero, "
+        f"{n_off} updates off by > "
+        f"their bound, {n_bad} of them not near zero, worst other "
+        f"element / bound {elem:.3e} ({elem_name}); launches "
+        f"{dict(backend.LAUNCHES)}")
+    if not upd <= 1.0:
+        failures.append(f"static check {name} {kw}: update of "
+                        f"{upd_name} off by {upd:.3e} of its bound")
+    if n_bad or not elem <= 1.0:
+        failures.append(f"static check {name} {kw}: {n_bad} Adam or "
+                        f"Adagrad parameter elements with a gradient "
+                        f"away from "
+                        f"0 updated off their bound (worst {elem:.3e}, "
+                        f"{elem_name})")
+    if n_near > ADAM_NEAR_SHARE * n_live:
+        failures.append(f"static check {name} {kw}: {n_near} of "
+                        f"{n_live} Adam or Adagrad parameter elements "
+                        f"with a "
+                        f"gradient near zero, more than "
+                        f"{ADAM_NEAR_SHARE}")
+    if set(card) != set(cpu):
+        failures.append(f"static check {name}: persistables differ "
+                        f"{sorted(set(card) ^ set(cpu))}")
+    if not worst <= 1.0:
+        failures.append(f"static check {name} {kw}: persistable "
+                        f"{worst_name} off by {worst:.3e} of its bound")
+    del card_scope, cpu_scope
+
+
+def update_error(start, card, cpu, skip=()):
+    """The worst ||d_card - d_cpu|| / (STATIC_UPDATE_RTOL ||d_cpu||) over
+    the tensors of `cpu` in `card` and not in `skip`, d being a tensor's
+    value less its `start` (0 where d_cpu is 0): (ratio, name)."""
+    worst, worst_name = 0.0, None
+    for n, w in cpu.items():
+        if n in skip or n not in card:
+            continue
+        d_cpu = (np.asarray(w, np.float64) - start[n]).ravel()
+        d_card = (np.asarray(card[n], np.float64) - start[n]).ravel()
+        off = float(np.linalg.norm(d_card - d_cpu))
+        ref = STATIC_UPDATE_RTOL * float(np.linalg.norm(d_cpu))
+        r = off / ref if ref else (0.0 if off == 0 else np.inf)
+        if r > worst:
+            worst, worst_name = r, n
+    return worst, worst_name
+
+
+def static_amp_check(failures, steps=3):
+    """Card against CPU, the static GPT of STATIC_AMP_CHECK
+    (`build_gpt(128, 768, 12, 1024)`, batch 2 of `smoke_feed`, Adam) with
+    FLAGS_amp and FLAGS_graph_opt_fuse on, `steps` steps from the same
+    startup values: on the card its fused_attention runs K1-K3 in bf16
+    and its fused_layer_norm ops K4/K5, on the CPU their plain versions
+    and the eager composition.  The losses within 3e-2 relative; each
+    persistable's update (its value less the startup value) within
+    STATIC_UPDATE_RTOL of the CPU's in norm, over all its elements, but
+    the attention's key bias and its moments (a gradient 0 in exact
+    arithmetic).  Logs the measured errors."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    kw, batch, lr = STATIC_AMP_CHECK
+    m = static_zoo.build_gpt(**kw)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    cpu_exe.run(m.startup, scope=scope)
+    start = interop.scope_to_numpy(scope)
+    runs = {}
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        exe = fluid.Executor() if dev == "cuda" else cpu_exe
+        sc = interop.scope_from_numpy(start, fluid.Scope(), dev)
         backend.reset_launches()
-        for i in range(steps):
-            feed = m.smoke_feed(batch=batch, seed=i)
-            got = card_exe.run(m.main, feed=feed,
-                               fetch_list=m.fetches + grads, scope=card_scope)
-            want = cpu_exe.run(m.main, feed=feed,
-                               fetch_list=m.fetches + grads, scope=cpu_scope)
-            k = len(m.fetches)
-            err = max(float(np.abs(g - w).max()
-                            / max(np.abs(w).max(), 1e-6))
-                      for g, w in zip(got[:k], want[:k]))
-            fetch_err.append(err)
-            if not err <= (1e-4 if i == 0 else 1e-3):
-                failures.append(f"static check {name} {kw} step {i}: "
-                                f"fetches differ by {err:.3e} relative")
-            for n, g, w in zip(held, got[k:], want[k:]):
-                near[n] |= near_zero_grad(g, w)
-                live[n] |= (g != 0) | (w != 0)
-            for side, fetched in (("card", got), ("CPU", want)):
-                bad = engaged(fetched) if engaged else None
-                if bad:
-                    failures.append(f"static check {name} step {i} "
-                                    f"({side}): {bad}")
-        # the D-768 GPT's two layer_norm ops take K4/K5 on the card; the
-        # zoo-size families (D 32) take the eager composition
-        d = kw.get("d")
-        want = ({n: 2 * steps for n in STATIC_LAUNCHES}
-                if d is not None and d % 128 == 0 else {})
-        if dict(backend.LAUNCHES) != want:
-            failures.append(f"static check {name} {kw}: launches "
-                            f"{dict(backend.LAUNCHES)} != {want}")
-        atol = (2 * lr * steps if adam else 0.0) + 1e-5
-        card = interop.scope_to_numpy(card_scope)
-        cpu = interop.scope_to_numpy(cpu_scope)
-        worst, worst_name = 0.0, None
-        for n, w in cpu.items():
-            d = float(np.linalg.norm((card[n] - w).ravel().astype(np.float64)))
-            bound = (1e-3 * float(np.linalg.norm(w.ravel().astype(np.float64)))
-                     + atol * np.sqrt(w.size))
-            if d / bound > worst:
-                worst, worst_name = d / bound, n
-        upd, upd_name = 0.0, None
-        for n, w in cpu.items():
-            if n in STATIC_ZERO_GRAD or n in near or n not in card:
-                continue
-            d_cpu = (w.astype(np.float64) - start[n]).ravel()
-            d_card = (card[n].astype(np.float64) - start[n]).ravel()
-            off = float(np.linalg.norm(d_card - d_cpu))
-            ref = STATIC_UPDATE_RTOL * float(np.linalg.norm(d_cpu))
-            r = off / ref if ref else (0.0 if off == 0 else np.inf)
-            if r > upd:
-                upd, upd_name = r, n
-        elem, elem_name, n_near, n_off, n_bad = 0.0, None, 0, 0, 0
-        n_live = sum(int(v.sum()) for v in live.values())
-        for n in held:
-            r, off, bad = adam_update_check(card[n], cpu[n], start[n],
-                                            near[n], lr * steps)
-            n_near += int(near[n].sum())
-            n_off += off
-            n_bad += bad
-            if r > elem:
-                elem, elem_name = r, n
-        log(f"f32 static check {name} {kw or ''} batch {batch}, {steps} "
-            f"steps, card vs CPU: fetch rel err per step "
-            f"{[f'{e:.2e}' for e in fetch_err]}; {len(cpu)} persistables, "
-            f"worst ||d|| / bound {worst:.3e} ({worst_name}; atol "
-            f"{atol:.1e}); worst update ||d_card - d_cpu|| / (0.1 "
-            f"||d_cpu||) {upd:.3e} ({upd_name}); Adam or Adagrad "
-            f"parameters: "
-            f"{n_near} of {n_live} elements with a gradient near zero, "
-            f"{n_off} updates off by > "
-            f"their bound, {n_bad} of them not near zero, worst other "
-            f"element / bound {elem:.3e} ({elem_name}); launches "
-            f"{dict(backend.LAUNCHES)}")
-        if not upd <= 1.0:
-            failures.append(f"static check {name} {kw}: update of "
-                            f"{upd_name} off by {upd:.3e} of its bound")
-        if n_bad or not elem <= 1.0:
-            failures.append(f"static check {name} {kw}: {n_bad} Adam or "
-                            f"Adagrad parameter elements with a gradient "
-                            f"away from "
-                            f"0 updated off their bound (worst {elem:.3e}, "
-                            f"{elem_name})")
-        if n_near > ADAM_NEAR_SHARE * n_live:
-            failures.append(f"static check {name} {kw}: {n_near} of "
-                            f"{n_live} Adam or Adagrad parameter elements "
-                            f"with a "
-                            f"gradient near zero, more than "
-                            f"{ADAM_NEAR_SHARE}")
-        if set(card) != set(cpu):
-            failures.append(f"static check {name}: persistables differ "
-                            f"{sorted(set(card) ^ set(cpu))}")
-        if not worst <= 1.0:
-            failures.append(f"static check {name} {kw}: persistable "
-                            f"{worst_name} off by {worst:.3e} of its bound")
-        del card_scope, cpu_scope
+        with tier_flags(amp="on", fuse="on"):
+            losses = [float(np.asarray(exe.run(
+                m.main, feed=m.smoke_feed(batch=batch, seed=i),
+                fetch_list=m.fetches, scope=sc)[0]).reshape(-1)[0])
+                for i in range(steps)]
+        runs[side] = dict(losses=losses, state=interop.scope_to_numpy(sc),
+                          launches=dict(backend.LAUNCHES))
+        del sc
+    card, cpu = runs["card"], runs["cpu"]
+    want = {n: c * steps for n, c in STATIC_AMP_LAUNCHES.items()}
+    if card["launches"] != want:
+        failures.append(f"static amp check: card launches "
+                        f"{card['launches']} != {want}")
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    worst, worst_name = update_error(start, card["state"], cpu["state"],
+                                     STATIC_ZERO_GRAD)
+    log(f"static amp check {kw} batch {batch}, {steps} Adam({lr}) steps, "
+        f"AMP bf16 + fusion, card vs CPU: losses card {card['losses']} CPU "
+        f"{cpu['losses']}, max rel err "
+        f"{loss_err:.3e}; worst update ||d_card - d_cpu|| / (0.1 "
+        f"||d_cpu||) {worst:.3e} ({worst_name}); card launches "
+        f"{card['launches']}")
+    if not loss_err <= STATIC_AMP_LOSS_RTOL:
+        failures.append(f"static amp check: losses differ by "
+                        f"{loss_err:.3e} > {STATIC_AMP_LOSS_RTOL}")
+    if not worst <= 1.0:
+        failures.append(f"static amp check: update of {worst_name} off by "
+                        f"{worst:.3e} of its bound")
+    if not all(np.isfinite(card["losses"])):
+        failures.append(f"static amp check: card losses {card['losses']}")
     torch.cuda.empty_cache()
 
 
 def static_phase(failures):
-    """Phase 7: the static GPT's run (`static_run`), the same GPT under
-    the global-norm clip (`static_run(clip_norm=1.0)`), the static
-    Wide&Deep at CTR widths (`static_wide_deep_run`), then the card-vs-CPU
-    checks of the static families (`static_check`).  Returns the launches
-    of the timed steps of both GPT runs."""
+    """Phase 7: the static GPT's run (`static_run`), the same GPT with AMP
+    and the fusion tier (`static_run(amp=True)`, compared with the plain
+    run on one line), the same GPT under the global-norm clip
+    (`static_run(clip_norm=1.0)`), the static Wide&Deep at CTR widths
+    (`static_wide_deep_run`), then the card-vs-CPU checks of the static
+    families (`static_check`) and of the AMP tier (`static_amp_check`).
+    Returns the launches of the timed steps of the three GPT runs."""
     out = static_run(failures)
+    amp = static_run(failures, amp=True)
+    plain, fast = out["profile"], amp["profile"]
+    log(f"static amp vs plain (the same call): host ms {amp['host_ms']:.3f}"
+        f" vs {out['host_ms']:.3f}; device ms {fast['device']:.3f} vs "
+        f"{plain['device']:.3f}; kernels {fast['kernels']:g} vs "
+        f"{plain['kernels']:g}; Executor ops {amp['ops']} vs {out['ops']}; "
+        f"peak {amp['peak'] / 2 ** 30:.3f} vs {out['peak'] / 2 ** 30:.3f} "
+        f"GiB; products {fast.get('products', 0):.3f} vs "
+        f"{plain.get('products', 0):.3f} ms; K1-K3 "
+        f"{sum(fast.get(k, 0) for k in ('K1', 'K2', 'K3')):.3f} ms; K4/K5 "
+        f"{fast.get('K4', 0) + fast.get('K5', 0):.3f} vs "
+        f"{plain.get('K4', 0) + plain.get('K5', 0):.3f} ms; copies and casts "
+        f"{fast.get('copies and casts', 0):.3f} vs "
+        f"{plain.get('copies and casts', 0):.3f} ms; Adam ops "
+        f"{fast['by_op'].get('adam', 0):.3f} ms, cast ops (forward) "
+        f"{fast['by_op'].get('cast', 0):.3f} ms")
     clipped = static_run(failures, clip_norm=1.0)
     static_wide_deep_run(failures)
     static_check(failures)
-    return {n: out["launches"].get(n, 0) + clipped["launches"].get(n, 0)
-            for n in set(out["launches"]) | set(clipped["launches"])}
+    static_amp_check(failures)
+    runs = (out, amp, clipped)
+    return {n: sum(r["launches"].get(n, 0) for r in runs)
+            for r0 in runs for n in r0["launches"]}
 
 
 def check_phase(failures):
     import torch
 
-    train_check(failures)
+    f32_cpu = train_check(failures)
+    amp_train_check(failures, f32_cpu)
+    amp_overflow_check(failures)
     resnet_check(failures)
 
     from paddle_tpu_torch.models import generate as G
@@ -4477,8 +4895,8 @@ def main():
         # launches on the main paths: the 5 timed GPT train steps, the 5
         # timed steps of each fused ResNet-50 run (full and `id`), the
         # serving run (generate + engine), the 5 timed steps of each
-        # static GPT run, plain and clipped (K4, K5), and the probe tool's
-        # runs (K4, K7 and K9 forward)
+        # static GPT run, plain, AMP + fusion (K1-K5) and clipped (K4,
+        # K5), and the probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in ("train", "resnet", "path",
                                         "static")) \

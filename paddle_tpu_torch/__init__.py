@@ -26,6 +26,7 @@ envelope; on CPU tensors the kernel's plain PyTorch version runs.
 """
 
 from . import core, flags  # noqa: F401
+from .flags import get_flags, set_flags  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401
@@ -40,7 +41,8 @@ from . import (  # noqa: F401
 )
 
 __all__ = [
-    "core", "flags", "CPUPlace", "CUDAPlace", "TPUPlace", "framework",
+    "core", "flags", "get_flags", "set_flags", "CPUPlace", "CUDAPlace",
+    "TPUPlace", "framework",
     "Program", "Variable", "Parameter", "default_main_program",
     "default_startup_program", "program_guard", "name_scope", "data",
     "Executor", "Scope", "global_scope", "scope_guard", "append_backward",

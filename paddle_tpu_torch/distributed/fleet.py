@@ -6,9 +6,9 @@ Parity: the reference's incubate/fleet — fleet.init
 makers (base/role_maker.py) and DistributedStrategy
 (collective/__init__.py:134).  `make_train_step` turns the strategy's
 knobs into a step: DGC, LocalSGD or plain data parallelism, with
-`recompute` as `torch.utils.checkpoint` around the loss.  Not ported:
-`amp` (ROADMAP queue 1 item 4), the mesh degrees other than dp (item
-8) and the save facades (item 7).
+`amp` as `amp.auto_cast` and `recompute` as `torch.utils.checkpoint`
+around the loss.  Not ported: the mesh degrees other than dp (ROADMAP
+queue 1 item 8) and the save facades (item 7).
 """
 
 import torch.utils.checkpoint
@@ -126,9 +126,10 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
       use_dgc        -> DGCTrainStep (lr and momentum from the optimizer)
       use_local_sgd  -> LocalSGDTrainStep
       otherwise      -> DataParallelTrainStep
+      amp            -> bf16 auto_cast around the loss
       recompute      -> torch.utils.checkpoint around the loss
       dp_degree      -> the mesh, when none is passed
-      amp, tp/pp/sp degrees above 1 -> NotImplementedError
+      tp/pp/sp degrees above 1 -> NotImplementedError
     """
     from .data_parallel import DataParallelTrainStep
     from .mesh import build_mesh, default_mesh
@@ -136,10 +137,6 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
 
     strategy = (strategy or getattr(optimizer, "_fleet_strategy", None)
                 or DistributedStrategy())
-    if strategy.amp:
-        raise NotImplementedError(
-            "strategy.amp needs the port's AMP tier: ROADMAP queue 1 "
-            "item 4")
     if mesh is None:
         if strategy.dp_degree or strategy.tp_degree > 1 \
                 or strategy.sp_degree > 1 or strategy.pp_degree > 1:
@@ -151,10 +148,16 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
             mesh = default_mesh()
 
     wrapped_loss = loss_fn
+    if strategy.amp:
+        from ..amp import auto_cast
+
+        def wrapped_loss(m, *batch, _inner=wrapped_loss):
+            with auto_cast(enable=True):
+                return _inner(m, *batch)
     if strategy.recompute:
         from ..nn.parameter import default_rng
 
-        def wrapped_loss(m, *batch, _inner=loss_fn):
+        def wrapped_loss(m, *batch, _inner=wrapped_loss):
             # the recompute draws dropout's bits again from where the
             # forward started
             gen = default_rng.generator(mesh.device)

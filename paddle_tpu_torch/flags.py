@@ -98,3 +98,21 @@ declare_flag("use_pallas_dgc_topk", False,
 declare_flag("global_seed", 0,
              "Seed of the Executor's generator, which the random init ops "
              "(uniform_random) and dropout draw from.")
+
+# AMP and the fusion tier (amp/, passes/, Executor._train_tier_modes).
+# "train" (the default of the two tier flags) fires only in the dataset
+# train loop, train_from_dataset, which is not ported yet (ROADMAP item
+# 10): until it is, a bare Executor.run with the defaults runs the
+# program as built.  "on" covers every Executor.run of a train program;
+# "off" never applies the tier.
+declare_flag("amp_dtype", "bfloat16", "Low-precision dtype used by AMP.")
+declare_flag("graph_opt_fuse", "train",
+             "Fusion pass tier: off | train (dataset train loop only) "
+             "| on (every executor-run train program).")
+declare_flag("graph_opt_fuse_disable", "",
+             "Comma-separated fusion pass names to skip (e.g. "
+             "'fuse_attention'); see passes.FUSION_PIPELINE.")
+declare_flag("amp", "train",
+             "Automatic mixed precision for train programs: off | train "
+             "(dataset train loop only) | on (every executor-run train "
+             "program).")

@@ -15,9 +15,17 @@ PyTorch on the executor's device:
   `torch.no_grad()`;
 - every persistable variable is written back to the scope, detached.
 
+The train tier (the reference's `_train_tier_modes` /
+`_resolve_train_optimized`): with FLAGS_amp or FLAGS_graph_opt_fuse
+"on", `run` swaps a train program for its AMP-rewritten and fused clone
+(`amp.rewrite_train_program`, then `passes.fuse_program`) before it
+plans the run.  Their "train" default fires only in train_from_dataset.
+
 Not ported here: the data-parallel, GSPMD, guard, telemetry, goodput and
-fault-injection branches (ROADMAP items 8 and 10), the control-flow ops
-and `train_from_dataset` (item 10).  They raise NotImplementedError.
+fault-injection branches (ROADMAP items 8 and 10), the structural
+graph-optimizer substitution (FLAGS_graph_opt, item 10), the
+control-flow ops and `train_from_dataset` (item 10).  They raise
+NotImplementedError, or are not there.
 """
 
 import contextlib
@@ -152,6 +160,43 @@ def interpret(ops, env, generator):
         run_op(op, env, generator)
 
 
+def op_scopes(ops, sections):
+    """Deterministic per-op scope names for one live-op list:
+    "{section}/{op_type}_{idx}" with idx the op's position in the list
+    and section fwd<k> for ops feeding backward section k, update for
+    ops after the last section (optimizer/stats), main when the
+    program has no backward sections.  Derived from program structure
+    alone, so names are stable across runs of the same program; the
+    fusion tier records them as `folded_from` provenance."""
+    section_ends = [(bs.pos, f"fwd{k}") for k, bs in enumerate(sections)]
+    tail = "update" if sections else "main"
+    names = []
+    for i, op in enumerate(ops):
+        prefix = tail
+        for pos, name in section_ends:
+            if i < pos:
+                prefix = name
+                break
+        names.append(f"{prefix}/{op.type}_{i}")
+    return names
+
+
+def op_scope_names(program, fetch_names=(), train_loop=False):
+    """[(scope, op)] in execution order for one program.  With the train
+    tier on (FLAGS_amp / FLAGS_graph_opt_fuse "on", or their "train"
+    default with `train_loop=True`, as a train_from_dataset dispatch
+    would resolve it) the map goes through the AMP + fusion substitute:
+    fused ops appear under their own scopes and carry `op.folded_from`,
+    the scopes of the source ops they absorbed."""
+    do_amp, do_fuse = Executor._train_tier_modes(program, train_loop)
+    if do_amp or do_fuse:
+        program = Executor._resolve_train_optimized(
+            program, list(fetch_names), do_amp, do_fuse)
+    ops = Executor._live_ops(program, list(fetch_names))
+    sections = [] if program._is_test else list(program.backward_sections)
+    return list(zip(op_scopes(ops, sections), ops))
+
+
 class _RunPlan:
     """One (program, version)'s analysis, computed once per program
     mutation and kept on the Program (program._run_plan_cache), as in the
@@ -245,6 +290,14 @@ class Executor:
         scope = scope if scope is not None else _global_scope
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list]
+        # the train tier (AMP rewrite, then the fusion passes) on a
+        # private clone, cached on the program; with FLAGS_amp and
+        # FLAGS_graph_opt_fuse at their "train" defaults it fires only
+        # in train_from_dataset, so a bare run costs two flag reads
+        do_amp, do_fuse = self._train_tier_modes(program, False)
+        if do_amp or do_fuse:
+            program = self._resolve_train_optimized(
+                program, fetch_names, do_amp, do_fuse)
         plan = self._get_plan(program)
 
         env = {}
@@ -305,6 +358,68 @@ class Executor:
             pos = bs.pos
         with torch.no_grad():
             interpret(ops[pos:], env, gen)
+
+    @staticmethod
+    def _train_tier_modes(program, train_loop):
+        """(do_amp, do_fuse) for one dispatch: the tier applies only to
+        train programs (backward sections, not a test clone); "train"
+        mode further requires the dataset train loop
+        (train_from_dataset, ROADMAP item 10: `train_loop` is False on
+        every path the port has), "on" covers every Executor.run.  AMP
+        is skipped for programs the user already rewrote
+        (amp_enabled)."""
+        if program._is_test or not program.backward_sections:
+            return False, False
+        amp_mode = flags.flag("amp")
+        fuse_mode = flags.flag("graph_opt_fuse")
+        do_amp = (amp_mode == "on"
+                  or (amp_mode == "train" and train_loop)) \
+            and not program.amp_enabled
+        do_fuse = (fuse_mode == "on"
+                   or (fuse_mode == "train" and train_loop))
+        return do_amp, do_fuse
+
+    @staticmethod
+    def _resolve_train_optimized(program, fetch_names, do_amp, do_fuse):
+        """The AMP + fusion substitute of a train program, built once per
+        (version, fetch set, amp dtype, fusion config) and cached in the
+        program's `_opt_cache` (`_bump()` clears it).  Canonical order
+        inside: the AMP rewrite first, fusion second, on one clone."""
+        from .. import passes as _passes
+
+        try:
+            fuse_names = (_passes.enabled_fusion_passes()
+                          if do_fuse else ())
+        except KeyError as e:
+            raise ValueError(
+                f"FLAGS_graph_opt_fuse_disable names an unknown "
+                f"fusion pass: {e}") from e
+        key = ("train_tier", program._version, tuple(fetch_names),
+               flags.flag("amp_dtype") if do_amp else None, fuse_names)
+        cache = getattr(program, "_opt_cache", None)
+        if cache:
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
+        opt = program.clone()
+        if do_amp:
+            from .. import amp as _amp
+
+            _amp.rewrite_train_program(opt)
+        if do_fuse:
+            _passes.fuse_program(opt, fetch_names=fetch_names,
+                                 clone=False)
+        # provenance: which train-tier config produced this substitute
+        # (a cached substitute outlives the flag state that built it)
+        opt._train_tier = {
+            "amp": flags.flag("amp_dtype") if do_amp else None,
+            "fuse": list(fuse_names)}
+        if cache is None:
+            cache = program._opt_cache = {}
+        elif len(cache) >= 8:
+            cache.clear()
+        cache[key] = opt
+        return opt
 
     @staticmethod
     def _live_ops(program, fetch_names):

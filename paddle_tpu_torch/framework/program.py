@@ -196,10 +196,9 @@ class Operator:
         # first caller frame outside paddle_tpu_torch
         self.callsite = _user_callsite()
         # provenance for graph-optimizer rewrites: scope names of the
-        # source ops this op absorbed (the reference's graph passes set
-        # it; they come with ROADMAP item 4), so
-        # per-op attribution of an optimized program maps fused/folded
-        # ops back to what the user built
+        # source ops this op absorbed (the fusion tier, passes/fuse.py,
+        # sets it), so per-op attribution of an optimized program maps
+        # fused ops back to what the user built
         self.folded_from = ()
 
     def input_names(self):

@@ -7,8 +7,9 @@ eager composition:
 - `dot_product_attention` (prefill, full forward, training): the flash
   Function (K1 forward, K2 + K3 backward) when the tensors lie on a
   CUDA device and the call is inside the envelope (no mask, no training
-  dropout, self-attention, seq % 128 == 0, head_dim in 64/128/256);
-  else `_eager_attention`, the port of `_xla_attention`
+  dropout, self-attention, seq % 128 == 0, head_dim in 64/128/256;
+  the kernels take float32 and bfloat16, and raise on float16 on the
+  card); else `_eager_attention`, the port of `_xla_attention`
   (-1e9 causal mask, logits in the input dtype, f32 softmax cast back).
 - `decode_attention` (one query row over a KV cache): K6 on a CUDA
   device inside its envelope (no explicit mask, one query row,
@@ -37,16 +38,17 @@ def _eager_attention(q, k, v, mask, scale, is_causal, dropout_p, training,
                      generator):
     # q, k, v: [B, H, S, D]
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    # the fill in the logits' dtype, rounded as the reference's: -1e9
+    # overflows float16 to -inf (a Python scalar there would raise)
+    fill = torch.full((), NEG_INF, device=q.device).to(logits.dtype)
     if is_causal:
         s_q, s_k = logits.shape[-2], logits.shape[-1]
         causal = torch.ones(s_q, s_k, dtype=torch.bool,
                             device=q.device).tril(diagonal=s_k - s_q)
-        logits = torch.where(causal, logits,
-                             torch.full_like(logits, NEG_INF))
+        logits = torch.where(causal, logits, fill)
     if mask is not None:
         if mask.dtype == torch.bool:
-            logits = torch.where(mask, logits,
-                                 torch.full_like(logits, NEG_INF))
+            logits = torch.where(mask, logits, fill)
         else:
             logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)

@@ -65,7 +65,7 @@ def _loss_with_buffers(model, params, buffers, rng, loss_fn, batch):
                                           _method=loss_fn)
 
 
-def _check_options(remat, accum_steps, precision, amp, grad_psum_axis):
+def _check_options(remat, accum_steps, precision, grad_psum_axis):
     if remat == "conv_outs":
         raise NotImplementedError(
             "remat='conv_outs' (save the conv outputs, recompute the "
@@ -75,10 +75,11 @@ def _check_options(remat, accum_steps, precision, amp, grad_psum_axis):
             f"unknown remat mode {remat!r}; use True or 'conv_outs'")
     if int(accum_steps) < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if amp or precision == "bfloat16":
+    if precision == "bfloat16":
         raise NotImplementedError(
-            "amp=True and precision='bfloat16' need the port's AMP tier: "
-            "ROADMAP queue 1 item 4")
+            "precision='bfloat16' (a bf16 matmul-precision policy for the "
+            "whole step, not AMP) is not ported yet: ROADMAP queue 1 item "
+            "10; amp=True runs the white-list ops in bf16")
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; use one of "
                          f"{_PRECISIONS}")
@@ -110,15 +111,34 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
     precision: None keeps the process's matmul precision; "highest" and
     "float32" turn TF32 off for the step, "tensorfloat32" turns it on;
     the setting is restored after the step.
+    amp: True runs the loss under `amp.auto_cast`: white-list ops
+    (linear, conv2d) compute in FLAGS_amp_dtype against the f32 master
+    params, black-list ops (softmax, cross-entropy) in f32.  None (the
+    default) reads FLAGS_amp: "on" turns it on; the "train" default
+    keeps the dygraph step f32; False forces it off.  Compose with
+    `amp.make_amp_train_step` for float16 dynamic loss scaling.
     Not ported yet, each raising NotImplementedError: remat="conv_outs"
-    (ROADMAP queue 1 item 6), amp=True and precision="bfloat16" (item 4),
+    (ROADMAP queue 1 item 6), precision="bfloat16" (item 10),
     grad_psum_axis (item 8).
     """
-    _check_options(remat, accum_steps, precision, amp, grad_psum_axis)
+    _check_options(remat, accum_steps, precision, grad_psum_axis)
     accum_steps = int(accum_steps)
     if loss_fn is None:
         loss_fn = lambda m, *b: m.loss(*b)
     model.train()
+    if amp is None:
+        from .. import flags as _flags
+
+        amp = _flags.flag("amp") == "on"
+    if amp:
+        from .. import amp as _amp
+
+        def loss_fn(m, *b, _inner=loss_fn):
+            # autocast around the whole forward: the functional ops
+            # consult the list-driven dispatch per op, while the params
+            # (the grad targets) stay f32 masters
+            with _amp.auto_cast(enable=True):
+                return _inner(m, *b)
 
     def _loss_grads(params, bufs, rng, batch):
         names = list(params)

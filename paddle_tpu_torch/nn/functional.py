@@ -3,8 +3,10 @@ paddle_tpu/nn/functional.py).
 
 Plain tensor functions over torch tensors that share the op kernels in
 `paddle_tpu_torch/ops/`, as the reference's functional twins share
-`paddle_tpu/ops/`.  The reference's AMP autocast hook and dygraph tape
-are not ported.
+`paddle_tpu/ops/`.  `linear`, `conv2d`, `cross_entropy`, `softmax` and
+`log_softmax` consult the AMP autocast context (`amp.auto_cast`) through
+`_amp_cast`, as the reference's do.  The reference's dygraph tape is not
+ported.
 """
 
 import torch
@@ -23,8 +25,29 @@ def gelu(x, approximate=False):
         x, approximate="tanh" if approximate else "none")
 
 
+def softmax(x, axis=-1):
+    x = _amp_cast("softmax", x)
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1):
+    x = _amp_cast("log_softmax", x)
+    return torch.log_softmax(x, dim=axis)
+
+
+def _amp_cast(op_type, *xs):
+    """Autocast hook: list-aware dispatch under amp.auto_cast (white ops
+    run in the compute dtype, black ops are protected back to f32)."""
+    from ..amp import autocast_enabled, cast_for_op
+
+    if not autocast_enabled():
+        return xs if len(xs) > 1 else xs[0]
+    return cast_for_op(op_type, *xs)
+
+
 def linear(x, weight, bias=None):
     """x @ weight (+ bias); weight keeps the reference layout [in, out]."""
+    x, weight = _amp_cast("matmul", x, weight)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias.to(out.dtype)
@@ -38,6 +61,7 @@ def _pair_list(v):
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """The `conv2d` op; weight is OIHW in both layouts."""
+    x, weight = _amp_cast("conv2d", x, weight)
     out = _n.conv2d({"Input": x, "Filter": weight}, {
         "strides": _pair_list(stride), "paddings": _pair_list(padding),
         "dilations": _pair_list(dilation), "groups": groups,
@@ -82,8 +106,9 @@ def cross_entropy(input, label, soft_label=False, axis=-1, reduction="mean",
                   ignore_index=-100):
     """Logits-based CE (softmax fused), the reference's
     softmax_with_cross_entropy."""
+    logits = _amp_cast("softmax_with_cross_entropy", input)
     out = _n.softmax_with_cross_entropy(
-        {"Logits": input, "Label": label},
+        {"Logits": logits, "Label": label},
         {"soft_label": soft_label, "axis": axis,
          "ignore_index": ignore_index})["Loss"]
     if reduction == "mean":

@@ -2,5 +2,6 @@
 slices), each registered under its op type in `registry`."""
 
 from . import (  # noqa: F401
-    math_ops, nn_ops, optimizer_ops, registry, rnn_ops, tensor_ops,
+    fused_ops, math_ops, nn_ops, optimizer_ops, registry, rnn_ops,
+    tensor_ops,
 )

@@ -503,8 +503,10 @@ def test_fleet_make_train_step_picks_the_step(mesh1):
     assert isinstance(step, tstrat.LocalSGDTrainStep) and step._k == 2
     step = make(topt.SGD(0.05))
     assert isinstance(step, DataParallelTrainStep)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make(topt.SGD(0.05), amp=True)
+    # amp runs the loss under amp.auto_cast (tests/test_torch_amp.py holds
+    # it against the reference's)
+    step = make(topt.SGD(0.05), amp=True)
+    assert isinstance(step, DataParallelTrainStep)
     with pytest.raises(NotImplementedError, match="item 8"):
         make(topt.SGD(0.05), tp_degree=2)
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -322,6 +322,17 @@ def test_dot_product_attention_dispatch_on_cpu():
     assert out.shape == (1, 2, 100, 64)
 
 
+def test_float16_inside_the_envelope_reaches_the_flash_wrapper():
+    """float16 does not leave the flash path: inside the envelope it goes
+    to K1's wrapper, which takes float32 and bfloat16 only and raises, as
+    it does on the card, instead of falling back to the eager path."""
+    q = _t(_rand((1, 2, 128, 64), 28)).half()
+    with pytest.raises(TypeError, match="not in float32/bfloat16"):
+        TA.dot_product_attention(q, q, q, use_flash=True)
+    # CPU tensors take the eager composition, float16 included
+    assert TA.dot_product_attention(q, q, q).dtype == torch.float16
+
+
 def test_layer_norm_op_matches_reference():
     x = _rand((4, 5, 128), 25, 2.0)
     g, b = _rand((5, 128), 26), _rand((5, 128), 27)

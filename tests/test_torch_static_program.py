@@ -32,6 +32,7 @@ ones its shape, dtype and moments.
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -438,6 +439,41 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
         "dim=0, regularizer=fluid.regularizer.L1Decay(0.1)))\n"
         "    fluid.optimizer.Adagrad(0.1, grad_clip=fluid.clip."
         "GradientClipByGlobalNorm(1.0)).minimize(fluid.layers.mean(h))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_port_module_names_item_4_and_the_tier_imports_no_jax():
+    """Item 4 (AMP and the fusion tier) is done: no message of the port
+    still names it.  Its modules (amp/, analysis/, passes/, resilience/,
+    ops/fused_ops.py) import neither jax, jaxlib nor paddle_tpu, also
+    after the AMP rewrite and the fusion of every family and a run of
+    the tier's Executor path."""
+    item_4 = re.compile(r"item 4\b")
+    for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
+        assert not item_4.search(path.read_text()), path
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as fluid\n"
+        "from paddle_tpu_torch import amp, analysis, passes, resilience\n"
+        "from paddle_tpu_torch.ops import fused_ops\n"
+        "from paddle_tpu_torch.models import static_zoo\n"
+        "for name in sorted(static_zoo.BUILDERS):\n"
+        "    m = static_zoo.build(name)\n"
+        "    p = amp.rewrite_train_program(m.main.clone())\n"
+        "    passes.fuse_program(p, fetch_names=[m.loss_name])\n"
+        "fluid.set_flags({'FLAGS_amp': 'on', 'FLAGS_graph_opt_fuse': 'on'})\n"
+        "m = static_zoo.build('gpt')\n"
+        "exe = fluid.Executor(fluid.CPUPlace())\n"
+        "sc = fluid.Scope()\n"
+        "exe.run(m.startup, scope=sc)\n"
+        "exe.run(m.main, feed=m.smoke_feed(2), fetch_list=m.fetches, "
+        "scope=sc)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
         "print(bad)\n"

@@ -302,8 +302,7 @@ def test_unported_step_options_raise():
     _, tm = _pair()
     opt = topt.AdamW(LR)
     for kw, match in (({"remat": "conv_outs"}, "item 6"),
-                      ({"amp": True}, "item 4"),
-                      ({"precision": "bfloat16"}, "item 4"),
+                      ({"precision": "bfloat16"}, "item 10"),
                       ({"grad_psum_axis": "dp"}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.make_train_step(tm, opt, **kw)
