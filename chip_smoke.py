@@ -12,7 +12,9 @@ Phases (any failure makes the script exit non-zero without a result):
    libraries; every bf16 K7 and K8 kernel that runs a product, the bf16
    K1, K2 and K3 kernels at each head dim, and bf16 P1 and P2 must hold
    tensor-core instructions (HMMA / HGMMA); the f32
-   K1-K3 counts are printed as read (0 expected).  K1's, K2's and
+   K1-K3 counts are printed as read (0 expected); the float16 forms of
+   K1, K2 and K3 must hold them too, at each head dim.  K1's,
+   K2's and
    K3's registers and spills per head dim from the ptxas report, the
    bf16 ones not spilling at head dim 64, and P1's and P2's, the bf16
    ones not spilling; K7's and K6's printed as read.
@@ -45,7 +47,16 @@ Phases (any failure makes the script exit non-zero without a result):
    dims 128 and 256 to at most 1.5x the error of the rounding model (the
    plain versions with the reference's bf16 roundings of p and ds)
    against float64 products, and names the rule by which they sum (in
-   the mma itself).
+   the mma itself).  The float16 forms (`float16_checks`, inputs
+   from generators of their own): K1, K2 and K3 at the train shape and at
+   the static GPT's [8, 12, 512, 64] against their rounding model (p and
+   ds rounded to float16 where the reference rounds them) at one float16
+   ulp (2^-10; lse 2e-5), timed beside their plain versions, SDPA in
+   float16 and their bounds (the static GPT's shape gives the kernels
+   line's K1-K3 float16 rows), and held against float64 products at 1.5x
+   the model's error; K4 at [4096, 768] and [24576, 768], K5 at
+   [4096, 768] (gamma in float32 and in float16) and K6 at the generate
+   decode shape in float16 against their plain versions.
    K6 (one launch split over the cache, `flash_attention.decode_plan`)
    is timed with L2 flushed at the generate decode shape (q [4, 12, 1,
    64], T 384, lengths 320; also at head dims 128 and 256), the engine's
@@ -206,7 +217,34 @@ Phases (any failure makes the script exit non-zero without a result):
    on the measured card-vs-CPU difference may be off).  Then the same
    GPT with AMP and fusion (`static_amp_check`: K1-K3 in bf16, K4/K5):
    losses within 3e-2 relative, each persistable's update within 0.1 of
-   the CPU's in norm.
+   the CPU's in norm.  The same GPT with AMP in float16 and fusion
+   (`static_run(amp=True, amp_dtype="float16")`, 3 timed steps): its
+   fused_attention computes in float16 and each step launches K1-K3's
+   float16 forms once and K4, K5 (f32: the residual stream stays f32)
+   twice (STATIC_AMP_F16_LAUNCHES).
+7b. IO, checkpoints, readers and the Predictor (`io_phase`): the
+   static GPT at BERT-base widths, its for_test forward to the logits
+   fused (and, once more, AMP-rewritten to bf16 first), saved with
+   `io.save_inference_model` and served from disk by
+   `inference.Predictor` on `cuda` at batch 8 (every run launches K1 once
+   and K4 twice; held against `Executor.run` of the unfused for_test
+   Program at 1e-4 / 3e-2 relative; host and device ms per run, peak
+   memory); the f32 directory exported with `torch.export`
+   (`save_compiled_inference_model`) and served by a `CompiledPredictor`
+   (the same launches, within 1e-6 of the Predictor) and through the C
+   API (`paddle_tpu_torch/csrc/predictor_capi.cpp`, g++, ctypes;
+   bitwise equal to `Executor.run`); the static ResNet family through
+   the Predictor with FLAGS_inference_fold off and on (op counts, 1e-4);
+   resume equal to the uninterrupted run, bitwise (losses, parameters,
+   moments, the generator): the dygraph GPT of phase 3 at depth 2 with
+   dropout through `checkpoint.save_checkpoint` / `load_checkpoint`, and
+   the static GPT with Adam through `io.save_persistables` /
+   `load_persistables`, with save and load seconds and bytes; the static
+   GPT's steps fed from numpy, from `DataLoader.from_generator` ->
+   `device_prefetch(size=2)` and from `ShmBatchLoader` (2 forked workers)
+   -> `device_prefetch`, losses bitwise equal, host ms per step, and the
+   overlap of the prefetch's host-to-device copies with the step's
+   kernels from a torch.profiler trace (printed, not gated).
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -246,13 +284,14 @@ tensors; `static`, the static GPT step of phase 7 (host and device ms
 per step, kernels per step; trees that have the static path): two
 versions compared in turns on one card.
 
-The last lines are the kernels' JSON line (15 rows: K1-K10, K7, K8 and
-K9 as two rows each, P1, P2; every row with its launches summed over
-the GPT train, the two fused ResNet runs, the serving paths, the
-timed steps of the static GPT's three runs (plain, AMP + fusion,
-clipped) and the probe tool's runs, K10's over the DGC
-run with K10, P1's and P2's over the probe tool's), the card line and
-{"ok": true, "device": {...}}.
+The last lines are the kernels' JSON line (18 rows: K1-K10, K1-K3 in
+float16, K7, K8 and K9 as two rows each, P1, P2; every row with its
+launches summed over the GPT train, the two fused ResNet runs, the
+serving paths, the timed steps of the static GPT's four runs (plain,
+AMP + fusion, clipped, AMP float16 + fusion), the io phase's Predictor
+and CompiledPredictor runs and the probe tool's runs, K10's over the
+DGC run with K10, P1's and P2's over the probe tool's), the card line
+and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -266,8 +305,12 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, H100 SXM
-TOL = {"float32": 2e-5, "bfloat16": 3e-2}           # atol = rtol
+PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12,  # dense, H100 SXM
+            "float32": 67e12}
+# atol = rtol; float16 is held to the rounding model (or a plain version
+# with one rounding) at one float16 ulp, 2^-10 relative (bf16's rule
+# against its model, 2^-7, scaled to float16's mantissa)
+TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 2 ** -10}
 
 
 def log(msg):
@@ -459,6 +502,16 @@ def sass_phase(failures):
             if len(bf16) < want or not all(got[n] for n in bf16):
                 failures.append(f"sass: bf16 {kernel} has no tensor-core "
                                 f"instruction ({[got[n] for n in bf16]})")
+            if kernel.startswith("flash"):
+                # the float16 forms of K1-K3 (`mma.sync ... .f16.f16`)
+                f16 = [n for n in got if kernel + "I6__half" in n]
+                log(f"sass {kernel} float16: "
+                    f"{sorted(got[n] for n in f16)} HMMA/HGMMA in "
+                    f"{len(f16)} instantiations")
+                if len(f16) < want or not all(got[n] for n in f16):
+                    failures.append(f"sass: float16 {kernel} has no "
+                                    f"tensor-core instruction "
+                                    f"({[got[n] for n in f16]})")
     for kernel in SCALAR_KERNELS:
         found = {n: c for n, c in counts.items() if kernel + "I" in n}
         log(f"sass {kernel} (CUDA cores: f32 K1-K3): "
@@ -471,8 +524,10 @@ def sass_phase(failures):
     for lib_name in ("flash_attention", "flash_attention_bwd"):
         for kernel, d in ((k, d) for k in MMA_KERNELS[lib_name]
                           for d in HEAD_DIMS):
-            for name, use in ptxas_find(lib_name, f"{kernel}ILi{d}E"):
-                log(f"ptxas {kernel}<{d}> (bf16): {use_text(use)}")
+            for name, use in ptxas_find(
+                    lib_name, f"{kernel}I(13__nv_bfloat16|6__half)Li{d}E"):
+                kind = "bf16" if "bfloat16" in name else "float16"
+                log(f"ptxas {kernel}<{d}> ({kind}): {use_text(use)}")
                 if d == 64 and (use.get("spill_stores")
                                 or use.get("spill_loads")):
                     failures.append(f"{kernel}<64> spills: {use}")
@@ -492,7 +547,8 @@ def ptxas_usage(lib_name, kernel, d):
     """{registers, spill_stores, spill_loads} of `kernel` at head dim d
     from the ptxas report in backend.BUILD_LOG, or None when this run did
     not build the library."""
-    found = ptxas_find(lib_name, f"{kernel}ILi{d}E")
+    # the tensor-core kernels are templates over the 16-bit type too
+    found = ptxas_find(lib_name, f"{kernel}I(13__nv_bfloat16)?Li{d}E")
     return found[0][1] if found else None
 
 
@@ -630,6 +686,7 @@ def kernel_phase(failures):
     flash_bwd_checks(rows, failures, rnd)
     flash_static_checks(failures)
     flash_precision(failures)
+    float16_checks(rows, failures, flush)
     layer_norm_bwd_checks(rows, failures, rnd)
     fused_bottleneck_checks(rows, failures, rnd)
     fused_bottleneck_down_checks(rows, failures, rnd)
@@ -943,24 +1000,25 @@ FLASH_OUTPUTS = ("O", "lse", "dQ", "dK", "dV")
 FLASH_MODEL_RATIO = 1.5
 
 
-def flash_inputs(shape, seed):
-    """q, k, v, dO (bf16, scale 0.5) from a generator of their own, so
-    the draws of the other checks do not move."""
+def flash_inputs(shape, seed, dtype=None):
+    """q, k, v, dO (`dtype`, bf16 by default; scale 0.5) from a generator
+    of their own, so the draws of the other checks do not move."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (
         (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(
-            torch.bfloat16) for _ in range(4))
+            dtype or torch.bfloat16) for _ in range(4))
     return q, k, v, do
 
 
-def flash_outs(q, k, v, do, causal, lse, delta, how):
+def flash_outs(q, k, v, do, causal, lse, delta, how, rt=None):
     """O, lse (K1) and dQ (K2), dK, dV (K3) of one route: "kernel" (K1,
     then K2 and K3 on the given lse and delta), or the plain versions
-    with p and ds rounded to bf16 where the reference rounds them (the
-    rounding model) at the inputs' own precision (pass float64 inputs for
-    float64 products), or without the rounding ("plain")."""
+    with p and ds rounded to `rt` (bf16 by default) where the reference
+    rounds them (the rounding model) at the inputs' own precision (pass
+    float64 inputs for float64 products), or without the rounding
+    ("plain")."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -971,7 +1029,7 @@ def flash_outs(q, k, v, do, causal, lse, delta, how):
         dq = FA._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
         dk, dv = FA._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         return out, l, dq, dk, dv
-    rt = None if how == "plain" else torch.bfloat16
+    rt = None if how == "plain" else (rt or torch.bfloat16)
     out, l = FA.flash_attention_ref(q, k, v, causal, scale, round_to=rt)
     dq, dk, dv = FA.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal,
                                             scale, round_to=rt)
@@ -980,11 +1038,12 @@ def flash_outs(q, k, v, do, causal, lse, delta, how):
 
 def flash_errs(q, k, v, do, causal):
     """rel Frobenius error against float64 products (the plain versions
-    computed in float64 on the same bf16 inputs, lse and delta, p and ds
-    unrounded) of the kernel, the rounding model in f32 and the plain f32
-    version, per output (FLASH_OUTPUTS).  The model is no copy of the
-    kernel's roundings: it rounds p against the row's final max, K1
-    against the running max of its 64-key tiles."""
+    computed in float64 on the same 16-bit inputs, lse and delta, p and
+    ds unrounded) of the kernel, the rounding model (p and ds rounded to
+    the inputs' dtype) in f32 and the plain f32 version, per output
+    (FLASH_OUTPUTS).  The model is no copy of the kernel's roundings: it
+    rounds p against the row's final max, K1 against the running max of
+    its 64-key tiles."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as FA
@@ -995,7 +1054,7 @@ def flash_errs(q, k, v, do, causal):
                      delta, "plain")
     errs = {}
     for how in ("kernel", "model", "plain"):
-        got = flash_outs(q, k, v, do, causal, lse, delta, how)
+        got = flash_outs(q, k, v, do, causal, lse, delta, how, q.dtype)
         errs[how] = [rel_err(a, b) for a, b in zip(got, p64)]
         del got
     del p64
@@ -1003,19 +1062,22 @@ def flash_errs(q, k, v, do, causal):
     return errs
 
 
-def flash_precision(failures):
-    """bf16 K1, K2 and K3 against float64 products at the train shape and
-    non-causal at head dims 128 and 256: fails where the kernel's error on
-    any output exceeds FLASH_MODEL_RATIO x the rounding model's (the plain
-    versions with the reference's bf16 roundings of p and ds, in f32).
+def flash_precision(failures, cases=FLASH_PRECISION_CASES, dtype=None,
+                    seed=100):
+    """16-bit K1, K2 and K3 (bf16 by default) against float64 products at
+    `cases` (the train shape and non-causal at head dims 128 and 256):
+    fails where the kernel's error on any output exceeds
+    FLASH_MODEL_RATIO x the rounding model's (the plain versions with the
+    reference's roundings of p and ds to the inputs' dtype, in f32).
     K1's O, K2's dQ and K3's dK, dV accumulate in the mma itself over the
     key (K1, K2) or query (K3) tiles; the line names that rule."""
-    for i, (shape, causal) in enumerate(FLASH_PRECISION_CASES):
-        q, k, v, do = flash_inputs(shape, 100 + i)
+    for i, (shape, causal) in enumerate(cases):
+        q, k, v, do = flash_inputs(shape, seed + i, dtype)
         errs = flash_errs(q, k, v, do, causal)
         ratios = [a / max(b, 1e-30) for a, b in zip(errs["kernel"],
                                                      errs["model"])]
-        tag = f"flash_precision {list(shape)} causal={causal} bfloat16"
+        tag = (f"flash_precision {list(shape)} causal={causal} "
+               f"{dname(q.dtype)}")
         for name, r, a, b in zip(FLASH_OUTPUTS, ratios, errs["kernel"],
                                  errs["model"]):
             if r > FLASH_MODEL_RATIO:
@@ -1031,6 +1093,163 @@ def flash_precision(failures):
             f"worst {FLASH_OUTPUTS[worst]} {ratios[worst]:.3f}; sums "
             "(O, dQ, dK, dV) accumulated in the mma")
         del q, k, v, do
+
+
+# the float16 forms of K1-K3: held at the train shape and at the
+# static GPT's attention, the shape the float16 AMP run of phase 7 gives
+# them; K4, K5 and K6 in float16 at the static GPT's LayerNorm rows and
+# the generate decode shape
+FLASH_F16_CASES = (FLASH_TRAIN, (FLASH_STATIC, False))
+K4_F16_SHAPES = ((4096, 768), (24576, 768))
+
+
+def float16_checks(rows, failures, flush):
+    """The float16 forms, from generators of their own: K1 (out,
+    lse), K2 (dq) and K3 (dk, dv) at FLASH_F16_CASES against their
+    rounding model (p and ds rounded to float16 where the reference
+    rounds them) at one float16 ulp (2^-10; lse 2e-5), with the error
+    against the plain unrounded versions printed; their times beside the
+    plain versions, `F.scaled_dot_product_attention` in float16 (forward;
+    its whole backward for K2/K3) and the bound; their error against
+    float64 products at most FLASH_MODEL_RATIO x the model's
+    (`flash_precision` in float16).  The rows at the static GPT's
+    attention go into the kernels line as K1-K3 float16.  Then K4 at
+    K4_F16_SHAPES, K5 at [4096, 768] (gamma and the sums in float32 and
+    in float16) and K6 at the generate decode shape against their plain
+    versions (2^-10; K5's dgamma/dbeta atol 2e-5 sqrt(rows), rtol 2^-10),
+    with their times."""
+    import math
+
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import layer_norm as LN
+
+    f16 = torch.float16
+    for i, (shape, causal) in enumerate(FLASH_F16_CASES):
+        b, h, s, d = shape
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = flash_inputs(shape, 170 + i, f16)
+        tag = f"K1-K3 {list(shape)} causal={causal} float16"
+        out, lse = FA._launch_fwd(q, k, v, causal, scale)
+        mo, ml = FA.flash_attention_ref(q, k, v, causal, scale, round_to=f16)
+        po, pl = FA.flash_attention_ref(q, k, v, causal, scale)
+        err = max(compare(tag + " out", out, mo, "float16", failures),
+                  compare(tag + " lse", lse, ml, "float32", failures))
+        delta = (do.float() * po.float()).sum(-1)
+        args = (q, k, v, do, pl, delta, causal, scale)
+        model = FA.flash_attention_bwd_ref(*args, round_to=f16)
+        plain = FA.flash_attention_bwd_ref(*args)
+        dq = FA._launch_bwd_dq(*args)
+        dk, dv = FA._launch_bwd_dkv(*args)
+        err_q = compare(tag + " dq", dq, model[0], "float16", failures)
+        err_kv = max(compare(tag + " dk", dk, model[1], "float16", failures),
+                     compare(tag + " dv", dv, model[2], "float16", failures))
+        vs_plain = [float((a.float() - w.float()).abs().max())
+                    for a, w in zip((out, dq, dk, dv), (po, *plain))]
+        iters = 5 if b * h > 100 else 20
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, causal))
+        plain_ms = time_ms(lambda: FA.flash_attention_ref(q, k, v, causal))
+        lib = time_ms(lambda: TF.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+        ms_q = time_ms(lambda: FA._launch_bwd_dq(*args), iters)
+        ms_kv = time_ms(lambda: FA._launch_bwd_dkv(*args), iters)
+        plain_b = time_ms(lambda: FA.flash_attention_bwd_ref(*args), iters)
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lout = TF.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True), iters, graph=False)
+        del lq, lk, lv, lout
+        n = b * h * s
+        pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+        reads = 4 * n * d * 2 + 2 * n * 4
+        b1, by1 = bound(3 * n * d * 2 + n * d * 2 + n * 4, 4 * pairs * d,
+                        "float16")
+        bq, byq = bound(reads + n * d * 2, 6 * pairs * d, "float16")
+        bkv, bykv = bound(reads + 2 * n * d * 2, 8 * pairs * d, "float16")
+        log(f"{tag}: K1 kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {lib:.4f} (SDPA float16) bound_ms {b1:.5f} ({by1}) "
+            f"max_err vs model {err:.3e}; K2 kernel_ms {ms_q:.4f} bound_ms "
+            f"{bq:.5f} ({byq}) max_err {err_q:.3e}; K3 kernel_ms "
+            f"{ms_kv:.4f} bound_ms {bkv:.5f} ({bykv}) max_err {err_kv:.3e}; "
+            f"whole backward plain_ms {plain_b:.4f} library_ms {lib_b:.4f} "
+            f"(SDPA float16); max abs vs the unrounded plain versions (O, "
+            f"dQ, dK, dV) {' '.join(f'{e:.3e}' for e in vs_plain)}")
+        if (shape, causal) == (FLASH_STATIC, False):
+            what = (f"q,k,v {list(shape)} non-causal float16 (the static "
+                    "GPT's attention under FLAGS_amp_dtype=float16)")
+            rows["flash_attention_fwd:float16"] = dict(
+                name="K1 flash_attention_fwd float16", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_attention.cu",
+                replaces="paddle_tpu/kernels/flash_attention.py:106",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b1,
+                bound_by=by1, library_ms=lib, shape=what)
+            common = dict(route="cuda", plain_ms=plain_b, library_ms=lib_b,
+                          source="paddle_tpu_torch/csrc/"
+                                 "flash_attention_bwd.cu",
+                          shape=what + "; plain and library: the whole "
+                                       "backward")
+            rows["flash_attention_bwd_dq:float16"] = dict(
+                name="K2 flash_attention_bwd_dq float16",
+                replaces="paddle_tpu/kernels/flash_attention.py:203",
+                max_abs_err=err_q, ms=ms_q, bound_ms=bq, bound_by=byq,
+                **common)
+            rows["flash_attention_bwd_dkv:float16"] = dict(
+                name="K3 flash_attention_bwd_dkv float16",
+                replaces="paddle_tpu/kernels/flash_attention.py:242",
+                max_abs_err=err_kv, ms=ms_kv, bound_ms=bkv, bound_by=bykv,
+                **common)
+        del q, k, v, do, out, lse, mo, ml, po, pl, delta, args, model, plain
+        del dq, dk, dv
+        torch.cuda.empty_cache()
+    flash_precision(failures, FLASH_F16_CASES, f16, seed=180)
+
+    gen = torch.Generator(device="cuda").manual_seed(190)
+
+    def own(shape, dt=f16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    for n_rows, d in K4_F16_SHAPES:
+        x, g, bta = own((n_rows, d)), own((d,)), own((d,))
+        tag = f"K4 [{n_rows}, {d}] float16"
+        err = compare(tag, LN.fused_layer_norm(x, g, bta),
+                      LN.layer_norm_ref(x, g, bta), "float16", failures)
+        ms = time_ms(lambda: LN.fused_layer_norm(x, g, bta))
+        lib = time_ms(lambda: TF.layer_norm(x, (d,), g, bta, 1e-5))
+        bms, by = bound((2 * n_rows * d + 2 * d) * 2, 8 * n_rows * d,
+                        "float16")
+        log(f"{tag}: kernel_ms {ms:.4f} library_ms {lib:.4f} bound_ms "
+            f"{bms:.5f} ({by}) max_err {err:.3e}")
+    n_rows, d = 4096, 768
+    x, dy = own((n_rows, d)), own((n_rows, d))
+    for gdt in (torch.float32, f16):
+        g = own((d,), gdt)
+        dx, dg, db = LN._launch_bwd(x, g, dy, 1e-5, gdt)
+        rx, rg, rb = LN.layer_norm_bwd_ref(x, g, dy)
+        tag = f"K5 [{n_rows}, {d}] float16, gamma {dname(gdt)}"
+        err = compare(tag + " dx", dx, rx, "float16", failures)
+        atol = 2e-5 * math.sqrt(n_rows)
+        rtol = TOL["float16"] if gdt == f16 else 1e-6
+        for name, got, want in (("dgamma", dg, rg), ("dbeta", db, rb)):
+            e = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=rtol):
+                failures.append(f"{tag} {name}: max_abs_err {e:.3e} > "
+                                f"atol {atol:.3e} rtol {rtol:g}")
+            err = max(err, e)
+        ms = time_ms(lambda: LN._launch_bwd(x, g, dy, 1e-5, gdt))
+        log(f"{tag}: kernel_ms {ms:.4f} max_err {err:.3e} "
+            f"(dgamma/dbeta in {dname(gdt)})")
+    q, kc = own((4, 12, 1, 64)), own((4, 12, 384, 64))
+    lens = torch.full((4,), 320, dtype=torch.int32, device="cuda")
+    err = compare("K6 [4, 12, 1, 64] T 384 float16",
+                  FA.flash_decode(q, kc, kc, lens),
+                  FA.flash_decode_ref(q, kc, kc, lens), "float16", failures)
+    ms = time_ms(lambda: FA.flash_decode(q, kc, kc, lens), flush=flush)
+    log(f"K6 [4, 12, 1, 64] T 384 len 320 float16: kernel_ms {ms:.4f} "
+        f"(L2 flushed) max_err {err:.3e}")
+    torch.cuda.empty_cache()
 
 
 # K5's checks: (rows, D).  The train step's [24576, 768] (timed, the JSON
@@ -3795,6 +4014,13 @@ STATIC_AMP_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
 # the reference's tests/test_fuse.py for its gpt family)
 STATIC_AMP_FUSED = {"fused_attention": 1, "fused_bias_act": 1,
                     "fused_layer_norm": 2}
+# ... and under FLAGS_amp_dtype=float16: K1-K3 in their float16
+# form; the two LayerNorms still see f32 (the residual stream stays f32)
+STATIC_AMP_F16_LAUNCHES = dict(
+    STATIC_AMP_LAUNCHES, **{k + ":float16": 1 for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")})
+STATIC_AMP_F16_STEPS = 3
 # bench.py:697-704 (`bench_wide_deep`): 26 sparse fields over 1e6 ids, 13
 # dense features, batch 8192
 STATIC_WIDE_DEEP = dict(fields=26, vocab=1_000_000, dense=13)
@@ -4023,7 +4249,8 @@ def executor_op_profile(run, label):
     return by_type
 
 
-def static_run(failures, steps=5, clip_norm=None, amp=False):
+def static_run(failures, steps=5, clip_norm=None, amp=False,
+               amp_dtype="bfloat16"):
     """The static GPT at BERT-base widths (`static_zoo.build_gpt(512, 768,
     12, 32768)`, one transformer layer, float32) through `Executor.run`
     on the card: startup, one warm-up and `steps` timed Adam steps at
@@ -4041,14 +4268,17 @@ def static_run(failures, steps=5, clip_norm=None, amp=False):
     carry STATIC_AMP_FUSED (its fused_attention computing in bfloat16),
     and each step must launch exactly STATIC_AMP_LAUNCHES; it also logs
     the substitute's casts and the step's device ms by Executor op type.
+    With `amp_dtype` "float16" (FLAGS_amp_dtype) the fused_attention
+    computes in float16 and each step must launch
+    STATIC_AMP_F16_LAUNCHES: K1-K3's float16 forms.
     Returns {launches, host_ms, profile, ops, peak}."""
     if amp:
-        with tier_flags(amp="on", fuse="on"):
-            return _static_run(failures, steps, clip_norm, amp)
-    return _static_run(failures, steps, clip_norm, amp)
+        with tier_flags(amp="on", fuse="on", amp_dtype=amp_dtype):
+            return _static_run(failures, steps, clip_norm, amp, amp_dtype)
+    return _static_run(failures, steps, clip_norm, amp, amp_dtype)
 
 
-def _static_run(failures, steps, clip_norm, amp):
+def _static_run(failures, steps, clip_norm, amp, amp_dtype="bfloat16"):
     import torch
 
     import paddle_tpu_torch as fluid
@@ -4058,6 +4288,8 @@ def _static_run(failures, steps, clip_norm, amp):
     label = ("static amp" if amp else "static") if clip_norm is None \
         else "static clipped"
     want_launches = STATIC_AMP_LAUNCHES if amp else STATIC_LAUNCHES
+    if amp and amp_dtype == "float16":
+        label, want_launches = "static amp float16", STATIC_AMP_F16_LAUNCHES
     if clip_norm is None:
         m = static_zoo.build_gpt(**STATIC_GPT)
     else:
@@ -4086,13 +4318,14 @@ def _static_run(failures, steps, clip_norm, amp):
             f"-> {len(types)} ops: {casts} casts, fused {fused}, "
             f"fused_attention attrs {[a.attrs for a in attn]}")
         if fused != STATIC_AMP_FUSED or any(
-                a.attrs.get("compute_dtype") != "bfloat16" for a in attn):
+                a.attrs.get("compute_dtype") != amp_dtype for a in attn):
             failures.append(f"{label}: substitute carries {fused}, "
                             f"fused_attention compute dtypes "
                             f"{[a.attrs.get('compute_dtype') for a in attn]}"
-                            f" != {STATIC_AMP_FUSED}, bfloat16")
+                            f" != {STATIC_AMP_FUSED}, {amp_dtype}")
     ops = len(exe._live_ops(program, m.fetches))
-    log(f"{label}: gpt {STATIC_GPT} {'AMP bf16 + fusion' if amp else 'f32'}"
+    log(f"{label}: gpt {STATIC_GPT} "
+        f"{f'AMP {amp_dtype} + fusion' if amp else 'f32'}"
         f" through Executor.run, batch 8, "
         f"{n_params} parameters, {ops} ops per step "
         f"({sum(op.type == 'adam' for op in m.main.global_block().ops)} "
@@ -4512,10 +4745,12 @@ def static_phase(failures):
     """Phase 7: the static GPT's run (`static_run`), the same GPT with AMP
     and the fusion tier (`static_run(amp=True)`, compared with the plain
     run on one line), the same GPT under the global-norm clip
-    (`static_run(clip_norm=1.0)`), the static Wide&Deep at CTR widths
-    (`static_wide_deep_run`), then the card-vs-CPU checks of the static
-    families (`static_check`) and of the AMP tier (`static_amp_check`).
-    Returns the launches of the timed steps of the three GPT runs."""
+    (`static_run(clip_norm=1.0)`), the same GPT with AMP in float16 and
+    the fusion tier (K1-K3's float16 forms; STATIC_AMP_F16_STEPS steps),
+    the static Wide&Deep at CTR widths (`static_wide_deep_run`), then the
+    card-vs-CPU checks of the static families (`static_check`) and of the
+    AMP tier (`static_amp_check`).  Returns the launches of the timed
+    steps of the four GPT runs."""
     out = static_run(failures)
     amp = static_run(failures, amp=True)
     plain, fast = out["profile"], amp["profile"]
@@ -4534,12 +4769,511 @@ def static_phase(failures):
         f"{fast['by_op'].get('adam', 0):.3f} ms, cast ops (forward) "
         f"{fast['by_op'].get('cast', 0):.3f} ms")
     clipped = static_run(failures, clip_norm=1.0)
+    amp16 = static_run(failures, steps=STATIC_AMP_F16_STEPS, amp=True,
+                       amp_dtype="float16")
+    log(f"static amp float16 vs bfloat16 (the same call): host ms "
+        f"{amp16['host_ms']:.3f} vs {amp['host_ms']:.3f}; device ms "
+        f"{amp16['profile']['device']:.3f} vs {fast['device']:.3f}")
     static_wide_deep_run(failures)
     static_check(failures)
     static_amp_check(failures)
-    runs = (out, amp, clipped)
+    runs = (out, amp, clipped, amp16)
     return {n: sum(r["launches"].get(n, 0) for r in runs)
             for r0 in runs for n in r0["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: IO, checkpoints, readers and the Predictor
+# ---------------------------------------------------------------------------
+
+IO_BATCH = 8
+IO_RUNS = 5
+# per Predictor.run / CompiledPredictor.run of the fused static GPT: K1 for
+# its fused_attention, K4 for its two fused_layer_norm ops
+IO_PREDICTOR_LAUNCHES = {"flash_attention_fwd": 1, "layer_norm_fwd": 2}
+IO_F32_RTOL = 1e-4          # Predictor f32 vs Executor.run, relative
+IO_BF16_RTOL = 3e-2         # Predictor bf16 vs Executor.run (f32), relative
+IO_COMPILED_RTOL = 1e-6     # CompiledPredictor vs Predictor, relative
+IO_FOLD_RTOL = 1e-4         # FLAGS_inference_fold on vs off, relative
+# the dygraph GPT of phase 3 at depth 2 with dropout on, for resume
+IO_RESUME_GPT = dict(vocab_size=32768, hidden_size=768, num_layers=2,
+                     num_heads=12, max_seq_len=512, dtype="bfloat16",
+                     dropout=0.1)
+IO_RESUME_BATCH = 8
+IO_LOADER_STEPS = 6
+
+
+def rel_max(a, b):
+    """max |a - b| over max |b| (numpy)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def io_phase(failures):
+    """Phase 7b, `io`: the port's IO, checkpoints, readers and
+    the Predictor on the card.
+
+    - `io_serve`: the static GPT at BERT-base widths (STATIC_GPT), its
+      for_test forward to the logits pruned and fused
+      (`passes.fuse_program`), once as built (f32) and once AMP-rewritten
+      to bf16 first (`amp.rewrite_program`), each saved with
+      `io.save_inference_model` and served from disk by
+      `inference.Predictor` on `cuda` at batch IO_BATCH: held against the
+      same device's `Executor.run` of the unfused for_test Program at
+      IO_F32_RTOL / IO_BF16_RTOL relative; every timed run launches
+      exactly IO_PREDICTOR_LAUNCHES (K1 once, K4 twice); host ms and
+      device ms per run (torch.profiler), peak memory.  The f32 directory
+      exported (`save_compiled_inference_model`, `torch.export`) and
+      served by a `CompiledPredictor` loaded from the artifact: the same
+      launches, outputs within IO_COMPILED_RTOL of `Predictor.run` (says
+      whether bitwise), host ms beside the eager Predictor's.  The f32
+      directory through the C API (`paddle_tpu_torch/csrc/
+      predictor_capi.cpp` built with g++, driven through ctypes on
+      `cuda`): its outputs equal to `Executor.run` of the loaded Program
+      bitwise and to `Predictor.run` within IO_COMPILED_RTOL.
+    - `io_fold`: the static ResNet family's for_test Program through the
+      Predictor with FLAGS_inference_fold off and on: op counts, outputs
+      within IO_FOLD_RTOL.
+    - `io_resume`: the dygraph GPT of phase 3 at depth 2 with dropout on
+      (IO_RESUME_GPT): 3 steps, `checkpoint.save_checkpoint`, 3 more; a
+      fresh state `load_checkpoint`-ed takes the same 3 steps: losses,
+      every parameter and moment and the generator's state bitwise
+      equal.  The same for the static GPT with Adam through
+      `io.save_persistables` / `load_persistables`.  Save and load
+      seconds and bytes on disk.
+    - `io_loaders`: the static GPT's Adam steps fed three ways from the
+      same start: numpy dicts, `DataLoader.from_generator` ->
+      `device_prefetch(size=2)` on `cuda`, `ShmBatchLoader` (2 forked
+      workers, after the parent's CUDA context exists) ->
+      `device_prefetch`: losses bitwise equal across the three, host ms
+      per step each; the overlap of the side stream's host-to-device
+      copies with the main stream's kernels in a torch.profiler trace of
+      the prefetched run (printed, not gated).
+    Returns the launches of the Predictor's and CompiledPredictor's timed
+    runs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = io_serve(failures, tmp)
+        io_fold(failures, tmp)
+        io_resume(failures, tmp)
+        io_static_resume(failures, tmp)
+        io_loaders(failures, tmp)
+    return launches
+
+
+def _timed_runs(run, label, failures, want_launches):
+    """Two warm-up calls of run() (the first pinned fetch buffers: a run's
+    outputs are still held while the next one allocates), then IO_RUNS
+    timed calls: each must launch `want_launches`; returns (host ms per
+    run, the mean; launches; the last outputs)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+
+    for _ in range(2):
+        run()
+    backend.reset_launches()
+    host, outs = [], None
+    for i in range(IO_RUNS):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = run()                    # numpy out: waits for the card
+        host.append((time.perf_counter() - t0) * 1e3)
+        made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
+        made = {n: c for n, c in made.items() if c}
+        if made != want_launches:
+            failures.append(f"{label} run {i} launches {made} != "
+                            f"{want_launches}")
+    log(f"{label}: {IO_RUNS} runs, host ms {[round(t, 3) for t in host]}, "
+        f"mean {sum(host) / len(host):.3f}, median "
+        f"{sorted(host)[len(host) // 2]:.3f}")
+    return sum(host) / len(host), dict(backend.LAUNCHES), outs
+
+
+def io_serve(failures, tmp):
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, inference, native, passes
+    from paddle_tpu_torch.models import static_zoo
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    test = m.main.clone(for_test=True)
+    logits = [op for op in test.global_block().ops
+              if op.type == "softmax_with_cross_entropy"][0].inputs[
+        "Logits"][0]
+    ids = static_feed(m, STATIC_GPT["vocab"], IO_BATCH, seed=17)["ids"]
+    feed = {"ids": ids}
+    ref = exe.run(test, feed=feed, fetch_list=[logits], scope=scope)[0]
+    dirs, launches = {}, {}
+    for kind in ("float32", "bfloat16"):
+        prog = test._prune([logits])
+        if kind == "bfloat16":
+            with tier_flags(amp="off", fuse="off", amp_dtype="bfloat16"):
+                amp.rewrite_program(prog)
+        fused, rep = passes.fuse_program(prog, fetch_names=[logits])
+        types = [op.type for op in fused.global_block().ops]
+        d = dirs[kind] = os.path.join(tmp, f"gpt_{kind}")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["ids"], [logits], exe,
+                                          main_program=fused)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = inference.Predictor(d)
+        load_s = time.perf_counter() - t0
+        label = f"io predictor {kind}"
+        log(f"{label}: fused program {len(types)} ops ({rep['before_ops']} "
+            f"before fusion; fused_attention {types.count('fused_attention')}"
+            f", fused_layer_norm {types.count('fused_layer_norm')}, casts "
+            f"{types.count('cast')}), served {len(p._program.global_block().ops)}"
+            f" ops after the load-time folds; save {save_s:.3f} s, "
+            f"{dir_bytes(d)} bytes on disk; load {load_s:.3f} s")
+        out = p.run(feed)[0]            # warm-up: Triton JIT, cuBLAS
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        host, made, outs = _timed_runs(lambda: p.run(feed), label, failures,
+                                       IO_PREDICTOR_LAUNCHES)
+        for n, c in made.items():
+            launches[n] = launches.get(n, 0) + c
+        peak = torch.cuda.max_memory_allocated()
+        err = rel_max(outs[0], ref)
+        tol = IO_F32_RTOL if kind == "float32" else IO_BF16_RTOL
+        prof = profile_train_step(lambda _: p.run(feed), None, (), host,
+                                  label=label, steps=2)
+        log(f"{label}: logits {list(outs[0].shape)}, rel err vs Executor.run of "
+            f"the unfused for_test Program {err:.3e} (tol {tol}); host "
+            f"{host:.3f} ms, device {prof['device']:.3f} ms per run; peak "
+            f"{peak / 2 ** 30:.3f} GiB; {card_line()}")
+        if not np.isfinite(outs[0]).all() or err > tol:
+            failures.append(f"{label}: rel err {err:.3e} > {tol} or not "
+                            "finite")
+        if kind == "float32":
+            p32, out32, host32 = p, outs[0], host
+    # the exported artifact of the f32 directory
+    t0 = time.perf_counter()
+    path = inference.save_compiled_inference_model(dirs["float32"], feed)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp = inference.CompiledPredictor(path)
+    cload_s = time.perf_counter() - t0
+    label = "io compiled predictor float32"
+    host, made, outs = _timed_runs(lambda: cp.run(feed), label, failures,
+                                   IO_PREDICTOR_LAUNCHES)
+    for n, c in made.items():
+        launches[n] = launches.get(n, 0) + c
+    err = rel_max(outs[0], out32)
+    same = bool(np.array_equal(outs[0], out32))
+    log(f"{label}: export {export_s:.3f} s ({os.path.getsize(path)} bytes), "
+        f"load {cload_s:.3f} s; rel err vs Predictor.run {err:.3e} "
+        f"(bitwise {same}); host {host:.3f} ms per run vs the eager "
+        f"Predictor's {host32:.3f}; {card_line()}")
+    if err > IO_COMPILED_RTOL:
+        failures.append(f"{label}: rel err {err:.3e} > {IO_COMPILED_RTOL}")
+    del cp
+    # the C API on the f32 directory
+    t0 = time.perf_counter()
+    lib = native.capi_load(native.build_capi(os.path.join(tmp,
+                                                          "libcapi.so")))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.capi_run(lib, dirs["float32"], feed, "cuda")[0]
+    capi_ms = (time.perf_counter() - t0) * 1e3
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        prog, _, fetches = fluid.io.load_inference_model(dirs["float32"], exe)
+    direct = exe.run(prog, feed=feed, fetch_list=fetches, scope=loaded)[0]
+    err = rel_max(got, out32)
+    log(f"io C API float32: g++ {build_s:.1f} s; one PD_NewPredictor + "
+        f"PD_Run {capi_ms:.1f} ms; bitwise equal to Executor.run of the "
+        f"loaded Program {bool(np.array_equal(got, direct))}; rel err vs "
+        f"Predictor.run {err:.3e} (bitwise {bool(np.array_equal(got, out32))})")
+    if not np.array_equal(got, direct) or err > IO_COMPILED_RTOL:
+        failures.append(f"io C API: outputs differ from the Python paths "
+                        f"(rel err vs Predictor {err:.3e})")
+    log(f"io path launches (Predictor f32 and bf16, CompiledPredictor, "
+        f"{IO_RUNS} runs each): {launches}")
+    del p32, scope, exe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def io_fold(failures, tmp):
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import static_zoo
+
+    m = static_zoo.build_resnet()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    d = os.path.join(tmp, "resnet")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, [n for n, _, _ in m.feeds],
+                                      m.fetches, exe,
+                                      main_program=m.main.clone(
+                                          for_test=True))
+    feed = m.smoke_feed(IO_BATCH, seed=11)
+    outs, ops = {}, {}
+    for fold in (False, True):
+        with tier_flags(amp="off", fuse="off", inference_fold=fold):
+            p = inference.Predictor(d)
+            outs[fold] = p.run(feed)
+            ops[fold] = len(p._program.global_block().ops)
+    err = max(rel_max(a, b) for a, b in zip(outs[True], outs[False]))
+    log(f"io fold (static resnet, batch {IO_BATCH}): ops {ops[False]} -> "
+        f"{ops[True]} with FLAGS_inference_fold; rel err {err:.3e} (tol "
+        f"{IO_FOLD_RTOL})")
+    if err > IO_FOLD_RTOL or ops[True] >= ops[False]:
+        failures.append(f"io fold: rel err {err:.3e} or ops {ops}")
+
+
+def _flat_equal(a, b):
+    """[keys whose leaves differ] between two states (bitwise; a
+    generator by its state)."""
+    import torch
+
+    from paddle_tpu_torch.checkpoint import flatten_with_path
+
+    fa, fb = flatten_with_path(a), flatten_with_path(b)
+    if [k for k, _ in fa] != [k for k, _ in fb]:
+        return ["<structure>"]
+    bad = []
+    for (k, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if not (x.dtype == y.dtype and torch.equal(x, y)):
+            bad.append(k)
+    return bad
+
+
+def io_resume(failures, tmp):
+    import os
+
+    import torch
+
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = GPTConfig(**IO_RESUME_GPT)
+    rng = np.random.default_rng(23)
+    batches = [tuple(torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (IO_RESUME_BATCH, cfg.max_seq_len)),
+        dtype=torch.int32, device="cuda") for _ in range(2))
+        for _ in range(6)]
+
+    def fresh(seed):
+        model = GPT(cfg, device="cuda", generator=make_generator(seed))
+        opt = AdamW(1e-4)
+        return (init_train_state(model, opt, rng_seed=5),
+                make_train_step(model, opt))
+
+    state, step = fresh(0)
+    for b in batches[:3]:
+        state, _ = step(state, *b)
+    d = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    path = checkpoint.save_checkpoint(d, state, 3)
+    save_s = checkpoint.save_checkpoint.last_seconds
+    losses = []
+    for b in batches[3:]:
+        state, loss = step(state, *b)
+        losses.append(loss)
+    tmpl, step2 = fresh(1)
+    resumed, at = checkpoint.load_checkpoint(d, tmpl)
+    load_s = checkpoint.load_checkpoint.last_seconds
+    again = []
+    for b in batches[3:]:
+        resumed, loss = step2(resumed, *b)
+        again.append(loss)
+    same_losses = at == 3 and all(torch.equal(a, b)
+                                  for a, b in zip(losses, again))
+    bad = _flat_equal(resumed, state)
+    log(f"io resume (dygraph GPT {IO_RESUME_GPT}, batch {IO_RESUME_BATCH}, "
+        f"AdamW): save {save_s:.3f} s, load {load_s:.3f} s, "
+        f"{dir_bytes(path)} bytes on disk; losses after the save "
+        f"{[float(x) for x in losses]}, resumed {[float(x) for x in again]};"
+        f" bitwise equal: losses {same_losses}, state leaves differing "
+        f"{len(bad)} of {len(checkpoint.flatten_with_path(state))}"
+        f"{' ' + str(bad[:5]) if bad else ''}; {card_line()}")
+    if not same_losses or bad:
+        failures.append(f"io resume: not bitwise equal to the uninterrupted "
+                        f"run (losses {same_losses}, leaves {bad[:5]})")
+    del state, resumed, tmpl, step, step2
+    torch.cuda.empty_cache()
+
+
+def io_static_resume(failures, tmp):
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import static_zoo
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    exe = fluid.Executor()
+    feeds = [static_feed(m, STATIC_GPT["vocab"], IO_BATCH, seed=40 + i)
+             for i in range(6)]
+
+    def run(scope, fs):
+        return [exe.run(m.main, feed=f, fetch_list=m.fetches,
+                        scope=scope)[0] for f in fs]
+
+    a = fluid.Scope()
+    exe.run(m.startup, scope=a)
+    run(a, feeds[:3])
+    d = os.path.join(tmp, "persistables")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fluid.scope_guard(a):
+        fluid.io.save_persistables(exe, d, m.main)
+    save_s = time.perf_counter() - t0
+    want = run(a, feeds[3:])
+    b = fluid.Scope()
+    t0 = time.perf_counter()
+    with fluid.scope_guard(b):
+        fluid.io.load_persistables(exe, d, m.main)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = run(b, feeds[3:])
+    same = all(np.array_equal(x, y) for x, y in zip(got, want))
+    bad = [n for n in a.vars if not torch.equal(a.vars[n], b.vars[n])]
+    log(f"io static resume (static GPT {STATIC_GPT}, Adam, batch "
+        f"{IO_BATCH}): save_persistables {save_s:.3f} s, load_persistables "
+        f"{load_s:.3f} s, {dir_bytes(d)} bytes on disk; losses "
+        f"{[float(x) for x in want]}, resumed {[float(x) for x in got]}; "
+        f"bitwise equal: losses {same}, persistables differing {len(bad)} of"
+        f" {len(a.vars)}; {card_line()}")
+    if not same or bad or set(a.vars) != set(b.vars):
+        failures.append(f"io static resume: not bitwise (losses {same}, "
+                        f"persistables {bad[:5]})")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def io_loaders(failures, tmp):
+    import json
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import static_zoo
+    from paddle_tpu_torch.reader import device_prefetch
+    from paddle_tpu_torch.reader.shm import ShmBatchLoader
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    exe = fluid.Executor()
+    start = fluid.Scope()
+    exe.run(m.startup, scope=start)
+    batches = [static_feed(m, STATIC_GPT["vocab"], IO_BATCH, seed=60 + i)
+               for i in range(IO_LOADER_STEPS)]
+
+    def reader():
+        for bt in batches:
+            yield bt
+
+    def way(name):
+        if name == "numpy":
+            return iter(batches)
+        if name == "DataLoader":
+            loader = fluid.DataLoader.from_generator(
+                feed_list=list(batches[0]), capacity=4)
+            loader.set_batch_generator(reader)
+            return device_prefetch(loader, size=2)
+        return device_prefetch(ShmBatchLoader(reader, num_workers=2), size=2)
+
+    def train(name):
+        """The steps fed one way, the losses kept on the card (no sync
+        per step, so the host runs ahead and a prefetched copy can meet
+        the step before it): (losses, host ms per step to enqueue it,
+        wall ms per step with the final sync)."""
+        scope = fluid.Scope()
+        for n, v in start.vars.items():
+            scope.set_var(n, v.clone())
+        losses, host, ends = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for feed in way(name):
+            losses.append(exe.run(m.main, feed=feed, fetch_list=m.fetches,
+                                  scope=scope, return_numpy=False)[0])
+            ends.append(time.perf_counter())
+            host.append((ends[-1] - t0) * 1e3)
+            t0 = ends[-1]
+        torch.cuda.synchronize()
+        # from the end of the first step (the loader's start-up) to the
+        # last step's completion
+        wall = (time.perf_counter() - ends[0]) * 1e3 / (len(losses) - 1)
+        return [x.cpu().numpy() for x in losses], host, wall
+
+    results = {}
+    for name in ("numpy", "DataLoader", "ShmBatchLoader"):
+        train(name)                             # warm-up
+        results[name] = train(name)
+    base = results["numpy"][0]
+    same = {n: len(r[0]) == len(base) and all(
+        np.array_equal(a, b) for a, b in zip(r[0], base))
+        for n, r in results.items()}
+    for n, (losses, host, wall) in results.items():
+        log(f"io loaders {n}: {len(losses)} static GPT Adam steps, host ms "
+            f"per step to enqueue {[round(t, 3) for t in host]} (mean "
+            f"{sum(host[1:]) / max(len(host) - 1, 1):.3f} after the first),"
+            f" wall ms per step after the first {wall:.3f} (the last "
+            f"step's sync included);"
+            f" losses bitwise equal to the numpy feed's {same[n]}")
+    if not all(same.values()):
+        failures.append(f"io loaders: losses differ across feeds {same}")
+    # where the prefetched copies ran: a trace of the DataLoader way
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train("DataLoader")
+        torch.cuda.synchronize()
+    trace = os.path.join(tmp, "io_loader_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    copies = [(e["ts"], e["ts"] + e.get("dur", 0), e["args"].get("stream"))
+              for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = [(e["ts"], e["ts"] + e.get("dur", 0), e["args"].get("stream"))
+               for e in events if e.get("cat") == "kernel"]
+    overlap, hit = 0.0, 0
+    for c0, c1, cs in copies:
+        o = sum(max(0.0, min(c1, k1) - max(c0, k0))
+                for k0, k1, ks in kernels if ks != cs)
+        overlap += min(o, c1 - c0)
+        hit += o > 0
+    streams = sorted({str(s) for _, _, s in copies})
+    log(f"io loaders DataLoader -> device_prefetch(size=2) trace: "
+        f"{len(copies)} host-to-device copies on streams "
+        f"{streams}, {hit} of them overlapping kernels of another stream, "
+        f"{overlap:.1f} of {sum(c1 - c0 for c0, c1, _ in copies):.1f} us "
+        f"of copy time overlapped; {card_line()}")
+    del start
+    torch.cuda.empty_cache()
 
 
 def check_phase(failures):
@@ -4823,6 +5557,11 @@ def compare_main(args):
     return rc
 
 
+# the phases whose timed runs are the main paths: their launch counts go
+# into the kernels line
+MAIN_PATHS = ("train", "resnet", "path", "static", "io")
+
+
 def main():
     if sys.argv[1:2] == ["compare"]:
         return compare_main(sys.argv[2:])
@@ -4866,7 +5605,7 @@ def main():
               ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("static", static_phase),
-              ("checks", check_phase))
+              ("io", io_phase), ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -4886,7 +5625,9 @@ def main():
     rows = results["kernels"]
     kernels = []
     for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                "flash_attention_bwd_dkv", "layer_norm_fwd",
+                "flash_attention_bwd_dkv", "flash_attention_fwd:float16",
+                "flash_attention_bwd_dq:float16",
+                "flash_attention_bwd_dkv:float16", "layer_norm_fwd",
                 "layer_norm_bwd", "flash_decode", "fused_bottleneck_fwd",
                 "fused_bottleneck_bwd", "fused_bottleneck_down_fwd",
                 "fused_bottleneck_down_bwd", "fused_stem_tail_fwd",
@@ -4894,12 +5635,13 @@ def main():
         row = dict(rows[key])
         # launches on the main paths: the 5 timed GPT train steps, the 5
         # timed steps of each fused ResNet-50 run (full and `id`), the
-        # serving run (generate + engine), the 5 timed steps of each
-        # static GPT run, plain, AMP + fusion (K1-K5) and clipped (K4,
-        # K5), and the probe tool's runs (K4, K7 and K9 forward)
+        # serving run (generate + engine), the timed steps of each static
+        # GPT run, plain, AMP + fusion (K1-K5), clipped (K4, K5) and AMP
+        # float16 + fusion (K1-K3 float16, K4, K5), the io phase's
+        # Predictor and CompiledPredictor runs (K1, K4), and the probe
+        # tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
-                              for p in ("train", "resnet", "path",
-                                        "static")) \
+                              for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)
         kernels.append(row)
     # K10: the 3 timed DGC steps of ResNet-50 with the flag on

@@ -36,9 +36,11 @@ from .framework import (  # noqa: F401
 )
 from .framework.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import (  # noqa: F401
-    backward, clip, executor, initializer, layer_helper, layers, optimizer,
-    param_attr, regularizer, unique_name,
+    backward, checkpoint, clip, data_feeder, executor, inference,
+    initializer, io, layer_helper, layers, optimizer, param_attr, reader,
+    regularizer, unique_name,
 )
+from .reader import DataFeeder, DataLoader, batch  # noqa: F401
 
 __all__ = [
     "core", "flags", "get_flags", "set_flags", "CPUPlace", "CUDAPlace",
@@ -48,5 +50,7 @@ __all__ = [
     "Executor", "Scope", "global_scope", "scope_guard", "append_backward",
     "gradients", "ParamAttr", "WeightNormParamAttr", "backward", "clip",
     "executor", "initializer", "layer_helper", "layers", "optimizer",
-    "param_attr", "regularizer", "unique_name",
+    "param_attr", "regularizer", "unique_name", "io", "reader",
+    "inference", "checkpoint", "data_feeder", "DataLoader", "DataFeeder",
+    "batch",
 ]

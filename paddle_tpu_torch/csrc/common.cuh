@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace pt {
@@ -12,14 +13,16 @@ namespace pt {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// dtype codes of the C interfaces: 0 = float32, 1 = bfloat16
+// dtype codes of the C interfaces: 0 = float32, 1 = bfloat16, 2 = float16
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -30,6 +33,10 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -8,14 +8,16 @@
 // sum and accumulator in f32, the `l == 0` guard, and writes O in the
 // input dtype plus the row logsumexp in f32.
 //
-// bf16: the tensor cores (`flash_fwd_mma_kernel`).  One block of 4 warps
+// bf16 and f16: the tensor cores (`flash_fwd_mma_kernel<T, D>`, T the
+// 16-bit type; `mma.sync ... .f32.bf16.bf16.f32` or `.f32.f16.f16.f32`,
+// the same fragments and ldmatrix loads).  One block of 4 warps
 // per (b*h, 64-row query tile); a warp owns 16 query rows (the FA-2
 // layout).  The Q tile is loaded once; 64-key tiles of K and V arrive by
 // cp.async into a 2-slot ring (csrc/flash_tc.cuh), so the next tile loads
 // while the current one multiplies.  S = Q K^T runs on
-// mma.sync.m16n8k16 (bf16 in, f32 out) fed by ldmatrix; the online
+// mma.sync.m16n8k16 (16-bit in, f32 out) fed by ldmatrix; the online
 // softmax runs on S's fragments in registers, the row max and sum reduced
-// over the 4 lanes of a quad; P is rounded to bf16 in registers, where
+// over the 4 lanes of a quad; P is rounded to T in registers, where
 // the reference rounds it (`p.astype(v_blk.dtype)`), and its C fragments
 // are the A fragments of P V (V by ldmatrix.trans), with no trip through
 // shared memory.  O stays in f32 registers and is written once; lse = m +
@@ -154,14 +156,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// K1 in bf16 on the tensor cores: one block per (b*h, 64-row query tile)
-template <int D>
+// K1 in 16-bit T (bf16 or f16) on the tensor cores: one block per (b*h,
+// 64-row query tile)
+template <typename T, int D>
 __global__ void __launch_bounds__(128)
-flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
-                     const pt::flash::bf16* __restrict__ k,
-                     const pt::flash::bf16* __restrict__ v,
-                     pt::flash::bf16* __restrict__ o, float* __restrict__ lse,
-                     int S, int causal, float scale) {
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int causal, float scale) {
   using namespace pt::flash;
   constexpr int ld = D + kPad;
   constexpr int KD = D / 16;     // 16-deep steps of Q K^T
@@ -169,9 +170,9 @@ flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
   constexpr int NS = kTile / 8;  // n-tiles of S
   constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][ld]
-  bf16* Ks = Qs + kTile * ld;                    // [2][kTile][ld]
-  bf16* Vs = Ks + 2 * kTile * ld;                // [2][kTile][ld]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kTile][ld]
+  T* Ks = Qs + kTile * ld;                 // [2][kTile][ld]
+  T* Vs = Ks + 2 * kTile * ld;             // [2][kTile][ld]
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (causal) first
@@ -209,8 +210,8 @@ flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) ldsm_a(qf[kd], Qs, ld, wr, kd * 16);
     }
-    const bf16* ks = Ks + (j & 1) * kTile * ld;
-    const bf16* vs = Vs + (j & 1) * kTile * ld;
+    const T* ks = Ks + (j & 1) * kTile * ld;
+    const T* vs = Vs + (j & 1) * kTile * ld;
 
     // S = Q K^T: 16 rows x 64 keys per warp
     float s[NS][4];
@@ -231,8 +232,8 @@ flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
         ldsm_b_rows(b, ks, ld, np * 16, kd * 16);
-        pt::tc::mma_bf16(s[2 * np], a, b[0], b[1]);
-        pt::tc::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        mma16<T>(s[2 * np], a, b[0], b[1]);
+        mma16<T>(s[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -271,17 +272,17 @@ flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
-    // O += bf16(P) V, P's fragments reused as A
+    // O += T(P) V, P's fragments reused as A
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      c_to_a<T>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t b[4];
         ldsm_b_cols(b, vs, ld, kk * 16, np * 16);
-        pt::tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
-        pt::tc::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        mma16<T>(acc[2 * np], a, b[0], b[1]);
+        mma16<T>(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // slot j & 1 is free for tile j + 2
@@ -291,11 +292,11 @@ flash_fwd_mma_kernel(const pt::flash::bf16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + wr + g + i * 8;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    bf16* orow = o + base + size_t(row) * D + 2 * t;
+    T* orow = o + base + size_t(row) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-          acc[n][2 * i] / l_safe, acc[n][2 * i + 1] / l_safe);
+      store_x2<T>(orow + n * 8, acc[n][2 * i] / l_safe,
+                  acc[n][2 * i + 1] / l_safe);
     if (t == 0) lse[size_t(bh) * S + row] = m[i] + logf(l_safe);
   }
 }
@@ -314,20 +315,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-// K1: the tensor-core kernel in bf16, the scalar one in f32
+// K1: the tensor-core kernel in bf16 and f16, the scalar one in f32
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  if constexpr (std::is_same<T, pt::flash::bf16>::value) {
-    using pt::flash::bf16;
+  if constexpr (sizeof(T) == 2) {
     constexpr size_t smem = mma_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem));
     if (err != cudaSuccess) return err;
     dim3 grid(a.bh, a.s / pt::flash::kTile);
-    flash_fwd_mma_kernel<D><<<grid, 128, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+    flash_fwd_mma_kernel<T, D><<<grid, 128, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o),
         static_cast<float*>(a.lse), a.s, a.causal, a.scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
@@ -362,8 +362,9 @@ cudaError_t dispatch_d(const Args& a, int d) {
 
 // q, k, v, o: [bh, s, d] contiguous in `dtype`; lse: [bh, s] float32.
 // Needs s % 64 == 0 (the wrapper enforces s % 128 == 0), d in {64, 128,
-// 256} and, in bf16, 16-byte aligned q, k, v, o (the wrapper checks).
-// float32 runs the scalar kernel, bfloat16 the tensor-core kernel.
+// 256} and, in bf16 and f16, 16-byte aligned q, k, v, o (the wrapper
+// checks).  float32 runs the scalar kernel, bfloat16 and float16 the
+// tensor-core kernel.
 // Returns cudaGetLastError() after the launch.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int s, int d,
@@ -377,6 +378,8 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
     err = dispatch_d<float>(a, d);
   else if (dtype == pt::kBFloat16)
     err = dispatch_d<pt::flash::bf16>(a, d);
+  else if (dtype == pt::kFloat16)
+    err = dispatch_d<pt::flash::f16>(a, d);
   else
     err = cudaErrorInvalidValue;
   return int(err);

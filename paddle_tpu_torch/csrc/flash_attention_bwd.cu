@@ -14,11 +14,12 @@
 //   K3  dV = sum_q p^T dO, dK = sum_q ds^T Q (one block per key tile)
 // Two kernels and no atomics, so the result is deterministic.
 //
-// In bf16 both run on the tensor cores (mma.sync.m16n8k16 fed by
+// In bf16 and f16 (T, the 16-bit type: the kernels are templates over
+// it, csrc/flash_tc.cuh) both run on the tensor cores (mma.sync.m16n8k16 fed by
 // ldmatrix, csrc/flash_tc.cuh on csrc/mma.cuh), one block per (b*h,
 // 64-row tile) with (b*h) on blockIdx.x, each warp owning 16 rows of the
 // block's resident side; the other side streams in 64-row tiles through a
-// 2-slot cp.async ring.  p and ds round to bf16 where the reference
+// 2-slot cp.async ring.  p and ds round to T where the reference
 // rounds them (`p.astype(do.dtype)`, `ds.astype(q.dtype)`), in registers:
 // the C fragments of one product are the A fragments of the next
 // (flash_tc.cuh has the map), so p and ds never touch shared memory.  The
@@ -32,7 +33,7 @@
 // barrier).  At D >= 128 the score products run over the streamed tile in
 // two 32-row halves, so each takes 16 f32 per thread.
 //
-// K2 in bf16 (`flash_bwd_dq_mma_kernel`): Q and dO resident, each warp's
+// K2 in bf16 and f16 (`flash_bwd_dq_mma_kernel`): Q and dO resident, each warp's
 // rows' lse and delta in registers; K and V stream, from key tile 0 to
 // the last (causal: to the diagonal tile, the only one masked, by the
 // reference's rule that a tile is live iff (qi + 1) bq > ki bk; the
@@ -43,7 +44,7 @@
 // two products.  Shared memory: (2 + 2 * 2) * 64 * (D + 8) * 2 bytes,
 // 202,752 at D = 256.
 //
-// K3 in bf16 (`flash_bwd_dkv_mma_kernel`), computed transposed so that no
+// K3 in bf16 and f16 (`flash_bwd_dkv_mma_kernel`), computed transposed so that no
 // fragment needs a transpose: K and V resident; Q, dO, lse and delta
 // stream, from the first query tile that reaches the block's keys
 // (causal: the diagonal tile, the only one masked; key tile 0, the
@@ -299,7 +300,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The tiles of the tensor-core kernels, K2 and K3 in bf16
+// The tiles of the tensor-core kernels, K2 and K3 in bf16 and f16
 template <int D>
 struct BwdMma {
   static constexpr int kSplit = D > 128 ? 2 : 1;  // warps per 16 rows
@@ -308,7 +309,7 @@ struct BwdMma {
   static constexpr int kSub = D > 64 ? 32 : 64;   // streamed rows per pass
   static constexpr int ld = D + pt::flash::kPad;
   static constexpr size_t kTileBytes =
-      sizeof(pt::flash::bf16) * size_t(pt::flash::kTile) * ld;
+      2 * size_t(pt::flash::kTile) * ld;  // 16-bit elements
   // K2: Q, dO resident; two slots of K, V
   static constexpr size_t kSmemDq = 6 * kTileBytes;
   // K3: K, V resident; two slots of Q, dO; two slots of lse, delta
@@ -316,18 +317,16 @@ struct BwdMma {
       6 * kTileBytes + 4 * pt::flash::kTile * sizeof(float);
 };
 
-// K2 in bf16 on the tensor cores: one block per (b*h, 64-row query tile).
-// dQ accumulates in the mma itself, as K1's O and K3's dK, dV do.
-template <int D>
+// K2 in 16-bit T (bf16 or f16) on the tensor cores: one block per (b*h,
+// 64-row query tile).  dQ accumulates in the mma itself, as K1's O and
+// K3's dK, dV do.
+template <typename T, int D>
 __global__ void __launch_bounds__(BwdMma<D>::kThreads)
-flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
-                        const pt::flash::bf16* __restrict__ k,
-                        const pt::flash::bf16* __restrict__ v,
-                        const pt::flash::bf16* __restrict__ dout,
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        pt::flash::bf16* __restrict__ dq, int S, int causal,
-                        float scale) {
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int causal, float scale) {
   using namespace pt::flash;
   using C = BwdMma<D>;
   constexpr int ld = C::ld;
@@ -336,10 +335,10 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
   constexpr int NA = C::kSlice / 8;       // n-tiles of the warp's dQ
   constexpr int kTileElems = kTile * ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][ld]
-  bf16* dOs = Qs + kTileElems;                   // [kTile][ld]
-  bf16* Ks = dOs + kTileElems;                   // [2][kTile][ld]
-  bf16* Vs = Ks + 2 * kTileElems;                // [2][kTile][ld]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kTile][ld]
+  T* dOs = Qs + kTileElems;                   // [kTile][ld]
+  T* Ks = dOs + kTileElems;                   // [2][kTile][ld]
+  T* Vs = Ks + 2 * kTileElems;                // [2][kTile][ld]
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest (causal) first
@@ -380,8 +379,8 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
     pt::tc::cp_async_commit();
     pt::tc::cp_async_wait<1>();  // tile j (and Q, dO) has landed
     __syncthreads();
-    const bf16* ks = Ks + (j & 1) * kTileElems;
-    const bf16* vs = Vs + (j & 1) * kTileElems;
+    const T* ks = Ks + (j & 1) * kTileElems;
+    const T* vs = Vs + (j & 1) * kTileElems;
     const bool diag = causal && j == qt;
 
 #pragma unroll 1
@@ -405,8 +404,8 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
           ldsm_b_rows(b, ks, ld, sub + np * 16, kd * 16);
-          pt::tc::mma_bf16(s[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(s[2 * np], a, b[0], b[1]);
+          mma16<T>(s[2 * np + 1], a, b[2], b[3]);
         }
       }
 #pragma unroll
@@ -417,8 +416,8 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
           ldsm_b_rows(b, vs, ld, sub + np * 16, kd * 16);
-          pt::tc::mma_bf16(dp[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(dp[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(dp[2 * np], a, b[0], b[1]);
+          mma16<T>(dp[2 * np + 1], a, b[2], b[3]);
         }
       }
       // dS = P (dP - delta[row]) * scale with P = exp(S * scale -
@@ -433,17 +432,17 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
           const float p = expf(x - row_lse[e >> 1]);
           dp[n][e] = p * (dp[n][e] - row_delta[e >> 1]) * scale;
         }
-      // dQ += bf16(dS) K: dS's fragments reused as A, K read transposed
+      // dQ += T(dS) K: dS's fragments reused as A, K read transposed
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t a[4];
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int np = 0; np < NA / 2; ++np) {
           uint32_t b[4];
           ldsm_b_cols(b, ks, ld, sub + kk * 16, c0 + np * 16);
-          pt::tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(acc[2 * np], a, b[0], b[1]);
+          mma16<T>(acc[2 * np + 1], a, b[2], b[3]);
         }
       }
     }
@@ -455,23 +454,19 @@ flash_bwd_dq_mma_kernel(const pt::flash::bf16* __restrict__ q,
     const size_t at = base + size_t(q0 + wr + g + i * 8) * D + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NA; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + at + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+      store_x2<T>(dq + at + n * 8, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
-// K3 in bf16 on the tensor cores: one block per (b*h, 64-row key tile)
-template <int D>
+// K3 in 16-bit T (bf16 or f16) on the tensor cores: one block per (b*h,
+// 64-row key tile)
+template <typename T, int D>
 __global__ void __launch_bounds__(BwdMma<D>::kThreads)
-flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
-                         const pt::flash::bf16* __restrict__ k,
-                         const pt::flash::bf16* __restrict__ v,
-                         const pt::flash::bf16* __restrict__ dout,
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         pt::flash::bf16* __restrict__ dk,
-                         pt::flash::bf16* __restrict__ dv, int S, int causal,
-                         float scale) {
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int S, int causal, float scale) {
   using namespace pt::flash;
   using C = BwdMma<D>;
   constexpr int ld = C::ld;
@@ -480,10 +475,10 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
   constexpr int NA = C::kSlice / 8;       // n-tiles of the warp's dK, dV
   constexpr int kTileElems = kTile * ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][ld]
-  bf16* Vs = Ks + kTileElems;                    // [kTile][ld]
-  bf16* Qs = Vs + kTileElems;                    // [2][kTile][ld]
-  bf16* dOs = Qs + 2 * kTileElems;               // [2][kTile][ld]
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [kTile][ld]
+  T* Vs = Ks + kTileElems;                    // [kTile][ld]
+  T* Qs = Vs + kTileElems;                    // [2][kTile][ld]
+  T* dOs = Qs + 2 * kTileElems;               // [2][kTile][ld]
   float* Ls = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // [2][kTile]
   float* Dl = Ls + 2 * kTile;                                  // [2][kTile]
 
@@ -527,8 +522,8 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
     pt::tc::cp_async_wait<1>();  // tile j (and K, V) has landed
     __syncthreads();
     const int slot = (j - j0) & 1;
-    const bf16* qs = Qs + slot * kTileElems;
-    const bf16* dos = dOs + slot * kTileElems;
+    const T* qs = Qs + slot * kTileElems;
+    const T* dos = dOs + slot * kTileElems;
     const float* ls = Ls + slot * kTile;
     const float* dls = Dl + slot * kTile;
     const bool diag = causal && j == kt;
@@ -552,8 +547,8 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
           ldsm_b_rows(b, qs, ld, sub + np * 16, kd * 16);
-          pt::tc::mma_bf16(st[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(st[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(st[2 * np], a, b[0], b[1]);
+          mma16<T>(st[2 * np + 1], a, b[2], b[3]);
         }
       }
       // P^T = exp(S^T * scale - lse[col]); the diagonal tile is masked
@@ -566,17 +561,17 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
           if (diag && col < wr + g + (e >> 1) * 8) x = pt::kNegInf;
           st[n][e] = expf(x - ls[col]);
         }
-      // dV += bf16(P^T) dO, P^T's fragments reused as A
+      // dV += T(P^T) dO, P^T's fragments reused as A
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t a[4];
-        c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+        c_to_a<T>(a, st[2 * kk], st[2 * kk + 1]);
 #pragma unroll
         for (int np = 0; np < NA / 2; ++np) {
           uint32_t b[4];
           ldsm_b_cols(b, dos, ld, sub + kk * 16, c0 + np * 16);
-          pt::tc::mma_bf16(acc_v[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(acc_v[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(acc_v[2 * np], a, b[0], b[1]);
+          mma16<T>(acc_v[2 * np + 1], a, b[2], b[3]);
         }
       }
       // dP^T = V dO^T
@@ -588,8 +583,8 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t b[4];
           ldsm_b_rows(b, dos, ld, sub + np * 16, kd * 16);
-          pt::tc::mma_bf16(dp[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(dp[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(dp[2 * np], a, b[0], b[1]);
+          mma16<T>(dp[2 * np + 1], a, b[2], b[3]);
         }
       }
       // dS^T = P^T (dP^T - delta[col]) * scale, in dp's registers
@@ -600,17 +595,17 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
           const int col = sub + n * 8 + 2 * t + (e & 1);
           dp[n][e] = st[n][e] * (dp[n][e] - dls[col]) * scale;
         }
-      // dK += bf16(dS^T) Q, dS^T's fragments reused as A
+      // dK += T(dS^T) Q, dS^T's fragments reused as A
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t a[4];
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int np = 0; np < NA / 2; ++np) {
           uint32_t b[4];
           ldsm_b_cols(b, qs, ld, sub + kk * 16, c0 + np * 16);
-          pt::tc::mma_bf16(acc_k[2 * np], a, b[0], b[1]);
-          pt::tc::mma_bf16(acc_k[2 * np + 1], a, b[2], b[3]);
+          mma16<T>(acc_k[2 * np], a, b[0], b[1]);
+          mma16<T>(acc_k[2 * np + 1], a, b[2], b[3]);
         }
       }
     }
@@ -622,10 +617,8 @@ flash_bwd_dkv_mma_kernel(const pt::flash::bf16* __restrict__ q,
     const size_t at = base + size_t(k0 + wr + g + i * 8) * D + c0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NA; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
-          __floats2bfloat162_rn(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
-          __floats2bfloat162_rn(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+      store_x2<T>(dk + at + n * 8, acc_k[n][2 * i], acc_k[n][2 * i + 1]);
+      store_x2<T>(dv + at + n * 8, acc_v[n][2 * i], acc_v[n][2 * i + 1]);
     }
   }
 }
@@ -638,22 +631,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-// K2: the tensor-core kernel in bf16, the scalar one in f32
+// K2: the tensor-core kernel in bf16 and f16, the scalar one in f32
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  if constexpr (std::is_same<T, pt::flash::bf16>::value) {
+  if constexpr (sizeof(T) == 2) {
     using C = BwdMma<D>;
-    using pt::flash::bf16;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_mma_kernel<D>,
+        flash_bwd_dq_mma_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmemDq));
     if (err != cudaSuccess) return err;
     dim3 grid(a.bh, a.s / pt::flash::kTile);
-    flash_bwd_dq_mma_kernel<D><<<grid, C::kThreads, C::kSmemDq, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+    flash_bwd_dq_mma_kernel<T, D><<<grid, C::kThreads, C::kSmemDq, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.out0), a.s, a.causal, a.scale);
+        static_cast<T*>(a.out0), a.s, a.causal, a.scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -670,22 +662,21 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-// K3: the tensor-core kernel in bf16, the scalar one in f32
+// K3: the tensor-core kernel in bf16 and f16, the scalar one in f32
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  if constexpr (std::is_same<T, pt::flash::bf16>::value) {
+  if constexpr (sizeof(T) == 2) {
     using C = BwdMma<D>;
-    using pt::flash::bf16;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_mma_kernel<D>,
+        flash_bwd_dkv_mma_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmemDkv));
     if (err != cudaSuccess) return err;
     dim3 grid(a.bh, a.s / pt::flash::kTile);
-    flash_bwd_dkv_mma_kernel<D><<<grid, C::kThreads, C::kSmemDkv, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+    flash_bwd_dkv_mma_kernel<T, D><<<grid, C::kThreads, C::kSmemDkv, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.s,
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.s,
         a.causal, a.scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
@@ -725,6 +716,7 @@ int run(const Args& a, int d, int dtype) {
   if (dtype == pt::kFloat32) return int(dispatch_d<kDq, float>(a, d));
   if (dtype == pt::kBFloat16)
     return int(dispatch_d<kDq, __nv_bfloat16>(a, d));
+  if (dtype == pt::kFloat16) return int(dispatch_d<kDq, __half>(a, d));
   return int(cudaErrorInvalidValue);
 }
 
@@ -732,8 +724,8 @@ int run(const Args& a, int d, int dtype) {
 
 // q, k, v, dout, dq: [bh, s, d] contiguous in `dtype`; lse, delta: [bh, s]
 // float32 (delta = rowsum(dout * out) - dlse).  Needs s % 64 == 0 (the
-// wrapper enforces s % 128 == 0) and d in {64, 128, 256}; in bf16 every
-// pointer 16-byte aligned (the wrapper checks).  Each entry returns
+// wrapper enforces s % 128 == 0) and d in {64, 128, 256}; in bf16 and
+// f16 every pointer 16-byte aligned (the wrapper checks).  Each entry returns
 // cudaGetLastError() after its launch.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

@@ -7,7 +7,7 @@
 // live prefix of a KV cache k, v [T, D]: keys at positions >= lengths[b]
 // (clamped to [0, T]) are masked and never read, the softmax runs online
 // in f32, and a row with no live key gets the `l == 0` guard (output 0).
-// O is written in the input dtype.
+// O is written in the input dtype (float32, bfloat16 or float16).
 //
 // Bound on the H100: device-memory bytes.  Each live K and V row is read
 // once, 2 * len * D * bytes per (b, h); a score costs 2 D operations.  At
@@ -97,6 +97,17 @@ __device__ __forceinline__ void unpack(const __nv_bfloat16* p, float (&f)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const __half* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
@@ -376,6 +387,9 @@ extern "C" int pt_flash_decode(const void* q, const void* k, const void* v,
   else if (dtype == pt::kBFloat16)
     err = dispatch_d<__nv_bfloat16>(q, k, v, lengths, o, b, h, t, d, scale,
                                     chunk, ws, counters, st);
+  else if (dtype == pt::kFloat16)
+    err = dispatch_d<__half>(q, k, v, lengths, o, b, h, t, d, scale, chunk,
+                             ws, counters, st);
   else
     err = cudaErrorInvalidValue;
   return int(err);

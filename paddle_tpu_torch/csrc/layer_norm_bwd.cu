@@ -1,8 +1,9 @@
 // K5: LayerNorm backward for Hopper (sm_90a), one launch per call.
 //
 // Replaces paddle_tpu/kernels/layer_norm.py `_bwd_kernel` (driven by
-// `_bwd`).  For x, dy [rows, D] (float32 or bfloat16, D % 128 == 0) and
-// gamma [D] (float32 or bfloat16) it recomputes each row's mean and biased
+// `_bwd`).  For x, dy [rows, D] (float32, bfloat16 or float16, D % 128 ==
+// 0) and gamma [D] (float32, bfloat16 or float16) it recomputes each row's
+// mean and biased
 // variance from x in f32 (two passes: the mean, then the mean of xc^2),
 // and writes
 //   dx = rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat))   in x's dtype,
@@ -124,8 +125,24 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
   }
 }
 
+template <>
+__device__ __forceinline__ void unpack<__half>(const uint4& u, float* f) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
 __device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+__device__ __forceinline__ unsigned f16x2(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&h);
 }
 
@@ -145,6 +162,12 @@ __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* f) {
                     bf16x2(f[4], f[5]), bf16x2(f[6], f[7]));
 }
 
+template <>
+__device__ __forceinline__ uint4 pack<__half>(const float* f) {
+  return make_uint4(f16x2(f[0], f[1]), f16x2(f[2], f[3]),
+                    f16x2(f[4], f[5]), f16x2(f[6], f[7]));
+}
+
 // gamma's columns [k V, (k + 1) V) as f32, from device memory
 template <int V>
 __device__ __forceinline__ void gamma_vec(const void* gamma, int gdtype,
@@ -158,6 +181,18 @@ __device__ __forceinline__ void gamma_vec(const void* gamma, int gdtype,
       g[4 * i + 1] = v.y;
       g[4 * i + 2] = v.z;
       g[4 * i + 3] = v.w;
+    }
+  } else if (gdtype == pt::kFloat16) {
+    if constexpr (V == 8) {
+      unpack<__half>(__ldg(reinterpret_cast<const uint4*>(gamma) + k), g);
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(gamma) + k);
+      const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
+      const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
+      g[0] = lo.x;
+      g[1] = lo.y;
+      g[2] = hi.x;
+      g[3] = hi.y;
     }
   } else if constexpr (V == 8) {
     unpack<__nv_bfloat16>(__ldg(reinterpret_cast<const uint4*>(gamma) + k),
@@ -224,6 +259,9 @@ __device__ __forceinline__ void store4(void* out, int c, const float4& s,
                                        int dtype) {
   if (dtype == pt::kFloat32) {
     reinterpret_cast<float4*>(out)[c / 4] = s;
+  } else if (dtype == pt::kFloat16) {
+    reinterpret_cast<uint2*>(out)[c / 4] =
+        make_uint2(f16x2(s.x, s.y), f16x2(s.z, s.w));
   } else {
     reinterpret_cast<uint2*>(out)[c / 4] =
         make_uint2(bf16x2(s.x, s.y), bf16x2(s.z, s.w));
@@ -560,8 +598,18 @@ cudaError_t launch(const Args& a, int nv, int blocks, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+template <typename B>
+const void* kernel_of16(int nv) {
+  const void* f[kMaxVecsBF16 + 1] = {
+      reinterpret_cast<const void*>(ln_bwd_wide_kernel<B>),
+      reinterpret_cast<const void*>(ln_bwd_kernel<B, 1>),
+      reinterpret_cast<const void*>(ln_bwd_kernel<B, 2>),
+      reinterpret_cast<const void*>(ln_bwd_kernel<B, 3>),
+      reinterpret_cast<const void*>(ln_bwd_kernel<B, 4>)};
+  return f[nv];
+}
+
 const void* kernel_of(int dtype, int nv) {
-  using B = __nv_bfloat16;
   if (dtype == pt::kFloat32) {
     const void* f[kMaxVecsF32 + 1] = {
         reinterpret_cast<const void*>(ln_bwd_wide_kernel<float>),
@@ -573,17 +621,13 @@ const void* kernel_of(int dtype, int nv) {
         reinterpret_cast<const void*>(ln_bwd_kernel<float, 6>)};
     return f[nv];
   }
-  const void* f[kMaxVecsBF16 + 1] = {
-      reinterpret_cast<const void*>(ln_bwd_wide_kernel<B>),
-      reinterpret_cast<const void*>(ln_bwd_kernel<B, 1>),
-      reinterpret_cast<const void*>(ln_bwd_kernel<B, 2>),
-      reinterpret_cast<const void*>(ln_bwd_kernel<B, 3>),
-      reinterpret_cast<const void*>(ln_bwd_kernel<B, 4>)};
-  return f[nv];
+  if (dtype == pt::kFloat16) return kernel_of16<__half>(nv);
+  return kernel_of16<__nv_bfloat16>(nv);
 }
 
 bool valid_dtype(int code) {
-  return code == pt::kFloat32 || code == pt::kBFloat16;
+  return code == pt::kFloat32 || code == pt::kBFloat16 ||
+         code == pt::kFloat16;
 }
 
 int max_vecs(int dtype) {
@@ -592,7 +636,8 @@ int max_vecs(int dtype) {
 
 }  // namespace
 
-// x, dy, dx: [rows, d] contiguous of `dtype` (0 float32, 1 bfloat16),
+// x, dy, dx: [rows, d] contiguous of `dtype` (0 float32, 1 bfloat16, 2
+// float16; the 16-bit types share the bf16 plan tables),
 // 16-byte aligned, d % 128 == 0; gamma: [d] of `gdtype`; dg, db: [d] of
 // `out_dtype`, written; ws: (blocks + groups) * 2 * d float32 (no need to
 // be initialised); tickets: groups + 1 unsigned ints, 0 on entry and left
@@ -616,6 +661,7 @@ extern "C" int pt_layer_norm_bwd(const void* x, const void* gamma,
                out_dtype, wpr, group};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32) return int(launch<float>(a, nv, blocks, st));
+  if (dtype == pt::kFloat16) return int(launch<__half>(a, nv, blocks, st));
   return int(launch<__nv_bfloat16>(a, nv, blocks, st));
 }
 

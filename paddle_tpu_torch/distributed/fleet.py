@@ -7,8 +7,9 @@ makers (base/role_maker.py) and DistributedStrategy
 (collective/__init__.py:134).  `make_train_step` turns the strategy's
 knobs into a step: DGC, LocalSGD or plain data parallelism, with
 `amp` as `amp.auto_cast` and `recompute` as `torch.utils.checkpoint`
-around the loss.  Not ported: the mesh degrees other than dp (ROADMAP
-queue 1 item 8) and the save facades (item 7).
+around the loss; `save_persistables` and `save_inference_model` write
+through `io` on the first worker.  Not ported: the mesh degrees other
+than dp (ROADMAP queue 1 item 8).
 """
 
 import torch.utils.checkpoint
@@ -183,13 +184,25 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
 
 
 def save_persistables(executor, dirname, main_program=None):
-    raise NotImplementedError(
-        "fleet.save_persistables needs the port's io tier: ROADMAP queue 1 "
-        "item 7")
+    """Fleet save facade (fleet_base.py save_persistables): rank 0 writes,
+    other ranks no-op; the replicated state of one rank is the whole
+    model."""
+    if not is_first_worker():
+        return None
+    from .. import io
+
+    return io.save_persistables(executor, dirname,
+                                main_program=main_program)
 
 
 def save_inference_model(executor, dirname, feeded_var_names,
                          target_vars, main_program=None):
-    raise NotImplementedError(
-        "fleet.save_inference_model needs the port's io tier: ROADMAP "
-        "queue 1 item 7")
+    """Fleet export facade (fleet_base.py save_inference_model): rank 0
+    writes the pruned serving program and its params."""
+    if not is_first_worker():
+        return None
+    from .. import io
+
+    return io.save_inference_model(dirname, feeded_var_names,
+                                   target_vars, executor,
+                                   main_program=main_program)

@@ -116,3 +116,14 @@ declare_flag("amp", "train",
              "Automatic mixed precision for train programs: off | train "
              "(dataset train loop only) | on (every executor-run train "
              "program).")
+
+# The structural passes (passes/common.py, passes/fold.py) and the
+# Predictor's load-time folds (inference.py).  The Executor's
+# FLAGS_graph_opt substitution is ROADMAP item 10; `optimize_program`
+# reads the disable list below.
+declare_flag("graph_opt_disable", "",
+             "Comma-separated pass names to skip in optimize_program "
+             "(e.g. 'cse,dce'); see passes.DEFAULT_PIPELINE.")
+declare_flag("inference_fold", True,
+             "Fold conv/fc+batch_norm and scale chains when loading "
+             "inference models (Predictor).")

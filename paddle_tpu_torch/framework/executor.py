@@ -36,6 +36,7 @@ import torch
 from .. import flags
 from ..core.dtype import to_torch_dtype
 from ..core.place import resolve_device
+from ..interop import from_numpy_exact
 from ..ops.registry import get_op
 from .program import Variable, default_main_program
 
@@ -235,6 +236,17 @@ class _RunPlan:
             return dt
 
 
+def feed_tensor(value, dtype, device):
+    """One feed value (array, tensor or Python value) as a tensor on
+    `device` in `dtype` (None: its device dtype, 64-bit narrowed); a
+    tensor already there in that dtype is used as it is, one on the card
+    is moved without a trip through the host."""
+    t = value if isinstance(value, torch.Tensor) else from_numpy_exact(value)
+    if dtype is None:
+        dtype = to_torch_dtype(t.dtype)
+    return t.to(device=device, dtype=dtype)
+
+
 def _to_numpy(t):
     t = t.detach()
     if t.dtype == torch.bfloat16:
@@ -269,14 +281,7 @@ class Executor:
         return plan
 
     def _feed_tensor(self, value, dtype):
-        if isinstance(value, torch.Tensor):
-            t = value
-        else:
-            a = np.asarray(value)
-            t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is None:
-            dtype = to_torch_dtype(t.dtype)
-        return t.to(device=self.device, dtype=dtype)
+        return feed_tensor(value, dtype, self.device)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -302,8 +307,11 @@ class Executor:
 
         env = {}
         missing = []
+        folded = self._folded_constants(program)
         for n in plan.persist_names:
             val = scope.find_var(n)
+            if val is None:
+                val = folded.get(n)
             if val is None:
                 missing.append(n)
             else:
@@ -335,6 +343,25 @@ class Executor:
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _folded_constants(self, program):
+        """The program's optimize-time constants (`passes.const_fold`,
+        `fold_batch_norm`; `Program._folded_constants`) as tensors on the
+        executor's device, made once per (program version, device) and
+        kept on the program: they serve as initialized persistables where
+        the scope has no value, and are written to the scope after the run
+        like any persistable (the reference seeds its scope with them)."""
+        fc = getattr(program, "_folded_constants", None)
+        if not fc:
+            return {}
+        key = (program._version, self.device)
+        held = getattr(program, "_folded_tensors", None)
+        if held is None or held[0] != key:
+            held = (key, {n: from_numpy_exact(v).to(
+                device=self.device, dtype=to_torch_dtype(np.asarray(v).dtype))
+                for n, v in fc.items()})
+            program._folded_tensors = held
+        return held[1]
 
     def _step(self, ops, sections, env):
         """Run `ops` against `env`, realizing each BackwardSection with
@@ -444,9 +471,9 @@ class Executor:
     def train_from_dataset(self, *args, **kwargs):
         raise NotImplementedError(
             "Executor.train_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP item 10, with the readers of item 7)")
+            "yet (ROADMAP item 10; its readers are paddle_tpu_torch.reader)")
 
     def infer_from_dataset(self, *args, **kwargs):
         raise NotImplementedError(
             "Executor.infer_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP item 10, with the readers of item 7)")
+            "yet (ROADMAP item 10; its readers are paddle_tpu_torch.reader)")

@@ -8,8 +8,7 @@ eager composition:
   Function (K1 forward, K2 + K3 backward) when the tensors lie on a
   CUDA device and the call is inside the envelope (no mask, no training
   dropout, self-attention, seq % 128 == 0, head_dim in 64/128/256;
-  the kernels take float32 and bfloat16, and raise on float16 on the
-  card); else `_eager_attention`, the port of `_xla_attention`
+  the kernels take float32, bfloat16 and float16); else `_eager_attention`, the port of `_xla_attention`
   (-1e9 causal mask, logits in the input dtype, f32 softmax cast back).
 - `decode_attention` (one query row over a KV cache): K6 on a CUDA
   device inside its envelope (no explicit mask, one query row,

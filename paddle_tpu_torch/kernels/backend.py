@@ -18,11 +18,21 @@ non-zero code.  The file name carries a digest of the source and the
 flags, so an edited source is rebuilt.
 
 Every kernel wrapper adds one to its entry in `LAUNCHES` where it
-launches its kernel, and nowhere else; a run reads the counts to show
-that its path went through the kernels.
+launches its kernel, and nowhere else (`count_launch`; a float16 launch
+also under `<name>:float16`); a run reads the counts to show that its
+path went through the kernels.
+
+Inside `traced_kernels()` the forward wrappers an inference Program
+reaches (K1, K4) call their launcher through a `torch.library` custom op
+(`paddle_tpu_torch::flash_attention_fwd`, `::layer_norm_fwd`) with a fake
+(shape-only) version beside it, so that `torch.export` can trace a
+Program: a ctypes launch on `data_ptr()` cannot run on the fake tensors
+export traces with.  The exported graph holds the ops as nodes, whose
+implementation is the launcher itself.
 """
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,6 +63,24 @@ _libs = {}
 _sms = {}
 
 
+_TRACED = [0]
+
+
+@contextlib.contextmanager
+def traced_kernels():
+    """Route the kernel wrappers through their custom ops while active
+    (see the module docstring)."""
+    _TRACED[0] += 1
+    try:
+        yield
+    finally:
+        _TRACED[0] -= 1
+
+
+def tracing():
+    return _TRACED[0] > 0
+
+
 def is_hopper():
     """True when a CUDA device of compute capability 9.x is present."""
     return (torch.cuda.is_available()
@@ -70,6 +98,15 @@ def sm_count(device):
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+def count_launch(name, dtype):
+    """One launch of kernel `name`.  A float16 launch runs the kernel's
+    float16 instantiation, a kernel of its own: it is also counted under
+    `name:float16`."""
+    LAUNCHES[name] += 1
+    if dtype == torch.float16:
+        LAUNCHES[name + ":float16"] += 1
 
 
 def nvcc():

@@ -7,8 +7,9 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
 - K1 `flash_attention` / `flash_attention_with_lse` replace the Pallas
   `_fwd_kernel` (`_fwd`): online-softmax attention over [B, H, S, D]
   with an optional causal mask, f32 statistics, O in the input dtype
-  and the row logsumexp in f32.  bf16 runs on the tensor cores
-  (`mma.sync`, P kept in registers), f32 on an exact scalar kernel; see
+  and the row logsumexp in f32.  bf16 and float16 run on the tensor
+  cores (`mma.sync` in the input type, P kept in registers), f32 on an
+  exact scalar kernel; see
   csrc/flash_attention.cu for the design and what bounds it on the H100.
 - K2 and K3 replace the Pallas `_bwd_dq_kernel` and `_bwd_dkv_kernel`
   (`_bwd_core`): the FA-2 backward, P recomputed from the saved lse,
@@ -18,7 +19,7 @@ in `paddle_tpu_torch/csrc/` (built and bound by `backend`):
   and `_flash_lse`): forward K1, backward K2 + K3.  delta = rowsum(dO *
   O) in f32 is computed with torch outside the kernels, as the
   reference's `_bwd` does, and the lse cotangent folds into delta -
-  dlse.  In bf16 both run on the tensor cores (K2: dS kept in
+  dlse.  In bf16 and float16 both run on the tensor cores (K2: dS kept in
   registers; K3: P^T and dS^T), in f32 on exact scalar kernels.  See
   csrc/flash_attention_bwd.cu.
 - K6 `flash_decode` replaces the Pallas `_decode_kernel`: one query row
@@ -31,9 +32,9 @@ Each wrapper checks its envelope (shapes, dtypes, devices, contiguity)
 and raises on anything outside it.  On CPU tensors it returns the plain
 PyTorch version beside it (`flash_attention_ref`, `flash_decode_ref`),
 which the CPU tests hold against the Pallas kernels; on CUDA tensors it
-launches the kernel or raises.  `round_to=torch.bfloat16` makes the
-flash plain versions round p and ds where the Pallas kernels do: the
-model the bf16 tensor-core kernels are held to.  The TPU tile sizes (`DEFAULT_BLOCK_Q/K`,
+launches the kernel or raises.  `round_to=torch.bfloat16` (or
+`torch.float16`) makes the flash plain versions round p and ds where the
+Pallas kernels do: the model the 16-bit tensor-core kernels are held to.  The TPU tile sizes (`DEFAULT_BLOCK_Q/K`,
 `PADDLE_TPU_FLASH_BLOCK`) do not carry over: the CUDA kernels fix their
 own tiles.
 """
@@ -47,7 +48,7 @@ from . import backend
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SIGS = {"pt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]}
@@ -68,7 +69,8 @@ DECODE_BLOCKS_PER_SM = 2
 def _check_common(name, tensors):
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {dtype} not in float32/bfloat16")
+        raise TypeError(f"{name}: dtype {dtype} not in "
+                        "float32/bfloat16/float16")
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: inputs must share one device and "
@@ -131,11 +133,11 @@ def _rounded(x, dtype):
 
 
 def _check_aligned(name, tensors):
-    # the bf16 tensor-core kernels load 16 bytes a cp.async
-    if tensors[0].dtype == torch.bfloat16:
+    # the 16-bit tensor-core kernels load 16 bytes a cp.async
+    if tensors[0].dtype in (torch.bfloat16, torch.float16):
         for t in tensors:
             if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the bf16 kernel needs 16-byte "
+                raise ValueError(f"{name}: the 16-bit kernel needs 16-byte "
                                  "aligned inputs")
 
 
@@ -152,7 +154,7 @@ def _launch_fwd(q, k, v, causal, sm_scale):
             lse.data_ptr(), b * h, s, d, _DTYPE_CODES[q.dtype], int(causal),
             float(sm_scale), backend.stream_handle(q.device))
     backend.check(status, "flash_attention")
-    backend.LAUNCHES["flash_attention_fwd"] += 1
+    backend.count_launch("flash_attention_fwd", q.dtype)
     return out, lse
 
 
@@ -160,6 +162,27 @@ def _fwd(q, k, v, causal, sm_scale):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, sm_scale)
     return _launch_fwd(q, k, v, causal, sm_scale)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a custom op (`backend.traced_kernels`): the launcher on CUDA
+    tensors, the plain version on CPU ones."""
+    return _fwd(q, k, v, causal, sm_scale)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:-1],
+                                            dtype=torch.float32)
+
+
+def _fwd_call(q, k, v, causal, sm_scale):
+    if backend.tracing():
+        return _fwd_op(q, k, v, causal, sm_scale)
+    return _fwd(q, k, v, causal, sm_scale)
 
 
 # --------------------------------------------------------------------------
@@ -221,7 +244,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
         status = lib.pt_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims,
                                      backend.stream_handle(q.device))
     backend.check(status, "flash_attention_bwd_dq")
-    backend.LAUNCHES["flash_attention_bwd_dq"] += 1
+    backend.count_launch("flash_attention_bwd_dq", q.dtype)
     return dq
 
 
@@ -236,7 +259,7 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
         status = lib.pt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
                                       *dims, backend.stream_handle(q.device))
     backend.check(status, "flash_attention_bwd_dkv")
-    backend.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    backend.count_launch("flash_attention_bwd_dkv", q.dtype)
     return dk, dv
 
 
@@ -306,7 +329,7 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _records_grad((q, k, v)):
         return _FlashLse.apply(q, k, v, bool(causal), float(sm_scale))
-    return _fwd(q, k, v, bool(causal), float(sm_scale))
+    return _fwd_call(q, k, v, bool(causal), float(sm_scale))
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None):
@@ -316,7 +339,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _records_grad((q, k, v)):
         return _Flash.apply(q, k, v, bool(causal), float(sm_scale))
-    return _fwd(q, k, v, bool(causal), float(sm_scale))[0]
+    return _fwd_call(q, k, v, bool(causal), float(sm_scale))[0]
 
 
 # --------------------------------------------------------------------------
@@ -415,7 +438,7 @@ def _launch_decode(q, k, v, lengths, sm_scale):
             out.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
             float(sm_scale), chunk, ws_ptr, counters_ptr, stream)
     backend.check(status, "flash_decode")
-    backend.LAUNCHES["flash_decode"] += 1
+    backend.count_launch("flash_decode", q.dtype)
     return out
 
 

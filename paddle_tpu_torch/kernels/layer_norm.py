@@ -55,17 +55,19 @@ from . import backend
 # triton.language, bound by _kernel() at the first launch
 tl = None
 _KERNEL = None
-_DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # K5's plan (csrc/layer_norm_bwd.cu): warps per block; the most 16-byte
 # vectors of a row a thread holds in registers (kMaxVecs*); the blocks per
 # SM each kernel's registers allow (kBlocks*: __launch_bounds__), by vectors
-# per thread, index 0 the wide kernel (rows wider than 8 warps' registers)
+# per thread, index 0 the wide kernel (rows wider than 8 warps' registers);
+# float16 runs the bf16 kernels' instantiation for __half, with their plan
 LN_BWD_WARPS = 8
-LN_BWD_MAX_VECS = {torch.float32: 6, torch.bfloat16: 4}
+LN_BWD_MAX_VECS = {torch.float32: 6, torch.bfloat16: 4, torch.float16: 4}
 LN_BWD_BLOCKS_PER_SM = {torch.float32: (2, 4, 3, 2, 2, 1, 1),
-                        torch.bfloat16: (2, 4, 2, 2, 1)}
+                        torch.bfloat16: (2, 4, 2, 2, 1),
+                        torch.float16: (2, 4, 2, 2, 1)}
 _BWD_SIGS = {
     "pt_layer_norm_bwd": [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 7
@@ -176,7 +178,7 @@ def _check(x, gamma, beta):
         raise ValueError(f"fused_layer_norm: gamma/beta must be [{d}]")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_layer_norm: dtype {x.dtype} not in "
-                        "float32/bfloat16")
+                        "float32/bfloat16/float16")
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError("fused_layer_norm: inputs on different devices")
     if x.device.type not in ("cpu", "cuda"):
@@ -209,7 +211,7 @@ def _launch(x, gamma, beta, eps):
     with torch.cuda.device(x.device):
         kernel[(rows,)](x, gamma, beta, y, d, float(eps), BLOCK=block,
                         num_warps=4 if block <= 1024 else 8)
-    backend.LAUNCHES["layer_norm_fwd"] += 1
+    backend.count_launch("layer_norm_fwd", x.dtype)
     return y
 
 
@@ -337,7 +339,8 @@ def _launch_bwd(x, gamma, dy, eps, out_dtype=torch.float32, plan=None):
                          f"{x.dtype}")
     if gamma.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_layer_norm backward: gamma {gamma.dtype} and "
-                        f"the grads' {out_dtype} must be float32/bfloat16")
+                        f"the grads' {out_dtype} must be "
+                        "float32/bfloat16/float16")
     if any(t.data_ptr() % 16 for t in (x, gamma, dy)):
         raise ValueError("fused_layer_norm backward: the kernel needs "
                          "16-byte aligned x, gamma and dy")
@@ -359,7 +362,7 @@ def _launch_bwd(x, gamma, dy, eps, out_dtype=torch.float32, plan=None):
             plan.vecs_per_thread, plan.warps_per_row, plan.blocks,
             plan.group, stream)
     backend.check(status, "layer_norm backward")
-    backend.LAUNCHES["layer_norm_bwd"] += 1
+    backend.count_launch("layer_norm_bwd", x.dtype)
     return dx, dg, db
 
 
@@ -367,6 +370,19 @@ def _fwd(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return layer_norm_ref(x, gamma, beta, eps)
     return _launch(x, gamma, beta, eps)
+
+
+@torch.library.custom_op("paddle_tpu_torch::layer_norm_fwd", mutates_args=())
+def _fwd_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """K4 as a custom op (`backend.traced_kernels`): the launcher on CUDA
+    tensors, the plain version on CPU ones."""
+    return _fwd(x, gamma, beta, eps)
+
+
+@_fwd_op.register_fake
+def _(x, gamma, beta, eps):
+    return torch.empty_like(x)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -397,6 +413,8 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _LayerNorm.apply(x, gamma, beta, float(eps))
+    if backend.tracing():
+        return _fwd_op(x, gamma, beta, float(eps))
     return _fwd(x, gamma, beta, float(eps))
 
 

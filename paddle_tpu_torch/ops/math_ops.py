@@ -67,6 +67,15 @@ def scale(ins, attrs):
     return {"Out": (x + b) * s}
 
 
+def _promoted(x, y):
+    """x, y in their promoted dtype when they differ: jnp.matmul promotes
+    mixed operands (f32 @ bf16 -> f32), torch's product raises."""
+    if x.dtype == y.dtype:
+        return x, y
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 @register_op("matmul")
 def matmul(ins, attrs):
     """operators/matmul_op.cc:521 — optional transposes of the last two
@@ -76,6 +85,7 @@ def matmul(ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
+    x, y = _promoted(x, y)
     out = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
@@ -94,6 +104,7 @@ def mul(ins, attrs):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xnc]), -1) if x.dim() > 2 else x
     y2 = y.reshape(-1, math.prod(ys[ync:])) if y.dim() > 2 else y
+    x2, y2 = _promoted(x2, y2)
     return {"Out": (x2 @ y2).reshape(xs[:xnc] + ys[ync:])}
 
 

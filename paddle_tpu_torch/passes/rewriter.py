@@ -1,8 +1,8 @@
 """ProgramRewriter — the mutation substrate every graph pass shares.
 
-Port of paddle_tpu/passes/rewriter.py (pure Python).  The fusion tier
-is its only user in the port; `make_constant`, which only the value
-folds use (`passes/fold.py`, ROADMAP item 10), comes with them.
+Port of paddle_tpu/passes/rewriter.py (pure Python), shared by the
+fusion tier (`fuse.py`) and the structural passes (`common.py`,
+`fold.py`).
 
 A pass never edits ``block.ops`` directly: it computes a plan (ops to
 remove, output names to alias, ops to insert) against the CURRENT op
@@ -268,3 +268,23 @@ class ProgramRewriter:
         stats.update(before_ops=before, after_ops=len(self.ops),
                      wall_ms=round(wall_ms, 3))
         return stats
+
+    def make_constant(self, name, value):
+        """Turn `name` into an initialized persistable: the var flips
+        persistable and the concrete value lands in
+        ``program._folded_constants`` (the Predictor serves it as a
+        parameter; io/serialization round-trips it)."""
+        var = self.block.vars.get(name)
+        if var is None:
+            var = self.block.create_var(name=name,
+                                        shape=np.shape(value) or None,
+                                        dtype=str(value.dtype))
+        var.persistable = True
+        var.stop_gradient = True
+        if var.shape is None:
+            var.shape = tuple(np.shape(value))
+        fc = getattr(self.program, "_folded_constants", None)
+        if fc is None:
+            fc = self.program._folded_constants = {}
+        fc[name] = np.asarray(value)
+        self.program._bump()

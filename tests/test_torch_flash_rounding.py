@@ -12,6 +12,10 @@ tiles (one tile at S = 256) and with 64-row tiles (the CUDA kernels'),
 where the running max rounds p against other scales.  Inputs are made
 with numpy from a seed.
 
+The same with float16 inputs and `round_to=torch.float16`, the model of
+the float16 tensor-core kernels, at the bf16 bound scaled to float16's
+mantissa: atol = rtol = 2.5e-4.
+
 Tolerance, bf16: atol = rtol = 2e-3.  Measured over these cases (on
 this CPU): the rounding model's largest error 9.77e-4 (O and dV at
 64-row tiles), the default plain version's 7.81e-3, which holds only at
@@ -43,7 +47,9 @@ from paddle_tpu.kernels.flash_attention import (
 
 from paddle_tpu_torch.kernels import flash_attention as TFA
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-3}
+# float16: the bf16 bound scaled to float16's mantissa (2^-10 against
+# 2^-7 relative)
+TOL = {"float32": 2e-5, "bfloat16": 2e-3, "float16": 2e-3 / 8}
 
 
 def _rand(shape, seed, scale=0.5):
@@ -110,7 +116,7 @@ def _plain(q, k, v, do, dlse, causal, round_to):
 @pytest.mark.parametrize("blocks", [None, 64])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 def test_round_to_matches_pallas(dtype, causal, d, blocks):
     shape = (1, 2, 256, d)
     q, k, v, do = (_rand(shape, s) for s in (11, 12, 13, 14))

@@ -26,6 +26,8 @@ and skip here.
 """
 
 import ast
+import contextlib
+import ctypes
 import warnings
 
 import jax
@@ -322,14 +324,49 @@ def test_dot_product_attention_dispatch_on_cpu():
     assert out.shape == (1, 2, 100, 64)
 
 
-def test_float16_inside_the_envelope_reaches_the_flash_wrapper():
-    """float16 does not leave the flash path: inside the envelope it goes
-    to K1's wrapper, which takes float32 and bfloat16 only and raises, as
-    it does on the card, instead of falling back to the eager path."""
+def test_float16_inside_the_envelope_reaches_the_flash_wrapper(monkeypatch):
+    """float16 does not leave the flash path: inside the envelope it
+    reaches K1's launch with dtype code 2 (the float16 tensor-core
+    kernels), and K2/K3 take the same code, instead of falling back to
+    the eager path.  The launcher runs against a stand-in library, as it
+    would on the card."""
+    calls = {}
+
+    class Lib:
+        @staticmethod
+        def pt_flash_fwd(*args):
+            calls.setdefault("fwd", []).append(args)
+            return 0
+
+        @staticmethod
+        def pt_flash_bwd_dq(*args):
+            calls.setdefault("dq", []).append(args)
+            return 0
+
+        @staticmethod
+        def pt_flash_bwd_dkv(*args):
+            calls.setdefault("dkv", []).append(args)
+            return 0
+
+    monkeypatch.setattr(backend, "load", lambda name, sigs: Lib)
+    monkeypatch.setattr(backend, "stream_handle",
+                        lambda dev: ctypes.c_void_p(7))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(TFA, "_fwd", TFA._launch_fwd)
+    backend.reset_launches()
     q = _t(_rand((1, 2, 128, 64), 28)).half()
-    with pytest.raises(TypeError, match="not in float32/bfloat16"):
-        TA.dot_product_attention(q, q, q, use_flash=True)
+    out = TA.dot_product_attention(q, q, q, use_flash=True)
+    assert out.dtype == torch.float16 and out.shape == q.shape
+    assert calls["fwd"][-1][8] == 2            # dtype code: float16
+    assert backend.LAUNCHES["flash_attention_fwd"] == 1
+    assert backend.LAUNCHES["flash_attention_fwd:float16"] == 1
+    lse = torch.zeros(1, 2, 128)
+    dq, dk, dv = TFA._launch_bwd(q, q, q, q, lse, lse, False, 0.125)
+    assert calls["dq"][-1][10] == 2 and calls["dkv"][-1][11] == 2
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float16
     # CPU tensors take the eager composition, float16 included
+    monkeypatch.undo()
     assert TA.dot_product_attention(q, q, q).dtype == torch.float16
 
 
@@ -381,7 +418,7 @@ def test_wrappers_raise_outside_their_envelopes():
     with pytest.raises(ValueError, match="head_dim"):
         TFA.flash_attention(ok[..., :32], ok[..., :32], ok[..., :32])
     with pytest.raises(TypeError, match="dtype"):
-        TFA.flash_attention(ok.half(), ok.half(), ok.half())
+        TFA.flash_attention(ok.double(), ok.double(), ok.double())
     with pytest.raises(ValueError, match="share one device and dtype"):
         TFA.flash_attention(ok, ok, ok.bfloat16())
     with pytest.raises(ValueError, match="q_len == 1"):

@@ -192,9 +192,9 @@ def test_k5_launch_checks_its_inputs():
     with pytest.raises(ValueError, match="does not match"):
         TLN._launch_bwd(x, x[0], x[:2], 1e-5)
     with pytest.raises(TypeError, match="float32/bfloat16"):
-        TLN._launch_bwd(x, x[0].half(), x, 1e-5)
+        TLN._launch_bwd(x, x[0].double(), x, 1e-5)
     with pytest.raises(TypeError, match="float32/bfloat16"):
-        TLN._launch_bwd(x, x[0], x, 1e-5, out_dtype=torch.float16)
+        TLN._launch_bwd(x, x[0], x, 1e-5, out_dtype=torch.float64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         TLN._launch_bwd(torch.zeros(4 * 128 + 1)[1:].view(4, 128), x[0], x,
                         1e-5)
