@@ -245,6 +245,37 @@ Phases (any failure makes the script exit non-zero without a result):
    -> `device_prefetch`, losses bitwise equal, host ms per step, and the
    overlap of the prefetch's host-to-device copies with the step's
    kernels from a torch.profiler trace (printed, not gated).
+7c. The rest of the model zoo and recompute (`zoo_phase`):
+   BERT-base pretraining at full width (`BertForPretraining(
+   bert_base_config(dtype="bfloat16"))`: vocab 30522, hidden 768, 12
+   layers, FFN 3072), batch 32 x 512, AdamW(1e-4), default dropout 0.1,
+   token types and an all-ones attention mask: one warm-up and 3 timed
+   steps, each launching K4 and K5 exactly 26 times (every LayerNorm;
+   the mask and the dropout keep attention eager, as on the reference's
+   TPU); host and device ms, kernels per step, peak memory, samples/s;
+   then its eval forward (`make_eval_step`) without a mask (K1 exactly
+   12 times, K4 26) and with the mask (no K1); K4 and K5 at BERT's
+   epsilon 1e-12 (rows of variance 1e-8) against their plain versions.
+   BERT at full width, depth 2, f32, seq 128, batch 2, no dropout and no
+   mask (K1-K5): first-step grads and 3 AdamW steps, card vs CPU, at the
+   train check's tolerances.  SE-ResNeXt-50 32x4d, NCHW bf16, batch 64 x
+   224^2, Momentum(0.1, 0.9): 3 timed steps (no kernel of the port:
+   grouped convs are cuDNN's); f32 at depths (1, 1, 1, 1), 64^2, batch
+   4, 2 steps card vs CPU at the ResNet check's tolerances.  Recompute:
+   ResNet-50 bf16 NHWC batch 128 unfused with remat False, True and
+   "conv_outs" (step ms, peak memory; "conv_outs" must peak below
+   False); the ResNet check's f32 net, unfused and full fused, with
+   "conv_outs" against False on the card; the static GPT with
+   `RecomputeOptimizer(Adam)` (checkpoints at the embedding's and the
+   block's outputs) against plain Adam, 3 steps, peak memory of each.
+   Beam search on GPT-2 small bf16, batch 4, beam 4, prompt 128, 32 new
+   tokens: ms per token step, K1 x12, K4 x25 per prefill or step, K6
+   x12 per step exactly, device ms and K6's share; beam 1 against
+   `generate()` (the engine check's near-tie rule); f32 at depth 2, 8
+   tokens, card vs CPU (sequences equal unless the CPU's K-th/(K+1)-th
+   candidate gap is <= 1e-3 relative, scores 1e-4).  LeNet, MLP,
+   Word2Vec, Wide&Deep and Seq2Seq, f32: 2 steps card vs CPU, losses
+   1e-4 relative; Seq2Seq's greedy and beam decodes token-equal.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -281,17 +312,21 @@ and backward at the stem (bf16 batch 128) with the backward's plan;
 `dgc`, the DGC step with K10 of phase 5 (host ms, device ms and K10's
 share per step), K10 at the largest tensor and over the step's 161
 tensors; `static`, the static GPT step of phase 7 (host and device ms
-per step, kernels per step; trees that have the static path): two
-versions compared in turns on one card.
+per step, kernels per step; trees that have the static path); `bert`,
+the BERT-base pretraining step of phase 7c (host and device ms, K4 and
+K5 ms and launches per step); `beam`, phase 7c's beam search (ms per
+token step, device ms and K6's share; `bert` and `beam` on trees that
+have the zoo): two versions compared in turns on one card.
 
 The last lines are the kernels' JSON line (18 rows: K1-K10, K1-K3 in
 float16, K7, K8 and K9 as two rows each, P1, P2; every row with its
 launches summed over the GPT train, the two fused ResNet runs, the
 serving paths, the timed steps of the static GPT's four runs (plain,
 AMP + fusion, clipped, AMP float16 + fusion), the io phase's Predictor
-and CompiledPredictor runs and the probe tool's runs, K10's over the
-DGC run with K10, P1's and P2's over the probe tool's), the card line
-and {"ok": true, "device": {...}}.
+and CompiledPredictor runs, the zoo phase's timed BERT steps, its
+unmasked eval forward and its timed beam search, and the probe tool's
+runs, K10's over the DGC run with K10, P1's and P2's over the probe
+tool's), the card line and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -3882,7 +3917,9 @@ def resnet_check(failures, steps=2, lr=1e-5):
     transitions through K8),
     f32, batch 8 x 3 x 128 x 128, ghost batch norm over 4 samples: the
     first step's grads and 2 Momentum steps on the card (kernels) against
-    the CPU (plain versions) from the same weights.
+    the CPU (plain versions) from the same weights; the card's run again
+    under remat="conv_outs" (the grads through its tape), held to the
+    same rules against the CPU's plain run.
 
     At random init this net is steep (one step of lr 1e-5 moves the loss
     from 7.63 to 7.37) and its conv-weight grads are sums that batch norm
@@ -3901,6 +3938,7 @@ def resnet_check(failures, steps=2, lr=1e-5):
     import torch
 
     from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.remat import ConvOutsTape
     from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
     from paddle_tpu_torch.models.train import (
         init_train_state, make_train_step,
@@ -3917,7 +3955,8 @@ def resnet_check(failures, steps=2, lr=1e-5):
     x = rng.standard_normal((8, 3, 128, 128)).astype(np.float32)
     y = rng.integers(0, 1000, (8,)).astype(np.int32)
     runs, start = {}, None
-    for dev in ("cuda", "cpu"):
+    for dev, remat in (("cuda", False), ("cuda", "conv_outs"),
+                       ("cpu", False)):
         model = ResNet(BottleneckBlock, [2, 2, 2, 2], data_format="NHWC",
                        fused=True, device=dev, generator=make_generator(3))
         for m in model.modules():
@@ -3931,14 +3970,16 @@ def resnet_check(failures, steps=2, lr=1e-5):
         xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
         params = dict(model.named_parameters())
         names = list(params)
-        loss, _ = functional_call_with_state(
-            model, params, dict(model.named_buffers()), xt, yt,
-            _method=loss_fn)
+        with (ConvOutsTape().recording() if remat
+              else contextlib.nullcontext()):
+            loss, _ = functional_call_with_state(
+                model, params, dict(model.named_buffers()), xt, yt,
+                _method=loss_fn)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         grads = {n: g.cpu() for n, g in zip(names, grads)}
         opt = Momentum(lr, 0.9)
         state = init_train_state(model, opt)
-        step = make_train_step(model, opt, loss_fn=loss_fn)
+        step = make_train_step(model, opt, loss_fn=loss_fn, remat=remat)
         backend.reset_launches()
         losses = []
         for _ in range(steps):
@@ -3952,11 +3993,16 @@ def resnet_check(failures, steps=2, lr=1e-5):
         if dev == "cuda" and dict(backend.LAUNCHES) != want:
             failures.append(f"resnet check launches {dict(backend.LAUNCHES)}"
                             f" != {want}")
-        runs[dev] = dict(
-            grads=grads, losses=losses,
+        runs[dev, remat] = dict(
+            grads=grads, losses=losses, start=start,
             params={n: p.detach().cpu() for n, p in state.params.items()},
             buffers={n: b.cpu() for n, b in state.buffers.items()})
-    card, cpu = runs["cuda"], runs["cpu"]
+    card, cpu = runs["cuda", False], runs["cpu", False]
+    # the card's step under remat="conv_outs" (K7, K8, K9 kept whole, the
+    # rest replayed by the tape) against the CPU's plain step
+    _hold_resnet_rules("f32 ResNet check, remat='conv_outs'",
+                       runs["cuda", "conv_outs"], cpu, failures,
+                       names=("card conv_outs", "CPU False"))
     first_err = abs(card["losses"][0] - cpu["losses"][0]) \
         / abs(cpu["losses"][0])
     loss_err = max(abs(a - b) / abs(b)
@@ -5276,6 +5322,880 @@ def io_loaders(failures, tmp):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7c: the rest of the model zoo and recompute
+# ---------------------------------------------------------------------------
+
+# BERT-base pretraining (`BertForPretraining(bert_base_config(dtype=
+# "bfloat16"))`): every LayerNorm (2 per encoder layer, the embeddings',
+# the MLM transform's) is K4 forward and K5 backward; the all-ones
+# attention mask of a pretraining batch (and the default dropout) keeps
+# attention on the eager path, as the reference's on the TPU
+ZOO_BERT_BATCH, ZOO_BERT_SEQ = 32, 512
+ZOO_BERT_LAUNCHES = {"layer_norm_fwd": 26, "layer_norm_bwd": 26}
+# its eval forward without a mask: K1 in each of the 12 layers
+ZOO_BERT_EVAL_LAUNCHES = {"flash_attention_fwd": 12, "layer_norm_fwd": 26}
+ZOO_BERT_EVAL_MASKED = {"layer_norm_fwd": 26}
+ZOO_SE_BATCH = 64
+ZOO_REMAT_BATCH = 128
+# beam search on GPT-2 small (phase 6's serving model): batch 4, beam 4,
+# prompt 128, 32 new tokens; K1 and K4 in the prefill, K4 and K6 in each
+# of the 31 decode steps over B * beam rows
+ZOO_BEAM = dict(batch=4, beam=4, prompt=128, new=32)
+ZOO_BEAM_LAUNCHES = {"flash_attention_fwd": 12, "layer_norm_fwd": 25 * 32,
+                     "flash_decode": 12 * 31}
+
+
+def zoo_phase(failures):
+    """The rest of the model zoo and recompute (see the module docstring,
+    phase 7c).  Returns the launches of its main paths: the timed BERT
+    train steps, the BERT eval forwards and the timed beam search."""
+    import collections
+
+    launches = collections.Counter()
+    bert = zoo_bert_run(failures)
+    launches.update(bert["launches"])
+    launches.update(zoo_bert_eval(failures, bert.pop("model")))
+    zoo_ln_eps_check(failures)
+    zoo_bert_check(failures)
+    zoo_se_resnext_run(failures)
+    zoo_se_resnext_check(failures)
+    zoo_remat_runs(failures)
+    zoo_remat_check(failures)
+    zoo_static_recompute(failures)
+    beam = zoo_beam_run(failures)
+    launches.update(beam["launches"])
+    zoo_beam_checks(failures, beam.pop("model"))
+    zoo_small_checks(failures)
+    return dict(launches)
+
+
+def _bert_batch(cfg, batch, seq, device, seed=0):
+    """A pretraining batch: ids uniform over the vocab, 15% of positions
+    labelled for the MLM loss, NSP labels, token types (the second half
+    segment B) and an all-ones attention mask."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq))
+    mlm = np.where(rng.random((batch, seq)) < 0.15, ids, -100)
+    nsp = rng.integers(0, 2, (batch,))
+    tt = np.repeat((np.arange(seq) >= seq // 2)[None], batch, 0)
+    mask = np.ones((batch, seq))
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device)
+                 for a in (ids, mlm, nsp, tt, mask))
+
+
+def _timed_steps(step, state, batch, steps, label, want, failures):
+    """One warm-up and `steps` timed steps; each must launch `want`.
+    Returns (state, losses, step ms, launches over the timed steps,
+    peak bytes)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    losses = [float(loss)]
+    log(f"{label} warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"loss {losses[0]:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms = []
+    for i in range(steps):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
+        made = {n: c for n, c in made.items() if c}
+        if want is not None and made != want:
+            failures.append(f"{label} step {i} launches {made} != {want}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"{label} losses not finite: {losses}")
+    return (state, losses, step_ms, dict(backend.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def zoo_bert_run(failures, steps=3, profile=True):
+    """BERT-base pretraining at full width: `BertForPretraining(
+    bert_base_config(dtype="bfloat16"))` (vocab 30522, hidden 768, 12
+    layers, 12 heads, FFN 3072), batch 32 x 512, `AdamW(1e-4)`, default
+    dropout 0.1, token types and an all-ones mask; one warm-up and
+    `steps` timed steps of `make_train_step`, each launching K4 and K5 26
+    times.  Returns {launches, host_ms, profile, peak, model}."""
+    import torch
+
+    from paddle_tpu_torch.models.bert import (
+        BertForPretraining, bert_base_config,
+    )
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = bert_base_config(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg, device="cuda",
+                               generator=make_generator(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"zoo bert: BERT-base bf16 built in {time.perf_counter() - t0:.1f} "
+        f"s, {n_params} parameters, batch {ZOO_BERT_BATCH} x "
+        f"{ZOO_BERT_SEQ}, AdamW(1e-4), dropout "
+        f"{cfg.hidden_dropout_prob}, all-ones attention mask")
+    opt = AdamW(1e-4)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    batch = _bert_batch(cfg, ZOO_BERT_BATCH, ZOO_BERT_SEQ, "cuda")
+    state, losses, step_ms, launches, peak = _timed_steps(
+        step, state, batch, steps, "zoo bert", ZOO_BERT_LAUNCHES, failures)
+    host_ms = sum(step_ms) / steps
+    per_step = {n: c / steps for n, c in launches.items()}
+    log(f"zoo bert: {steps} steps, step ms {[round(t, 3) for t in step_ms]},"
+        f" mean {host_ms:.3f} ms (host clock); samples/s "
+        f"{ZOO_BERT_BATCH / (host_ms / 1e3):.1f}, tokens/s "
+        f"{ZOO_BERT_BATCH * ZOO_BERT_SEQ / (host_ms / 1e3):.1f}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; launches per step {per_step}; "
+        f"losses {losses}")
+    prof = None
+    if profile:
+        prof = profile_train_step(step, state, batch, host_ms,
+                                  label="zoo bert",
+                                  families=STATIC_FAMILIES_MORE)
+        log(f"zoo bert step: {prof['kernels']:g} kernels, "
+            f"{len(prof['ln_bwd'])} LayerNorm backwards, kernels each "
+            f"{sorted({len(k) for k in prof['ln_bwd']})}")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, host_ms=host_ms, profile=prof, peak=peak,
+                model=model)
+
+
+def zoo_bert_eval(failures, model):
+    """`make_eval_step` of zoo_bert_run's model: the forward without a mask
+    (K1 in each layer, K4 at each LayerNorm) and with the all-ones mask
+    (no K1: the eager attention), once each after a warm-up.  Returns
+    the unmasked forward's launches."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.train import make_eval_step
+    from paddle_tpu_torch.nn import buffer_dict, param_dict
+
+    cfg = model.bert.cfg
+    ids, _, _, tt, mask = _bert_batch(cfg, ZOO_BERT_BATCH, ZOO_BERT_SEQ,
+                                      "cuda", seed=1)
+    ev = make_eval_step(model)
+    params, bufs = param_dict(model), buffer_dict(model)
+    out = {}
+    for label, args, want in (
+            ("unmasked", (ids, tt), ZOO_BERT_EVAL_LAUNCHES),
+            ("masked", (ids, tt, mask), ZOO_BERT_EVAL_MASKED)):
+        ev(params, bufs, *args)
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        logits, nsp = ev(params, bufs, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        made = {n: c for n, c in backend.LAUNCHES.items() if c}
+        log(f"zoo bert eval forward {label}: {ms:.3f} ms (host), launches "
+            f"{made}, logits {tuple(logits.shape)}")
+        if made != want:
+            failures.append(f"zoo bert eval {label} launches {made} != "
+                            f"{want}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            failures.append(f"zoo bert eval {label}: logits not finite")
+        out[label] = made
+    del model
+    torch.cuda.empty_cache()
+    return out["unmasked"]
+
+
+def zoo_ln_eps_check(failures):
+    """K4 and K5 take the layer's epsilon: at BERT's 1e-12 on rows of
+    variance 1e-8, where 1e-5 would change y by ~40%, the kernels agree
+    with their plain versions at 1e-12 and not at 1e-5."""
+    import torch
+
+    from paddle_tpu_torch.kernels import layer_norm as LN
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((4096, 768), generator=gen, device="cuda") * 1e-4
+    g = torch.randn((768,), generator=gen, device="cuda")
+    b = torch.randn((768,), generator=gen, device="cuda")
+    dy = torch.randn((4096, 768), generator=gen, device="cuda")
+    y = LN._launch(x, g, b, 1e-12)
+    dx = LN._launch_bwd(x, g, dy, 1e-12)[0]
+    errs = {}
+    for eps in (1e-12, 1e-5):
+        errs[eps] = (
+            (y - LN.layer_norm_ref(x, g, b, eps)).abs().max().item(),
+            (dx - LN.layer_norm_bwd_ref(x, g, dy, eps)[0]).abs().max().item()
+            / LN.layer_norm_bwd_ref(x, g, dy, eps)[0].abs().max().item())
+    log(f"zoo LayerNorm epsilon: K4 y / K5 dx max err against the plain "
+        f"versions at eps 1e-12 {errs[1e-12][0]:.3e} / {errs[1e-12][1]:.3e}"
+        f" (relative), at eps 1e-5 {errs[1e-5][0]:.3e} / "
+        f"{errs[1e-5][1]:.3e}")
+    if not (errs[1e-12][0] <= 1e-4 and errs[1e-12][1] <= 1e-4
+            and errs[1e-5][0] > 1e-2):
+        failures.append(f"K4/K5 epsilon: {errs}")
+
+
+def _card_cpu_runs(make, batches, opt_fn, loss_fn=None, grads=True):
+    """The same model on the card and on the CPU from the card's initial
+    weights (and buffers): the first batch's grads (`grads`), then one
+    `make_train_step` step per batch.  Returns {dev: {losses, grads,
+    params, buffers, start}}."""
+    import torch
+
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import (
+        functional_call_with_state, load_param_dict,
+    )
+
+    runs, start, start_bufs = {}, None, None
+    for dev in ("cuda", "cpu"):
+        model = make(dev)
+        if start is None:
+            start = {n: p.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+            start_bufs = {n: b.cpu().clone()
+                          for n, b in model.named_buffers()}
+        else:
+            load_param_dict(model, start)
+            with torch.no_grad():
+                for n, b in model.named_buffers():
+                    b.copy_(start_bufs[n])
+        fn = loss_fn or (lambda m, *b: m.loss(*b))
+        out = {}
+        if grads:
+            params = dict(model.named_parameters())
+            batch = [torch.as_tensor(a, device=dev) for a in batches[0]]
+            loss, _ = functional_call_with_state(
+                model, params, {n: b.clone() for n, b in
+                                model.named_buffers()}, *batch, _method=fn)
+            gs = torch.autograd.grad(loss, list(params.values()),
+                                     allow_unused=True)
+            out["grads"] = {n: (torch.zeros_like(p) if g is None else g).cpu()
+                            for (n, p), g in zip(params.items(), gs)}
+        opt = opt_fn()
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, loss_fn=fn)
+        losses = []
+        for b in batches:
+            state, loss = step(state, *[torch.as_tensor(a, device=dev)
+                                        for a in b])
+            losses.append(float(loss))
+        out.update(losses=losses,
+                   params={n: p.detach().cpu()
+                           for n, p in state.params.items()},
+                   buffers={n: b.cpu() for n, b in state.buffers.items()},
+                   start=start)
+        runs[dev] = out
+        del model, state, step
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _hold_resnet_rules(label, card, cpu, failures, names=("card", "CPU")):
+    """resnet_check's tolerances for run `card` against run `cpu`: the
+    first loss 1e-4 relative, the rest 1e-3; per tensor ||card - cpu|| <=
+    5e-2 max(||cpu||, 1e-2 of the largest) for the first batch's grads and
+    for each param's update; buffers 1e-3 relative in norm."""
+    first = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(card["losses"], cpu["losses"]))
+    top = max(g.norm().item() for g in cpu["grads"].values())
+    grad_err, grad_n = max((_rel(card["grads"][n], g, 1e-2 * top), n)
+                           for n, g in cpu["grads"].items())
+    start = cpu["start"]
+    upd = {n: p - start[n] for n, p in cpu["params"].items()}
+    top_u = max(u.norm().item() for u in upd.values())
+    par_err, par_n = max((_rel(card["params"][n] - start[n], u,
+                               1e-2 * top_u), n) for n, u in upd.items())
+    buf_err = max([_rel(card["buffers"][n], b)
+                   for n, b in cpu["buffers"].items()] or [0.0])
+    log(f"{label}, {names[0]} vs {names[1]}: losses {names[0]} "
+        f"{card['losses']} {names[1]} {cpu['losses']} (rel err first "
+        f"{first:.3e}, max {worst:.3e}); "
+        f"grads worst {grad_err:.3e} ({grad_n}); updates worst "
+        f"{par_err:.3e} ({par_n}); buffers worst {buf_err:.3e}")
+    if not (first <= 1e-4 and worst <= 1e-3 and grad_err <= 5e-2
+            and par_err <= 5e-2 and buf_err <= 1e-3):
+        failures.append(f"{label}: losses {first:.3e} / {worst:.3e}, grads "
+                        f"{grad_err:.3e}, updates {par_err:.3e}, buffers "
+                        f"{buf_err:.3e}")
+
+
+def _hold_train_rules(label, card, cpu, lr, failures):
+    """train_check's tolerances for run `card` against run `cpu`: losses
+    1e-4 relative; first-step grads 1e-3 of each tensor's max |grad|
+    (floored at 1e-4 of the largest); params atol 2 lr steps + 1e-5."""
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    top = max(g.abs().max().item() for g in cpu["grads"].values())
+    grad_err, grad_n = max(
+        ((card["grads"][n] - g).abs().max().item()
+         / max(g.abs().max().item(), 1e-4 * top), n)
+        for n, g in cpu["grads"].items())
+    atol = 2 * lr * len(cpu["losses"]) + 1e-5
+    par_err = max((card["params"][n] - p).abs().max().item()
+                  for n, p in cpu["params"].items())
+    log(f"{label}, card vs CPU: losses card {card['losses']} CPU "
+        f"{cpu['losses']} (max rel err {loss_err:.3e}); first-step grads "
+        f"max err / scale {grad_err:.3e} ({grad_n}); params max abs err "
+        f"{par_err:.3e} (atol {atol:.1e})")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and par_err <= atol):
+        failures.append(f"{label}: losses {loss_err:.3e}, grads "
+                        f"{grad_err:.3e}, params {par_err:.3e}")
+
+
+def zoo_bert_check(failures, steps=3, lr=1e-4):
+    """BERT at full width (vocab 30522, hidden 768, 12 heads, FFN 3072),
+    depth 2, f32, seq 128, batch 2, dropout 0, no mask (so the card runs
+    K1-K5): first-step grads and 3 AdamW steps on the card against the
+    CPU (plain versions) from the same weights, at train_check's
+    tolerances."""
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.bert import (
+        BertForPretraining, bert_base_config,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = bert_base_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                           attention_probs_dropout_prob=0.0)
+    batches = [tuple(t.numpy() for t in _bert_batch(cfg, 2, 128, "cpu",
+                                                    seed=s))[:4]
+               for s in range(steps)]
+    backend.reset_launches()
+    runs = _card_cpu_runs(
+        lambda dev: BertForPretraining(cfg, device=dev,
+                                       generator=make_generator(5)),
+        batches, lambda: AdamW(lr))
+    made = {n: c for n, c in backend.LAUNCHES.items() if c}
+    log(f"zoo bert check launches (card: one grad pass, {steps} steps): "
+        f"{made}")
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd"):
+        if made.get(k, 0) < 1:
+            failures.append(f"zoo bert check: {k} never launched")
+    _hold_train_rules(f"f32 BERT check (full width, depth 2, batch 2 x 128,"
+                      f" {steps} AdamW({lr}) steps)", runs["cuda"],
+                      runs["cpu"], lr, failures)
+
+
+def _ce_loss(m, x, y):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(m(x), y)
+
+
+def zoo_se_resnext_run(failures, steps=3):
+    """SE-ResNeXt-50 32x4d (`SEResNeXt()`), NCHW bf16, batch 64 x 3 x 224
+    x 224, Momentum(0.1, 0.9): one warm-up and `steps` timed steps.  Its
+    grouped convs are cuDNN's and its SE gates eager: no kernel of the
+    port launches.  Returns {host_ms, profile, peak}."""
+    import torch
+
+    from paddle_tpu_torch.models.resnet import SEResNeXt
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import Momentum
+
+    model = SEResNeXt(dtype="bfloat16", device="cuda",
+                      generator=make_generator(0))
+    opt = Momentum(0.1, 0.9)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, loss_fn=_ce_loss)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((ZOO_SE_BATCH, 3, 224, 224)),
+                        dtype=torch.bfloat16, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (ZOO_SE_BATCH,)),
+                        dtype=torch.int32, device="cuda")
+    state, losses, step_ms, launches, peak = _timed_steps(
+        step, state, (x, y), steps, "zoo se_resnext", {}, failures)
+    host_ms = sum(step_ms) / steps
+    log(f"zoo se_resnext: SE-ResNeXt-50 32x4d bf16 NCHW, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, batch "
+        f"{ZOO_SE_BATCH}: step ms {[round(t, 3) for t in step_ms]}, mean "
+        f"{host_ms:.3f} ms; images/s {ZOO_SE_BATCH / (host_ms / 1e3):.1f}; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; losses {losses}; launches "
+        f"{launches}")
+    prof = profile_train_step(step, state, (x, y), host_ms,
+                              label="zoo se_resnext",
+                              families=(("convs", r"conv|cudnn|xmma|"
+                                         r"sm90_|implicit"),))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(host_ms=host_ms, profile=prof, peak=peak)
+
+
+def zoo_se_resnext_check(failures, steps=2, lr=1e-5):
+    """SE-ResNeXt f32 at depths (1, 1, 1, 1), 64 x 64, batch 4: first-step
+    grads and 2 Momentum steps, card against CPU, at resnet_check's
+    tolerances."""
+    from paddle_tpu_torch.models.resnet import SEResNeXt
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import Momentum
+
+    rng = np.random.default_rng(6)
+    batches = [(rng.standard_normal((4, 3, 64, 64)).astype(np.float32),
+                rng.integers(0, 1000, (4,)).astype(np.int32))] * steps
+    runs = _card_cpu_runs(
+        lambda dev: SEResNeXt(depths=(1, 1, 1, 1), device=dev,
+                              generator=make_generator(6)),
+        batches, lambda: Momentum(lr, 0.9), loss_fn=_ce_loss)
+    _hold_resnet_rules(f"f32 SE-ResNeXt check (depths (1, 1, 1, 1), batch 4"
+                       f" x 64 x 64, {steps} Momentum({lr}) steps)",
+                       runs["cuda"], runs["cpu"], failures)
+
+
+def zoo_remat_runs(failures, steps=2):
+    """ResNet-50 bf16 NHWC, batch 128, unfused (bench.py:213's program:
+    ghost batch norm over 16, Momentum(0.1, 0.9)) with remat False, True
+    and "conv_outs": one warm-up and `steps` timed steps each, their
+    step ms and peak memory, and the profile of a False and a
+    "conv_outs" step; "conv_outs" must peak below False."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import Momentum
+
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = ""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((ZOO_REMAT_BATCH, 3, 224, 224)),
+                        dtype=torch.bfloat16, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (ZOO_REMAT_BATCH,)),
+                        dtype=torch.int32, device="cuda")
+    out = {}
+    for remat in (False, True, "conv_outs"):
+        model = resnet50(dtype="bfloat16", data_format="NHWC",
+                         bn_stats_sample=16, device="cuda",
+                         generator=make_generator(0))
+        opt = Momentum(0.1, 0.9)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, loss_fn=_ce_loss, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, losses, step_ms, _, peak = _timed_steps(
+            step, state, (x, y), steps, f"zoo remat={remat!r}", {},
+            failures)
+        out[remat] = (sum(step_ms) / steps, peak, peak - base, losses)
+        if remat is not True:
+            # where the tape's time goes: host against device per step
+            profile_train_step(step, state, (x, y), out[remat][0],
+                               label=f"zoo remat={remat!r}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    log("zoo remat (ResNet-50 bf16 NHWC unfused, batch 128): " + "; ".join(
+        f"remat={k!r} step {ms:.3f} ms, peak {pk / 2 ** 30:.3f} GiB "
+        f"({act / 2 ** 30:.3f} above the state), losses "
+        f"{[round(l, 5) for l in ls]}"
+        for k, (ms, pk, act, ls) in out.items()))
+    if not out["conv_outs"][1] < out[False][1]:
+        failures.append(f"remat='conv_outs' peak {out['conv_outs'][1]} not "
+                        f"below remat=False's {out[False][1]}")
+    return out
+
+
+def zoo_remat_check(failures, steps=2, lr=1e-5):
+    """resnet_check's shallow f32 ResNet-50 (full widths, depths [2, 2, 2,
+    2], NHWC, batch 8 x 128 x 128, ghost batch 4) on the card, unfused
+    and on the full fused program (K9, K7, K8: their Functions keep what
+    they save): remat="conv_outs" against remat=False, the first step's
+    update over -lr (the grads: Momentum starts from zero velocity) and
+    2 steps, at resnet_check's tolerances."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+    from paddle_tpu_torch.optimizer.functional import Momentum
+
+    os.environ["PADDLE_TPU_FUSED_SUBSET"] = ""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((8, 3, 128, 128)),
+                        dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (8,)), dtype=torch.int32,
+                        device="cuda")
+    for fused in (False, True):
+        runs, start = {}, None
+        for remat in (False, "conv_outs"):
+            model = ResNet(BottleneckBlock, [2, 2, 2, 2], data_format="NHWC",
+                           fused=fused, device="cuda",
+                           generator=make_generator(3))
+            for m in model.modules():
+                if hasattr(m, "_stats_sample"):
+                    m._stats_sample = 4
+            if start is None:
+                start = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+            else:
+                load_param_dict(model, start)
+            opt = Momentum(lr, 0.9)
+            state = init_train_state(model, opt)
+            step = make_train_step(model, opt, loss_fn=_ce_loss, remat=remat)
+            losses, first = [], None
+            for i in range(steps):
+                state, loss = step(state, x, y)
+                losses.append(float(loss))
+                if i == 0:
+                    first = {n: ((start[n] - p) / lr).cpu()
+                             for n, p in state.params.items()}
+            runs[remat] = dict(
+                losses=losses, grads=first,
+                params={n: p.detach().cpu() for n, p in state.params.items()},
+                buffers={n: b.cpu() for n, b in state.buffers.items()},
+                start={n: p.cpu() for n, p in start.items()})
+            del model, state, step
+        kind = "full fused" if fused else "unfused"
+        _hold_resnet_rules(f"f32 remat on the card, ResNet depths [2, 2, 2, "
+                           f"2] {kind}", runs["conv_outs"], runs[False],
+                           failures, names=("conv_outs", "False"))
+    torch.cuda.empty_cache()
+
+
+def zoo_static_recompute(failures, steps=3):
+    """The static GPT of phase 7 (`build_gpt(512, 768, 12, 32768)`'s
+    layers) with `RecomputeOptimizer(Adam(1e-3))`, checkpoints at the
+    embedding's and the transformer block's outputs, against the same
+    Program with plain Adam: 3 steps at batch 8 from the same startup
+    values on the card, losses within 1e-4 relative and each
+    persistable within 1e-3 of its norm + (2 lr steps + 1e-5) sqrt(n);
+    peak memory of each."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    t, d, heads, vocab = (STATIC_GPT[k] for k in ("t", "d", "heads",
+                                                  "vocab"))
+
+    def build(recompute):
+        L = fluid.layers
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard():
+            with fluid.program_guard(main, startup):
+                ids = fluid.data("ids", [None, t], dtype="int64")
+                targets = fluid.data("targets", [None, t, 1], dtype="int64")
+                emb = L.embedding(ids, size=(vocab, d))
+                x = static_zoo._transformer_layer(emb, d, heads, t)
+                logits = L.fc(x, vocab, num_flatten_dims=2)
+                loss = L.mean(L.softmax_with_cross_entropy(logits, targets))
+                opt = fluid.optimizer.Adam(1e-3)
+                if recompute:
+                    opt = fluid.optimizer.RecomputeOptimizer(opt)
+                    opt._set_checkpoints([emb, x])
+                opt.minimize(loss)
+        return main, startup, loss
+
+    rng = np.random.default_rng(0)
+    feed = {"ids": rng.integers(0, vocab, (8, t)),
+            "targets": rng.integers(0, vocab, (8, t, 1))}
+    start, res = None, {}
+    for recompute in (False, True):
+        main, startup, loss = build(recompute)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        if start is None:
+            exe.run(startup, scope=scope)
+            start = interop.scope_to_numpy(scope)
+        else:
+            scope = interop.scope_from_numpy(start, scope, "cuda")
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(steps)]
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        res[recompute] = dict(losses=losses, ms=ms,
+                              peak=torch.cuda.max_memory_allocated(),
+                              launches={n: c for n, c in
+                                        backend.LAUNCHES.items() if c},
+                              scope=interop.scope_to_numpy(scope))
+        del exe, scope
+        torch.cuda.empty_cache()
+    a, b = res[False], res[True]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                       a["losses"]))
+    atol = 2 * 1e-3 * (steps + 1) + 1e-5
+    par_err, par_n = max(
+        (float(np.linalg.norm(b["scope"][n] - v))
+         / (1e-3 * float(np.linalg.norm(v)) + atol * np.sqrt(v.size)), n)
+        for n, v in a["scope"].items())
+    log(f"zoo static recompute (the static GPT, {steps} Adam steps, batch "
+        f"8): losses plain {a['losses']} recompute {b['losses']} (max rel "
+        f"err {loss_err:.3e}); persistables worst {par_err:.3f} of the rule "
+        f"({par_n}); step ms plain {a['ms']:.3f} recompute {b['ms']:.3f} "
+        f"(host); peak memory plain {a['peak'] / 2 ** 30:.3f} GiB, "
+        f"recompute {b['peak'] / 2 ** 30:.3f} GiB; launches plain "
+        f"{a['launches']} recompute {b['launches']}")
+    if not (loss_err <= 1e-4 and par_err <= 1.0):
+        failures.append(f"static recompute: losses {loss_err:.3e}, "
+                        f"persistables {par_err:.3f} of the rule")
+
+
+def zoo_beam_run(failures, profile=True):
+    """Beam search on GPT-2 small (phase 6's serving model, bf16): batch
+    4, beam 4, prompt 128, 32 new tokens; a warm-up, then one timed run
+    launching ZOO_BEAM_LAUNCHES exactly.  Returns {launches, ms per token
+    step, profile}."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+
+    cfg = GPTConfig(dtype="bfloat16")
+    model = GPT(cfg, device="cuda", generator=make_generator(0)).eval()
+    b, k, s, new = (ZOO_BEAM[n] for n in ("batch", "beam", "prompt", "new"))
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+    G.beam_search(model, prompts, k, 4)
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    seqs, scores = G.beam_search(model, prompts, k, new)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c for n, c in backend.LAUNCHES.items() if c}
+    step_ms = total_ms / new
+    log(f"zoo beam search (GPT-2 small bf16, batch {b}, beam {k}, prompt "
+        f"{s}, {new} new): {total_ms:.3f} ms, {step_ms:.3f} ms per token "
+        f"step (prefill included), {b * new / (total_ms / 1e3):.1f} best-"
+        f"beam tokens/s; launches {launches}; best scores "
+        f"{scores[:, 0].tolist()}")
+    if launches != ZOO_BEAM_LAUNCHES:
+        failures.append(f"zoo beam launches {launches} != "
+                        f"{ZOO_BEAM_LAUNCHES}")
+    if tuple(seqs.shape) != (b, k, new) or int(seqs.min()) < 0 \
+            or int(seqs.max()) >= cfg.vocab_size \
+            or not bool(torch.isfinite(scores).all()) \
+            or not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        failures.append(f"zoo beam output {tuple(seqs.shape)} out of range,"
+                        " not finite or not sorted")
+    prof = beam_profile(model, prompts, k, new) if profile else None
+    return dict(launches=launches, step_ms=step_ms, profile=prof,
+                model=model)
+
+
+def beam_profile(model, prompts, beam, new):
+    """Device ms of one beam search and K6's share (torch.profiler),
+    per token step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import generate as G
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        G.beam_search(model, prompts, beam, new)
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device = sum(r[0] for r in rows) / 1e3 / new
+    k6 = sum(r[0] for r in rows if "flash_decode_kernel" in r[2]) / 1e3 / new
+    log(f"zoo beam profile: device {device:.3f} ms per token step, K6 "
+        f"{k6:.4f} ms ({k6 / device:.1%})")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"  {us / 1e3 / new:8.4f} ms/step  {count / new:6.1f}/step  "
+            f"{key[:90]}")
+    return {"device": device, "k6": k6}
+
+
+def _beam_margin(params, prompts, beam, new):
+    """The smallest relative gap, over the steps of a CPU beam search,
+    between the K-th and the (K+1)-th candidate: a near-tie there may
+    pick another beam on another device."""
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+
+    gaps = []
+    real = G._beam_update
+
+    def watch(logp, finished, logits, eos_id):
+        total = logp[..., None] + torch.log_softmax(logits.float(), dim=-1)
+        v = torch.sort(total.reshape(total.shape[0], -1), dim=-1,
+                       descending=True).values
+        gaps.append(((v[:, beam - 1] - v[:, beam])
+                     / v[:, beam - 1].abs().clamp(min=1e-6)).min().item())
+        return real(logp, finished, logits, eos_id)
+
+    G._beam_update = watch
+    try:
+        G.beam_search(params, prompts, beam, new)
+    finally:
+        G._beam_update = real
+    return min(gaps)
+
+
+def zoo_beam_checks(failures, model):
+    """Beam 1 against `generate()`'s greedy tokens on zoo_beam_run's model
+    (bf16), and an f32 GPT-2-small-width model at depth 2: 8 tokens, beam
+    4, batch 2, card against CPU.  Tokens must agree unless a near-tie
+    (relative top-2 margin <= 1e-3; for the beams, between the K-th and
+    the (K+1)-th candidate) explains the first difference; scores 1e-4
+    relative."""
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+
+    prompts = np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, (2, 128), dtype=np.int32)
+    beam1, _ = G.beam_search(model, prompts, 1, 16)
+    greedy = G.generate(model, prompts, 16)
+    same = torch.equal(beam1[:, 0], greedy)
+    log(f"zoo beam 1 vs generate() (bf16, 2 x 128, 16 new): "
+        f"{'token-exact' if same else 'differ'}")
+    if not same:
+        row = int(torch.nonzero((beam1[:, 0] != greedy).any(1))[0])
+        i = int(torch.nonzero(beam1[row, 0] != greedy[row])[0])
+        params = G.build_decode_params(model)
+        with torch.inference_mode():
+            cache = G.init_cache(params.cfg, 1, 128 + 16, device="cuda")
+            logits = G.prefill(params, torch.as_tensor(
+                prompts[row:row + 1], device="cuda"), cache)
+            for j in range(i):
+                logits = G.decode_step(params, greedy[row, j:j + 1], cache,
+                                       128 + j)
+        margin = _margin(logits[0])
+        log(f"zoo beam 1 vs generate(): row {row} first differs at step "
+            f"{i}, generate()'s top-2 margin {margin:.3e}")
+        if margin > 1e-3:
+            failures.append(f"beam 1 != greedy at step {i} with margin "
+                            f"{margin:.3e} > 1e-3")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = GPTConfig(num_layers=2)
+    card = GPT(cfg, device="cuda", generator=make_generator(9)).eval()
+    cpu = GPT(cfg, device="cpu", generator=make_generator(9)).eval()
+    load_param_dict(cpu, {n: p.detach().cpu()
+                          for n, p in card.named_parameters()})
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 128),
+                                                dtype=np.int32)
+    cseq, csc = G.beam_search(card, prompts, 4, 8)
+    tseq, tsc = G.beam_search(cpu, prompts, 4, 8)
+    same = torch.equal(cseq.cpu(), tseq)
+    score_err = ((csc.cpu() - tsc).abs() / tsc.abs()).max().item()
+    log(f"zoo beam f32 (depth 2, 2 x 128, beam 4, 8 new), card vs CPU: "
+        f"sequences {'equal' if same else 'differ'}, scores max rel err "
+        f"{score_err:.3e}")
+    if not same:
+        margin = _beam_margin(G.build_decode_params(cpu), prompts, 4, 8)
+        log(f"zoo beam f32: the CPU run's smallest K-th/(K+1)-th candidate "
+            f"gap {margin:.3e}")
+        if margin > 1e-3:
+            failures.append(f"f32 beam search card != CPU with candidate "
+                            f"gap {margin:.3e} > 1e-3")
+    elif not score_err <= 1e-4:
+        failures.append(f"f32 beam scores differ: {score_err:.3e} > 1e-4")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def zoo_small_checks(failures, steps=2):
+    """LeNet, MLP, Word2Vec, Wide&Deep and Seq2Seq, f32, at the reference
+    tests' sizes: 2 train steps each on the card and on the CPU from the
+    same weights, losses within 1e-4 relative; Seq2Seq's greedy and beam
+    decodes token-equal."""
+    import torch
+
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.models.mlp import MLP
+    from paddle_tpu_torch.models.seq2seq import Seq2Seq, Seq2SeqConfig
+    from paddle_tpu_torch.models.wide_deep import WideDeep
+    from paddle_tpu_torch.models.word2vec import Word2Vec
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import Momentum
+
+    rng = np.random.default_rng(10)
+    s2s_cfg = Seq2SeqConfig()
+    src = rng.integers(2, s2s_cfg.src_vocab, (4, 12)).astype(np.int32)
+    tgt = rng.integers(2, s2s_cfg.tgt_vocab, (4, 9)).astype(np.int32)
+    src_len = np.array([12, 9, 5, 1], np.int32)
+    cases = {
+        "lenet": (lambda d: LeNet(device=d, generator=make_generator(1)),
+                  _ce_loss,
+                  (rng.standard_normal((8, 1, 28, 28)).astype(np.float32),
+                   rng.integers(0, 10, (8,)).astype(np.int32))),
+        "mlp": (lambda d: MLP(784, device=d, generator=make_generator(2)),
+                _ce_loss,
+                (rng.standard_normal((16, 784)).astype(np.float32),
+                 rng.integers(0, 10, (16,)).astype(np.int32))),
+        "word2vec": (lambda d: Word2Vec(1000, device=d,
+                                        generator=make_generator(3)), None,
+                     (rng.integers(0, 1000, (16, 4)).astype(np.int32),
+                      rng.integers(0, 1000, (16,)).astype(np.int32))),
+        "wide_deep": (lambda d: WideDeep(device=d,
+                                         generator=make_generator(4)), None,
+                      (rng.integers(-2 ** 31, 2 ** 31 - 1, (16, 26),
+                                    dtype=np.int64).astype(np.int32),
+                       rng.standard_normal((16, 13)).astype(np.float32),
+                       rng.integers(0, 2, (16,)).astype(np.float32))),
+        "seq2seq": (lambda d: Seq2Seq(s2s_cfg, device=d,
+                                      generator=make_generator(5)), None,
+                    (src, tgt[:, :-1], tgt[:, 1:], src_len)),
+    }
+    for name, (make, loss_fn, batch) in cases.items():
+        runs = _card_cpu_runs(make, [batch] * steps,
+                              lambda: Momentum(0.05, 0.9), loss_fn=loss_fn,
+                              grads=False)
+        card, cpu = runs["cuda"]["losses"], runs["cpu"]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"zoo {name} f32, card vs CPU: losses card {card} CPU {cpu} "
+            f"(max rel err {err:.3e})")
+        if not err <= 1e-4:
+            failures.append(f"zoo {name}: losses differ by {err:.3e}")
+    models = {d: Seq2Seq(s2s_cfg, device=d, generator=make_generator(5))
+              for d in ("cuda", "cpu")}
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["cuda"].state_dict().items()})
+    out = {}
+    for d, m in models.items():
+        s, sl = torch.as_tensor(src, device=d), torch.as_tensor(src_len,
+                                                                device=d)
+        out[d] = (m.greedy_decode(s, 10, sl).cpu(),
+                  m.beam_search_decode(s, 10, 4, sl)[0].cpu())
+    same = [torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    log(f"zoo seq2seq decodes, card vs CPU: greedy "
+        f"{'equal' if same[0] else 'differ'}, beam 4 "
+        f"{'equal' if same[1] else 'differ'}")
+    if not all(same):
+        failures.append("zoo seq2seq decodes differ between card and CPU")
+    torch.cuda.empty_cache()
+
+
 def check_phase(failures):
     import torch
 
@@ -5374,7 +6294,7 @@ def timed_text(timed):
 
 
 COMPARE_PARTS = ("k7", "train", "ln", "resnet", "probes", "decode", "stem",
-                 "dgc", "static")
+                 "dgc", "static", "bert", "beam")
 
 
 def decode_prefill(model, prompts):
@@ -5475,6 +6395,22 @@ def compare_one(tree, parts=COMPARE_PARTS):
         log(f"compare {tree} static: step {o['host_ms']:.3f} ms (host, "
             f"mean of 5), device {o['profile']['device']:.3f} ms per step, "
             f"{o['profile']['kernels']:.1f} kernels per step")
+    if "bert" in parts:
+        o = zoo_bert_run(failures)
+        prof = o["profile"]
+        per = {n: c / 3 for n, c in o["launches"].items()}
+        log(f"compare {tree} bert: step {o['host_ms']:.3f} ms (host, mean "
+            f"of 3), device {prof['device']:.3f} ms, K4 "
+            f"{prof.get('K4', 0):.4f} ms and K5 {prof.get('K5', 0):.4f} ms "
+            f"per step; launches per step {per}")
+        del o
+    if "beam" in parts:
+        o = zoo_beam_run(failures)
+        prof = o["profile"]
+        log(f"compare {tree} beam: {o['step_ms']:.3f} ms per token step "
+            f"(host), device {prof['device']:.3f} ms, K6 {prof['k6']:.4f} "
+            f"ms ({prof['k6'] / prof['device']:.1%}) per token step")
+        del o
     for f in failures:
         log(f"compare {tree} FAIL: {f}")
     return 1 if failures else 0
@@ -5559,7 +6495,7 @@ def compare_main(args):
 
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
-MAIN_PATHS = ("train", "resnet", "path", "static", "io")
+MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo")
 
 
 def main():
@@ -5605,7 +6541,8 @@ def main():
               ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("static", static_phase),
-              ("io", io_phase), ("checks", check_phase))
+              ("io", io_phase), ("zoo", zoo_phase),
+              ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -5638,8 +6575,9 @@ def main():
         # serving run (generate + engine), the timed steps of each static
         # GPT run, plain, AMP + fusion (K1-K5), clipped (K4, K5) and AMP
         # float16 + fusion (K1-K3 float16, K4, K5), the io phase's
-        # Predictor and CompiledPredictor runs (K1, K4), and the probe
-        # tool's runs (K4, K7 and K9 forward)
+        # Predictor and CompiledPredictor runs (K1, K4), the zoo phase's
+        # BERT steps (K4, K5), BERT eval forward (K1, K4) and beam search
+        # (K1, K4, K6), and the probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

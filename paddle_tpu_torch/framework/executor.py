@@ -11,6 +11,11 @@ PyTorch on the executor's device:
   takes `torch.autograd.grad` of the summed loss with respect to them
   (zeros for a param the loss does not reach, as `jax.value_and_grad`
   gives), and binds `<name>@GRAD`;
+- a section with checkpoints (`RecomputeOptimizer`) splits its segment
+  at the ops that produce them (`_checkpoint_chunks`) and runs each chunk
+  up to a checkpoint under non-reentrant `torch.utils.checkpoint`, which
+  recomputes the chunk in the backward with the executor's generator
+  rewound to where the chunk began (and put back after);
 - the ops after the last section (the optimizer updates) run under
   `torch.no_grad()`;
 - every persistable variable is written back to the scope, detached.
@@ -32,6 +37,7 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import flags
 from ..core.dtype import to_torch_dtype
@@ -101,6 +107,55 @@ def _resolve_slot(env, names):
     if len(vals) == 1:
         return vals[0]
     return vals
+
+
+def _checkpoint_chunks(seg, checkpoint_names):
+    """Split a forward segment at the ops producing each checkpoint var:
+    [(ops, remat?)], the chunks up to each checkpoint recomputed, the
+    rest after the last one not (the reference's `_checkpoint_chunks`,
+    backward.py:639's recompute segments)."""
+    if not checkpoint_names:
+        return [(seg, False)]
+    ckpts = set(checkpoint_names)
+    boundaries = [i + 1 for i, op in enumerate(seg)
+                  if set(op.output_names()) & ckpts]
+    if not boundaries:
+        return [(seg, False)]
+    chunks = []
+    start = 0
+    for b in boundaries:
+        if seg[start:b]:
+            chunks.append((seg[start:b], True))
+        start = b
+    if seg[start:]:
+        chunks.append((seg[start:], False))
+    return chunks
+
+
+def _run_recomputed(chunk, env, generator, needed_after):
+    """One chunk under `torch.utils.checkpoint`: its inputs are the env
+    values it reads, its outputs the names it produces that a later op,
+    fetch or persistable needs; the recompute draws from the generator
+    rewound to the chunk's start (`nn.parameter.rewound`)."""
+    from ..nn.parameter import rewound
+
+    produced, reads = set(), []
+    for op in chunk:
+        for n in op.input_names():
+            if n not in produced and n in env and n not in reads:
+                reads.append(n)
+        produced.update(op.output_names())
+    outs = [n for n in sorted(produced) if n in needed_after]
+
+    def run(*vals):
+        e = dict(zip(reads, vals))
+        interpret(chunk, e, generator)
+        return tuple(e[n] for n in outs)
+
+    vals = torch.utils.checkpoint.checkpoint(
+        rewound(run, generator), *[env[n] for n in reads],
+        use_reentrant=False, preserve_rng_state=False)
+    env.update(zip(outs, vals))
 
 
 def run_op(op, env, generator):
@@ -334,7 +389,8 @@ class Executor:
 
         ops = self._live_ops(program, fetch_names)
         sections = [] if program._is_test else list(program.backward_sections)
-        self._step(ops, sections, env)
+        self._step(ops, sections, env, set(fetch_names) | set(
+            plan.persist_names))
 
         for n in plan.persist_names:
             if n in env:
@@ -363,17 +419,29 @@ class Executor:
             program._folded_tensors = held
         return held[1]
 
-    def _step(self, ops, sections, env):
+    def _step(self, ops, sections, env, keep=()):
         """Run `ops` against `env`, realizing each BackwardSection with
-        torch autograd (see the module docstring)."""
+        torch autograd (see the module docstring); `keep` names the
+        values a recomputed chunk must hand on (fetches, persistables)
+        beside those later ops read."""
         gen = self._generator
         pos = 0
         for bs in sections:
             params = {n: env[n].detach().requires_grad_(True)
                       for n in bs.param_names if n in env}
             env.update(params)
+            start = pos
             with torch.enable_grad():
-                interpret(ops[pos:bs.pos], env, gen)
+                for chunk, remat in _checkpoint_chunks(
+                        ops[pos:bs.pos], bs.checkpoint_names):
+                    start += len(chunk)
+                    if not remat:
+                        interpret(chunk, env, gen)
+                        continue
+                    needed = set(keep) | {bs.loss_name}
+                    for op in ops[start:]:
+                        needed.update(op.input_names())
+                    _run_recomputed(chunk, env, gen, needed)
                 loss = env[bs.loss_name].sum()
             leaves = list(params.values())
             if loss.requires_grad and leaves:

@@ -351,8 +351,8 @@ class BackwardSection:
         self.param_names = list(param_names)
         self.no_grad_set = set(no_grad_set or ())
         # recompute segments (RecomputeOptimizer parity): activation names
-        # marked as checkpoints (serialized; the port's executor does
-        # not recompute them yet, ROADMAP item 6).
+        # marked as checkpoints; the executor recomputes the chunks up to
+        # each in the backward.
         self.checkpoint_names = list(checkpoint_names or ())
 
 

@@ -1,5 +1,5 @@
 """Autoregressive decoding with a KV cache for the GPT family (port of
-paddle_tpu/models/generate.py; `beam_search` is not ported yet).
+paddle_tpu/models/generate.py: `generate` and `beam_search`).
 
 The math mirrors `GPT.forward` (same parameter names, same SDPA scale
 1/sqrt(head_dim)).  Prefill runs the whole prompt as one causal pass and
@@ -19,7 +19,14 @@ what is computed:
 - `dynamic_update_slice` clamps an out-of-range start; `decode_step`
   clamps its write position to the last cache row explicitly;
 - the reference's whole generation is one compiled program; the port
-  runs eagerly, one decode step per Python iteration.
+  runs eagerly, one decode step per Python iteration;
+- `beam_search` gathers the cache into the other of two preallocated
+  buffers each step (the reference's gather builds a new cache), and
+  sizes the cache to a multiple of 128 keys, so that K6 serves every
+  step on the card; the columns past the live prefix are masked to
+  exact zeros in both paths.
+MoE decode comes with GPT MoE (ROADMAP item 8): `GPT` raises for
+num_experts > 0.
 """
 
 from typing import NamedTuple, Optional
@@ -29,7 +36,7 @@ import torch
 from ..nn import functional as F
 
 __all__ = ["DecodeParams", "build_decode_params", "prefill",
-           "decode_step", "generate", "init_cache"]
+           "decode_step", "generate", "beam_search", "init_cache"]
 
 
 class DecCfg(NamedTuple):
@@ -270,3 +277,108 @@ def generate(model_or_params, prompt_ids, max_new_tokens,
         token = nxt
         i += 1
     return out
+
+
+def _top_k_lower_first(x, k):
+    """`jax.lax.top_k` over the last dim: the k largest, ties to the lower
+    index (a stable descending sort; `torch.topk` promises no order
+    among ties on the card)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _beam_update(logp, finished, logits_bkv, eos_id):
+    """One beam step: extend each beam by every token, keep the top K
+    per batch row; a finished beam extends only by eos at zero added
+    score.  -> (scores, parent, token, finished) of the new beams."""
+    batch, k, v = logits_bkv.shape
+    logp_tok = torch.log_softmax(logits_bkv.float(), dim=-1)
+    if eos_id is not None:
+        frozen = torch.full((v,), _BEAM_NEG, device=logp_tok.device)
+        frozen[eos_id] = 0.0
+        logp_tok = torch.where(finished[..., None], frozen, logp_tok)
+    total = logp[..., None] + logp_tok                 # [B, K, V]
+    top, idx = _top_k_lower_first(total.reshape(batch, k * v), k)
+    parent = idx // v                                  # [B, K]
+    token = (idx % v).to(torch.int32)
+    fin_new = torch.gather(finished, 1, parent)
+    if eos_id is not None:
+        fin_new = fin_new | (token == eos_id)
+    return top, parent, token, fin_new
+
+
+_BEAM_NEG = -1e30
+
+
+@torch.inference_mode()
+def beam_search(model_or_params, prompt_ids, beam_size, max_new_tokens,
+                eos_id: Optional[int] = None, length_penalty: float = 0.0):
+    """KV-cached beam search: (sequences [B, beam, T] int32, scores [B,
+    beam] f32) sorted best-first.  Beams ride flattened into the batch
+    (B * beam rows), the prompt's cache is repeated beam times and
+    reordered by parent beam with one gather per step.  Scores are summed
+    token log-probs; `length_penalty` > 0 applies the GNMT normalization
+    ((5 + len) / 6) ** lp at the final ranking.  With `eos_id`, finished
+    beams freeze (eos-padded, score unchanged)."""
+    params, prompt_ids = _resolve_and_check(model_or_params, prompt_ids,
+                                            max_new_tokens)
+    if beam_size < 1:
+        raise ValueError("beam_size must be >= 1")
+    vocab = params.emb["wte.weight"].shape[0]
+    if beam_size > vocab:
+        # the first expansion has only `vocab` live candidates
+        raise ValueError(f"beam_size {beam_size} exceeds vocab_size {vocab}")
+    k = int(beam_size)
+    eos_id = None if eos_id is None else int(eos_id)
+    device = params_device(params)
+    batch, prompt_len = prompt_ids.shape
+    depth = -(-(prompt_len + max_new_tokens) // 128) * 128
+    cache = init_cache(params.cfg, batch, depth, device=device)
+    logits0 = prefill(params, prompt_ids, cache)
+    # two beam caches [L, B*K, H, T, D]; each step gathers one into the
+    # other by parent row
+    bufs = [{n: torch.empty((c.shape[0], batch * k) + tuple(c.shape[2:]),
+                            dtype=c.dtype, device=device)
+             for n, c in cache.items()} for _ in range(2)]
+    rows = torch.arange(batch, device=device).repeat_interleave(k)
+    for n in cache:
+        torch.index_select(cache[n], 1, rows, out=bufs[0][n])
+    del cache
+    boffs = (torch.arange(batch, device=device) * k)[:, None]
+
+    def reorder(src, parent):
+        flat = (boffs + parent).reshape(-1)
+        dst = bufs[1] if src is bufs[0] else bufs[0]
+        for n in src:
+            torch.index_select(src[n], 1, flat, out=dst[n])
+        return dst
+
+    # first expansion: only beam 0 is live, so the top K are K distinct
+    # first tokens
+    logp = torch.full((batch, k), _BEAM_NEG, device=device)
+    logp[:, 0] = 0.0
+    finished = torch.zeros((batch, k), dtype=torch.bool, device=device)
+    logits_bkv = logits0[:, None, :].expand(batch, k, vocab)
+    logp, parent, token, finished = _beam_update(logp, finished, logits_bkv,
+                                                 eos_id)
+    seqs = torch.full((batch, k, max_new_tokens),
+                      eos_id if eos_id is not None else 0,
+                      dtype=torch.int32, device=device)
+    seqs[:, :, 0] = token
+    lens = torch.ones((batch, k), device=device)
+    cache = reorder(bufs[0], parent)
+    for i in range(max_new_tokens - 1):
+        logits = decode_step(params, token.reshape(-1), cache,
+                             prompt_len + i)
+        was_fin = finished
+        logp, parent, token, finished = _beam_update(
+            logp, was_fin, logits.reshape(batch, k, vocab), eos_id)
+        cache = reorder(cache, parent)
+        seqs = torch.gather(seqs, 1, parent[..., None].expand_as(seqs))
+        seqs[:, :, i + 1] = token
+        lens = torch.gather(lens, 1, parent) \
+            + (~torch.gather(was_fin, 1, parent)).float()
+    scores = logp / (((5.0 + lens) / 6.0) ** float(length_penalty))
+    order = torch.argsort(-scores, dim=1, stable=True)
+    return (torch.gather(seqs, 1, order[..., None].expand_as(seqs)),
+            torch.gather(scores, 1, order))

@@ -1,6 +1,7 @@
 """ResNet family (port of paddle_tpu/models/resnet.py: `ConvBNLayer`,
 `BasicBlock`, `BottleneckBlock`, `ResNet`, `set_bn_stats_sample`,
-`resnet18`, `resnet34`, `resnet50`).
+`resnet18`, `resnet34`, `resnet50`, `SEBlock`, `SEResNeXtBlock`,
+`SEResNeXt`).
 
 Module and parameter names are the reference's, so `interop` maps
 weights and batch-norm buffers one to one.  `data_format="NHWC"` runs
@@ -19,8 +20,12 @@ affine grads), then each block runs as one kernel.  Training with
 full-batch statistics (`bn_stats_sample` 0) takes the per-conv path, as
 in the reference.  PADDLE_TPU_FUSED_SUBSET=id restricts the fused path
 to the 12 identity blocks, `id_early` further to those with Cm <= 128
-(stages 1-2); either leaves the stem unfused.  SE-ResNeXt is not ported
-yet (ROADMAP queue 1).
+(stages 1-2); either leaves the stem unfused.
+
+SE-ResNeXt-50 32x4d is NCHW only, as in the reference: its grouped 3x3
+convs (groups=32) are library convs (`ops/nn_ops.py` `conv2d`, cuDNN on
+the card) and the SE gate (global pool, two Linears, the broadcast
+multiply) is eager, so it launches no kernel of the port.
 """
 
 import os
@@ -277,3 +282,70 @@ def resnet50(num_classes=1000, data_format="NCHW", dtype="float32",
         ResNet(BottleneckBlock, [3, 4, 6, 3], num_classes,
                data_format=data_format, dtype=dtype, fused=fused, **kw),
         bn_stats_sample)
+
+
+class SEBlock(nn.Layer):
+    """Squeeze-and-excitation gate."""
+
+    def __init__(self, ch, reduction=16, **kw):
+        super().__init__(**kw)
+        sub = self.sub_kwargs()
+        self.squeeze = nn.Pool2D(pool_type="avg", global_pooling=True, **sub)
+        self.fc1 = nn.Linear(ch, ch // reduction, act="relu", **sub)
+        self.fc2 = nn.Linear(ch // reduction, ch, act="sigmoid", **sub)
+
+    def forward(self, x):
+        s = self.squeeze(x).reshape(x.shape[0], -1)
+        s = self.fc2(self.fc1(s))
+        return x * s.reshape(s.shape[0], s.shape[1], 1, 1)
+
+
+class SEResNeXtBlock(nn.Layer):
+    def __init__(self, in_ch, ch, stride=1, cardinality=32, reduction=16,
+                 **kw):
+        super().__init__(**kw)
+        sub = self.sub_kwargs()
+        self.conv0 = ConvBNLayer(in_ch, ch, 1, act="relu", **sub)
+        self.conv1 = ConvBNLayer(ch, ch, 3, stride=stride,
+                                 groups=cardinality, act="relu", **sub)
+        self.conv2 = ConvBNLayer(ch, ch * 2, 1, **sub)
+        self.se = SEBlock(ch * 2, reduction, **sub)
+        self.short = (None if stride == 1 and in_ch == ch * 2 else
+                      ConvBNLayer(in_ch, ch * 2, 1, stride=stride, **sub))
+        self.relu = nn.ReLU(**sub)
+
+    def forward(self, x):
+        y = self.se(self.conv2(self.conv1(self.conv0(x))))
+        s = x if self.short is None else self.short(x)
+        return self.relu(y + s)
+
+
+class SEResNeXt(nn.Layer):
+    """SE-ResNeXt-50 32x4d (NCHW).  `SEResNeXt(num_classes, depths,
+    dtype, device=None, generator=None)`."""
+
+    def __init__(self, num_classes=1000, depths=(3, 4, 6, 3),
+                 dtype="float32", **kw):
+        super().__init__(dtype=dtype, **kw)
+        sub = self.sub_kwargs()
+        self.stem = ConvBNLayer(3, 64, 7, stride=2, act="relu", **sub)
+        self.pool = nn.MaxPool2D(3, 2, padding=1, **sub)
+        chans = [128, 256, 512, 1024]
+        blocks = []
+        prev = 64
+        for stage, (ch, depth) in enumerate(zip(chans, depths)):
+            for i in range(depth):
+                stride = 2 if i == 0 and stage > 0 else 1
+                blocks.append(SEResNeXtBlock(prev, ch, stride=stride, **sub))
+                prev = ch * 2
+        self.blocks = nn.LayerList(blocks, **sub)
+        self.global_pool = nn.Pool2D(pool_type="avg", global_pooling=True,
+                                     **sub)
+        self.fc = nn.Linear(prev, num_classes, **sub)
+
+    def forward(self, x):
+        x = self.pool(self.stem(x))
+        for b in self.blocks:
+            x = b(x)
+        x = self.global_pool(x)
+        return self.fc(x.reshape(x.shape[0], -1))

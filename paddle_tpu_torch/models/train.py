@@ -28,7 +28,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..nn.layers import buffer_dict, functional_call_with_state, param_dict
-from ..nn.parameter import default_rng, make_generator
+from ..nn.parameter import default_rng, make_generator, rewound
 
 _PRECISIONS = (None, "highest", "float32", "tensorfloat32")
 
@@ -66,11 +66,7 @@ def _loss_with_buffers(model, params, buffers, rng, loss_fn, batch):
 
 
 def _check_options(remat, accum_steps, precision, grad_psum_axis):
-    if remat == "conv_outs":
-        raise NotImplementedError(
-            "remat='conv_outs' (save the conv outputs, recompute the "
-            "elementwise tail) is not ported yet: ROADMAP queue 1 item 6")
-    if isinstance(remat, str):
+    if isinstance(remat, str) and remat != "conv_outs":
         raise ValueError(
             f"unknown remat mode {remat!r}; use True or 'conv_outs'")
     if int(accum_steps) < 1:
@@ -107,19 +103,26 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
     remat=True recomputes the forward in the backward pass:
     `torch.utils.checkpoint(use_reentrant=False)` around the pure
     params -> loss function, with the step's generator rewound for the
-    recompute so dropout draws the same masks.
-    precision: None keeps the process's matmul precision; "highest" and
-    "float32" turn TF32 off for the step, "tensorfloat32" turns it on;
-    the setting is restored after the step.
+    recompute (and restored after it, `nn.parameter.rewound`) so dropout
+    draws the same masks.
+    remat="conv_outs" keeps the conv outputs and recomputes the
+    elementwise tail (batch-norm affine, relu, residual add) where the
+    backward needs it (`remat.ConvOutsTape`); random ops' outputs are
+    kept, so no generator is replayed.  Both give `remat=False`'s
+    gradients (bitwise on the CPU).
+    precision: None keeps the process's matmul and convolution precision
+    (torch's defaults: TF32 off for matmuls, on for cuDNN convs);
+    "highest" and "float32" turn TF32 off for the step's matmuls and
+    convs, "tensorfloat32" turns it on for both, as the reference's
+    precision covers both; the settings are restored after the step.
     amp: True runs the loss under `amp.auto_cast`: white-list ops
     (linear, conv2d) compute in FLAGS_amp_dtype against the f32 master
     params, black-list ops (softmax, cross-entropy) in f32.  None (the
     default) reads FLAGS_amp: "on" turns it on; the "train" default
     keeps the dygraph step f32; False forces it off.  Compose with
     `amp.make_amp_train_step` for float16 dynamic loss scaling.
-    Not ported yet, each raising NotImplementedError: remat="conv_outs"
-    (ROADMAP queue 1 item 6), precision="bfloat16" (item 10),
-    grad_psum_axis (item 8).
+    Not ported yet, each raising NotImplementedError:
+    precision="bfloat16" (ROADMAP item 10), grad_psum_axis (item 8).
     """
     _check_options(remat, accum_steps, precision, grad_psum_axis)
     accum_steps = int(accum_steps)
@@ -154,15 +157,16 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
             # differentiate w.r.t. the state's tensors, whatever their
             # requires_grad flag says (a donate=False step makes new ones)
             leaves = [t.detach().requires_grad_() for t in leaves]
-            if remat:
-                rewind = rng.get_state()
+            if remat == "conv_outs":
+                from .remat import ConvOutsTape
 
-                def recomputed(*flat):
-                    rng.set_state(rewind)
-                    return pure(*flat)
-
+                tape = ConvOutsTape()
+                with tape.recording():
+                    loss, new_bufs = pure(*leaves, *batch)
+            elif remat:
                 loss, new_bufs = torch.utils.checkpoint.checkpoint(
-                    recomputed, *leaves, *batch, use_reentrant=False)
+                    rewound(pure, rng), *leaves, *batch,
+                    use_reentrant=False)
             else:
                 loss, new_bufs = pure(*leaves, *batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -214,12 +218,16 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
         return step
 
     def step_with_precision(state, *batch):
-        old = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = precision == "tensorfloat32"
+        tf32 = precision == "tensorfloat32"
+        old = (torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
         try:
             return step(state, *batch)
         finally:
-            torch.backends.cuda.matmul.allow_tf32 = old
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = old
 
     return step_with_precision
 

@@ -24,6 +24,30 @@ def make_generator(seed=0, device="cpu"):
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def rewound(fn, generator):
+    """`fn` for non-reentrant `torch.utils.checkpoint`: the first call
+    (the forward) draws from `generator` as it stands; each later call
+    (the recompute in the backward) draws from `generator` rewound to
+    where the first call started, and leaves it where it was, so the
+    recompute draws the forward's random bits and the draws after it do
+    not see the recompute."""
+    start = generator.get_state()
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return run
+
+
 class _DropoutRng:
     """Where dropout draws its random bits: the port's counterpart of the
     reference's `default_rng`.

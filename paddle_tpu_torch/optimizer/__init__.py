@@ -128,6 +128,36 @@ class Optimizer:
         return opt_ops, params_grads
 
 
+class RecomputeOptimizer(Optimizer):
+    """optimizer.py:3713 — activation checkpointing around another
+    optimizer: the checkpoint names flow into the BackwardSection, and the
+    Executor recomputes the forward chunks between them in the backward
+    (`framework/executor.py` `_checkpoint_chunks`)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, checkpoints=None):
+        return self._optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set,
+            checkpoints=checkpoints or self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        opt_ops = self._optimizer.apply_gradients(params_grads)
+        return opt_ops, params_grads
+
+
 class SGD(Optimizer):
     """optimizer.py:828 / operators/optimizers/sgd_op.cc"""
 
@@ -248,8 +278,6 @@ Ftrl = FtrlOptimizer = _not_ported("Ftrl",
                                    "10, the rest of the optimizer zoo")
 Lamb = LambOptimizer = _not_ported("Lamb",
                                    "10, the rest of the optimizer zoo")
-RecomputeOptimizer = _not_ported("RecomputeOptimizer",
-                                 "10, the rest of the optimizer zoo")
 ExponentialMovingAverage = _not_ported("ExponentialMovingAverage",
                                        "10, the rest of the optimizer zoo")
 LookaheadOptimizer = _not_ported("LookaheadOptimizer",

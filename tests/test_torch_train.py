@@ -301,11 +301,12 @@ def test_eval_step_matches_reference():
 def test_unported_step_options_raise():
     _, tm = _pair()
     opt = topt.AdamW(LR)
-    for kw, match in (({"remat": "conv_outs"}, "item 6"),
-                      ({"precision": "bfloat16"}, "item 10"),
+    for kw, match in (({"precision": "bfloat16"}, "item 10"),
                       ({"grad_psum_axis": "dp"}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.make_train_step(tm, opt, **kw)
+    # remat="conv_outs" is ported (tests/test_torch_recompute.py)
+    ttrain.make_train_step(tm, opt, remat="conv_outs")
     with pytest.raises(ValueError, match="remat"):
         ttrain.make_train_step(tm, opt, remat="everything")
     with pytest.raises(ValueError, match="accum_steps"):
@@ -322,16 +323,21 @@ def test_precision_setting_is_restored():
     opt = topt.AdamW(LR)
     state = ttrain.init_train_state(tm, opt)
     x, y = _batch(7, shape=(2, 64))
-    before = torch.backends.cuda.matmul.allow_tf32
+    def flags():
+        # the matmuls' and the cuDNN convs' TF32 switches
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    before = flags()
     seen = []
-    loss_fn = lambda m, *b: (seen.append(
-        torch.backends.cuda.matmul.allow_tf32), m.loss(*b))[1]
-    for precision, want in (("tensorfloat32", True), ("highest", False)):
+    loss_fn = lambda m, *b: (seen.append(flags()), m.loss(*b))[1]
+    for precision, want in (("tensorfloat32", True), ("highest", False),
+                            ("float32", False)):
         step = ttrain.make_train_step(tm, opt, loss_fn=loss_fn,
                                       precision=precision)
         state, _ = step(state, torch.from_numpy(x), torch.from_numpy(y))
-        assert seen[-1] is want
-        assert torch.backends.cuda.matmul.allow_tf32 == before
+        assert seen[-1] == (want, want)
+        assert flags() == before
 
 
 # ---------------------------------------------------------------------------
