@@ -276,6 +276,30 @@ Phases (any failure makes the script exit non-zero without a result):
    candidate gap is <= 1e-3 relative, scores 1e-4).  LeNet, MLP,
    Word2Vec, Wide&Deep and Seq2Seq, f32: 2 steps card vs CPU, losses
    1e-4 relative; Seq2Seq's greedy and beam decodes token-equal.
+7d. Expert and sequence parallelism (`moe_phase`): bench.py's GPT
+   (vocab 32768, hidden 768, 12 layers, 12 heads, seq 512, bf16) with 8
+   experts, top-2, capacity 1.25, aux 0.01 (`MOE_TRAIN`) through
+   `make_train_step(model, AdamW(1e-4))` at batch 16 x 512: one warm-up
+   and 3 timed steps, each launching K1-K3 x12 and K4, K5 x25 exactly;
+   host and device ms, tokens/s, peak memory, the (token, choice) pairs
+   that capacity dropped per layer and the profile's f32 GEMM share.
+   GPT-2 small widths with 8 experts, bf16: generate() on 4 prompts of
+   256 with 128 new (K1 x12, K4 x25 per prefill; K6 x12, K4 x25 per
+   decode step, exactly), the engine over 16 requests (8 slots, max_len
+   1024, buckets 128/256/512), beam search at beam 4 (batch 4, prompt
+   128, 32 new), tokens/s, ms per decode step and K6's share.  The ring
+   loop with the in-process hop over 4 shards at [4, 12, 4 x 512, 64]
+   bf16, causal and not (K1, K2, K3 once per past or diagonal block):
+   output and dq/dk/dv against K1-K3 on the whole sequence and against
+   the ring's composition at bf16's rule scaled to each tensor
+   (compare_scaled), its device ms beside K1's.
+   f32 checks: the MoE GPT at full width, depth 2, batch 2 x 256, first
+   grads and 3 AdamW steps card vs CPU at the train check's tolerances
+   (a routing choice that differs fails), greedy tokens card vs CPU
+   and engine vs generate() (the top-2 margin rule).  On a one-rank
+   NCCL group: ring_attention at sp = 1 against K1, sharded_moe_ffn and
+   moe_ffn_shardmap at ep = 1 against moe_ffn, and one
+   make_sharded_train_step(dp=1, ep=1) step against make_train_step.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -324,7 +348,8 @@ launches summed over the GPT train, the two fused ResNet runs, the
 serving paths, the timed steps of the static GPT's four runs (plain,
 AMP + fusion, clipped, AMP float16 + fusion), the io phase's Predictor
 and CompiledPredictor runs, the zoo phase's timed BERT steps, its
-unmasked eval forward and its timed beam search, and the probe tool's
+unmasked eval forward and its timed beam search, the moe phase's MoE
+train steps, MoE serving runs and ring runs, and the probe tool's
 runs, K10's over the DGC run with K10, P1's and P2's over the probe
 tool's), the card line and {"ok": true, "device": {...}}.
 """
@@ -453,6 +478,26 @@ def compare(name, got, want, dtype, failures):
     if not ok:
         failures.append(f"{name}: max_abs_err {err:.3e} > tol {tol}")
     return err
+
+
+def compare_scaled(name, got, want, failures, frac=2.0 ** -6,
+                   rel=2.0 ** -7):
+    """bf16's rule scaled to the tensor, so that it stays tight where the
+    values are small: max |got - want| <= frac x max |want| (2 to 4 bf16
+    ulps of the largest value) and relative Frobenius error <= rel (a
+    few bf16 roundings, each about 2^-9 / sqrt(3)).  Returns (max abs
+    err, its limit, relative Frobenius err)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    tol = frac * w.abs().max().item()
+    rerr = rel_err(got, want)
+    if not (err <= tol and rerr <= rel and bool(torch.isfinite(g).all())):
+        failures.append(f"{name}: max_abs_err {err:.3e} (limit {frac:g} x "
+                        f"max |want| = {tol:.3e}), relative Frobenius err "
+                        f"{rerr:.3e} (limit {rel:g})")
+    return err, tol, rerr
 
 
 # ---------------------------------------------------------------------------
@@ -6196,6 +6241,536 @@ def zoo_small_checks(failures, steps=2):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7d: expert and sequence parallelism
+# ---------------------------------------------------------------------------
+
+# bench.py's GPT (vocab 32768, hidden 768, 12 layers, 12 heads, seq 512,
+# bf16) with Switch-Base-8's 8 experts, top-2, capacity 1.25, aux 0.01
+MOE_TRAIN = dict(vocab_size=32768, hidden_size=768, num_layers=12,
+                 num_heads=12, max_seq_len=512, dtype="bfloat16",
+                 num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01)
+MOE_TRAIN_BATCH = 16
+MOE_RING = (4, 12, 4 * 512, 64)    # [B, H, S, D] bf16, 4 shards of 512
+MOE_RING_SHARDS = 4
+
+
+def moe_phase(failures):
+    """Expert and sequence parallelism (see the module docstring, phase
+    7d).  Returns the launches of its main paths: the timed MoE train
+    steps, the MoE serving runs (generate, engine, beam search) and the
+    ring runs on K1-K3."""
+    import collections
+
+    launches = collections.Counter()
+    launches.update(moe_train_run(failures))
+    launches.update(moe_serve_run(failures))
+    launches.update(moe_ring_run(failures))
+    moe_f32_checks(failures)
+    moe_group_checks(failures)
+    return dict(launches)
+
+
+def _moe_router_inputs(model, x):
+    """The router input of every MoE layer in one no-grad forward of
+    `model` on ids x: [N, D] tensors."""
+    import torch
+
+    seen = []
+    hooks = [blk.moe.register_forward_hook(
+        lambda m, args, out: seen.append(args[0].detach().reshape(
+            -1, args[0].shape[-1]))) for blk in model.blocks]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def moe_train_run(failures, steps=3):
+    """MOE_TRAIN through make_train_step(model, AdamW(1e-4)) at batch 16 x
+    512: one warm-up and `steps` timed steps, each launching K1-K3 x12
+    and K4, K5 x25 exactly; host ms, device ms, tokens/s, peak memory,
+    the tokens that capacity dropped per layer and the profile's f32
+    GEMM share (the expert products and the router)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = GPTConfig(**MOE_TRAIN)
+    batch, seq = MOE_TRAIN_BATCH, cfg.max_seq_len
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="cuda", generator=make_generator(0))
+    n_all = sum(p.numel() for p in model.parameters())
+    n_exp = sum(p.numel() for n, p in model.named_parameters()
+                if n.endswith(("moe.w1", "moe.w2")))
+    tokens = batch * seq
+    e, d, k = cfg.num_experts, cfg.hidden_size, cfg.moe_top_k
+    cap = moe.capacity(tokens, e, k, cfg.moe_capacity_factor)
+    expert_flops = 3 * 4.0 * e * cap * d * 4 * d * cfg.num_layers
+    log(f"moe train: GPT {cfg.num_layers} x {d}, {e} experts top-{k}, "
+        f"capacity {cap} slots per expert, bf16, {n_all} parameters "
+        f"({n_exp} in experts), built in {time.perf_counter() - t0:.1f} s; "
+        f"batch {batch} x {seq}; f32 expert products "
+        f"{expert_flops:.4e} FLOP per step (forward + backward), "
+        f"{expert_flops / PEAK_OPS['float32'] * 1e3:.1f} ms at 67 TFLOP/s")
+    opt = AdamW(1e-4)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                        dtype=torch.int32, device="cuda")
+    y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                        dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    state, loss = step(state, x, y)
+    losses = [float(loss)]
+    log(f"moe train warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms, loss {losses[0]:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms = []
+    for i in range(steps):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
+        made = {n: c for n, c in made.items() if c}
+        if made != TRAIN_LAUNCHES:
+            failures.append(f"moe train step {i} launches {made} != "
+                            f"{TRAIN_LAUNCHES}")
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = sum(step_ms) / steps
+    log(f"moe train: {steps} steps, step ms {[round(t, 3) for t in step_ms]}"
+        f", mean {mean_ms:.3f} ms; tokens/s {tokens / (mean_ms / 1e3):.1f}; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; losses {losses}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"moe train losses not finite: {losses}")
+    dropped = []
+    for h, blk in zip(_moe_router_inputs(model, x), model.blocks):
+        r = moe._route(h, blk.moe.wg.detach(), k, cfg.moe_capacity_factor)
+        dropped.append(int(sum(int((~kp).sum()) for kp in r.keep)))
+    log(f"moe train: (token, choice) pairs dropped by capacity per layer, "
+        f"of {tokens * k}: {dropped}")
+    prof = profile_train_step(
+        step, state, (x, y), mean_ms, label="moe train",
+        families=(("f32 GEMM (expert products, router)",
+                   r"sgemm|f32f32"),))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_serve_run(failures):
+    """GPT-2 small widths, bf16, 8 experts top-2: generate() on 4 prompts
+    of 256 with 128 new tokens (prompt + new a multiple of 128, so that
+    K6 serves each step), the engine over 16 requests (8 slots, max_len
+    1024, buckets 128/256/512) and beam search at beam 4 (batch 4, prompt
+    128, 32 new); exact launches per prefill (K1 x12, K4 x25) and decode
+    step (K6 x12, K4 x25); tokens/s, ms per decode step and K6's
+    share."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = GPTConfig(dtype="bfloat16", num_experts=8)
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="cuda", generator=make_generator(3)).eval()
+    log(f"moe serve: GPT-2 small widths, 8 experts top-2, bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, 256), dtype=np.int32)
+    lens = rng.integers(100, 513, size=16)
+    news = rng.integers(16, 97, size=16)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n), dtype=np.int32),
+             int(m)) for n, m in zip(lens, news)]
+    G.generate(model, prompts, max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    launches = {}
+
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    out = G.generate(model, prompts, max_new_tokens=128)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    made = dict(backend.LAUNCHES)
+    log(f"moe generate: 4 x (256 + 128) tokens in {gen_s:.3f} s "
+        f"({4 * 128 / gen_s:.1f} new tokens/s); launches {made}")
+    want = {"flash_attention_fwd": 12, "layer_norm_fwd": 25 * 128,
+            "flash_decode": 12 * 127}
+    if made != want:
+        failures.append(f"moe generate launches {made} != {want}")
+    if tuple(out.shape) != (4, 128) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        failures.append(f"moe generate output {tuple(out.shape)} out of "
+                        "range")
+    _add(launches, made)
+
+    backend.reset_launches()
+    eng = DecodeEngine(model, config=DecodeConfig(
+        slots=8, max_len=1024, buckets=(128, 256, 512), label="moe"))
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, m) for p, m in reqs]
+        results = [f.result(timeout=600) for f in futs]
+        serve_s = time.perf_counter() - t0
+    finally:
+        eng.close()
+    dec = eng.summary()["decode"]
+    made = dict(backend.LAUNCHES)
+    log(f"moe engine: {len(reqs)} requests in {serve_s:.3f} s; tokens/s "
+        f"{dec.get('tokens_per_s')}; ttft p50 "
+        f"{dec.get('ttft', {}).get('p50_ms')} ms; inter-token p50 "
+        f"{dec.get('token_latency', {}).get('p50_ms')} ms; launches "
+        f"(prewarm included) {made}")
+    for (p, m), got in zip(reqs, results):
+        if len(got) != m or got.min() < 0 or got.max() >= cfg.vocab_size:
+            failures.append(f"moe engine output for prompt {len(p)} / {m} "
+                            "out of range")
+    for name in ("flash_attention_fwd", "layer_norm_fwd", "flash_decode"):
+        if made.get(name, 0) < 1:
+            failures.append(f"moe engine: {name} never launched")
+    _add(launches, made)
+
+    zb = ZOO_BEAM
+    bprompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (zb["batch"], zb["prompt"])),
+                               dtype=torch.int32, device="cuda")
+    G.beam_search(model, bprompts, zb["beam"], 2)       # warm-up
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    seqs, scores = G.beam_search(model, bprompts, zb["beam"], zb["new"])
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    made = dict(backend.LAUNCHES)
+    log(f"moe beam search: batch {zb['batch']}, beam {zb['beam']}, prompt "
+        f"{zb['prompt']}, {zb['new']} new in {beam_s:.3f} s "
+        f"({beam_s / zb['new'] * 1e3:.2f} ms per token step); launches "
+        f"{made}")
+    if made != ZOO_BEAM_LAUNCHES:
+        failures.append(f"moe beam launches {made} != {ZOO_BEAM_LAUNCHES}")
+    if not bool(torch.isfinite(scores).all()):
+        failures.append("moe beam scores not finite")
+    _add(launches, made)
+
+    params, cache, logits = decode_prefill(model, prompts)
+    prof = profile_decode(params, cache, logits)
+    log(f"moe decode step: host {prof['host']:.3f} ms, device "
+        f"{prof['device']:.3f} ms, K6 {prof['k6']:.4f} ms "
+        f"({prof['k6'] / prof['device']:.1%} of the device time)")
+    del model, eng, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _add(total, made):
+    for n, c in made.items():
+        total[n] = total.get(n, 0) + c
+
+
+def moe_ring_run(failures):
+    """The ring loop with the in-process hop over 4 shards at MOE_RING
+    bf16, causal and not: flash blocks (K1 forward, K2 and K3 backward,
+    the future blocks skipped), exact launch counts, held against K1-K3
+    on the whole sequence and against the ring's composition ("xla") at
+    bf16's rule scaled to each tensor (compare_scaled); the ring's
+    device ms beside K1's on the whole sequence, forward and forward +
+    backward."""
+    import torch
+
+    from paddle_tpu_torch.distributed.ring_attention import (
+        ring_attention_local,
+    )
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    n = MOE_RING_SHARDS
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # unit-scale inputs: logits q.k / 8 of spread 1, so the weights are
+    # far from uniform and a mis-weighted block moves the output (one
+    # hop's blocks weighted by e^0.03 fail compare_scaled; the old
+    # allclose at 3e-2 let e^0.1 through)
+    q, k, v, do = (torch.randn(MOE_RING, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    launches = {}
+    for causal in (False, True):
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        backend.reset_launches()
+        out = ring_attention_local(qg, kg, vg, n, causal)
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        made = dict(backend.LAUNCHES)
+        blocks = n * (n + 1) // 2 if causal else n * n
+        want = {"flash_attention_fwd": blocks,
+                "flash_attention_bwd_dq": blocks,
+                "flash_attention_bwd_dkv": blocks}
+        if made != want:
+            failures.append(f"ring causal={causal} launches {made} != {want}")
+        _add(launches, made)
+        ref = flash_attention(qg, kg, vg, causal=causal)
+        ref_g = torch.autograd.grad(ref, (qg, kg, vg), do)
+        plain = ring_attention_local(qg, kg, vg, n, causal, impl="xla")
+        plain_g = torch.autograd.grad(plain, (qg, kg, vg), do)
+        errs = []
+        for name, got, a, b in zip(("out", "dq", "dk", "dv"),
+                                   (out, *grads), (ref, *ref_g),
+                                   (plain, *plain_g)):
+            errs.append((name,
+                         compare_scaled(f"ring causal={causal} {name} vs "
+                                        "K1-K3", got, a, failures),
+                         compare_scaled(f"ring causal={causal} {name} vs "
+                                        "the composition", got, b,
+                                        failures)))
+        def fb(fn):
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg),
+                                               do)
+
+        fwd = {"ring": lambda: ring_attention_local(q, k, v, n, causal),
+               "K1": lambda: flash_attention(q, k, v, causal=causal)}
+        fwd_bwd = {"ring": fb(lambda a, b, c: ring_attention_local(
+                       a, b, c, n, causal)),
+                   "K1-K3": fb(lambda a, b, c: flash_attention(
+                       a, b, c, causal=causal))}
+        # the forward from CUDA-graph replays (the host's launch gaps
+        # left out); forward + backward (autograd) between plain events
+        times = ([(f"forward {nm}", time_ms(fn, iters=10))
+                  for nm, fn in fwd.items()]
+                 + [(f"forward + backward {nm}", time_ms(fn, iters=10,
+                                                         graph=False))
+                    for nm, fn in fwd_bwd.items()])
+        log(f"ring attention {list(MOE_RING)} bf16, {n} in-process shards, "
+            f"causal={causal}: launches {made}; max abs err (limit 2^-6 x "
+            f"max |want|; relative Frobenius err, limit 2^-7) vs K1-K3 on "
+            f"the whole "
+            f"sequence / vs the composition "
+            + ", ".join(f"{nm} {a[0]:.3e} ({a[1]:.3e}; {a[2]:.3e}) / "
+                        f"{b[0]:.3e} ({b[1]:.3e}; {b[2]:.3e})"
+                        for nm, a, b in errs)
+            + "; device ms per call (forward: graph replays; forward + "
+            "backward: plain calls between events, launch gaps included): "
+            + ", ".join(f"{nm} {t:.3f}" for nm, t in times))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _routing_flips(card_inputs, cpu_inputs, model_cpu, cfg):
+    """Tokens whose expert choices differ between the card's and the
+    CPU's first forward, [(layer, token, the CPU's smallest gap between
+    neighbouring router probabilities among its top k + 1)], and that
+    gap's least value over every token and layer."""
+    import torch
+
+    from paddle_tpu_torch.distributed import moe
+
+    flips, least = [], float("inf")
+    for layer, (hc, hp, blk) in enumerate(zip(card_inputs, cpu_inputs,
+                                               model_cpu.blocks)):
+        wg = blk.moe.wg.detach()
+        rc = moe._route(hc.cpu(), wg, cfg.moe_top_k, cfg.moe_capacity_factor)
+        rp = moe._route(hp, wg, cfg.moe_top_k, cfg.moe_capacity_factor)
+        diff = torch.zeros(hp.shape[0], dtype=torch.bool)
+        for a, b in zip(rc.idx, rp.idx):
+            diff |= a != b
+        probs = rp.probs.detach().sort(dim=-1, descending=True).values
+        gaps = (probs[:, :cfg.moe_top_k] - probs[:, 1:cfg.moe_top_k + 1])
+        least = min(least, float(gaps.min()))
+        for t in diff.nonzero()[:, 0].tolist():
+            flips.append((layer, t, float(gaps[t].min())))
+    return flips, least
+
+
+def _teacher_margin(params, prompt, ref, step, dev):
+    """generate()'s top-2 logit margin at `step`, teacher-forced on its
+    tokens `ref`."""
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+
+    n = prompt.shape[-1]
+    with torch.inference_mode():
+        cache = G.init_cache(params.cfg, 1, n + len(ref), device=dev)
+        logits = G.prefill(params, torch.as_tensor(prompt[None], device=dev),
+                           cache)
+        for i in range(step):
+            logits = G.decode_step(params, torch.as_tensor(
+                ref[i:i + 1], device=dev), cache, n + i)
+    return _margin(logits[0])
+
+
+def moe_f32_checks(failures, steps=3, lr=1e-4):
+    """The MoE GPT at full width (vocab 32768, hidden 768, 12 heads, 8
+    experts), depth 2, f32, batch 2 x seq 256: first-step grads and 3
+    AdamW steps, card vs CPU, at the train check's tolerances; a routing
+    choice that differs between the two first forwards fails the check
+    (a flipped token's expert output changes every later token's path,
+    so nothing downstream could be held; the smallest router gap of the
+    CPU's run is logged to show how far the data lies from a tie).  Then
+    greedy
+    tokens (drop-free capacity 4.0: the prefill and the engine route the
+    same), card vs CPU and engine vs generate() on the card: a token may
+    differ only where the reference run's top-2 logit margin is <= 1e-3
+    relative."""
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=2,
+                    num_heads=12, max_seq_len=512, num_experts=8)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 256), dtype=np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    make = lambda dev: GPT(cfg, device=dev, generator=make_generator(4))
+    runs = _card_cpu_runs(make, [(ids, labels)] * steps, lambda: AdamW(lr))
+    card_m, cpu_m = make("cuda"), make("cpu")
+    load_param_dict(card_m, runs["cpu"]["start"])
+    load_param_dict(cpu_m, runs["cpu"]["start"])
+    flips, least = _routing_flips(
+        _moe_router_inputs(card_m, torch.as_tensor(ids, device="cuda")),
+        _moe_router_inputs(cpu_m, torch.as_tensor(ids)), cpu_m, cfg)
+    label = (f"f32 MoE GPT check (full width, 8 experts, depth 2, batch 2 x "
+             f"256, {steps} AdamW({lr}) steps)")
+    log(f"{label}: routing choices that differ, card vs CPU (layer, token, "
+        f"CPU's smallest top-{cfg.moe_top_k + 1} probability gap): {flips}; "
+        f"the CPU's smallest such gap over all tokens {least:.3e}")
+    if flips:
+        failures.append(f"{label}: routing differs between card and CPU: "
+                        f"{flips}")
+    _hold_train_rules(label, runs["cuda"], runs["cpu"], lr, failures)
+    del runs, card_m, cpu_m
+
+    dcfg = GPTConfig(**{**cfg.__dict__, "moe_capacity_factor": 4.0})
+    models = {d: GPT(dcfg, device=d, generator=make_generator(5)).eval()
+              for d in ("cuda", "cpu")}
+    load_param_dict(models["cpu"], {n: p.detach().cpu() for n, p in
+                                    models["cuda"].named_parameters()})
+    prompts = rng.integers(0, cfg.vocab_size, size=(2, 128), dtype=np.int32)
+    new = 16
+    params = {d: G.build_decode_params(m) for d, m in models.items()}
+    toks = {d: G.generate(params[d], prompts, new).cpu().numpy()
+            for d in models}
+    eng = DecodeEngine(models["cuda"], config=DecodeConfig(
+        slots=2, max_len=256, buckets=(128,), label="moe_parity"))
+    try:
+        futs = [eng.submit(p, new) for p in prompts]
+        eng_toks = [f.result(timeout=600) for f in futs]
+    finally:
+        eng.close()
+    cases = [("card vs CPU", toks["cuda"][i], toks["cpu"][i], "cpu", i)
+             for i in range(2)] + [
+        ("engine vs generate() on the card", eng_toks[i], toks["cuda"][i],
+         "cuda", i) for i in range(2)]
+    for what, got, ref, dev, i in cases:
+        if np.array_equal(got, ref):
+            log(f"f32 MoE greedy tokens, {what}, prompt {i}: token-exact "
+                f"({new} new)")
+            continue
+        step = int(np.argmax(got != ref))
+        margin = _teacher_margin(params[dev], prompts[i], ref, step, dev)
+        log(f"f32 MoE greedy tokens, {what}, prompt {i}: first mismatch at "
+            f"step {step}, top-2 margin {margin:.3e} relative")
+        if margin > 1e-3:
+            failures.append(f"MoE greedy tokens {what} differ at step {step} "
+                            f"with margin {margin:.3e} > 1e-3")
+    del models, params, eng
+    torch.cuda.empty_cache()
+
+
+def moe_group_checks(failures):
+    """The real group path on a one-rank NCCL group (every axis of size
+    1): ring_attention at sp = 1 against K1, sharded_moe_ffn and
+    moe_ffn_shardmap at ep = 1 against moe_ffn, and one
+    make_sharded_train_step(dp=1, ep=1) step against make_train_step
+    from the same weights; the group is destroyed at the end."""
+    import torch
+
+    from paddle_tpu_torch.distributed import env, moe, sharded
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.distributed.ring_attention import ring_attention
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    env.init_parallel_env()
+    try:
+        mesh = build_mesh(dp=1, sp=1, ep=1)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        q, k, v = (torch.randn((2, 12, 512, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        got = ring_attention(q, k, v, "sp", causal=True, mesh=mesh)
+        err_r = compare_scaled("ring at sp = 1 (NCCL) vs K1", got,
+                               flash_attention(q, k, v, causal=True),
+                               failures)[0]
+        p = moe.init_moe_params(gen, 8, 768, 3072)
+        x = torch.randn((512, 768), generator=gen, device="cuda")
+        want, aux = moe.moe_ffn(p, x)
+        sp = moe.shard_moe_params(p, mesh)
+        err_m = [compare(f"{name} at ep = 1 (NCCL) vs moe_ffn", y, want,
+                         "float32", failures)
+                 for name, (y, _) in (
+                     ("sharded_moe_ffn", moe.sharded_moe_ffn(sp, x, mesh)),
+                     ("moe_ffn_shardmap",
+                      moe.moe_ffn_shardmap(sp, x, mesh=mesh)))]
+        cfg = GPTConfig(vocab_size=32768, hidden_size=768, num_layers=2,
+                        num_heads=12, max_seq_len=512, num_experts=8)
+        a = GPT(cfg, device="cuda", generator=make_generator(6))
+        b = GPT(cfg, device="cuda", generator=make_generator(6))
+        load_param_dict(b, {n: t.detach() for n, t in a.named_parameters()})
+        rng = np.random.default_rng(6)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                              dtype=torch.int32, device="cuda")
+        lab = torch.roll(ids, -1, 1)
+        step, st = sharded.make_sharded_train_step(a, AdamW(1e-4), mesh)
+        st, l1 = step(st, *sharded.shard_batch(mesh, ids, lab))
+        rst = init_train_state(b, AdamW(1e-4))
+        rst, l2 = make_train_step(b, AdamW(1e-4))(rst, ids, lab)
+        err_s = max((st.params[n] - t).abs().max().item()
+                    for n, t in rst.params.items())
+        log(f"one-rank NCCL group (dp = sp = ep = 1): ring vs K1 max abs err "
+            f"{err_r:.3e}; sharded_moe_ffn / moe_ffn_shardmap vs moe_ffn "
+            f"{err_m[0]:.3e} / {err_m[1]:.3e}; sharded step loss "
+            f"{float(l1):.6f} vs make_train_step {float(l2):.6f}, params max "
+            f"abs err {err_s:.3e}")
+        if not (abs(float(l1) - float(l2)) <= 1e-5 * abs(float(l2))
+                and err_s <= 1e-6):
+            failures.append(f"sharded step at dp = ep = 1 differs from "
+                            f"make_train_step: losses {float(l1)} / "
+                            f"{float(l2)}, params {err_s:.3e}")
+        del a, b, st, rst
+    finally:
+        env.destroy_parallel_env()
+    torch.cuda.empty_cache()
+
+
 def check_phase(failures):
     import torch
 
@@ -6250,16 +6825,7 @@ def check_phase(failures):
                 "token-exact")
             continue
         step = int(np.argmax(tokens != ref))
-        # generate()'s logits at that step, teacher-forced on its tokens
-        with torch.inference_mode():
-            cache = G.init_cache(params.cfg, 1, n + m, device="cuda")
-            logits = G.prefill(params, torch.as_tensor(p[None],
-                                                       device="cuda"), cache)
-            for i in range(step):
-                logits = G.decode_step(
-                    params, torch.as_tensor(ref[i:i + 1], device="cuda"),
-                    cache, n + i)
-        margin = _margin(logits[0])
+        margin = _teacher_margin(params, p, ref, step, "cuda")
         log(f"f32 engine != generate() for prompt {n}, {m} new: first "
             f"mismatch at step {step}; generate()'s top-2 margin "
             f"{margin:.3e} relative")
@@ -6495,7 +7061,7 @@ def compare_main(args):
 
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
-MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo")
+MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe")
 
 
 def main():
@@ -6541,7 +7107,7 @@ def main():
               ("train", train_phase),
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("static", static_phase),
-              ("io", io_phase), ("zoo", zoo_phase),
+              ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
               ("checks", check_phase))
     results = {}
     for name, fn in phases:
@@ -6577,7 +7143,9 @@ def main():
         # float16 + fusion (K1-K3 float16, K4, K5), the io phase's
         # Predictor and CompiledPredictor runs (K1, K4), the zoo phase's
         # BERT steps (K4, K5), BERT eval forward (K1, K4) and beam search
-        # (K1, K4, K6), and the probe tool's runs (K4, K7 and K9 forward)
+        # (K1, K4, K6), the moe phase's MoE train steps (K1-K5), MoE
+        # serving runs (K1, K4, K6) and ring runs (K1-K3), and the probe
+        # tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

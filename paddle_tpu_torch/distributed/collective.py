@@ -1,19 +1,24 @@
 """Collective communication (port of paddle_tpu/distributed/collective.py).
 
 Two forms, as in the reference:
-- the in-step collectives (`all_reduce`, `psum`, `all_gather`, ...) take
-  this rank's tensor, as the reference's take a shard inside shard_map,
-  and return a new tensor; the input is left as it was;
+- the in-step collectives (`all_reduce`, `psum`, `all_gather`,
+  `ppermute`, `all_to_all`, ...) take this rank's tensor, as the
+  reference's take a shard inside shard_map, and return a new tensor;
+  the input is left as it was.  `axis_name` picks the mesh axis whose
+  process group they run on: "dp", "sp" or "ep" (tp and pp are not
+  ported, ROADMAP queue 1 item 8);
 - the `eager_*` forms take a global array, as the reference's take one
-  sharded over dp: rank r works on the r-th 1/size block of dim 0, and a
-  result sharded over dp comes back as the global array again
-  (concatenated over the ranks).
+  sharded over an axis: rank r works on the r-th 1/size block of dim 0,
+  and a result sharded over the axis comes back as the global array
+  again (concatenated over the ranks).
 
-All run on the mesh's process group (`mesh=None`: the default mesh).  A
-mean is a SUM followed by a division by the group's size, on both
-backends (`ReduceOp.AVG` is NCCL-only).  The only axis is "dp";
-`ppermute` and `all_to_all` belong to the axes that are not ported
-(ROADMAP queue 1 item 8).
+All run on the mesh's group for the axis (`mesh=None`: the default
+mesh); on an axis of size 1 they are the identity.  A mean is a SUM
+followed by a division by the group's size, on both backends
+(`ReduceOp.AVG` is NCCL-only).  `all_gather`, `ppermute` and
+`all_to_all` are differentiable, with the transposes of the reference's
+`lax` collectives: a reduce-scatter (sum), the inverse permutation, and
+the reverse exchange.
 """
 
 from functools import partial
@@ -32,25 +37,43 @@ _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
         "prod": dist.ReduceOp.PRODUCT}
 _ITEM8 = "ROADMAP queue 1 item 8"
+_AXES = ("dp", "sp", "ep")
+
+
+class _Axis:
+    """One mesh axis as this rank sees it: group, size, index, ranks."""
+
+    def __init__(self, mesh, name):
+        self.group = mesh.axis_group(name)
+        self.size = mesh.axis_size(name)
+        self.index = mesh.axis_index(name)
+        self.ranks = mesh.axis_ranks(name)
+        self.local = self.group is None
 
 
 def _mesh(mesh, axis_name):
     from .mesh import default_mesh
 
-    if axis_name != "dp":
-        raise NotImplementedError(f"mesh axis {axis_name!r}: only 'dp' is "
-                                  f"ported ({_ITEM8})")
+    if axis_name not in _AXES:
+        raise NotImplementedError(
+            f"mesh axis {axis_name!r}: the ported axes are {_AXES} "
+            f"({_ITEM8})")
     return mesh or default_mesh()
 
 
-def all_reduce_(x, op="sum", mesh=None):
-    """In-place all_reduce of `x` over the mesh; returns `x`."""
+def _axis(mesh, axis_name):
+    return _Axis(_mesh(mesh, axis_name), axis_name)
+
+
+def all_reduce_(x, op="sum", mesh=None, axis_name="dp"):
+    """In-place all_reduce of `x` over the mesh axis; returns `x`."""
     if op not in _OPS:
         raise ValueError(f"unknown reduce op {op}")
-    mesh = _mesh(mesh, "dp")
-    dist.all_reduce(x, _OPS[op], group=mesh.group)
+    ax = _axis(mesh, axis_name)
+    if not ax.local:
+        dist.all_reduce(x, _OPS[op], group=ax.group)
     if op == "mean":
-        x.div_(mesh.size)
+        x.div_(ax.size)
     return x
 
 
@@ -60,7 +83,7 @@ def all_reduce(x, axis_name="dp", op="sum", mesh=None):
     y = x.clone()
     if op == "mean" and not y.is_floating_point():
         y = y.float()
-    return all_reduce_(y, op, mesh)
+    return all_reduce_(y, op, mesh, axis_name)
 
 
 psum = partial(all_reduce, op="sum")
@@ -69,77 +92,232 @@ pmax = partial(all_reduce, op="max")
 pmin = partial(all_reduce, op="min")
 
 
-def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None):
-    """c_allgather parity: every rank's x, concatenated along `axis`
-    (tiled) or stacked on a new `axis`."""
-    mesh = _mesh(mesh, axis_name)
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+def _gather(x, ax, axis, tiled):
+    if ax.local:
+        return x.clone() if tiled else x.unsqueeze(axis).clone()
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(parts, x.contiguous(), group=ax.group)
     return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
+
+
+def _my_block(g, ax, axis, tiled):
+    if not tiled:
+        return g.select(axis, ax.index).contiguous()
+    blk = g.shape[axis] // ax.size
+    return g.narrow(axis, ax.index * blk, blk).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather whose backward is either the transpose of the
+    reference's `lax.all_gather` (`grad="sum"`: a reduce-scatter, each
+    rank's block summed over the group) or, where every rank of the
+    group computes the same loss from the gathered tensor
+    (`grad="slice"`), this rank's block of its own cotangent: summing
+    the group's identical cotangents would count the loss `size`
+    times."""
+
+    @staticmethod
+    def forward(ctx, x, ax, axis, tiled, grad):
+        ctx.ax, ctx.axis, ctx.tiled, ctx.grad = ax, axis, tiled, grad
+        return _gather(x, ax, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        if ctx.grad == "sum" and not ax.local:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, dist.ReduceOp.SUM, group=ax.group)
+        return _my_block(g, ax, ctx.axis, ctx.tiled), None, None, None, None
+
+
+def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None,
+               grad="sum"):
+    """c_allgather parity: every rank's x, concatenated along `axis`
+    (tiled) or stacked on a new `axis`.  Differentiable; see
+    `_AllGather` for `grad`."""
+    ax = _axis(mesh, axis_name)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, ax, axis, tiled, grad)
+    return _gather(x, ax, axis, tiled)
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over the group:
+    the input is the same on every rank, and each rank's loss reaches it
+    through its own share of the work."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.ax.local:
+            return g, None
+        g = g.contiguous().clone()
+        dist.all_reduce(g, dist.ReduceOp.SUM, group=ctx.ax.group)
+        return g, None
+
+
+def sum_grad(x, axis_name, mesh=None):
+    """`x` unchanged; its gradient is summed over the axis's group."""
+    ax = _axis(mesh, axis_name)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumGrad.apply(x, ax)
+    return x
 
 
 def reduce_scatter(x, axis_name="dp", scatter_axis=0, mesh=None):
     """c_reducescatter parity (tiled): the sum over the ranks of x,
     split into `size` blocks along `scatter_axis`; rank r keeps block r.
     It is an all_reduce and a slice, which gloo and NCCL both run."""
-    mesh = _mesh(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     n = x.shape[scatter_axis]
-    if n % mesh.size:
+    if n % ax.size:
         raise ValueError(f"reduce_scatter: dim {scatter_axis} of size {n} "
-                         f"does not split into {mesh.size} blocks")
+                         f"does not split into {ax.size} blocks")
     total = all_reduce(x, axis_name, "sum", mesh)
-    blk = n // mesh.size
-    return total.narrow(scatter_axis, mesh.rank * blk, blk).contiguous()
+    return _my_block(total, ax, scatter_axis, True)
 
 
 def broadcast(x, axis_name="dp", root=0, mesh=None):
-    """c_broadcast parity: every rank gets root's value."""
-    mesh = _mesh(mesh, axis_name)
+    """c_broadcast parity: every rank of the axis gets root's value."""
+    ax = _axis(mesh, axis_name)
     y = x.clone()
-    # the mesh's group is the whole world, so dp index = global rank
-    dist.broadcast(y, root, group=mesh.group)
+    if not ax.local:
+        dist.broadcast(y, ax.ranks[root], group=ax.group)
     return y
 
 
-def ppermute(x, axis_name, perm):
-    raise NotImplementedError(f"ppermute serves the ring-attention and "
-                              f"pipeline axes, not ported ({_ITEM8})")
+def _permute(x, ax, perm):
+    """This rank's result of the permutation `perm` ((src, dst) pairs of
+    axis indices): the tensor of the rank whose pair names this one as
+    destination, zeros where none does (as `lax.ppermute` gives)."""
+    me = ax.index
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for d in dsts:
+        if d == me:
+            out.copy_(x)
+        else:
+            ops.append(dist.P2POp(dist.isend, x, ax.ranks[d], ax.group))
+    for s in srcs:
+        if s != me:
+            ops.append(dist.P2POp(dist.irecv, out, ax.ranks[s], ax.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
 
 
-def all_to_all(x, axis_name, split_axis, concat_axis):
-    raise NotImplementedError(f"all_to_all serves the MoE expert axis, not "
-                              f"ported ({_ITEM8})")
+def _check_perm(perm, size):
+    perm = [(int(s), int(d)) for s, d in perm]
+    for s, d in perm:
+        if not (0 <= s < size and 0 <= d < size):
+            raise ValueError(f"ppermute: pair {(s, d)} outside the axis "
+                             f"of size {size}")
+    if len({s for s, _ in perm}) < len(perm) or \
+            len({d for _, d in perm}) < len(perm):
+        raise ValueError(f"ppermute: {perm} is not a permutation (a "
+                         "source or a destination repeats)")
+    return perm
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, perm):
+        ctx.ax, ctx.perm = ax, perm
+        return _permute(x, ax, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _permute(g, ctx.ax, inverse), None, None
+
+
+def ppermute(x, axis_name, perm, mesh=None):
+    """`lax.ppermute` parity over the axis's group: for each (src, dst)
+    pair of axis indices, rank dst gets rank src's x; a rank that is no
+    one's destination gets zeros.  Point-to-point sends and receives in
+    one batch; a pair onto itself is a local copy.  Differentiable: the
+    backward sends the cotangent along the inverse permutation."""
+    ax = _axis(mesh, axis_name)
+    perm = _check_perm(perm, ax.size)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, ax, perm)
+    return _permute(x, ax, perm)
+
+
+def _exchange(x, ax, split_axis, concat_axis):
+    n = x.shape[split_axis]
+    if n % ax.size:
+        raise ValueError(f"all_to_all: dim {split_axis} of size {n} does "
+                         f"not split into {ax.size} blocks")
+    chunks = [c.contiguous() for c in torch.chunk(x, ax.size, split_axis)]
+    if ax.local:
+        got = chunks
+    else:
+        got = [torch.empty_like(c) for c in chunks]
+        dist.all_to_all(got, chunks, group=ax.group)
+    return torch.cat(got, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, split_axis, concat_axis):
+        ctx.ax, ctx.split, ctx.concat = ax, split_axis, concat_axis
+        return _exchange(x, ax, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.ax, ctx.concat, ctx.split), None, None, None
+
+
+def all_to_all(x, axis_name, split_axis, concat_axis, mesh=None):
+    """`lax.all_to_all(..., tiled=True)` parity: x splits into `size`
+    blocks along `split_axis`, block j goes to rank j of the axis, and
+    the blocks received are concatenated along `concat_axis` in the
+    order of the ranks they came from.  Differentiable: the backward is
+    the reverse exchange."""
+    ax = _axis(mesh, axis_name)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, ax, split_axis, concat_axis)
+    return _exchange(x, ax, split_axis, concat_axis)
 
 
 # --- eager collectives over a global array ---------------------------------
 
-def _block(x, mesh):
+def _block(x, ax):
     n = x.shape[0]
-    if n % mesh.size:
+    if n % ax.size:
         raise ValueError(f"dim 0 of size {n} does not split over "
-                         f"dp={mesh.size}")
-    blk = n // mesh.size
-    return torch.as_tensor(x).narrow(0, mesh.rank * blk, blk).contiguous()
+                         f"an axis of size {ax.size}")
+    blk = n // ax.size
+    return torch.as_tensor(x).narrow(0, ax.index * blk, blk).contiguous()
 
 
 def eager_all_reduce(x, mesh=None, axis_name="dp", op="sum"):
-    mesh = _mesh(mesh, axis_name)
-    y = all_reduce(_block(x, mesh), axis_name, op, mesh)
+    ax = _axis(mesh, axis_name)
+    y = all_reduce(_block(x, ax), axis_name, op, mesh)
     return all_gather(y, axis_name, mesh=mesh)
 
 
 def eager_all_gather(x, mesh=None, axis_name="dp"):
-    mesh = _mesh(mesh, axis_name)
-    return all_gather(_block(x, mesh), axis_name, mesh=mesh)
+    ax = _axis(mesh, axis_name)
+    return all_gather(_block(x, ax), axis_name, mesh=mesh)
 
 
 def eager_reduce_scatter(x, mesh=None, axis_name="dp"):
-    mesh = _mesh(mesh, axis_name)
-    y = reduce_scatter(_block(x, mesh), axis_name, mesh=mesh)
+    ax = _axis(mesh, axis_name)
+    y = reduce_scatter(_block(x, ax), axis_name, mesh=mesh)
     return all_gather(y, axis_name, mesh=mesh)
 
 
 def eager_broadcast(x, mesh=None, axis_name="dp", root=0):
-    mesh = _mesh(mesh, axis_name)
-    y = broadcast(_block(x, mesh), axis_name, root, mesh)
+    ax = _axis(mesh, axis_name)
+    y = broadcast(_block(x, ax), axis_name, root, mesh)
     return all_gather(y, axis_name, mesh=mesh)

@@ -98,12 +98,15 @@ def _average(tensors, mesh):
 
 
 def _broadcast_model(model, mesh):
-    """Rank 0's params and buffers to every rank, in place."""
+    """The first dp rank's params and buffers to the other dp ranks of
+    its group, in place (on a multi-axis mesh the dp group need not
+    hold global rank 0)."""
     if mesh.size == 1:
         return
+    src = mesh.axis_ranks("dp")[0]
     with torch.no_grad():
         for t in [*model.parameters(), *model.buffers()]:
-            dist.broadcast(t.data, 0, group=mesh.group)
+            dist.broadcast(t.data, src, group=mesh.group)
 
 
 def _pmean_loss(loss, mesh):

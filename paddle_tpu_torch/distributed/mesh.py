@@ -1,65 +1,133 @@
-"""The data-parallel mesh (port of the dp part of
-paddle_tpu/distributed/mesh.py).
+"""The device mesh (port of paddle_tpu/distributed/mesh.py).
 
 In the reference a mesh is a `jax.sharding.Mesh` whose named axes stand
 for the NCCL rings of the original framework.  In the port one process
-drives one device, so the "dp" axis is a `torch.distributed` process
-group: a `Mesh` holds that group, its size, this process's rank in it
-and the device its tensors live on.  Only "dp" is ported: the tp, pp,
-sp and ep axes (tensor, pipeline, sequence and expert parallelism) and
-the rule meshes of the sharding analyzer are ROADMAP queue 1 item 8.
+drives one device, and each named axis is a `torch.distributed` process
+group: rank r of the world has the coordinate
+`np.unravel_index(r, (pp, dp, sp, tp, ep))`, as device r of the
+reference's mesh does (`AXES` is the reference's canonical order), and
+the group of an axis holds the ranks that differ from r in that
+coordinate only.  `Mesh.group`, `.size` and `.rank` are the dp axis's,
+which the data-parallel tier reads.
+
+Ported axes: dp (data parallel), sp (sequence parallel: ring
+attention) and ep (expert parallel: MoE).  tp and pp above 1 (tensor
+and pipeline parallelism), an explicit device list, and the rule meshes
+of the sharding analyzer (`build_rule_mesh`, `mesh_key`, `MeshLayout`)
+are ROADMAP queue 1 item 8.
 """
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .env import init_parallel_env
 
-__all__ = ["Mesh", "build_mesh", "build_rule_mesh", "mesh_key",
+__all__ = ["AXES", "Mesh", "build_mesh", "build_rule_mesh", "mesh_key",
            "MeshLayout", "default_mesh", "set_global_mesh",
            "get_global_mesh"]
 
 _ITEM8 = "ROADMAP queue 1 item 8"
 _GLOBAL_MESH = None
 
+# canonical axis order (the reference's)
+AXES = ("pp", "dp", "sp", "tp", "ep")
+
 
 class Mesh:
-    """The dp process group: `group`, `size`, this process's `rank` in
-    it and its `device`."""
+    """This rank's view of the mesh.  `axes` maps each axis name to
+    (group, size, this rank's index on the axis, the global ranks of the
+    group in axis order); without it the mesh is dp only, over `group`.
+    `group`, `size` and `rank` are the dp axis's; `device` is where this
+    rank's tensors live."""
 
-    def __init__(self, group, size, rank, device):
+    def __init__(self, group, size, rank, device, axes=None):
         self.group = group
         self.size = size
         self.rank = rank
         self.device = device
+        self.axes = dict(axes) if axes else {
+            "dp": (group, size, rank, list(range(size)))}
+
+    def _axis(self, name):
+        if name in self.axes:
+            return self.axes[name]
+        if name in AXES:
+            # an axis the mesh was built without: size 1, no group
+            return (None, 1, 0, [dist.get_rank()])
+        raise ValueError(f"unknown mesh axis {name!r}; axes are {AXES}")
+
+    @property
+    def shape(self):
+        """{axis: size} of every axis, in the canonical order."""
+        return {a: self._axis(a)[1] for a in AXES}
+
+    def axis_group(self, name):
+        return self._axis(name)[0]
+
+    def axis_size(self, name):
+        return self._axis(name)[1]
+
+    def axis_index(self, name):
+        return self._axis(name)[2]
+
+    def axis_ranks(self, name):
+        """The global ranks of this rank's group on `name`, in axis
+        order."""
+        return self._axis(name)[3]
 
     def __repr__(self):
-        return (f"Mesh(dp={self.size}, rank={self.rank}, "
+        sizes = ", ".join(f"{a}={s}" for a, s in self.shape.items() if s > 1)
+        return (f"Mesh({sizes or 'dp=1'}, rank={dist.get_rank()}, "
                 f"device={self.device})")
 
 
 def build_mesh(dp=1, tp=1, pp=1, sp=1, ep=1, devices=None, device=None):
-    """The dp mesh over this process group (joined through
+    """The mesh over this process group (joined through
     `init_parallel_env(device)` if it is not yet).  One process is one
-    rank of dp, so dp must equal the world size.  tp, pp, sp and ep
-    above 1, and an explicit device list, are not ported."""
-    if max(tp, pp, sp, ep) > 1:
+    rank, so dp x sp x ep must equal the world size.  Every rank builds
+    every axis's groups in one fixed order (`new_group` is collective).
+    tp and pp above 1, and an explicit device list, are not ported."""
+    if max(tp, pp) > 1:
         raise NotImplementedError(
-            f"mesh axes tp={tp} pp={pp} sp={sp} ep={ep}: only dp is ported "
-            f"({_ITEM8})")
+            f"mesh axes tp={tp} pp={pp}: tensor and pipeline parallelism "
+            f"are not ported ({_ITEM8})")
     if devices is not None:
         raise NotImplementedError(
             f"an explicit device list: one process drives one device in "
             f"the port ({_ITEM8})")
     init_parallel_env(device)
     world = dist.get_world_size()
-    if dp != world:
-        raise ValueError(f"mesh needs dp={dp} ranks; the process group "
-                         f"has {world} (one rank per process)")
+    sizes = {"pp": pp, "dp": dp, "sp": sp, "tp": tp, "ep": ep}
+    need = int(np.prod(list(sizes.values())))
+    if need != world:
+        raise ValueError(
+            f"mesh needs dp={dp} x sp={sp} x ep={ep} = {need} ranks; the "
+            f"process group has {world} (one rank per process)")
+    me = dist.get_rank()
+    shape = tuple(sizes[a] for a in AXES)
+    grid = np.arange(world).reshape(shape)
+    coord = np.unravel_index(me, shape)
     backend = dist.get_backend()
     dev = (torch.device("cuda", torch.cuda.current_device())
            if backend == "nccl" else torch.device("cpu"))
-    return Mesh(dist.group.WORLD, world, dist.get_rank(), dev)
+    axes = {}
+    for i, name in enumerate(AXES):
+        # the groups of this axis are the grid's lines along axis i; an
+        # axis of size 1 in a bigger world needs no group (its
+        # collectives are the identity)
+        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+            ranks = [int(r) for r in line]
+            if len(ranks) == world:
+                group = dist.group.WORLD
+            elif len(ranks) == 1:
+                group = None
+            else:
+                group = dist.new_group(ranks)
+            if me in ranks:
+                axes[name] = (group, shape[i], int(coord[i]), ranks)
+    g, n, r, _ = axes["dp"]
+    return Mesh(g, n, r, dev, axes)
 
 
 def build_rule_mesh(axes, devices=None):

@@ -1,7 +1,7 @@
 """Model zoo (port of paddle_tpu/models: LeNet, MLP, the ResNet family
 with SE-ResNeXt, BERT, GPT with generation and beam search, Wide&Deep,
 Word2Vec, seq2seq, the static zoo and the train-step factories).  GPT
-MoE is ROADMAP item 8."""
+takes mixture-of-experts FFNs (`num_experts > 0`)."""
 
 from .bert import (  # noqa: F401
     BertConfig, BertForPretraining, BertModel, bert_base_config,

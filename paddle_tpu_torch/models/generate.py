@@ -25,8 +25,9 @@ what is computed:
   sizes the cache to a multiple of 128 keys, so that K6 serves every
   step on the card; the columns past the live prefix are masked to
   exact zeros in both paths.
-MoE decode comes with GPT MoE (ROADMAP item 8): `GPT` raises for
-num_experts > 0.
+MoE configs decode too (`_block_tail`): the expert choice is per token,
+but the capacity drops depend on the cohort, so decode steps route with
+drop-free capacity, as the reference's do.
 """
 
 from typing import NamedTuple, Optional
@@ -46,11 +47,14 @@ class DecCfg(NamedTuple):
     num_layers: int
     max_seq_len: int
     dtype: str
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
 
     @classmethod
     def from_model_cfg(cls, cfg):
         return cls(cfg.hidden_size, cfg.num_heads, cfg.num_layers,
-                   cfg.max_seq_len, cfg.dtype)
+                   cfg.max_seq_len, cfg.dtype, cfg.moe_top_k,
+                   cfg.moe_capacity_factor)
 
 
 class DecodeParams(NamedTuple):
@@ -99,13 +103,29 @@ def _merge_heads(o):
     return o.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _block_tail(x, attn_out, bp):
-    """Residual + MLP shared by prefill and decode (GPTBlock.forward with
-    dropout off)."""
+def _block_tail(x, attn_out, bp, cfg, decode=False):
+    """Residual + MLP/MoE shared by prefill and decode (GPTBlock.forward
+    with dropout off).
+
+    MoE capacity: prefill keeps cfg.moe_capacity_factor, so the prompt
+    pass is the training forward; decode raises the factor to E/k (the
+    capacity is then the cohort's size), so no token is ever dropped:
+    small per-step cohorts would otherwise drop more often than training
+    cohorts do."""
     x = x + attn_out @ bp["attn.out_proj.weight"] + bp["attn.out_proj.bias"]
     h = F.layer_norm(x, [x.shape[-1]], bp["norm2.weight"], bp["norm2.bias"])
-    ff = F.gelu(h @ bp["fc1.weight"] + bp["fc1.bias"]) \
-        @ bp["fc2.weight"] + bp["fc2.bias"]
+    if "moe.wg" in bp:
+        from ..distributed.moe import moe_ffn
+
+        factor = cfg.moe_capacity_factor
+        if decode:
+            factor = max(factor, bp["moe.wg"].shape[-1] / cfg.moe_top_k)
+        ff, _ = moe_ffn({"wg": bp["moe.wg"], "w1": bp["moe.w1"],
+                         "w2": bp["moe.w2"]}, h, k=cfg.moe_top_k,
+                        capacity_factor=factor)
+    else:
+        ff = F.gelu(h @ bp["fc1.weight"] + bp["fc1.bias"]) \
+            @ bp["fc2.weight"] + bp["fc2.bias"]
     return x + ff
 
 
@@ -128,9 +148,10 @@ def _head(params, h):
     return h[:, -1] @ params.emb["wte.weight"].t()
 
 
-def _prefill_layers(params, input_ids, on_kv):
+def _prefill_layers(params, input_ids, on_kv, decode=False):
     """Causal pass over [B, S] ids; calls on_kv(layer, k, v) per layer and
-    returns the hidden states before the final LayerNorm."""
+    returns the hidden states before the final LayerNorm.  `decode`
+    routes MoE drop-free (see `_block_tail`)."""
     cfg = params.cfg
     seq = input_ids.shape[1]
     pos = torch.arange(seq, device=input_ids.device)
@@ -143,7 +164,7 @@ def _prefill_layers(params, input_ids, on_kv):
         o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                            training=False)
         on_kv(layer, k, v)
-        x = _block_tail(x, _merge_heads(o), bp)
+        x = _block_tail(x, _merge_heads(o), bp, cfg, decode)
     return x
 
 
@@ -179,7 +200,7 @@ def decode_step(params: DecodeParams, token, cache, pos):
         k_cache[:, :, posw] = k[:, :, 0]
         v_cache[:, :, posw] = v[:, :, 0]
         o = decode_attention(q, k_cache, v_cache, pos=pos_t, scale=scale)
-        x = _block_tail(x, _merge_heads(o), bp)
+        x = _block_tail(x, _merge_heads(o), bp, cfg, decode=True)
     return _head(params, x)
 
 

@@ -1,10 +1,12 @@
-"""GPT-style causal decoder (port of paddle_tpu/models/gpt.py, dense only).
+"""GPT-style causal decoder (port of paddle_tpu/models/gpt.py).
 
 `GPTConfig` keeps the reference's defaults: GPT-2 small geometry
 (vocab 50304, hidden 768, 12 layers, 12 heads, max_seq_len 1024).
 Parameter names equal the reference's `param_dict` keys.  On the card
 attention runs through the flash kernels (K1 forward, K2/K3 backward)
 and every LayerNorm through K4 (forward) and K5 (backward).
+`num_experts > 0` replaces each block's FFN by a mixture of experts
+(`MoEFFN`, `distributed.moe`), whose router aux loss `GPT.loss` adds.
 """
 
 import dataclasses
@@ -28,8 +30,39 @@ class GPTConfig:
     # vocab_size) so the full [B, S, V] logits never persist to the
     # backward (`streaming_softmax_ce`); a memory lever, not a speed one
     ce_vocab_chunk: int = 0
-    # MoE is not ported yet (ROADMAP queue 1 item 8); > 0 raises
+    # MoE (0 = dense FFN): experts split over the mesh's "ep" axis under
+    # distributed.sharded.gpt_rules; the router aux loss folds into .loss()
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+
+class MoEFFN(nn.Layer):
+    """Mixture-of-experts FFN: `distributed.moe.moe_ffn` over the layer's
+    parameters wg [D, E], w1 [E, D, 4D], w2 [E, 4D, D].  Keeps the aux
+    loss of its last forward in `last_aux_loss`.  Inside
+    `moe.expert_parallel(mesh)` (the sharded train step) w1/w2 are this
+    rank's [E/ep, ...] slices and the layer gates the global batch."""
+
+    def __init__(self, hidden, num_experts, top_k=2, capacity_factor=1.25,
+                 **kw):
+        super().__init__(**kw)
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.wg = self.create_parameter([hidden, num_experts])
+        self.w1 = self.create_parameter([num_experts, hidden, 4 * hidden])
+        self.w2 = self.create_parameter([num_experts, 4 * hidden, hidden])
+        self.last_aux_loss = 0.0
+
+    def forward(self, x):
+        from ..distributed import moe
+
+        params = {"wg": self.wg, "w1": self.w1, "w2": self.w2}
+        y, aux = moe.moe_layer(params, x, k=self.top_k,
+                               capacity_factor=self.capacity_factor)
+        self.last_aux_loss = aux
+        return y
 
 
 class GPTBlock(nn.Layer):
@@ -40,15 +73,23 @@ class GPTBlock(nn.Layer):
         self.attn = nn.MultiHeadAttention(cfg.hidden_size, cfg.num_heads,
                                           dropout=cfg.dropout, **sub)
         self.norm2 = nn.LayerNorm(cfg.hidden_size, **sub)
-        self.fc1 = nn.Linear(cfg.hidden_size, 4 * cfg.hidden_size,
-                             act="gelu", **sub)
-        self.fc2 = nn.Linear(4 * cfg.hidden_size, cfg.hidden_size, **sub)
+        self._moe = cfg.num_experts > 0
+        if self._moe:
+            self.moe = MoEFFN(cfg.hidden_size, cfg.num_experts,
+                              top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor, **sub)
+        else:
+            self.fc1 = nn.Linear(cfg.hidden_size, 4 * cfg.hidden_size,
+                                 act="gelu", **sub)
+            self.fc2 = nn.Linear(4 * cfg.hidden_size, cfg.hidden_size,
+                                 **sub)
         self.drop = nn.Dropout(cfg.dropout, **sub)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x), is_causal=True)
         h = self.norm2(x)
-        return x + self.drop(self.fc2(self.fc1(h)))
+        ff = self.moe(h) if self._moe else self.fc2(self.fc1(h))
+        return x + self.drop(ff)
 
 
 class GPT(nn.Layer):
@@ -56,10 +97,6 @@ class GPT(nn.Layer):
     `cuda`; parameters are drawn from `generator` (seed 0 if None)."""
 
     def __init__(self, cfg: GPTConfig, device=None, generator=None):
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "GPT MoE (num_experts > 0) is not ported yet: ROADMAP "
-                "queue 1 item 8 (distributed/moe.py with MoEFFN)")
         super().__init__(dtype=cfg.dtype, device=device, generator=generator)
         self.cfg = cfg
         sub = self.sub_kwargs()
@@ -78,15 +115,21 @@ class GPT(nn.Layer):
     def loss(self, input_ids, labels):
         """Mean token cross-entropy: per-token logsumexp (f32) minus the
         gathered label logit; streamed over vocab chunks when
-        `ce_vocab_chunk > 0`."""
+        `ce_vocab_chunk > 0`.  MoE adds `moe_aux_weight` x the blocks'
+        router aux losses of the same forward."""
         if self.cfg.ce_vocab_chunk > 0:
-            return streaming_softmax_ce(self._final_hidden(input_ids),
-                                        self.wte.weight, labels,
-                                        self.cfg.ce_vocab_chunk)
-        logits = self.forward(input_ids)
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-        return (lse - lab.float()).mean()
+            ce = streaming_softmax_ce(self._final_hidden(input_ids),
+                                      self.wte.weight, labels,
+                                      self.cfg.ce_vocab_chunk)
+        else:
+            logits = self.forward(input_ids)
+            lse = torch.logsumexp(logits.float(), dim=-1)
+            lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+            ce = (lse - lab.float()).mean()
+        if self.cfg.num_experts > 0:
+            aux = sum(blk.moe.last_aux_loss for blk in self.blocks)
+            ce = ce + self.cfg.moe_aux_weight * aux
+        return ce
 
     def _final_hidden(self, input_ids):
         """forward() up to (and including) the final layer norm."""

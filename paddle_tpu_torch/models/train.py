@@ -79,15 +79,15 @@ def _check_options(remat, accum_steps, precision, grad_psum_axis):
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; use one of "
                          f"{_PRECISIONS}")
-    if grad_psum_axis:
+    if grad_psum_axis and grad_psum_axis not in ("dp", "sp", "ep"):
         raise NotImplementedError(
-            "grad_psum_axis needs the distributed tier: ROADMAP queue 1 "
-            "item 8")
+            f"grad_psum_axis={grad_psum_axis!r}: the ported mesh axes are "
+            "dp, sp and ep (tp and pp: ROADMAP queue 1 item 8)")
 
 
 def make_train_step(model, optimizer, loss_fn=None, donate=True,
                     grad_psum_axis=None, remat=False, accum_steps=1,
-                    precision=None, amp=None):
+                    precision=None, amp=None, mesh=None):
     """Build `step(state, *batch) -> (state, loss)`.
 
     loss_fn(model, *batch) -> scalar; defaults to model.loss.
@@ -121,8 +121,12 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
     default) reads FLAGS_amp: "on" turns it on; the "train" default
     keeps the dygraph step f32; False forces it off.  Compose with
     `amp.make_amp_train_step` for float16 dynamic loss scaling.
-    Not ported yet, each raising NotImplementedError:
-    precision="bfloat16" (ROADMAP item 10), grad_psum_axis (item 8).
+    grad_psum_axis: a mesh axis ("dp", "sp" or "ep") over whose process
+    group the grads and the loss are meaned before the update, as the
+    reference's `lax.pmean` inside shard_map; `mesh` is the mesh
+    (default: the global mesh, else `distributed.default_mesh()`).
+    Not ported yet, raising NotImplementedError: precision="bfloat16"
+    (ROADMAP item 10), grad_psum_axis "tp" or "pp" (item 8).
     """
     _check_options(remat, accum_steps, precision, grad_psum_axis)
     accum_steps = int(accum_steps)
@@ -201,6 +205,8 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
         else:
             loss, new_buffers, grads = _loss_grads(
                 state.params, state.buffers, rng, batch)
+        if grad_psum_axis:
+            loss, grads = _pmean_over(grad_psum_axis, mesh, loss, grads)
         params, opt_state = optimizer.update(state.params, grads,
                                              state.opt_state, inplace=donate)
         if donate:
@@ -230,6 +236,18 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
              torch.backends.cudnn.allow_tf32) = old
 
     return step_with_precision
+
+
+def _pmean_over(axis_name, mesh, loss, grads):
+    """The loss and the grads meaned over the axis's group."""
+    from ..distributed import collective, mesh as _mesh
+
+    mesh = mesh or _mesh.get_global_mesh() or _mesh.default_mesh()
+    grads = {n: collective.all_reduce_(g.contiguous(), "mean", mesh,
+                                       axis_name)
+             for n, g in grads.items()}
+    return collective.all_reduce_(loss.clone(), "mean", mesh,
+                                  axis_name), grads
 
 
 def make_eval_step(model, forward_fn=None):

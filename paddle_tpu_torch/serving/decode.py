@@ -173,7 +173,7 @@ def _decode_step_impl(state, params, temps, generators):
         # per-slot ragged positions through the same single-query
         # attention generate() decodes with
         o = decode_attention(q, k_cache, v_cache, pos=pos, scale=scale)
-        x = G._block_tail(x, G._merge_heads(o), bp)
+        x = G._block_tail(x, G._merge_heads(o), bp, cfg, decode=True)
     logits = G._head(params, x)
     nxt = _pick(logits, temps, generators)
     new_pos = pos + 1
@@ -196,7 +196,9 @@ def _prefill_impl(state, params, prompt, true_len, slot, temp, generator):
         state["k"][layer, slot, :, :bucket] = k[0]
         state["v"][layer, slot, :, :bucket] = v[0]
 
-    x = G._prefill_layers(params, prompt, write)
+    # MoE routes drop-free (decode=True), so pad tokens at the bucket
+    # shape cannot displace real ones
+    x = G._prefill_layers(params, prompt, write, decode=True)
     # logits at the true last prompt position (LayerNorm is per
     # position, so slicing before the head matches generate())
     logits = G._head(params, x[:, true_len - 1:true_len])

@@ -546,20 +546,37 @@ def test_batch_must_divide_and_unported_axes_raise(mesh1):
     assert np.isfinite(float(step(torch.from_numpy(x), torch.from_numpy(y))))
     with pytest.raises(ValueError, match="mesh needs dp=2"):
         build_mesh(dp=2)
-    for kw in ({"tp": 2}, {"pp": 2}, {"sp": 2}, {"ep": 2}):
+    # sp and ep are ported (tests/test_torch_moe.py,
+    # tests/test_torch_ring_attention.py): more ranks than the world
+    # has is a ValueError like dp's
+    for kw in ({"sp": 2}, {"ep": 2}):
+        with pytest.raises(ValueError, match="mesh needs"):
+            build_mesh(**kw)
+    for kw in ({"tp": 2}, {"pp": 2}):
         with pytest.raises(NotImplementedError, match="item 8"):
             build_mesh(**kw)
     from paddle_tpu_torch.distributed import data_parallel, mesh
     for fn in (lambda: mesh.build_rule_mesh({"dp": 1}),
                lambda: mesh.mesh_key(mesh1), lambda: mesh.MeshLayout(mesh1),
-               lambda: tcoll.ppermute(torch.zeros(2), "dp", [(0, 0)]),
-               lambda: tcoll.all_to_all(torch.zeros(2), "dp", 0, 0)):
+               lambda: tcoll.ppermute(torch.zeros(2), "tp", [(0, 0)]),
+               lambda: tcoll.all_to_all(torch.zeros(2), "pp", 0, 0)):
         with pytest.raises(NotImplementedError, match="item 8"):
             fn()
+    # on the one-rank dp axis both are the identity
+    x = torch.arange(4.0)
+    assert torch.equal(tcoll.ppermute(x, "dp", [(0, 0)], mesh1), x)
+    assert torch.equal(tcoll.all_to_all(x, "dp", 0, 0, mesh1), x)
     with pytest.raises(NotImplementedError, match="item 10"):
         data_parallel.DataParallel(None)
     with pytest.raises(NotImplementedError, match="item 8"):
         tcoll.psum(torch.zeros(2), "tp")
+    # the fleet's steps are data parallel: an sp degree raises before
+    # any mesh is built
+    s = tfleet.DistributedStrategy()
+    s.sp_degree = 2
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tfleet.make_train_step(_port_model("toy", _F32), topt.SGD(LR),
+                               _port_loss("toy"), strategy=s)
 
 
 def test_entry_points_default_to_the_card():

@@ -450,16 +450,19 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
 
 def test_no_port_module_names_item_6_or_item_5():
     """Items 6 (the conv path's rest, the recompute) and 5 (beam search)
-    are done: no message of the port names them.  Item 5's MoE decode
-    waits for GPT MoE, which names item 8."""
+    are done: no message of the port names them.  GPT MoE, and with it
+    item 5's MoE decode, came with item 8's first part; what item 8
+    still leaves out raises naming it: tensor parallelism and ZeRO-1."""
     items = re.compile(r"item [56]\b")
     for path in [REPO / "chip_smoke.py",
                  *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
         assert not items.search(path.read_text()), path
-    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.distributed import mesh as tmesh, sharded
 
     with pytest.raises(NotImplementedError, match="item 8"):
-        GPT(GPTConfig(num_experts=2), device="cpu")
+        tmesh.build_mesh(tp=2)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        sharded.shard_train_state(None, None, None, zero1=True)
 
 
 def test_no_port_module_names_item_4_and_the_tier_imports_no_jax():

@@ -301,8 +301,10 @@ def test_eval_step_matches_reference():
 def test_unported_step_options_raise():
     _, tm = _pair()
     opt = topt.AdamW(LR)
+    # grad_psum_axis over dp, sp or ep is ported
+    # (tests/test_torch_gpt_moe.py); tp and pp raise
     for kw, match in (({"precision": "bfloat16"}, "item 10"),
-                      ({"grad_psum_axis": "dp"}, "item 8")):
+                      ({"grad_psum_axis": "tp"}, "item 8")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.make_train_step(tm, opt, **kw)
     # remat="conv_outs" is ported (tests/test_torch_recompute.py)
