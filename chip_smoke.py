@@ -300,6 +300,41 @@ Phases (any failure makes the script exit non-zero without a result):
    NCCL group: ring_attention at sp = 1 against K1, sharded_moe_ffn and
    moe_ffn_shardmap at ep = 1 against moe_ffn, and one
    make_sharded_train_step(dp=1, ep=1) step against make_train_step.
+7e. Tensor and pipeline parallelism (`parallel_phase`) at bench.py's GPT
+   widths (vocab 32768, hidden 768, 12 layers, 12 heads, seq 512, bf16,
+   AdamW(1e-4), batch 16 x 512), W > 1 in one process: both ranks'
+   shards on the card, a thread a rank, the collectives in memory
+   (`inprocess.local_meshes`), through the same shard and schedule code
+   as the multi-process path.  (a) make_sharded_train_step at tp = 2
+   (K1-K3 on each rank's [16, 6, 512, 64] local heads): the first
+   step's loss (compare_scaled) and every rank's grads against the
+   unsharded step's, held as each one's relative error against the f32
+   grads of the same weights (at most 1.5x the unsharded bf16 step's;
+   a key bias, 0 in exact arithmetic, near 0), every rank's params
+   after the first update against make_train_step's (`_hold_update`),
+   the second step's loss against make_train_step's, then 3 timed
+   steps (host ms, tokens/s, peak memory, one profiled step) launching
+   exactly K1-K3 x24 and K4, K5 x50 each.  (b) build_gpt_pipeline at
+   pp = 2 with 4 microbatches, each stage recomputed in the backward,
+   then the interleaved schedule at V = 2 (4 chunks of 3 blocks): loss
+   and every grad against the unpipelined model's by the same rule,
+   every rank's params after one AdamW update against
+   make_train_step's, 3 timed steps (forward, backward, AdamW)
+   launching exactly K1 x96, K2, K3 x48, K4 x194 and K5 x98 each.  (c)
+   On a one-rank NCCL group: the sharded step with zero1,
+   fsdp_rules(), accum_steps=2 and a global-norm clip, and
+   build_gpt_pipeline at pp = 1, each bitwise make_train_step's
+   (losses, params, moments; loss and grads).  At dp = 1 ZeRO-1 and
+   FSDP split nothing: (c) holds the step's plumbing, accumulation and
+   the clip; (e) runs them split.  (d) f32 at full width, depth 2,
+   batch 2 x 256: the tp = 2 step and the pp = 2 pipeline take 3 AdamW
+   steps on the card and on the CPU, held to train_check's tolerances.
+   (e) ZeRO-1 and FSDP at dp = 2 in one process, depth 2, batch 4 x
+   512, accum_steps=2 and an engaged global-norm clip: zero1=True
+   bitwise the replicated step, fsdp_rules() (every param's dim 0 over
+   dp) the replicated step's first loss bitwise and its updates by
+   `_hold_update`, the replicated step's first update against
+   make_train_step's on the whole batch by the same rule.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -349,9 +384,10 @@ serving paths, the timed steps of the static GPT's four runs (plain,
 AMP + fusion, clipped, AMP float16 + fusion), the io phase's Predictor
 and CompiledPredictor runs, the zoo phase's timed BERT steps, its
 unmasked eval forward and its timed beam search, the moe phase's MoE
-train steps, MoE serving runs and ring runs, and the probe tool's
-runs, K10's over the DGC run with K10, P1's and P2's over the probe
-tool's), the card line and {"ok": true, "device": {...}}.
+train steps, MoE serving runs and ring runs, the parallel phase's timed
+tp = 2, pp = 2 and V = 2 steps, and the probe tool's runs, K10's over
+the DGC run with K10, P1's and P2's over the probe tool's), the card
+line and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -6771,6 +6807,725 @@ def moe_group_checks(failures):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7e: tensor and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+# bench.py's GPT (bench.py:169-174): vocab 32768, hidden 768, 12 layers,
+# 12 heads, seq 512, bf16, AdamW(1e-4), batch 16 x 512
+PAR_CFG = dict(vocab_size=32768, hidden_size=768, num_layers=12,
+               num_heads=12, max_seq_len=512, dtype="bfloat16")
+PAR_BATCH = 16
+PAR_MICRO = 4
+# K1-K5 launches of one step of both in-process ranks, from the code:
+# tp = 2: each rank's 12 blocks on its 6 local heads, 25 LayerNorms;
+# pp = 2 (and V = 2): each rank's 6 blocks x 4 microbatches, each stage
+# recomputed in the backward (K1, K4 twice), plus the head's LayerNorm
+# on every pp rank
+PAR_TP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+                   "flash_attention_bwd_dkv": 24, "layer_norm_fwd": 50,
+                   "layer_norm_bwd": 50}
+PAR_PP_LAUNCHES = {"flash_attention_fwd": 96, "flash_attention_bwd_dq": 48,
+                   "flash_attention_bwd_dkv": 48, "layer_norm_fwd": 194,
+                   "layer_norm_bwd": 98}
+
+
+def parallel_phase(failures):
+    """Tensor and pipeline parallelism at bench.py's GPT widths (see the
+    module docstring, phase 7e).  W > 1 runs in one process, both ranks'
+    shards on the card (`inprocess.local_meshes`: a thread a rank, the
+    collectives in memory).  Returns the launches of its main paths:
+    the timed tp = 2 steps and the timed pipeline steps (pp = 2, V =
+    1 and 2)."""
+    import collections
+
+    launches = collections.Counter()
+    launches.update(parallel_tp_run(failures))
+    launches.update(parallel_pp_run(failures, interleave=1))
+    launches.update(parallel_pp_run(failures, interleave=2))
+    parallel_group_checks(failures)
+    parallel_f32_checks(failures)
+    parallel_dp_checks(failures)
+    return dict(launches)
+
+
+def _hold_zero_grad(label, name, got, grads, failures):
+    """A key bias's grad is 0 in exact arithmetic (softmax does not see a
+    shift of a query's scores): hold it near 0, at most 2^-4 of the same
+    layer's query bias grad, not elementwise.  The bf16 noise reads up
+    to 3.6e-2 (about 1/28) of it on the H100; a fault in dK reads 0.86
+    and more (`tools/kbias_probe.py`: D left out of dS; the causal mask
+    left out of dK's P, 11 and more).  Returns the ratio when `name` is a
+    key bias, else None."""
+    if not name.endswith("k_proj.bias"):
+        return None
+    top = grads[name.replace("k_proj", "q_proj")].float().abs().max().item()
+    big = got.float().abs().max().item()
+    if not big <= 2.0 ** -4 * top:
+        failures.append(f"{label}: max |grad| {big:.3e} > 2^-4 x the query "
+                        f"bias's {top:.3e} (0 in exact arithmetic)")
+    return big / max(top, 1e-30)
+
+
+def _hold_update(label, before, got, want_before, want, failures,
+                 least=0.9):
+    """A parallel step's first AdamW update against make_train_step's from
+    the same weights.  AdamW's first step moves an element by about lr
+    against the sign of its grad, which a bf16 param takes as 0 or one
+    ulp, so the update is held by its direction: of the elements that
+    either step moved, at least `least` must have moved the same way (a
+    missing update reads 0, a negated one 0, another rank's block about
+    1/2; the grads' bf16 noise flips the few elements whose grad is near
+    0).  Returns the agreement (1.0 where neither moved)."""
+    import torch
+
+    dg = torch.sign(got.float() - before.float())
+    dw = torch.sign(want.float() - want_before.float())
+    moved = (dg != 0) | (dw != 0)
+    n = int(moved.sum())
+    if n == 0:
+        return 1.0
+    agree = int(((dg == dw) & moved).sum()) / n
+    if not agree >= least:
+        failures.append(f"{label}: the update moves {agree:.4f} of its "
+                        f"{n} moved elements as make_train_step's does "
+                        f"(< {least})")
+    return agree
+
+
+def _ref_updates(model, opt, x, y, steps, accum_steps=1):
+    """make_train_step's first `steps` steps from the model's weights:
+    (its params before, its params after the first step, the losses)."""
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+
+    st = init_train_state(model, opt)
+    step = make_train_step(model, opt, accum_steps=accum_steps)
+    before = {n: t.detach().clone() for n, t in st.params.items()}
+    after, losses = None, []
+    for _ in range(steps):
+        st, loss = step(st, x, y)
+        losses.append(float(loss))
+        if after is None:
+            after = {n: t.detach().clone() for n, t in st.params.items()}
+    return before, after, losses
+
+
+def _par_batch(vocab, batch, seq, device, seed=0):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.integers(0, vocab, (batch, seq)),
+                                 dtype=torch.int32, device=device)
+                 for _ in range(2))
+
+
+def _made(before):
+    from paddle_tpu_torch.kernels import backend
+
+    made = {n: c - before.get(n, 0) for n, c in backend.LAUNCHES.items()}
+    return {n: c for n, c in made.items() if c}
+
+
+def _timed_local(label, run, steps, want, tokens, failures):
+    """`steps` timed calls of run() (one step of every in-process rank):
+    host ms each, exact K1-K5 launches per step, peak memory, then one
+    profiled step.  Returns (launches, mean host ms)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import backend
+
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    step_ms, losses = [], []
+    for i in range(steps):
+        before = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made = _made(before)
+        if made != want:
+            failures.append(f"{label} step {i} launches {made} != {want}")
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = sum(step_ms) / steps
+    log(f"{label}: {steps} steps, host ms {[round(t, 3) for t in step_ms]}, "
+        f"mean {mean_ms:.3f}; tokens/s {tokens / (mean_ms / 1e3):.1f}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB (both ranks); losses {losses}; "
+        f"K1-K5 per step {want}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"{label} losses not finite: {losses}")
+    profile_train_step(lambda *a: run(), None, (), mean_ms, label=label)
+    return launches, mean_ms
+
+
+def _rank_models(cfg, meshes, seed=0):
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+
+    return [GPT(GPTConfig(**cfg), device=m.device,
+                generator=make_generator(seed)) for m in meshes]
+
+
+def _ref_loss_grads(cfg, x, y, seed=0):
+    """The unsharded model's loss and grads on the card (what
+    make_train_step's step differentiates), and the same in f32 from the
+    same (upcast) weights: (model, loss, grads, f32 grads)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import load_param_dict, make_generator
+
+    def loss_grads(model):
+        params = dict(model.named_parameters())
+        loss = model.loss(x, y)
+        return loss.detach(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    model = GPT(GPTConfig(**cfg), device=x.device,
+                generator=make_generator(seed))
+    loss, grads = loss_grads(model)
+    wide = GPT(GPTConfig(**dict(cfg, dtype="float32")), device=x.device,
+               generator=make_generator(seed))
+    load_param_dict(wide, {n: p.detach().float()
+                           for n, p in model.named_parameters()})
+    _, grads32 = loss_grads(wide)
+    del wide
+    return model, loss, grads, grads32
+
+
+def _hold_grad(label, got, want, want32, failures):
+    """A parallel grad of bf16 against the unsharded step's: its relative
+    Frobenius error against the f32 grads of the same weights may not
+    exceed 1.5x the unsharded bf16 grad's own (at random init a grad is
+    a sum of many cancelling terms, so bf16's rounding shows far above
+    2^-7 in both: the summation order of the split, not a fault, is
+    what differs).  Returns (error, the unsharded's)."""
+    e, e_ref = rel_err(got, want32), rel_err(want, want32)
+    if not (e <= 1.5 * e_ref + 1e-5 and bool(torch_isfinite(got))):
+        failures.append(f"{label}: relative Frobenius error vs f32 {e:.3e} > "
+                        f"1.5 x the unsharded bf16 step's {e_ref:.3e}")
+    return e, e_ref
+
+
+def torch_isfinite(t):
+    import torch
+
+    return torch.isfinite(t.float()).all()
+
+
+def parallel_tp_run(failures, steps=3):
+    """(a) make_sharded_train_step at tp = 2 in one process: K1-K3 on
+    each rank's [16, 6, 512, 64] local heads; the first step's loss and
+    every rank's grads held to the unsharded model's on the card, every
+    rank's params after the first update to make_train_step's, the
+    second step's loss to make_train_step's; then `steps` timed steps."""
+    import torch
+
+    from paddle_tpu_torch.distributed import inprocess, sharded
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    x, y = _par_batch(PAR_CFG["vocab_size"], PAR_BATCH, 512, "cuda")
+    ref, want_loss, want, want32 = _ref_loss_grads(PAR_CFG, x, y)
+    ref_before, ref_after, ref_losses = _ref_updates(ref, AdamW(1e-4), x, y,
+                                                     steps=2)
+    del ref
+    torch.cuda.empty_cache()
+    meshes = inprocess.local_meshes(tp=2, device="cuda")
+    models = _rank_models(PAR_CFG, meshes)
+    parts = [sharded.make_sharded_train_step(m, AdamW(1e-4), mesh,
+                                             sharded.gpt_rules())
+             for m, mesh in zip(models, meshes)]
+    steps_ = [p[0] for p in parts]
+    states = [p[1] for p in parts]
+    batches = [sharded.shard_batch(mesh, x, y) for mesh in meshes]
+    # the first step by its parts: every rank's grads before the update
+    outs = inprocess.run_ranks(meshes, lambda r, m: steps_[r].forward(
+        states[r], batches[r], states[r].buffers))
+    grads = inprocess.joint_grad([o[0] for o in outs], [o[1] for o in outs])
+    worst, kbias = (0.0, 0.0, ""), 0.0
+    for r, (mesh, st, s) in enumerate(zip(meshes, states, steps_)):
+        compare_scaled(f"tp = 2 rank {r} loss vs unsharded",
+                       outs[r][0].detach().reshape(1),
+                       want_loss.reshape(1), failures)
+        got = dict(zip(st.params, grads[r]))
+        for n, g in got.items():
+            zero = _hold_zero_grad(f"tp = 2 rank {r} grad {n}", n, g, got,
+                                   failures)
+            if zero is not None:
+                kbias = max(kbias, zero)
+                continue
+            blk = [sharded.local_block(mesh, s.param_specs[n], w[n])
+                   for w in (want, want32)]
+            e, e_ref = _hold_grad(f"tp = 2 rank {r} grad {n}", g, *blk,
+                                  failures)
+            worst = max(worst, (e / max(e_ref, 1e-30), e, f"{n} rank {r}"))
+    inits = [{n: t.detach().clone() for n, t in st.params.items()}
+             for st in states]
+    for r in range(2):
+        steps_[r].finish(states[r], [outs[r][0].detach()],
+                         dict(zip(states[r].params, grads[r])),
+                         outs[r][2])
+    least = (1.0, "")
+    for r, (mesh, st, s) in enumerate(zip(meshes, states, steps_)):
+        for n, t in st.params.items():
+            if n.endswith("k_proj.bias"):
+                continue
+            b0, w1 = (sharded.local_block(mesh, s.param_specs[n], d[n])
+                      for d in (ref_before, ref_after))
+            a = _hold_update(f"tp = 2 rank {r} update {n}", inits[r][n], t,
+                             b0, w1, failures)
+            least = min(least, (a, f"{n} rank {r}"))
+    del inits, ref_before, ref_after
+    loss2 = sharded.run_local_step(steps_, states, batches)
+    states = [o[0] for o in loss2]
+    log(f"parallel tp = 2 (in-process, bench.py's GPT bf16, batch "
+        f"{PAR_BATCH} x 512): first loss {float(outs[0][0].detach()):.6f} vs "
+        f"unsharded {float(want_loss):.6f}; grads vs f32: worst ratio to the "
+        f"unsharded bf16 step's error {worst[0]:.3f} ({worst[2]}, "
+        f"{worst[1]:.3e}); key bias grads at most {kbias:.4e} of the query "
+        f"bias's; first update vs make_train_step's: least direction "
+        f"agreement {least[0]:.6f} ({least[1]}); second step loss "
+        f"{float(loss2[0][1]):.6f} vs make_train_step {ref_losses[1]:.6f}")
+    compare_scaled("tp = 2 second-step loss vs make_train_step",
+                   loss2[0][1].reshape(1).float(),
+                   torch.tensor([ref_losses[1]], device="cuda"), failures)
+    del outs, grads, want, want32
+    torch.cuda.empty_cache()
+
+    def run():
+        nonlocal states
+        res = sharded.run_local_step(steps_, states, batches)
+        states = [o[0] for o in res]
+        return float(res[0][1])
+
+    launches, _ = _timed_local("parallel tp = 2 train", run, steps,
+                               PAR_TP_LAUNCHES, PAR_BATCH * 512, failures)
+    del models, parts, steps_, states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _pipeline_ranks(cfg, meshes, micro, interleave, seed=0):
+    from paddle_tpu_torch.distributed import pipeline
+
+    fns, params = [], []
+    for m, mesh in zip(_rank_models(cfg, meshes, seed), meshes):
+        f, p = pipeline.build_gpt_pipeline(m, mesh, micro,
+                                           interleave=interleave)
+        fns.append(f)
+        params.append(p)
+    return fns, params
+
+
+def _pipeline_grads(meshes, fns, params, x, y):
+    """Every rank's loss and grads ({(group, name): grad}) of one
+    in-process pipeline forward and one joint backward."""
+    from paddle_tpu_torch.distributed import inprocess
+
+    def fwd(r, mesh):
+        leaves = {g: {n: t.detach().requires_grad_()
+                      for n, t in params[r][g].items()} for g in params[r]}
+        return fns[r](leaves, x, y), leaves
+
+    outs = inprocess.run_ranks(meshes, fwd)
+    keys = [[(g, n) for g in o[1] for n in o[1][g]] for o in outs]
+    flat = [[o[1][g][n] for g, n in k] for o, k in zip(outs, keys)]
+    grads = inprocess.joint_grad([o[0] for o in outs], flat)
+    return ([o[0].detach() for o in outs],
+            [dict(zip(k, gs)) for k, gs in zip(keys, grads)])
+
+
+def _stage_layers(r, n_layers, stages, interleave):
+    """[(row index in rank r's stage leaves, layer)]: gpipe rows [per],
+    interleaved rows [v, per] (chunk v*S + r)."""
+    per = n_layers // (stages * interleave)
+    if interleave == 1:
+        return [((k,), r * per + k) for k in range(per)]
+    return [((v, k), (v * stages + r) * per + k)
+            for v in range(interleave) for k in range(per)]
+
+
+def parallel_pp_run(failures, interleave=1, steps=3):
+    """(b) build_gpt_pipeline at pp = 2 with 4 microbatches in one
+    process (interleave 2: 4 chunks of 3 blocks); the loss and every
+    stage's, the embedding's and the head's grads held to the
+    unpipelined model's, every rank's params after one AdamW(1e-4)
+    update to make_train_step's; then `steps` timed steps (forward,
+    backward, AdamW(1e-4) on each rank's params)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import inprocess
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    label = f"parallel pp = 2{'' if interleave == 1 else ', V = 2'}"
+    x, y = _par_batch(PAR_CFG["vocab_size"], PAR_BATCH, 512, "cuda")
+    ref, want_loss, want, want32 = _ref_loss_grads(PAR_CFG, x, y)
+    ref_before, ref_after, _ = _ref_updates(ref, AdamW(1e-4), x, y, steps=1)
+    del ref
+    torch.cuda.empty_cache()
+    meshes = inprocess.local_meshes(pp=2, device="cuda")
+    fns, params = _pipeline_ranks(PAR_CFG, meshes, PAR_MICRO, interleave)
+    losses, grads = _pipeline_grads(meshes, fns, params, x, y)
+    worst, kbias = (0.0, 0.0, ""), 0.0
+    for r in range(2):
+        compare_scaled(f"{label} rank {r} loss vs unpipelined",
+                       losses[r].reshape(1).float(),
+                       want_loss.reshape(1).float(), failures)
+        for (g, n), gr in grads[r].items():
+            if g == "stages":
+                for idx, layer in _stage_layers(r, 12, 2, interleave):
+                    got = gr[idx]
+                    name = f"blocks.{layer}.{n}"
+                    zero = _hold_zero_grad(f"{label} grad {name}", name, got, {
+                        name.replace("k_proj", "q_proj"): grads[r][(
+                            g, n.replace("k_proj", "q_proj"))][idx]},
+                        failures)
+                    if zero is not None:
+                        kbias = max(kbias, zero)
+                        continue
+                    e, e_ref = _hold_grad(f"{label} grad {name}", got,
+                                          want[name], want32[name], failures)
+                    worst = max(worst, (e / max(e_ref, 1e-30), e, name))
+            else:
+                e, e_ref = _hold_grad(f"{label} rank {r} grad {n}", gr,
+                                      want[n], want32[n], failures)
+                worst = max(worst, (e / max(e_ref, 1e-30), e,
+                                    f"{n} rank {r}"))
+    del want, want32
+    opts = [AdamW(1e-4) for _ in meshes]
+    flat = [{f"{g}/{n}": t for g in p for n, t in p[g].items()}
+            for p in params]
+    ostates = [o.init(f) for o, f in zip(opts, flat)]
+
+    def update(gs):
+        def upd(r, mesh):
+            g = {f"{k[0]}/{k[1]}": v for k, v in gs[r].items()}
+            opts[r].update(flat[r], g, ostates[r], inplace=True)
+
+        inprocess.run_ranks(meshes, upd)
+
+    # the first update from the checked grads, held to make_train_step's
+    inits = [{k: t.detach().clone() for k, t in f.items()} for f in flat]
+    update(grads)
+    least = (1.0, "")
+    for r in range(2):
+        for key, t in flat[r].items():
+            g, n = key.split("/", 1)
+            if g == "stages":
+                pairs = [(t[idx], inits[r][key][idx], f"blocks.{layer}.{n}")
+                         for idx, layer in _stage_layers(r, 12, 2,
+                                                         interleave)]
+            else:
+                pairs = [(t, inits[r][key], n)]
+            for got, before, name in pairs:
+                if name.endswith("k_proj.bias"):
+                    continue
+                a = _hold_update(f"{label} rank {r} update {name}", before,
+                                 got, ref_before[name], ref_after[name],
+                                 failures)
+                least = min(least, (a, f"{name} rank {r}"))
+    del grads, inits, ref_before, ref_after
+    log(f"{label} (in-process, {PAR_MICRO} microbatches, bench.py's GPT "
+        f"bf16, batch {PAR_BATCH} x 512): loss {float(losses[0]):.6f} vs "
+        f"unpipelined {float(want_loss):.6f}; grads vs f32: worst ratio to "
+        f"the unpipelined bf16 step's error {worst[0]:.3f} ({worst[2]}, "
+        f"{worst[1]:.3e}); key bias grads at most {kbias:.4e} of the query "
+        f"bias's; first update vs make_train_step's: least direction "
+        f"agreement {least[0]:.6f} ({least[1]})")
+    torch.cuda.empty_cache()
+
+    def run():
+        ls, gs = _pipeline_grads(meshes, fns, params, x, y)
+        update(gs)
+        return float(ls[0])
+
+    launches, _ = _timed_local(f"{label} train", run, steps,
+                               PAR_PP_LAUNCHES, PAR_BATCH * 512, failures)
+    del fns, params, flat, ostates
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_group_checks(failures):
+    """(c) the multi-process path on a one-rank NCCL group: the sharded
+    step with zero1, fsdp_rules(), accum_steps=2 and a global-norm clip,
+    and build_gpt_pipeline at pp = 1 (one microbatch), each held bitwise
+    against make_train_step (accum_steps=2, the same clip) from the same
+    weights: bench.py's widths at depth 2, bf16, batch 4 x 512.  At dp =
+    1 ZeRO-1 and FSDP split nothing (`parallel_dp_checks` runs them
+    split)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import env, pipeline, sharded
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.models.train import (
+        init_train_state, make_train_step,
+    )
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW, global_norm_clip
+
+    cfg = dict(PAR_CFG, num_layers=2)
+    env.init_parallel_env()
+    try:
+        mesh = build_mesh(dp=1, tp=1, sp=1, pp=1)
+        x, y = _par_batch(cfg["vocab_size"], 4, 512, "cuda", seed=5)
+
+        def model():
+            return GPT(GPTConfig(**cfg), device="cuda",
+                       generator=make_generator(7))
+
+        def opt():
+            return AdamW(1e-4, grad_clip=global_norm_clip(1.0))
+
+        a, b = model(), model()
+        step, st = sharded.make_sharded_train_step(
+            a, opt(), mesh, sharded.gpt_rules() + sharded.fsdp_rules(),
+            zero1=True, accum_steps=2)
+        rst = init_train_state(b, opt())
+        rstep = make_train_step(b, opt(), accum_steps=2)
+        same = True
+        for i in range(2):
+            st, l1 = step(st, *sharded.shard_batch(mesh, x, y))
+            rst, l2 = rstep(rst, x, y)
+            same &= torch.equal(l1, l2)
+        same_p = all(torch.equal(st.params[n], t)
+                     for n, t in rst.params.items())
+        same_m = all(torch.equal(st.opt_state[n][k], v)
+                     for n, s in rst.opt_state.items() if n != "__step__"
+                     for k, v in s.items())
+        log(f"one-rank NCCL group, sharded step (zero1, fsdp_rules, "
+            f"accum_steps 2, global-norm clip 1.0) vs make_train_step, 2 "
+            f"steps: losses bitwise {same}, params bitwise {same_p}, "
+            f"moments bitwise {same_m}")
+        if not (same and same_p and same_m):
+            failures.append("sharded step at W = 1 (NCCL) is not bitwise "
+                            "make_train_step's")
+        del a, b, st, rst
+        c = model()
+        fn, p = pipeline.build_gpt_pipeline(c, mesh, 1)
+        loss, grads = pipeline.value_and_grad(fn, mesh)(p, x, y)
+        d = model()
+        params = dict(d.named_parameters())
+        ref = d.loss(x, y)
+        want = dict(zip(params, torch.autograd.grad(ref, list(
+            params.values()))))
+        ok = torch.equal(loss, ref.detach())
+        for n, g in grads["stages"].items():
+            ok &= all(torch.equal(g[k], want[f"blocks.{k}.{n}"])
+                      for k in range(2))
+        for grp in ("emb", "head"):
+            ok &= all(torch.equal(g, want[n])
+                      for n, g in grads[grp].items())
+        log(f"one-rank NCCL group, build_gpt_pipeline at pp = 1 vs the "
+            f"model's loss and grads: bitwise {ok} (loss {float(loss):.6f})")
+        if not ok:
+            failures.append("pipeline at pp = 1 (NCCL) is not bitwise the "
+                            "model's loss and grads")
+        del c, d, p, grads, want
+    finally:
+        env.destroy_parallel_env()
+    torch.cuda.empty_cache()
+
+
+def parallel_dp_checks(failures, clip=0.1):
+    """(e) ZeRO-1 and FSDP on the card: make_sharded_train_step at dp = 2
+    in one process, bench.py's widths at depth 2, bf16, batch 4 x 512,
+    accum_steps=2, AdamW(1e-4) with a global-norm clip at `clip`
+    (engaged: checked against the whole batch's grad norm), 2 steps from
+    the same weights: `gpt_rules()` replicated (A), with zero1=True (B),
+    and `fsdp_rules()` (every param's dim 0 over dp, gathered where its
+    module runs) with zero1=True (C).  B is held bitwise A (losses and
+    params: the reductions are the same, AdamW elementwise).  C's first
+    loss is held bitwise A's, and its params after each step, A's
+    blocks, by the direction of their updates (`_hold_update`): C sums a
+    grad over dp in each microbatch and then over the microbatches, A
+    the other way round, so their bf16 grads differ in rounding.  A's
+    first update is held to make_train_step's (accum_steps=2, the same
+    clip) on the whole batch by the same rule."""
+    import torch
+
+    from paddle_tpu_torch.distributed import inprocess, sharded
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.optimizer.functional import AdamW, global_norm_clip
+
+    cfg = dict(PAR_CFG, num_layers=2)
+    x, y = _par_batch(cfg["vocab_size"], 4, 512, "cuda", seed=6)
+
+    def model():
+        return GPT(GPTConfig(**cfg), device="cuda",
+                   generator=make_generator(8))
+
+    def opt():
+        return AdamW(1e-4, grad_clip=global_norm_clip(clip))
+
+    m = model()
+    ps = dict(m.named_parameters())
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in
+                          torch.autograd.grad(m.loss(x, y),
+                                              list(ps.values())))).item()
+    if not norm > 2 * clip:
+        failures.append(f"dp = 2 checks: the grad norm {norm:.4e} does not "
+                        f"engage the clip at {clip}")
+    ref_before, ref_after, ref_losses = _ref_updates(m, opt(), x, y, steps=1,
+                                                     accum_steps=2)
+    del m, ps
+
+    def run(rules, zero1):
+        meshes = inprocess.local_meshes(dp=2, device="cuda")
+        parts = [sharded.make_sharded_train_step(model(), opt(), mesh, rules,
+                                                 zero1=zero1, accum_steps=2)
+                 for mesh in meshes]
+        steps_ = [p[0] for p in parts]
+        states = [p[1] for p in parts]
+        batches = [sharded.shard_batch(mesh, x, y) for mesh in meshes]
+        losses, params = [], []
+        for _ in range(2):
+            res = sharded.run_local_step(steps_, states, batches)
+            states = [o[0] for o in res]
+            losses.append([o[1].detach().clone() for o in res])
+            params.append([{n: t.detach().clone()
+                            for n, t in st.params.items()} for st in states])
+        return meshes, steps_, states, losses, params
+
+    a_meshes, _, _, a_loss, a_par = run(sharded.gpt_rules(), False)
+    least = (1.0, "")
+    for n, t in a_par[0][0].items():
+        if n.endswith("k_proj.bias"):
+            continue
+        agree = _hold_update(f"dp = 2 rank 0 update {n}", ref_before[n], t,
+                             ref_before[n], ref_after[n], failures)
+        least = min(least, (agree, n))
+    compare_scaled("dp = 2 first loss vs make_train_step",
+                   a_loss[0][0].reshape(1).float(),
+                   torch.tensor([ref_losses[0]], device="cuda"), failures)
+    del ref_after
+    _, b_steps, b_states, b_loss, b_par = run(sharded.gpt_rules(), True)
+    same_b = all(torch.equal(lb, la) for i in range(2)
+                 for lb, la in zip(b_loss[i], a_loss[i]))
+    same_b &= all(torch.equal(t, a_par[i][r][n]) for i in range(2)
+                  for r in range(2) for n, t in b_par[i][r].items())
+    n_zero1 = len(b_steps[0].zero1_params)
+    m1 = b_states[0].opt_state["wte.weight"]["Moment1"]
+    split_b = n_zero1 > 0 and m1.shape[0] == cfg["vocab_size"] // 2
+    del b_steps, b_states, b_par, m1
+    c_meshes, c_steps, _, c_loss, c_par = run(sharded.fsdp_rules(), True)
+    n_fsdp = len(c_steps[0].fsdp)
+    peak = [s.fsdp_peak_bytes for s in c_steps]
+    first_c = all(torch.equal(lc, la)
+                  for lc, la in zip(c_loss[0], a_loss[0]))
+    split_c = n_fsdp == len(a_par[0][0])
+    least_c = (1.0, "")
+    for r, mesh in enumerate(c_meshes):
+        for n in a_par[0][0]:
+            spec = c_steps[r].param_specs[n]
+            split_c &= c_par[0][r][n].shape[0] * 2 == ref_before[n].shape[0]
+            if n.endswith("k_proj.bias"):
+                continue
+            b0 = sharded.local_block(mesh, spec, ref_before[n])
+            for i in range(2):
+                agree = _hold_update(
+                    f"dp = 2 FSDP step {i} rank {r} update {n}", b0,
+                    c_par[i][r][n], b0,
+                    sharded.local_block(mesh, spec, a_par[i][r][n]),
+                    failures)
+                least_c = min(least_c, (agree, f"{n} rank {r} step {i}"))
+    total = sum(t.numel() * t.element_size() for t in a_par[0][0].values())
+    log(f"dp = 2 (in-process, bench.py's widths at depth 2, bf16, batch 4 x "
+        f"512, accum_steps 2, global-norm clip {clip} against a grad norm of "
+        f"{norm:.4e}): replicated first update vs make_train_step's: least "
+        f"direction agreement {least[0]:.6f} ({least[1]}); zero1 "
+        f"({n_zero1} params' moments split over dp: {split_b}) bitwise the "
+        f"replicated step over 2 steps: {same_b}; fsdp_rules ({n_fsdp} params "
+        f"split over dp: {split_c}): first loss bitwise {first_c}, updates "
+        f"vs the replicated step's: least direction agreement "
+        f"{least_c[0]:.6f} ({least_c[1]}); gathered params' peak {peak} "
+        f"bytes of the model's {total} (in one process the backward keeps "
+        f"them)")
+    if not (same_b and split_b):
+        failures.append("dp = 2: the zero1 step is not bitwise the "
+                        "replicated step's, or split no moment")
+    if not (first_c and split_c):
+        failures.append(f"dp = 2: the FSDP step's first loss is not the "
+                        f"replicated step's ({first_c}) or it split not "
+                        f"every param ({split_c})")
+    del a_par, c_par, c_steps, ref_before
+    torch.cuda.empty_cache()
+
+
+def parallel_f32_checks(failures, steps=3, lr=1e-4):
+    """(d) f32 at bench.py's widths, depth 2, batch 2 x 256: the tp = 2
+    sharded step and the pp = 2 pipeline (2 microbatches), 3 AdamW steps
+    each in one process on the card and on the CPU, held to
+    train_check's tolerances (`_hold_train_rules`)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import inprocess, sharded
+    from paddle_tpu_torch.optimizer.functional import AdamW
+
+    cfg = dict(PAR_CFG, num_layers=2, dtype="float32")
+    batches = [_par_batch(cfg["vocab_size"], 2, 256, "cpu", seed=20 + i)
+               for i in range(steps)]
+    runs = {"tp": {}, "pp": {}}
+    for dev in ("cuda", "cpu"):
+        b = [tuple(t.to(dev) for t in bb) for bb in batches]
+        meshes = inprocess.local_meshes(tp=2, device=dev)
+        parts = [sharded.make_sharded_train_step(m, AdamW(lr), mesh,
+                                                 sharded.gpt_rules())
+                 for m, mesh in zip(_rank_models(cfg, meshes), meshes)]
+        steps_ = [p[0] for p in parts]
+        states = [p[1] for p in parts]
+        shards = [[sharded.shard_batch(mesh, *bb) for mesh in meshes]
+                  for bb in b]
+        outs = inprocess.run_ranks(meshes, lambda r, m: steps_[r].forward(
+            states[r], shards[0][r], states[r].buffers))
+        gs = inprocess.joint_grad([o[0] for o in outs],
+                                  [o[1] for o in outs])
+        grads = {f"{n} rank {r}": g.detach().cpu()
+                 for r in range(2) for n, g in zip(states[r].params, gs[r])}
+        del outs, gs
+        losses = []
+        for i in range(steps):
+            res = sharded.run_local_step(steps_, states, shards[i])
+            states = [o[0] for o in res]
+            losses.append(float(res[0][1]))
+        runs["tp"][dev] = dict(losses=losses, grads=grads, params={
+            f"{n} rank {r}": t.detach().cpu()
+            for r in range(2) for n, t in states[r].params.items()})
+        del parts, steps_, states
+        meshes = inprocess.local_meshes(pp=2, device=dev)
+        fns, params = _pipeline_ranks(cfg, meshes, 2, 1)
+        opts = [AdamW(lr) for _ in meshes]
+        flat = [{f"{g}/{n}": t for g in p for n, t in p[g].items()}
+                for p in params]
+        ostates = [o.init(f) for o, f in zip(opts, flat)]
+        losses, first = [], None
+        for i in range(steps):
+            ls, gs = _pipeline_grads(meshes, fns, params, *b[i])
+            if first is None:
+                first = {f"{k[0]}/{k[1]} rank {r}": v.detach().cpu()
+                         for r in range(2) for k, v in gs[r].items()}
+            for r in range(2):
+                opts[r].update(flat[r], {f"{k[0]}/{k[1]}": v
+                                         for k, v in gs[r].items()},
+                               ostates[r], inplace=True)
+            losses.append(float(ls[0]))
+        runs["pp"][dev] = dict(losses=losses, grads=first, params={
+            f"{k} rank {r}": t.detach().cpu()
+            for r in range(2) for k, t in flat[r].items()})
+        del fns, params, flat, ostates
+        torch.cuda.empty_cache()
+    for name in ("tp", "pp"):
+        _hold_train_rules(f"f32 {name} = 2 (in-process, depth 2, batch 2 x "
+                          f"256)", runs[name]["cuda"], runs[name]["cpu"], lr,
+                          failures)
+
+
 def check_phase(failures):
     import torch
 
@@ -7061,7 +7816,8 @@ def compare_main(args):
 
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
-MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe")
+MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe",
+              "parallel")
 
 
 def main():
@@ -7108,7 +7864,7 @@ def main():
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("static", static_phase),
               ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
-              ("checks", check_phase))
+              ("parallel", parallel_phase), ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -7144,8 +7900,9 @@ def main():
         # Predictor and CompiledPredictor runs (K1, K4), the zoo phase's
         # BERT steps (K4, K5), BERT eval forward (K1, K4) and beam search
         # (K1, K4, K6), the moe phase's MoE train steps (K1-K5), MoE
-        # serving runs (K1, K4, K6) and ring runs (K1-K3), and the probe
-        # tool's runs (K4, K7 and K9 forward)
+        # serving runs (K1, K4, K6) and ring runs (K1-K3), the parallel
+        # phase's timed tp = 2, pp = 2 and V = 2 steps (K1-K5), and the
+        # probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

@@ -24,10 +24,15 @@ no longer match, falling back to the previous complete one.
 `CheckpointManager` keeps the last `max_to_keep` and removes crashed
 attempts older than the newest complete step.
 
+A sharded state (`distributed.sharded`) is saved whole: with `mesh` and
+`state_specs`, `save_checkpoint` gathers every split leaf over the axes
+that split it and rank 0 writes the global arrays; `restore_resharded`
+places them on any mesh, replicated or cut by `state_specs` to each
+rank's blocks, bit for bit.
+
 Not here: the orbax writer (JAX only; `writer="orbax"`, and loading a
-step that holds only an orbax checkpoint, raise), the resharded restore
-onto another mesh (ROADMAP item 8), and the monitor counters, the
-goodput ledger and the fault-injection points (item 10).
+step that holds only an orbax checkpoint, raise), and the monitor
+counters, the goodput ledger and the fault-injection points (item 10).
 """
 
 import dataclasses
@@ -269,7 +274,8 @@ def _no_orbax(what):
 
 
 def save_checkpoint(directory, state, step, sparse_tables=None,
-                    extras=None, topology=None, writer=None):
+                    extras=None, topology=None, writer=None, mesh=None,
+                    state_specs=None):
     """Write `state` at `step` as `step_<step>/state/arrays.npz`, then the
     extras and sparse tables, `_TOPOLOGY.json`, the manifest and last the
     marker.  Returns the step's path.
@@ -277,12 +283,41 @@ def save_checkpoint(directory, state, step, sparse_tables=None,
     sparse_tables: {name: table} with `state_dict()` -> {"ids", "values"}.
     extras: {name: array} beside the state (read with `load_extras`).
     topology: a dict merged over the writer's shape in `_TOPOLOGY.json`.
-    writer: None or "npz"; "orbax" raises."""
-    t0 = time.perf_counter()
+    writer: None or "npz"; "orbax" raises.
+    mesh, state_specs: a sharded state (`ShardedTrainStep.state_specs`):
+    every rank calls; the split leaves are gathered, rank 0 writes, and
+    every rank returns once the step is complete."""
     if writer not in (None, "npz"):
         if writer == "orbax":
             raise _no_orbax("save_checkpoint(writer='orbax')")
         raise ValueError(f"unknown checkpoint writer {writer!r}")
+    if mesh is None:
+        return _write_checkpoint(directory, state, step, sparse_tables,
+                                 extras, topology)
+    from .distributed.collective import barrier
+    from .distributed.sharded import gather_state
+
+    state = gather_state(state, mesh, state_specs or {})
+    path = _step_path(directory, step)
+    if _world_rank(mesh) == 0:
+        _write_checkpoint(directory, state, step, sparse_tables, extras,
+                          topology)
+    barrier(mesh)
+    return path
+
+
+def _world_rank(mesh):
+    import torch.distributed as dist
+
+    rank = getattr(mesh, "world_rank", None)
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return rank
+
+
+def _write_checkpoint(directory, state, step, sparse_tables, extras,
+                      topology):
+    t0 = time.perf_counter()
     path = _step_path(directory, step)
     if os.path.isdir(path):  # overwrite an old or incomplete attempt
         shutil.rmtree(path)
@@ -398,9 +433,49 @@ def resharded_cursor(step, old_world=None, new_world=None,
 
 def restore_resharded(directory, template_state, mesh=None, step=None,
                       sparse_tables=None, state_specs=None):
-    raise NotImplementedError(
-        "restore_resharded (a restore onto another mesh) is not ported to "
-        "paddle_tpu_torch yet (ROADMAP item 8, the distributed tier)")
+    """Restore checkpoint `step` (default: the newest complete) onto a
+    mesh other than the one that saved it.  The template gives the
+    structure only (its leaves may be another mesh's blocks); every leaf
+    is read whole.  With `mesh`, leaves named in `state_specs`
+    ({checkpoint key: named spec}, `ShardedTrainStep.state_specs` of the
+    new mesh) come back as this rank's blocks and the rest whole, on
+    the mesh's device; without it, every leaf whole on its template
+    leaf's device.  The bytes are the saved ones.  Returns (state,
+    step)."""
+    from .distributed.sharded import local_block
+
+    t0 = time.perf_counter()
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    path = _step_path(directory, step)
+    npz = os.path.join(path, "state", "arrays.npz")
+    if not os.path.isfile(npz):
+        raise _no_orbax(f"restore_resharded({path})")
+    specs = state_specs or {}
+
+    def place(key, tmpl, a):
+        if isinstance(tmpl, torch.Tensor):
+            t = from_numpy_exact(a)
+            if mesh is not None and key in specs:
+                t = local_block(mesh, specs[key], t).clone()
+            return t.to(mesh.device if mesh is not None else tmpl.device)
+        return _restore_leaf(tmpl, a)
+
+    with np.load(npz) as data:
+        state = _rebuild(template_state, "",
+                         lambda key, tmpl: place(key, tmpl, data[key]))
+    if sparse_tables:
+        with np.load(os.path.join(path, "sparse_tables.npz")) as data:
+            for name, table in sparse_tables.items():
+                table.load_state_dict({"ids": data[f"{name}.ids"],
+                                       "values": data[f"{name}.values"]})
+    restore_resharded.last_seconds = time.perf_counter() - t0
+    return state, step
+
+
+restore_resharded.last_seconds = None
 
 
 class CheckpointManager:
@@ -421,15 +496,18 @@ class CheckpointManager:
         return step % self.save_interval_steps == 0
 
     def save(self, state, step, sparse_tables=None, force=False,
-             extras=None, topology=None):
+             extras=None, topology=None, mesh=None, state_specs=None):
         """Checkpoint if `step` is on the save interval (or force=True).
-        Returns the path, or None when gated off."""
+        Returns the path, or None when gated off.  `mesh` and
+        `state_specs`: a sharded state, as `save_checkpoint`."""
         if not force and not self.should_save(step):
             return None
         path = save_checkpoint(self.directory, state, step, sparse_tables,
                                extras=extras, topology=topology,
-                               writer=self.writer)
-        self._gc()
+                               writer=self.writer, mesh=mesh,
+                               state_specs=state_specs)
+        if mesh is None or _world_rank(mesh) == 0:
+            self._gc()
         return path
 
     def load_extras(self, step=None):

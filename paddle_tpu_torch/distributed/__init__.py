@@ -3,18 +3,23 @@
 The reference's mesh axes are `torch.distributed` process groups here
 (NCCL on the card, gloo on the CPU), one process per rank: `env` (the
 trainer env and the rendezvous), `launch` (the worker launcher), `mesh`
-(the dp, sp and ep axes), `collective`, `data_parallel`, `strategies`
-(DGC on kernel K10, LocalSGD), `fleet`, `moe` (mixture of experts over
-ep), `ring_attention` (sequence parallelism over sp) and `sharded` (the
-partition rules and the dp x ep train step).  Only what is ported is
-exported here; the modules keep the reference's other names
-(`build_rule_mesh`, `mesh_key`, `MeshLayout`, the dygraph
-`DataParallel`), which raise NotImplementedError naming their ROADMAP
-item.  Pipelines, tensor parallelism, ZeRO-1/FSDP, the parameter server
-and federated learning are ROADMAP queue 1 item 8.
+(the pp, dp, sp, tp and ep axes), `collective`, `data_parallel`,
+`strategies` (DGC on kernel K10, LocalSGD), `fleet`, `moe` (mixture of
+experts over ep), `ring_attention` (sequence parallelism over sp),
+`tensor_parallel` (Megatron tp and sp for the GPT's layers), `sharded`
+(the partition rules and the sharded train step: tp, sp, ep, ZeRO-1,
+FSDP, accumulation, clipping) and `pipeline` (GPipe, the interleaved
+schedule, the 3D GPT).  `inprocess` holds a mesh's ranks in one process
+(one thread each), which is how W > 1 runs on one card.  The modules
+keep the reference's other names (`build_rule_mesh`, `mesh_key`,
+`MeshLayout`, the dygraph `DataParallel`), which raise
+NotImplementedError naming their ROADMAP item; the parameter server and
+federated learning are ROADMAP queue 1 item 8.
 """
 
-from . import collective, fleet, mesh  # noqa: F401
+from . import (  # noqa: F401
+    collective, fleet, inprocess, mesh, pipeline, tensor_parallel,
+)
 from .collective import (
     all_gather, all_reduce, all_to_all, broadcast, pmax, pmean, pmin,
     ppermute, psum, reduce_scatter,
@@ -31,16 +36,23 @@ from .moe import (
     init_moe_params, moe_ffn, moe_ffn_shardmap, shard_moe_params,
     sharded_moe_ffn, top_k_gating,
 )
+from .inprocess import local_meshes, run_ranks
+from .pipeline import (
+    build_gpt_pipeline, build_gpt_pipeline_3d, gpipe, interleaved_gpipe,
+)
 from .ring_attention import ring_attention, ring_attention_sharded
 from .sharded import (
     PartitionRules, bert_rules, fsdp_rules, gpt_rules,
-    make_sharded_train_step, mlp_rules, shard_batch, shard_params,
-    shard_train_state,
+    make_sharded_train_step, mlp_rules, run_local_step, shard_batch,
+    shard_params, shard_train_state,
 )
 from .strategies import DGCTrainStep, LocalSGDTrainStep, dgc_topk_mask
 
 __all__ = [
-    "collective", "mesh", "fleet",
+    "collective", "mesh", "fleet", "inprocess", "pipeline",
+    "tensor_parallel", "local_meshes", "run_ranks", "run_local_step",
+    "gpipe", "interleaved_gpipe", "build_gpt_pipeline",
+    "build_gpt_pipeline_3d",
     "all_reduce", "all_gather", "reduce_scatter", "broadcast", "ppermute",
     "all_to_all", "psum", "pmean", "pmax", "pmin",
     "Mesh", "build_mesh", "default_mesh", "get_global_mesh",

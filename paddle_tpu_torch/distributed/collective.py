@@ -5,20 +5,24 @@ Two forms, as in the reference:
   `ppermute`, `all_to_all`, ...) take this rank's tensor, as the
   reference's take a shard inside shard_map, and return a new tensor;
   the input is left as it was.  `axis_name` picks the mesh axis whose
-  process group they run on: "dp", "sp" or "ep" (tp and pp are not
-  ported, ROADMAP queue 1 item 8);
+  process group they run on: "pp", "dp", "sp", "tp" or "ep";
 - the `eager_*` forms take a global array, as the reference's take one
   sharded over an axis: rank r works on the r-th 1/size block of dim 0,
   and a result sharded over the axis comes back as the global array
   again (concatenated over the ranks).
 
 All run on the mesh's group for the axis (`mesh=None`: the default
-mesh); on an axis of size 1 they are the identity.  A mean is a SUM
+mesh); on an axis of size 1 they are the identity.  On a mesh of ranks
+held in one process (`inprocess.local_meshes`) the group is a
+`LocalGroup` and the same calls exchange the ranks' tensors in memory,
+with the same forward and backward.  A mean is a SUM
 followed by a division by the group's size, on both backends
 (`ReduceOp.AVG` is NCCL-only).  `all_gather`, `ppermute` and
 `all_to_all` are differentiable, with the transposes of the reference's
 `lax` collectives: a reduce-scatter (sum), the inverse permutation, and
-the reverse exchange.
+the reverse exchange; `sum_grad` (the identity, its backward a sum) and
+`reduce_sum` (a sum, its backward the identity) are the conjugate pair
+of tensor parallelism.
 """
 
 from functools import partial
@@ -26,18 +30,20 @@ from functools import partial
 import torch
 import torch.distributed as dist
 
+from . import inprocess
+from .inprocess import LocalGroup
+
 __all__ = [
     "all_reduce", "all_gather", "reduce_scatter", "broadcast", "ppermute",
     "all_to_all", "psum", "pmean", "pmax", "pmin",
     "eager_all_reduce", "eager_all_gather", "eager_broadcast",
-    "eager_reduce_scatter",
+    "eager_reduce_scatter", "sum_grad", "reduce_sum", "barrier",
 ]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
         "prod": dist.ReduceOp.PRODUCT}
-_ITEM8 = "ROADMAP queue 1 item 8"
-_AXES = ("dp", "sp", "ep")
+_AXES = ("pp", "dp", "sp", "tp", "ep")
 
 
 class _Axis:
@@ -49,15 +55,15 @@ class _Axis:
         self.index = mesh.axis_index(name)
         self.ranks = mesh.axis_ranks(name)
         self.local = self.group is None
+        self.inproc = isinstance(self.group, LocalGroup)
 
 
 def _mesh(mesh, axis_name):
     from .mesh import default_mesh
 
     if axis_name not in _AXES:
-        raise NotImplementedError(
-            f"mesh axis {axis_name!r}: the ported axes are {_AXES} "
-            f"({_ITEM8})")
+        raise ValueError(f"unknown mesh axis {axis_name!r}; axes are "
+                         f"{_AXES}")
     return mesh or default_mesh()
 
 
@@ -70,11 +76,27 @@ def all_reduce_(x, op="sum", mesh=None, axis_name="dp"):
     if op not in _OPS:
         raise ValueError(f"unknown reduce op {op}")
     ax = _axis(mesh, axis_name)
-    if not ax.local:
+    if ax.inproc:
+        red = _LOCAL_OPS[op]
+        y = inprocess.collective(
+            ax, x.detach(), lambda xs: [r.clone() for r in [red(xs)] * len(xs)])
+        with torch.no_grad():
+            x.copy_(y)
+    elif not ax.local:
         dist.all_reduce(x, _OPS[op], group=ax.group)
     if op == "mean":
         x.div_(ax.size)
     return x
+
+
+def _stacked(fn):
+    return lambda xs: fn(torch.stack(xs), 0)
+
+
+_LOCAL_OPS = {"sum": inprocess.total, "mean": inprocess.total,
+              "max": _stacked(lambda t, d: t.amax(d)),
+              "min": _stacked(lambda t, d: t.amin(d)),
+              "prod": _stacked(torch.prod)}
 
 
 def all_reduce(x, axis_name="dp", op="sum", mesh=None):
@@ -130,12 +152,38 @@ class _AllGather(torch.autograd.Function):
         return _my_block(g, ax, ctx.axis, ctx.tiled), None, None, None, None
 
 
+def _local_gather(ax, x, axis, tiled, grad):
+    def fwd(xs):
+        y = torch.cat(xs, axis) if tiled else torch.stack(xs, axis)
+        return [y.clone() for _ in xs]
+
+    def bwd(gs):
+        if grad == "sum":
+            s = inprocess.total(gs)
+            return [_my_block(s, _Pos(ax, i), axis, tiled)
+                    for i in range(len(gs))]
+        return [_my_block(g, _Pos(ax, i), axis, tiled)
+                for i, g in enumerate(gs)]
+
+    return inprocess.collective(ax, x.contiguous(), fwd, bwd)
+
+
+class _Pos:
+    """An axis seen from rank `index` of its group (in-process
+    backwards give every rank its block)."""
+
+    def __init__(self, ax, index):
+        self.size, self.index = ax.size, index
+
+
 def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None,
                grad="sum"):
     """c_allgather parity: every rank's x, concatenated along `axis`
     (tiled) or stacked on a new `axis`.  Differentiable; see
     `_AllGather` for `grad`."""
     ax = _axis(mesh, axis_name)
+    if ax.inproc:
+        return _local_gather(ax, x, axis, tiled, grad)
     if torch.is_grad_enabled() and x.requires_grad:
         return _AllGather.apply(x, ax, axis, tiled, grad)
     return _gather(x, ax, axis, tiled)
@@ -161,11 +209,58 @@ class _SumGrad(torch.autograd.Function):
 
 
 def sum_grad(x, axis_name, mesh=None):
-    """`x` unchanged; its gradient is summed over the axis's group."""
+    """`x` unchanged; its gradient is summed over the axis's group
+    (tensor parallelism's f: before a product split over the group)."""
     ax = _axis(mesh, axis_name)
+    if not (torch.is_grad_enabled() and x.requires_grad) or ax.local:
+        return x
+    if ax.inproc:
+        return inprocess.collective(
+            ax, x, lambda xs: [t.clone() for t in xs],
+            lambda gs: [s.clone() for s in [inprocess.total(gs)] * len(gs)])
+    return _SumGrad.apply(x, ax)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, dist.ReduceOp.SUM, group=ax.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_sum(x, axis_name, mesh=None):
+    """The sum of x over the axis's group, whose backward is the
+    identity: every rank of the group computes the same loss from the
+    sum, so each rank's cotangent is already the whole one (tensor
+    parallelism's g: after a product split over the group)."""
+    ax = _axis(mesh, axis_name)
+    if ax.local:
+        return x
+    if ax.inproc:
+        return inprocess.collective(
+            ax, x.contiguous(),
+            lambda xs: [s.clone() for s in [inprocess.total(xs)] * len(xs)],
+            lambda gs: gs)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _SumGrad.apply(x, ax)
-    return x
+        return _ReduceSum.apply(x, ax)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, dist.ReduceOp.SUM, group=ax.group)
+    return y
+
+
+def barrier(mesh):
+    """Every rank of the mesh's world waits for the others."""
+    world = getattr(mesh, "world", None)
+    if world is not None:
+        world.group.exchange(mesh.world_rank, None,
+                             lambda xs: [None] * len(xs))
+    elif dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def reduce_scatter(x, axis_name="dp", scatter_axis=0, mesh=None):
@@ -184,6 +279,9 @@ def reduce_scatter(x, axis_name="dp", scatter_axis=0, mesh=None):
 def broadcast(x, axis_name="dp", root=0, mesh=None):
     """c_broadcast parity: every rank of the axis gets root's value."""
     ax = _axis(mesh, axis_name)
+    if ax.inproc:
+        return inprocess.collective(
+            ax, x.detach(), lambda xs: [xs[root].clone() for _ in xs])
     y = x.clone()
     if not ax.local:
         dist.broadcast(y, ax.ranks[root], group=ax.group)
@@ -247,6 +345,17 @@ def ppermute(x, axis_name, perm, mesh=None):
     backward sends the cotangent along the inverse permutation."""
     ax = _axis(mesh, axis_name)
     perm = _check_perm(perm, ax.size)
+    if ax.inproc:
+        def move(ts, pairs):
+            out = [torch.zeros_like(t) for t in ts]
+            for s, d in pairs:
+                out[d] = ts[s].clone()
+            return out
+
+        inverse = [(d, s) for s, d in perm]
+        return inprocess.collective(ax, x.contiguous(),
+                                    lambda xs: move(xs, perm),
+                                    lambda gs: move(gs, inverse))
     if torch.is_grad_enabled() and x.requires_grad:
         return _PPermute.apply(x, ax, perm)
     return _permute(x, ax, perm)
@@ -284,6 +393,21 @@ def all_to_all(x, axis_name, split_axis, concat_axis, mesh=None):
     order of the ranks they came from.  Differentiable: the backward is
     the reverse exchange."""
     ax = _axis(mesh, axis_name)
+    if ax.inproc:
+        def swap(ts, split, concat):
+            n = len(ts)
+            for t in ts:
+                if t.shape[split] % n:
+                    raise ValueError(
+                        f"all_to_all: dim {split} of size {t.shape[split]} "
+                        f"does not split into {n} blocks")
+            parts = [torch.chunk(t, n, split) for t in ts]
+            return [torch.cat([parts[i][j] for i in range(n)], concat)
+                    for j in range(n)]
+
+        return inprocess.collective(
+            ax, x.contiguous(), lambda xs: swap(xs, split_axis, concat_axis),
+            lambda gs: swap(gs, concat_axis, split_axis))
     if torch.is_grad_enabled() and x.requires_grad:
         return _AllToAll.apply(x, ax, split_axis, concat_axis)
     return _exchange(x, ax, split_axis, concat_axis)

@@ -8,8 +8,9 @@ makers (base/role_maker.py) and DistributedStrategy
 knobs into a step: DGC, LocalSGD or plain data parallelism, with
 `amp` as `amp.auto_cast` and `recompute` as `torch.utils.checkpoint`
 around the loss; `save_persistables` and `save_inference_model` write
-through `io` on the first worker.  Not ported: the tp, pp and sp degrees
-(ROADMAP queue 1 item 8).
+through `io` on the first worker.  tp, pp and sp degrees above 1 build
+the reference's mesh and the step runs over its dp axis, the other axes
+replicating, as the reference's does.
 """
 
 import torch.utils.checkpoint
@@ -129,9 +130,8 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
       otherwise      -> DataParallelTrainStep
       amp            -> bf16 auto_cast around the loss
       recompute      -> torch.utils.checkpoint around the loss
-      dp_degree      -> the mesh, when none is passed
-      tp/pp/sp degrees above 1 -> NotImplementedError (the steps are
-                     data parallel; no model here runs the sp axis)
+      dp/tp/pp/sp degrees -> the mesh, when none is passed; the steps
+                     run over its dp axis, the other axes replicating
     """
     from .data_parallel import DataParallelTrainStep
     from .mesh import build_mesh, default_mesh
@@ -139,17 +139,13 @@ def make_train_step(model, optimizer, loss_fn, mesh=None, strategy=None):
 
     strategy = (strategy or getattr(optimizer, "_fleet_strategy", None)
                 or DistributedStrategy())
-    if strategy.sp_degree > 1:
-        raise NotImplementedError(
-            f"sp_degree={strategy.sp_degree}: the fleet steps are data "
-            f"parallel and no fleet model runs the sp axis (ROADMAP queue 1 "
-            f"item 8); ring_attention takes an sp mesh from build_mesh")
     if mesh is None:
         if strategy.dp_degree or strategy.tp_degree > 1 \
-                or strategy.pp_degree > 1:
+                or strategy.sp_degree > 1 or strategy.pp_degree > 1:
             mesh = build_mesh(dp=strategy.dp_degree or 1,
                               tp=strategy.tp_degree,
-                              pp=strategy.pp_degree)
+                              pp=strategy.pp_degree,
+                              sp=strategy.sp_degree)
         else:
             mesh = default_mesh()
 

@@ -10,11 +10,13 @@ the group of an axis holds the ranks that differ from r in that
 coordinate only.  `Mesh.group`, `.size` and `.rank` are the dp axis's,
 which the data-parallel tier reads.
 
-Ported axes: dp (data parallel), sp (sequence parallel: ring
-attention) and ep (expert parallel: MoE).  tp and pp above 1 (tensor
-and pipeline parallelism), an explicit device list, and the rule meshes
-of the sharding analyzer (`build_rule_mesh`, `mesh_key`, `MeshLayout`)
-are ROADMAP queue 1 item 8.
+Every axis is ported: dp (data parallel), sp (sequence parallel: ring
+attention), tp (tensor parallel: `tensor_parallel`), pp (pipeline
+stages: `pipeline`) and ep (expert parallel: MoE).  A mesh held in one
+process, one thread a rank, is `inprocess.local_meshes`.  An explicit
+device list and the rule meshes of the sharding analyzer
+(`build_rule_mesh`, `mesh_key`, `MeshLayout`) are ROADMAP queue 1 item
+8.
 """
 
 import numpy as np
@@ -78,20 +80,19 @@ class Mesh:
 
     def __repr__(self):
         sizes = ", ".join(f"{a}={s}" for a, s in self.shape.items() if s > 1)
-        return (f"Mesh({sizes or 'dp=1'}, rank={dist.get_rank()}, "
+        rank = getattr(self, "world_rank", None)
+        if rank is None:
+            rank = dist.get_rank()
+        return (f"Mesh({sizes or 'dp=1'}, rank={rank}, "
                 f"device={self.device})")
 
 
 def build_mesh(dp=1, tp=1, pp=1, sp=1, ep=1, devices=None, device=None):
     """The mesh over this process group (joined through
     `init_parallel_env(device)` if it is not yet).  One process is one
-    rank, so dp x sp x ep must equal the world size.  Every rank builds
-    every axis's groups in one fixed order (`new_group` is collective).
-    tp and pp above 1, and an explicit device list, are not ported."""
-    if max(tp, pp) > 1:
-        raise NotImplementedError(
-            f"mesh axes tp={tp} pp={pp}: tensor and pipeline parallelism "
-            f"are not ported ({_ITEM8})")
+    rank, so pp x dp x sp x tp x ep must equal the world size.  Every
+    rank builds every axis's groups in one fixed order (`new_group` is
+    collective).  An explicit device list is not ported."""
     if devices is not None:
         raise NotImplementedError(
             f"an explicit device list: one process drives one device in "
@@ -102,7 +103,8 @@ def build_mesh(dp=1, tp=1, pp=1, sp=1, ep=1, devices=None, device=None):
     need = int(np.prod(list(sizes.values())))
     if need != world:
         raise ValueError(
-            f"mesh needs dp={dp} x sp={sp} x ep={ep} = {need} ranks; the "
+            f"mesh needs dp={dp} x sp={sp} x ep={ep} x tp={tp} x pp={pp} "
+            f"= {need} ranks; the "
             f"process group has {world} (one rank per process)")
     me = dist.get_rank()
     shape = tuple(sizes[a] for a in AXES)

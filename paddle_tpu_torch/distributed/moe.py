@@ -34,6 +34,7 @@ Forms:
 
 import contextlib
 import math
+import threading
 
 import torch
 
@@ -41,7 +42,16 @@ __all__ = ["init_moe_params", "top_k_gating", "moe_ffn",
            "shard_moe_params", "sharded_moe_ffn", "moe_ffn_shardmap",
            "expert_parallel", "moe_layer"]
 
-_EXPERT_MESH = []    # (mesh, expert axis, data axis) of the active step
+# (mesh, expert axis, data axis) of the active step, per thread (the
+# ranks of an in-process mesh are threads)
+_EXPERT_MESH = threading.local()
+
+
+def _expert_stack():
+    stack = getattr(_EXPERT_MESH, "stack", None)
+    if stack is None:
+        stack = _EXPERT_MESH.stack = []
+    return stack
 
 
 def gelu(x):
@@ -318,12 +328,14 @@ def moe_ffn_shardmap(params, x, axis="ep", k=2, capacity_factor=1.25,
 def expert_parallel(mesh, axis="ep", data_axis="dp"):
     """Within it `moe_layer` computes the unsharded layer's function of
     the GLOBAL batch, from this rank's batch block (split over
-    `data_axis`) and this rank's expert slices (split over `axis`)."""
-    _EXPERT_MESH.append((mesh, axis, data_axis))
+    `data_axis`, and its sequence over "sp") and this rank's expert
+    slices (split over `axis`)."""
+    stack = _expert_stack()
+    stack.append((mesh, axis, data_axis))
     try:
         yield
     finally:
-        _EXPERT_MESH.pop()
+        stack.pop()
 
 
 def moe_layer(params, x, k=2, capacity_factor=1.25, activation=gelu):
@@ -334,17 +346,26 @@ def moe_layer(params, x, k=2, capacity_factor=1.25, activation=gelu):
     its local experts run (`local_experts_ffn`), and it keeps its block
     of the result.  Gating, capacity and the aux loss are the global
     batch's, as under the reference's GSPMD step."""
-    if not _EXPERT_MESH:
+    stack = _expert_stack()
+    if not stack:
         return moe_ffn(params, x, k, capacity_factor, activation)
     from .collective import _axis, all_gather
 
-    mesh, axis, data_axis = _EXPERT_MESH[-1]
+    mesh, axis, data_axis = stack[-1]
     dp = _axis(mesh, data_axis)
-    xs = all_gather(x, data_axis, axis=0, mesh=mesh)
+    sp = _axis(mesh, "sp")
+    xs = x
+    if sp.size > 1:
+        # [B/dp, S/sp, D] -> [B/dp, S, D]: the global token order
+        xs = all_gather(xs, "sp", axis=1, mesh=mesh)
+    xs = all_gather(xs, data_axis, axis=0, mesh=mesh)
     lead, d = xs.shape[:-1], xs.shape[-1]
     toks = xs.reshape(-1, d)
     r = _route(toks, params["wg"], k, capacity_factor)
     y = local_experts_ffn(params, toks, r, mesh, axis, activation)
     y = y.reshape(*lead, d).to(x.dtype)
     blk = x.shape[0]
-    return y.narrow(0, dp.index * blk, blk), r.aux
+    y = y.narrow(0, dp.index * blk, blk)
+    if sp.size > 1:
+        y = y.narrow(1, sp.index * x.shape[1], x.shape[1])
+    return y, r.aux

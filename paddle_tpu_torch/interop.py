@@ -20,6 +20,11 @@ such words and back, and `save_npz` writes them with the same header, so
 `io` and `checkpoint` write the JAX package's bytes and read its files
 without ml_dtypes.  `train_state_from_jax_npz` reads a JAX package
 checkpoint's `arrays.npz` into a port TrainState.
+
+Sharded forms: `sharded_state_from_jax` cuts a global JAX TrainState to
+this rank's blocks under partition rules (and ZeRO-1);
+`pipeline_params_from_jax` turns the reference's pipeline params
+({"emb", "stages": [S, ...] stacked, "head"}) into this pp rank's stage.
 """
 
 import zipfile
@@ -237,3 +242,39 @@ def train_state_from_jax_npz(path, model, optimizer, device=None,
                        "checkpoint")
     return train_state_from_jax(dict(fields, step=step), model, optimizer,
                                 device=device, rng_seed=rng_seed)
+
+
+def sharded_state_from_jax(np_state, model, optimizer, mesh, rules,
+                           zero1=False, device=None, rng_seed=0):
+    """This rank's blocks (`distributed.sharded.shard_train_state`) of a
+    global JAX TrainState converted to numpy."""
+    from .distributed.sharded import shard_train_state
+
+    state = train_state_from_jax(np_state, model, optimizer,
+                                 device=device or mesh.device,
+                                 rng_seed=rng_seed)
+    return shard_train_state(state, mesh, rules, zero1=zero1)
+
+
+def pipeline_params_from_jax(np_params, mesh, interleave=1, tp=False,
+                             axis_name="pp", device=None):
+    """The reference's pipeline params as numpy ({"emb": {..}, "stages":
+    {name: [S * V, ...]}, "head": {..}}) -> this pp rank's: its stage
+    rows (`pipeline.stage_params`: [per, ...], or [V, per, ...] for an
+    interleaved stack) and, with `tp`, its tp tiles of them as
+    `build_gpt_pipeline_3d` holds them; emb and head whole."""
+    from .distributed.pipeline import stage_params, tp_stage_spec
+    from .distributed.sharded import local_block
+
+    dev = device or mesh.device
+
+    def tensors(d):
+        return {n: from_numpy_exact(v).to(dev) for n, v in d.items()}
+
+    stages = stage_params(tensors(np_params["stages"]), mesh, axis_name,
+                          rows=interleave)
+    if tp:
+        stages = {n: local_block(mesh, tp_stage_spec(n), v).clone()
+                  for n, v in stages.items()}
+    return {"emb": tensors(np_params["emb"]), "stages": stages,
+            "head": tensors(np_params["head"])}

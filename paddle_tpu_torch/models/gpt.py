@@ -7,6 +7,10 @@ attention runs through the flash kernels (K1 forward, K2/K3 backward)
 and every LayerNorm through K4 (forward) and K5 (backward).
 `num_experts > 0` replaces each block's FFN by a mixture of experts
 (`MoEFFN`, `distributed.moe`), whose router aux loss `GPT.loss` adds.
+Inside `distributed.tensor_parallel.tensor_parallel(mesh)` the layers
+run on this rank's tp shards and sp block (see that module); inside the
+sharded step's FSDP context a dp-split table is gathered where it is
+used (`distributed.sharded`).
 """
 
 import dataclasses
@@ -86,9 +90,15 @@ class GPTBlock(nn.Layer):
         self.drop = nn.Dropout(cfg.dropout, **sub)
 
     def forward(self, x):
+        from ..distributed.tensor_parallel import current
+
+        par = current()
         x = x + self.attn(self.norm1(x), is_causal=True)
         h = self.norm2(x)
-        ff = self.moe(h) if self._moe else self.fc2(self.fc1(h))
+        if self._moe:
+            ff = self.moe(h)
+        else:
+            ff = par.row_parallel(self.fc2, self.fc1(par.copy_to_tp(h)))
         return x + self.drop(ff)
 
 
@@ -108,21 +118,44 @@ class GPT(nn.Layer):
                                     for _ in range(cfg.num_layers)], **sub)
         self.norm_f = nn.LayerNorm(cfg.hidden_size, **sub)
 
+    def _head_weight(self):
+        """The tied head's table: wte, gathered over dp where the
+        sharded step's FSDP split it."""
+        from ..distributed.sharded import fsdp_full
+
+        return fsdp_full(self.wte.weight)
+
     def forward(self, input_ids):
+        from ..distributed.tensor_parallel import current
+
         x = self._final_hidden(input_ids)
-        return torch.einsum("bsh,vh->bsv", x, self.wte.weight)
+        w = self._head_weight()
+        if w.shape[0] != self.cfg.vocab_size:
+            # this rank's vocab rows of the logits, gathered over tp
+            par = current()
+            logits = torch.einsum("bsh,vh->bsv", par.copy_to_tp(x), w)
+            return par.gather_tp(logits, 2)
+        return torch.einsum("bsh,vh->bsv", x, w)
 
     def loss(self, input_ids, labels):
         """Mean token cross-entropy: per-token logsumexp (f32) minus the
         gathered label logit; streamed over vocab chunks when
         `ce_vocab_chunk > 0`.  MoE adds `moe_aux_weight` x the blocks'
-        router aux losses of the same forward."""
-        if self.cfg.ce_vocab_chunk > 0:
-            ce = streaming_softmax_ce(self._final_hidden(input_ids),
-                                      self.wte.weight, labels,
-                                      self.cfg.ce_vocab_chunk)
+        router aux losses of the same forward.  Inside
+        `tensor_parallel` with wte split over tp: the vocab-parallel
+        cross-entropy (`parallel_cross_entropy`) of this rank's tokens."""
+        from ..distributed.tensor_parallel import (
+            current, parallel_cross_entropy)
+
+        h = self._final_hidden(input_ids)
+        w = self._head_weight()
+        if w.shape[0] != self.cfg.vocab_size:
+            ce = parallel_cross_entropy(h, w, labels, self.cfg.vocab_size,
+                                        current(), self.cfg.ce_vocab_chunk)
+        elif self.cfg.ce_vocab_chunk > 0:
+            ce = streaming_softmax_ce(h, w, labels, self.cfg.ce_vocab_chunk)
         else:
-            logits = self.forward(input_ids)
+            logits = torch.einsum("bsh,vh->bsv", h, w)
             lse = torch.logsumexp(logits.float(), dim=-1)
             lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
             ce = (lse - lab.float()).mean()
@@ -132,25 +165,40 @@ class GPT(nn.Layer):
         return ce
 
     def _final_hidden(self, input_ids):
-        """forward() up to (and including) the final layer norm."""
+        """forward() up to (and including) the final layer norm.  The
+        wte and wpe lookups of tables split over tp are summed in one
+        reduction over tp."""
+        from ..distributed.tensor_parallel import current, parallel_embedding
+
+        par = current()
         seq = input_ids.shape[1]
-        if seq > self.cfg.max_seq_len:
+        start = par.sp_index * seq
+        if start + seq > self.cfg.max_seq_len:
             raise ValueError(
-                f"sequence length {seq} exceeds max_seq_len "
+                f"sequence length {start + seq} exceeds max_seq_len "
                 f"{self.cfg.max_seq_len}")
-        pos = torch.arange(seq, dtype=torch.int32,
+        pos = torch.arange(start, start + seq, dtype=torch.int32,
                            device=input_ids.device)[None, :]
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        e, e_split = parallel_embedding(input_ids, self.wte,
+                                        self.cfg.vocab_size, par)
+        p, p_split = parallel_embedding(pos, self.wpe, self.cfg.max_seq_len,
+                                        par)
+        if e_split and p_split:
+            x = par.reduce_from_tp(e + p)
+        else:
+            x = ((par.reduce_from_tp(e) if e_split else e)
+                 + (par.reduce_from_tp(p) if p_split else p))
+        x = self.drop(x)
         for blk in self.blocks:
             x = blk(x)
         return self.norm_f(x)
 
 
-def _ce_chunk(hs, wc, lab, base, m, s, zlab):
+def _ce_chunk(hs, wc, lab, base, m, s, zlab, product):
     """One vocab chunk of `streaming_softmax_ce`: the chunk's logits in
     f32, the online logsumexp update, and the label logits that fall in
     the chunk."""
-    z = torch.matmul(hs, wc.t()).float()                  # [N, chunk]
+    z = product(hs, wc).float()                           # [N, chunk]
     m_new = torch.maximum(m, z.amax(dim=-1))
     s = s * torch.exp(m - m_new) + torch.exp(z - m_new[:, None]).sum(dim=-1)
     chunk = wc.shape[0]
@@ -175,12 +223,25 @@ def streaming_softmax_ce(h, wte, labels, chunk):
         raise ValueError(f"ce_vocab_chunk {chunk} must divide vocab {v}")
     hs = h.reshape(-1, hidden)
     lab = labels.reshape(-1).to(device=hs.device, dtype=torch.long)
+    m, s, zlab = _stream_ce(hs, wte, lab, chunk)
+    return (m + torch.log(s) - zlab).mean()
+
+
+def _chunk_product(hs, wc):
+    return torch.matmul(hs, wc.t())
+
+
+def _stream_ce(hs, wte, lab, chunk, product=_chunk_product):
+    """The online (max, sum of exponents, label logit) of hs [N, H]
+    against the rows of wte, chunk by chunk (a chunk's logits
+    `product(hs, rows)`), each chunk recomputed in the backward; a label
+    outside wte's rows gives a label logit of 0."""
     n = hs.shape[0]
     m = torch.full((n,), float("-inf"), dtype=torch.float32, device=hs.device)
     s = torch.zeros((n,), dtype=torch.float32, device=hs.device)
     zlab = torch.zeros((n,), dtype=torch.float32, device=hs.device)
-    for base in range(0, v, chunk):
+    for base in range(0, wte.shape[0], chunk):
         m, s, zlab = torch.utils.checkpoint.checkpoint(
             _ce_chunk, hs, wte[base:base + chunk], lab, base, m, s, zlab,
-            use_reentrant=False)
-    return (m + torch.log(s) - zlab).mean()
+            product, use_reentrant=False)
+    return m, s, zlab

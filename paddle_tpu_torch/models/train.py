@@ -79,10 +79,11 @@ def _check_options(remat, accum_steps, precision, grad_psum_axis):
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; use one of "
                          f"{_PRECISIONS}")
-    if grad_psum_axis and grad_psum_axis not in ("dp", "sp", "ep"):
-        raise NotImplementedError(
-            f"grad_psum_axis={grad_psum_axis!r}: the ported mesh axes are "
-            "dp, sp and ep (tp and pp: ROADMAP queue 1 item 8)")
+    axes = (grad_psum_axis,) if isinstance(grad_psum_axis, str) \
+        else tuple(grad_psum_axis or ())
+    for a in axes:
+        if a not in ("pp", "dp", "sp", "tp", "ep"):
+            raise ValueError(f"grad_psum_axis: unknown mesh axis {a!r}")
 
 
 def make_train_step(model, optimizer, loss_fn=None, donate=True,
@@ -121,12 +122,13 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
     default) reads FLAGS_amp: "on" turns it on; the "train" default
     keeps the dygraph step f32; False forces it off.  Compose with
     `amp.make_amp_train_step` for float16 dynamic loss scaling.
-    grad_psum_axis: a mesh axis ("dp", "sp" or "ep") over whose process
-    group the grads and the loss are meaned before the update, as the
-    reference's `lax.pmean` inside shard_map; `mesh` is the mesh
-    (default: the global mesh, else `distributed.default_mesh()`).
+    grad_psum_axis: a mesh axis ("pp", "dp", "sp", "tp" or "ep"), or a
+    tuple of them, over whose process groups the grads and the loss are
+    meaned before the update, as the reference's `lax.pmean` inside
+    shard_map; `mesh` is the mesh (default: the global mesh, else
+    `distributed.default_mesh()`).
     Not ported yet, raising NotImplementedError: precision="bfloat16"
-    (ROADMAP item 10), grad_psum_axis "tp" or "pp" (item 8).
+    (ROADMAP item 10).
     """
     _check_options(remat, accum_steps, precision, grad_psum_axis)
     accum_steps = int(accum_steps)
@@ -239,15 +241,19 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
 
 
 def _pmean_over(axis_name, mesh, loss, grads):
-    """The loss and the grads meaned over the axis's group."""
+    """The loss and the grads meaned over the axis's group (over each
+    axis of a tuple in turn: the mean over their product)."""
     from ..distributed import collective, mesh as _mesh
 
     mesh = mesh or _mesh.get_global_mesh() or _mesh.default_mesh()
-    grads = {n: collective.all_reduce_(g.contiguous(), "mean", mesh,
-                                       axis_name)
-             for n, g in grads.items()}
-    return collective.all_reduce_(loss.clone(), "mean", mesh,
-                                  axis_name), grads
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    loss = loss.clone()
+    grads = {n: g.contiguous() for n, g in grads.items()}
+    for a in axes:
+        grads = {n: collective.all_reduce_(g, "mean", mesh, a)
+                 for n, g in grads.items()}
+        loss = collective.all_reduce_(loss, "mean", mesh, a)
+    return loss, grads
 
 
 def make_eval_step(model, forward_fn=None):

@@ -355,7 +355,10 @@ class ParameterList(Layer):
 
 class MultiHeadAttention(Layer):
     """Self/cross attention through `scaled_dot_product_attention` (the
-    K1 kernel on the card inside its envelope)."""
+    K1 kernel on the card inside its envelope).  Inside
+    `distributed.tensor_parallel.tensor_parallel(mesh)` it runs this
+    rank's heads: q, k and v column-parallel, out_proj row-parallel, the
+    attention over sp through the ring."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, bias_attr=None,
                  **kw):
@@ -376,20 +379,25 @@ class MultiHeadAttention(Layer):
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 is_causal=False):
-        key = key if key is not None else query
-        value = value if value is not None else query
+        from ..distributed.tensor_parallel import current
+
+        par = current()
+        query = par.copy_to_tp(query)
+        key = query if key is None else par.copy_to_tp(key)
+        value = query if value is None else par.copy_to_tp(value)
         b, sq, _ = query.shape
         sk = key.shape[1]
-        q = self.q_proj(query).reshape(b, sq, self.num_heads, self.head_dim)
-        k = self.k_proj(key).reshape(b, sk, self.num_heads, self.head_dim)
-        v = self.v_proj(value).reshape(b, sk, self.num_heads, self.head_dim)
-        out = scaled_dot_product_attention(
+        # -1: this rank's heads under tensor parallelism
+        q = self.q_proj(query).reshape(b, sq, -1, self.head_dim)
+        k = self.k_proj(key).reshape(b, sk, -1, self.head_dim)
+        v = self.v_proj(value).reshape(b, sk, -1, self.head_dim)
+        out = par.attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=attn_mask,
             dropout_p=self._dropout if self.training else 0.0,
             is_causal=is_causal, training=self.training)
-        out = out.transpose(1, 2).reshape(b, sq, self.embed_dim)
-        return self.out_proj(out)
+        out = out.transpose(1, 2).reshape(b, sq, -1)
+        return par.row_parallel(self.out_proj, out)
 
 
 class TransformerEncoderLayer(Layer):

@@ -261,7 +261,8 @@ AdagradOptimizer = Adagrad
 
 DGCMomentumOptimizer = _not_ported("DGCMomentumOptimizer",
                                    "8, the static DGC optimizer")
-PipelineOptimizer = _not_ported("PipelineOptimizer", "8, pipeline.py")
+PipelineOptimizer = _not_ported("PipelineOptimizer",
+                                "8, the static pipeline optimizer")
 LarsMomentum = LarsMomentumOptimizer = _not_ported(
     "LarsMomentum", "10, the rest of the optimizer zoo")
 Adamax = AdamaxOptimizer = _not_ported("Adamax",

@@ -155,15 +155,21 @@ class AdamW(Adam):
 
 def global_norm_clip(clip_norm):
     """Gradient clip-by-global-norm as a grads -> grads transform (parity:
-    fluid.clip.GradientClipByGlobalNorm)."""
+    fluid.clip.GradientClipByGlobalNorm).  `sumsq(grads)`, when given,
+    replaces the local sum of squares (the sharded step sums those of
+    split params over their axes)."""
 
-    def clip(grads):
-        sq = sum(torch.sum(torch.square(g.float()))
-                 for g in grads.values() if g is not None)
+    def clip(grads, sumsq=None):
+        if sumsq is None:
+            sq = sum(torch.sum(torch.square(g.float()))
+                     for g in grads.values() if g is not None)
+        else:
+            sq = sumsq({k: g for k, g in grads.items() if g is not None})
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         return {k: (None if g is None else g * scale.to(g.dtype))
                 for k, g in grads.items()}
 
+    clip.clip_norm = clip_norm
     return clip

@@ -507,7 +507,9 @@ def test_fleet_make_train_step_picks_the_step(mesh1):
     # it against the reference's)
     step = make(topt.SGD(0.05), amp=True)
     assert isinstance(step, DataParallelTrainStep)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a tp degree builds the reference's mesh, which needs its ranks
+    # (tests/test_torch_zero_fsdp.py runs dp 2 x tp 2 on gloo)
+    with pytest.raises(ValueError, match="mesh needs"):
         make(topt.SGD(0.05), tp_degree=2)
     # the save facades write through io on the first worker
     # (tests/test_torch_io.py holds io's files against the reference's)
@@ -546,50 +548,57 @@ def test_batch_must_divide_and_unported_axes_raise(mesh1):
     assert np.isfinite(float(step(torch.from_numpy(x), torch.from_numpy(y))))
     with pytest.raises(ValueError, match="mesh needs dp=2"):
         build_mesh(dp=2)
-    # sp and ep are ported (tests/test_torch_moe.py,
-    # tests/test_torch_ring_attention.py): more ranks than the world
-    # has is a ValueError like dp's
-    for kw in ({"sp": 2}, {"ep": 2}):
+    # every axis is ported (tests/test_torch_moe.py,
+    # tests/test_torch_ring_attention.py, tests/test_torch_zero_fsdp.py,
+    # tests/test_torch_pipeline.py): more ranks than the world has is a
+    # ValueError like dp's
+    for kw in ({"sp": 2}, {"ep": 2}, {"tp": 2}, {"pp": 2}):
         with pytest.raises(ValueError, match="mesh needs"):
-            build_mesh(**kw)
-    for kw in ({"tp": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
             build_mesh(**kw)
     from paddle_tpu_torch.distributed import data_parallel, mesh
     for fn in (lambda: mesh.build_rule_mesh({"dp": 1}),
                lambda: mesh.mesh_key(mesh1), lambda: mesh.MeshLayout(mesh1),
-               lambda: tcoll.ppermute(torch.zeros(2), "tp", [(0, 0)]),
-               lambda: tcoll.all_to_all(torch.zeros(2), "pp", 0, 0)):
+               lambda: build_mesh(devices=[0])):
         with pytest.raises(NotImplementedError, match="item 8"):
             fn()
+    # on the one-rank tp and pp axes they are the identity too
+    x = torch.arange(4.0)
+    assert torch.equal(tcoll.ppermute(x, "tp", [(0, 0)], mesh1), x)
+    assert torch.equal(tcoll.all_to_all(x, "pp", 0, 0, mesh1), x)
     # on the one-rank dp axis both are the identity
     x = torch.arange(4.0)
     assert torch.equal(tcoll.ppermute(x, "dp", [(0, 0)], mesh1), x)
     assert torch.equal(tcoll.all_to_all(x, "dp", 0, 0, mesh1), x)
     with pytest.raises(NotImplementedError, match="item 10"):
         data_parallel.DataParallel(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcoll.psum(torch.zeros(2), "tp")
-    # the fleet's steps are data parallel: an sp degree raises before
-    # any mesh is built
+    assert torch.equal(tcoll.psum(x, "tp", mesh=mesh1), x)
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        tcoll.psum(x, "mp", mesh=mesh1)
+    # the fleet's steps are data parallel over the mesh that the degrees
+    # build: an sp degree needs its ranks like dp's
     s = tfleet.DistributedStrategy()
     s.sp_degree = 2
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh needs"):
         tfleet.make_train_step(_port_model("toy", _F32), topt.SGD(LR),
                                _port_loss("toy"), strategy=s)
 
 
 def test_entry_points_default_to_the_card():
-    """Without `device`, the rendezvous asks for a card (NCCL): on a host
-    without one the device it picks raises instead of being the CPU."""
-    from paddle_tpu_torch.distributed import env
+    """Without `device`, the rendezvous asks for a card (NCCL) and an
+    in-process mesh puts its ranks on the card: on a host without one
+    both raise instead of running on the CPU."""
+    from paddle_tpu_torch.distributed import env, inprocess
 
     if torch.cuda.is_available():
         assert env._device_of(None, 0).type == "cuda"
+        assert inprocess.local_meshes(tp=2)[0].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         env._device_of(None, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inprocess.local_meshes(tp=2)
     assert env._device_of("cpu", 0).type == "cpu"
+    assert inprocess.local_meshes(tp=2, device="cpu")[1].device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------

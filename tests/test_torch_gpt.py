@@ -153,16 +153,18 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_options_raise():
     """GPT MoE builds (tests/test_torch_gpt_moe.py holds it to the
-    reference); what the expert-parallel slice leaves out of item 8
-    raises naming it: tensor parallelism and ZeRO-1."""
-    from paddle_tpu_torch.distributed import mesh as tmesh, sharded
+    reference); what item 8 still leaves out raises naming it: the rule
+    meshes of the sharding analyzer (tensor parallelism and ZeRO-1 are
+    ported: tests/test_torch_tensor_parallel.py,
+    tests/test_torch_zero_fsdp.py)."""
+    from paddle_tpu_torch.distributed import mesh as tmesh
 
     m = GPT(GPTConfig(num_experts=4, **SMALL), device="cpu")
     assert m.blocks[0].moe.w1.shape == (4, 128, 512)
     with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.build_mesh(tp=2)
+        tmesh.build_rule_mesh({"dp": 1, "mp": 2})
     with pytest.raises(NotImplementedError, match="item 8"):
-        sharded.shard_train_state(None, None, None, zero1=True)
+        tmesh.MeshLayout(None)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

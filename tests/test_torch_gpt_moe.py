@@ -295,7 +295,9 @@ def test_moe_decode_routes_drop_free():
 
 def test_sharded_step_at_one_rank_and_what_raises():
     """dp = ep = 1 on a one-rank gloo group: the sharded step is
-    make_train_step; what item 8 leaves raises naming it."""
+    make_train_step, also with zero1 and accum_steps=2 (bitwise); what
+    item 8 leaves raises naming it (an explicit device list), and tp or
+    pp beyond the world's ranks is a ValueError."""
     from paddle_tpu_torch.distributed import sharded as tsh
     from paddle_tpu_torch.distributed.env import destroy_parallel_env
     from paddle_tpu_torch.distributed.mesh import build_mesh
@@ -318,15 +320,24 @@ def test_sharded_step_at_one_rank_and_what_raises():
         assert rules.spec("blocks.0.moe.w1") == tsh.P("ep", None, None)
         assert rules.spec("blocks.0.moe.wg") == tsh.P()
         assert rules.spec("norm_f.weight") == tsh.P()
+        for kw in ({"zero1": True}, {"accum_steps": 2}):
+            a, b = _port_model(weights), _port_model(weights)
+            step, st = tsh.make_sharded_train_step(a, topt.AdamW(LR), mesh,
+                                                   **kw)
+            acc = kw.get("accum_steps", 1)
+            ref = ttrain.make_train_step(b, topt.AdamW(LR), accum_steps=acc)
+            rst = ttrain.init_train_state(b, topt.AdamW(LR))
+            x, y = tsh.shard_batch(mesh, *_batch(7))
+            st, l1 = step(st, x, y)
+            rst, l2 = ref(rst, x, y)
+            assert torch.equal(l1, l2), kw
+            for n, v in rst.params.items():
+                assert torch.equal(st.params[n], v), (kw, n)
         with pytest.raises(NotImplementedError, match="item 8"):
-            tsh.make_sharded_train_step(a, topt.AdamW(LR), mesh, zero1=True)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tsh.make_sharded_train_step(a, topt.AdamW(LR), mesh,
-                                        accum_steps=2)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build_mesh(tp=2)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build_mesh(pp=2)
+            build_mesh(dp=1, devices=[0])
+        for kw in ({"tp": 2}, {"pp": 2}):
+            with pytest.raises(ValueError, match="mesh needs"):
+                build_mesh(**kw)
     finally:
         destroy_parallel_env()
 

@@ -150,7 +150,8 @@ def test_the_two_branches_agree_with_full_attention(impl):
 def test_sp_1_on_a_gloo_group_and_impl_checks():
     """sp = 1 over a one-rank gloo group: the ring has no hop and is the
     attention of the shard; an unknown impl raises, "auto" takes the
-    composition on the CPU."""
+    composition on the CPU; over another one-rank axis (tp) the ring is
+    the same attention, and an unknown axis raises."""
     from paddle_tpu_torch.distributed.env import destroy_parallel_env
     from paddle_tpu_torch.distributed.mesh import build_mesh
     from paddle_tpu_torch.kernels.flash_attention import flash_attention_ref
@@ -168,8 +169,12 @@ def test_sp_1_on_a_gloo_group_and_impl_checks():
         with pytest.raises(ValueError, match="impl"):
             tring.ring_attention(q, k, v, impl="pallas", mesh=mesh)
         assert not tring._use_flash_blocks("auto", q)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tring.ring_attention(q, k, v, axis_name="tp", mesh=mesh)
+        got = tring.ring_attention(q, k, v, axis_name="tp", causal=True,
+                                   mesh=mesh)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=TOL,
+                                   rtol=TOL)
+        with pytest.raises(ValueError, match="unknown mesh axis"):
+            tring.ring_attention(q, k, v, axis_name="mp", mesh=mesh)
     finally:
         destroy_parallel_env()
 

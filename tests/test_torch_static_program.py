@@ -452,17 +452,18 @@ def test_no_port_module_names_item_6_or_item_5():
     """Items 6 (the conv path's rest, the recompute) and 5 (beam search)
     are done: no message of the port names them.  GPT MoE, and with it
     item 5's MoE decode, came with item 8's first part; what item 8
-    still leaves out raises naming it: tensor parallelism and ZeRO-1."""
+    still leaves out raises naming it: the rule meshes of the sharding
+    analyzer and an explicit device list."""
     items = re.compile(r"item [56]\b")
     for path in [REPO / "chip_smoke.py",
                  *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
         assert not items.search(path.read_text()), path
-    from paddle_tpu_torch.distributed import mesh as tmesh, sharded
+    from paddle_tpu_torch.distributed import mesh as tmesh
 
     with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.build_mesh(tp=2)
+        tmesh.mesh_key(None)
     with pytest.raises(NotImplementedError, match="item 8"):
-        sharded.shard_train_state(None, None, None, zero1=True)
+        tmesh.build_mesh(tp=2, devices=[0, 1])
 
 
 def test_no_port_module_names_item_4_and_the_tier_imports_no_jax():

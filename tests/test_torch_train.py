@@ -301,12 +301,13 @@ def test_eval_step_matches_reference():
 def test_unported_step_options_raise():
     _, tm = _pair()
     opt = topt.AdamW(LR)
-    # grad_psum_axis over dp, sp or ep is ported
-    # (tests/test_torch_gpt_moe.py); tp and pp raise
-    for kw, match in (({"precision": "bfloat16"}, "item 10"),
-                      ({"grad_psum_axis": "tp"}, "item 8")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.make_train_step(tm, opt, **kw)
+    # grad_psum_axis over every mesh axis, or a tuple of them, is ported
+    # (tests/test_torch_gpt_moe.py); an unknown axis raises
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ttrain.make_train_step(tm, opt, precision="bfloat16")
+    ttrain.make_train_step(tm, opt, grad_psum_axis=("dp", "tp"))
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        ttrain.make_train_step(tm, opt, grad_psum_axis="mp")
     # remat="conv_outs" is ported (tests/test_torch_recompute.py)
     ttrain.make_train_step(tm, opt, remat="conv_outs")
     with pytest.raises(ValueError, match="remat"):
