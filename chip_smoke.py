@@ -335,6 +335,31 @@ Phases (any failure makes the script exit non-zero without a result):
    dp) the replicated step's first loss bitwise and its updates by
    `_hold_update`, the replicated step's first update against
    make_train_step's on the whole batch by the same rule.
+7f. The static Executor's data-parallel tier, the static DGC optimizer
+   and the parameter server's data plane (`collective_phase`).  (a) The
+   static GPT of phase 7 (`build_gpt(512, 768, 12, 32768)`, batch 8 of
+   `static_feed`, Adam(1e-3), FLAGS_amp and FLAGS_graph_opt_fuse on, so
+   K1-K5 run) through `CompiledProgram(main).with_data_parallel()` on a
+   one-rank NCCL group (W = 1) and with places=2 (two ranks in this
+   process, 4 rows each), against the plain Executor.run from the same
+   startup: first losses (the mean of the fetch) within 3e-2 and first
+   updates within 0.1 in norm of the plain run's, each timed step
+   launching exactly W x the plain step's K1-K5, the buckets of
+   `last_sync_stats()` ceil(grad bytes / FLAGS_dp_bucket_bytes) per
+   dtype, and FLAGS_dp_bucket_bytes=0 giving a W = 2 step bitwise the
+   bucketed one; host and device ms, tokens/s, peak memory, collectives
+   and bucket bytes per step.  (b) The f32 static GPT at zoo size
+   (`build_gpt(128, 768, 12, 1024)`, batch 4) with DGCMomentumOptimizer
+   (rampup at step 1, sparsity [0.75, 0.99], a local clip norm), 3 steps
+   at W = 2 in one process, card against CPU: losses, params, U, V and
+   velocities by the f32 static checks' rules, the step-1 masks exact
+   but for named near-ties (`_hold_static_dgc_masks`).  (c) A Downpour
+   CTR loop: Wide&Deep at bench.py's CTR widths (26 slots over 1e6 ids,
+   13 dense, batch 8192) with its 8-wide embedding transpiled onto two
+   PSServers on localhost threads (`ShardedPSClient`), the dense step on
+   the card: 20 pull -> step -> push steps, every pull bitwise an
+   in-process table's, the loss falling; pull, H2D, device, D2H and push
+   ms per step.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -385,7 +410,8 @@ AMP + fusion, clipped, AMP float16 + fusion), the io phase's Predictor
 and CompiledPredictor runs, the zoo phase's timed BERT steps, its
 unmasked eval forward and its timed beam search, the moe phase's MoE
 train steps, MoE serving runs and ring runs, the parallel phase's timed
-tp = 2, pp = 2 and V = 2 steps, and the probe tool's runs, K10's over
+tp = 2, pp = 2 and V = 2 steps, the collective phase's timed W = 1 and
+W = 2 data-parallel steps, and the probe tool's runs, K10's over
 the DGC run with K10, P1's and P2's over the probe tool's), the card
 line and {"ok": true, "device": {...}}.
 """
@@ -7526,6 +7552,572 @@ def parallel_f32_checks(failures, steps=3, lr=1e-4):
                           failures)
 
 
+# ---------------------------------------------------------------------------
+# phase 7f: the static Executor's data-parallel tier, the static DGC
+# optimizer and the parameter server's data plane
+# ---------------------------------------------------------------------------
+
+COLL_BATCH = 8          # the static GPT's batch of phase 7 (static_run)
+COLL_STEPS = 5          # timed steps of each data-parallel run
+# (b): the zoo-size f32 static GPT of the static checks, its batch (2
+# rows a rank at W = 2) and steps, and the DGC optimizer it trains with
+COLL_DGC = (dict(t=128, d=768, heads=12, vocab=1024), 4, 3)
+COLL_DGC_OPT = dict(learning_rate=1e-3, momentum=0.9, rampup_begin_step=1,
+                    sparsity=[0.75, 0.99], local_grad_clip_norm=1.0,
+                    num_trainers=2)
+# a DGC mask element that differs between card and CPU at the first DGC
+# step must be a near-tie: its |v| within this of the threshold on both
+DGC_NEAR_RTOL = 1e-4
+# (c): bench.py:697-704's Wide&Deep CTR widths (26 sparse slots over 1e6
+# ids, 13 dense features, batch 8192) with 8-wide embedding rows held by
+# two parameter servers
+COLL_CTR = dict(fields=26, vocab=1_000_000, dense=13, dim=8)
+COLL_CTR_BATCH = 8192
+COLL_CTR_STEPS = 20
+
+
+def collective_phase(failures):
+    """Phase 7f (see the module docstring): (a) the static GPT under
+    `with_data_parallel` at W = 1 (NCCL) and W = 2 (in one process)
+    against the plain Executor.run, (b) the f32 zoo-size GPT with
+    DGCMomentumOptimizer at W = 2, card against CPU, (c) a Downpour CTR
+    loop over two parameter servers.  Returns the launches of (a)'s
+    timed data-parallel steps."""
+    launches = collective_dp_run(failures)
+    collective_dgc_check(failures)
+    collective_ctr_run(failures)
+    return launches
+
+
+def collective_dp_run(failures):
+    """(a) The static GPT of phase 7 (`build_gpt(512, 768, 12, 32768)`,
+    batch 8 of `static_feed`, Adam(1e-3)) with FLAGS_amp and
+    FLAGS_graph_opt_fuse on, from one startup: the plain Executor.run,
+    then `CompiledProgram(main).with_data_parallel()` on a one-rank NCCL
+    group (W = 1) and with places=2 (two ranks in this process, 4 rows
+    each), a warm-up step and COLL_STEPS timed steps each.  Each dp
+    run's first loss (the mean of its fetch) within STATIC_AMP_LOSS_RTOL
+    of the plain run's and its first update within STATIC_UPDATE_RTOL
+    in norm (`update_error`, the key bias left out); each timed step
+    launching exactly W x STATIC_AMP_LAUNCHES; the buckets of
+    `last_sync_stats()` ceil(grad bytes / FLAGS_dp_bucket_bytes) per
+    dtype; and one W = 2 step with FLAGS_dp_bucket_bytes=0 bitwise the
+    bucketed one (loss and every persistable).  Logs host and device ms,
+    tokens/s, peak memory, collectives and bucket bytes per step."""
+    import collections
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.distributed import inprocess
+    from paddle_tpu_torch.distributed.env import (
+        destroy_parallel_env, init_parallel_env,
+    )
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+    from paddle_tpu_torch.transpiler import collective as coll
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    start = dict(scope.vars)
+    start_np = interop.scope_to_numpy(scope)
+    feed = static_feed(m, STATIC_GPT["vocab"], batch=COLL_BATCH, seed=0)
+    tokens = COLL_BATCH * STATIC_GPT["t"]
+    bucket = int(fluid.get_flags("dp_bucket_bytes")["FLAGS_dp_bucket_bytes"])
+    launches = collections.Counter()
+
+    def first_step(program):
+        """One step from the startup values: (loss, state)."""
+        sc = fluid.Scope()
+        sc.vars.update({n: v.clone() for n, v in start.items()})
+        out = exe.run(program, feed=feed, fetch_list=[m.loss_name],
+                      scope=sc, return_numpy=False)[0]
+        return float(out.float().mean()), sc
+
+    def timed(label, program, width):
+        loss0, sc = first_step(program)
+        first = interop.scope_to_numpy(sc)
+        stats = coll.last_sync_stats() if width else {}
+
+        def step():
+            return exe.run(program, feed=feed, fetch_list=[m.loss_name],
+                           scope=sc, return_numpy=False)[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launches()
+        want = {n: c * max(width, 1) for n, c in STATIC_AMP_LAUNCHES.items()}
+        step_ms, losses = [], [loss0]
+        for i in range(COLL_STEPS):
+            before = dict(backend.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step().float().mean()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            made = {n: c - before.get(n, 0)
+                    for n, c in backend.LAUNCHES.items()}
+            made = {n: c for n, c in made.items() if c}
+            if made != want:
+                failures.append(f"{label} step {i} launches {made} != "
+                                f"{want}")
+        if width:
+            launches.update(backend.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        host_ms = sum(step_ms) / len(step_ms)
+        prof = profile_train_step(lambda _: step(), None, (), host_ms,
+                                  label=label, steps=2)
+        log(f"{label}: step ms {[round(t, 3) for t in step_ms]}, mean "
+            f"{host_ms:.3f} ms (host clock, fetch included), device "
+            f"{prof['device']:.3f} ms, {tokens / host_ms * 1e3:.0f} "
+            f"tokens/s, peak memory {peak / 2 ** 30:.3f} GiB; losses "
+            f"{losses}")
+        if stats:
+            log(f"{label}: per step {stats['psums']} all_reduces "
+                f"({stats['mode']}, {stats['buckets']} buckets of "
+                f"FLAGS_dp_bucket_bytes {stats['bucket_bytes']}) over "
+                f"{stats['grads']} grads, {stats['total_bytes']} grad bytes "
+                f"(bucket bytes "
+                f"{sorted({b['bytes'] for b in stats['plan']})})")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{label} losses not finite: {losses}")
+        del sc
+        return dict(loss0=loss0, first=first, stats=stats, host_ms=host_ms,
+                    device=prof["device"], peak=peak)
+
+    def hold(label, got, plain):
+        err = abs(got["loss0"] - plain["loss0"]) / abs(plain["loss0"])
+        worst, worst_name = update_error(start_np, got["first"],
+                                         plain["first"], STATIC_ZERO_GRAD)
+        same = all(np.array_equal(got["first"][n], plain["first"][n])
+                   for n in plain["first"])
+        log(f"{label} vs the plain run: first loss {got['loss0']:.6f} vs "
+            f"{plain['loss0']:.6f} (rel err {err:.3e}); worst first update "
+            f"||d_dp - d_plain|| / (0.1 ||d_plain||) {worst:.3e} "
+            f"({worst_name}); state bitwise the plain run's: {same}")
+        if not err <= STATIC_AMP_LOSS_RTOL:
+            failures.append(f"{label}: first loss off the plain run's by "
+                            f"{err:.3e} > {STATIC_AMP_LOSS_RTOL}")
+        if not worst <= 1.0:
+            failures.append(f"{label}: first update of {worst_name} off "
+                            f"the plain run's by {worst:.3e} of its bound")
+        stats = got["stats"]
+        by_dtype = collections.Counter()
+        for b in stats["plan"]:
+            by_dtype[b["dtype"]] += b["bytes"]
+        want = {dt: -(-nbytes // bucket) for dt, nbytes in by_dtype.items()}
+        have = collections.Counter(b["dtype"] for b in stats["plan"])
+        if dict(have) != want or stats["buckets"] != sum(want.values()) \
+                or stats["psums"] != stats["buckets"]:
+            failures.append(f"{label}: buckets {dict(have)} (psums "
+                            f"{stats['psums']}) != ceil(grad bytes / "
+                            f"{bucket}) {want}")
+
+    # the step's gradients (the AMP substitute keeps f32 master params)
+    grads = {n: torch.ones_like(start[n])
+             for n in m.main.backward_sections[0].param_names}
+    with tier_flags(amp="on", fuse="on"):
+        plain = timed("collective plain static gpt", m.main, 0)
+        init_parallel_env()
+        try:
+            w1 = timed("collective dp W=1 (NCCL)", fluid.CompiledProgram(
+                m.main).with_data_parallel(loss_name=m.loss_name), 1)
+            hold("collective dp W=1 (NCCL)", w1, plain)
+            sync_times("W=1 (NCCL)", grads, [build_mesh(dp=1)])
+        finally:
+            destroy_parallel_env()
+        sync_times("W=2 (in one process)", grads,
+                   inprocess.local_meshes(dp=2))
+        prog2 = fluid.CompiledProgram(m.main).with_data_parallel(
+            loss_name=m.loss_name, places=2)
+        w2 = timed("collective dp W=2 (in one process)", prog2, 2)
+        hold("collective dp W=2 (in one process)", w2, plain)
+        with tier_flags(amp="on", fuse="on", dp_bucket_bytes=0):
+            loss0, sc = first_step(prog2)
+            per_grad = coll.last_sync_stats()
+            state = interop.scope_to_numpy(sc)
+        same = loss0 == w2["loss0"] and all(
+            np.array_equal(state[n], w2["first"][n]) for n in w2["first"])
+        log(f"collective dp W=2, FLAGS_dp_bucket_bytes=0: "
+            f"{per_grad['psums']} all_reduces ({per_grad['mode']}) against "
+            f"{w2['stats']['psums']} bucketed; loss and state bitwise the "
+            f"bucketed step's: {same}")
+        if not same or per_grad["mode"] != "per_grad":
+            failures.append("collective dp W=2: the per-gradient step is "
+                            "not bitwise the bucketed one")
+    log(f"collective dp vs plain (the same call): host ms W=1 "
+        f"{w1['host_ms']:.3f}, W=2 {w2['host_ms']:.3f}, plain "
+        f"{plain['host_ms']:.3f}; device ms {w1['device']:.3f}, "
+        f"{w2['device']:.3f}, {plain['device']:.3f}")
+    del start
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def sync_times(label, grads, meshes, reps=5):
+    """The gradient sync alone (`sync_gradients` on `grads`, one step's
+    shapes, every rank of `meshes` at once), bucketed and per gradient:
+    host ms per sync (ends in a sync of the card) and device ms (CUDA
+    events around the same calls)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import inprocess
+    from paddle_tpu_torch.transpiler import collective as coll
+
+    out = {}
+    for bucket in (None, 0):
+        def run(r, mesh):
+            for _ in range(reps):
+                coll.sync_gradients(grads, "dp", bucket_bytes=bucket,
+                                    mesh=mesh)
+
+        def all_ranks():
+            if len(meshes) == 1:
+                run(0, meshes[0])
+            else:
+                inprocess.run_ranks(meshes, run)
+
+        all_ranks()                      # warm-up
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        all_ranks()
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        stats = coll.last_sync_stats()
+        out[stats["mode"]] = (host, start.elapsed_time(end) / reps,
+                              stats["psums"])
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    log(f"collective sync alone {label}, {nbytes} grad bytes: "
+        + "; ".join(f"{mode} {n} all_reduces: host {h:.3f} ms, device "
+                    f"{d:.3f} ms a sync ({h / n:.4f} host ms an all_reduce)"
+                    for mode, (h, d, n) in out.items()))
+    return out
+
+
+@contextlib.contextmanager
+def _static_optimizer(make):
+    """Every static_zoo builder called inside trains with `make()` (a
+    static optimizer) instead of its own."""
+    from paddle_tpu_torch.models import static_zoo
+
+    tail = static_zoo._train_tail
+    static_zoo._train_tail = lambda loss, _: tail(loss, make())
+    try:
+        yield
+    finally:
+        static_zoo._train_tail = tail
+
+
+def _dgc_sparsity(step, opt=COLL_DGC_OPT):
+    """The sparsity of the dgc op at `step` (its warm-up walk, rampup_step
+    1), None before the rampup."""
+    begin, levels = opt["rampup_begin_step"], opt["sparsity"]
+    if step < begin:
+        return None
+    prog = min(max(float(step - begin), 0.0), 1.0)
+    return levels[min(int(prog * len(levels)), len(levels) - 1)]
+
+
+def collective_dgc_check(failures):
+    """(b) The f32 static GPT of COLL_DGC (`build_gpt(128, 768, 12,
+    1024)`) trained by DGCMomentumOptimizer (COLL_DGC_OPT: rampup at step
+    1, sparsity [0.75, 0.99], a local clip norm) as a data-parallel
+    CompiledProgram at W = 2 in one process, card against CPU, from the
+    same startup values, 3 steps.  Held by the f32 static checks' rules
+    (`static_check`): the first loss within 1e-4 relative, later 1e-3;
+    every persistable (params, U, V, velocities) in norm within 1e-3
+    relative + 1e-5 sqrt(n), each update within 0.1 of the CPU's in
+    norm.  The masks (the elements each dgc op ships) from the fetched
+    GradOut and V: at the first DGC step equal, except near-ties (|v|
+    within DGC_NEAR_RTOL of the threshold on both sides), later steps
+    also an element carried from an earlier difference or inside the
+    two thresholds' band widened by the tensor's noise.  K4 and K5 run
+    each rank's two LayerNorms: 4 launches each a step."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import static_zoo
+
+    kw, batch, steps = COLL_DGC
+    with _static_optimizer(lambda: fluid.optimizer.DGCMomentumOptimizer(
+            **COLL_DGC_OPT)):
+        m = static_zoo.build_gpt(**kw)
+    dgc = [op for op in m.main.global_block().ops if op.type == "dgc"]
+    outs = [op.outputs["GradOut"][0] for op in dgc]
+    vnames = [op.inputs["V"][0] for op in dgc]
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    cpu_exe.run(m.startup, scope=scope)
+    start = interop.scope_to_numpy(scope)
+    runs = {}
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        exe = fluid.Executor() if dev == "cuda" else cpu_exe
+        sc = interop.scope_from_numpy(start, fluid.Scope(), dev)
+        prog = fluid.CompiledProgram(m.main).with_data_parallel(
+            loss_name=m.loss_name, places=2)
+        backend.reset_launches()
+        losses, vs, masks = [], [], []
+        for i in range(steps):
+            got = exe.run(prog, feed=static_feed(m, kw["vocab"], batch, i),
+                          fetch_list=[m.loss_name] + outs, scope=sc)
+            losses.append(float(got[0]))
+            state = interop.scope_to_numpy(sc)
+            # each rank's GradOut is the same (the grads are synced): the
+            # [2n, ...] fetch is two copies
+            # v before the mask: shipped in GradOut, kept in V; the mask
+            # is what ships (nonzero; before the rampup nothing does)
+            on = _dgc_sparsity(i) is not None
+            v, mk = {}, {}
+            for v_name, g in zip(vnames, got[1:]):
+                g = g[:g.shape[0] // 2]
+                v[v_name] = torch.from_numpy(g + state[v_name])
+                mk[v_name] = torch.from_numpy((g != 0) & on)
+            vs.append(v)
+            masks.append(mk)
+        runs[side] = dict(losses=losses, state=interop.scope_to_numpy(sc),
+                          vs=vs, masks=masks,
+                          launches=dict(backend.LAUNCHES))
+        del sc
+    card, cpu = runs["card"], runs["cpu"]
+    want = {"layer_norm_fwd": 4 * steps, "layer_norm_bwd": 4 * steps}
+    if card["launches"] != want:
+        failures.append(f"collective dgc: card launches {card['launches']} "
+                        f"!= {want}")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                     cpu["losses"])]
+    worst, worst_name = 0.0, None
+    for n, w in cpu["state"].items():
+        d = float(np.linalg.norm((card["state"][n] - w).ravel().astype(
+            np.float64)))
+        bound = (1e-3 * float(np.linalg.norm(w.ravel().astype(np.float64)))
+                 + 1e-5 * np.sqrt(w.size))
+        if d / bound > worst:
+            worst, worst_name = d / bound, n
+    # the attention's key bias (STATIC_ZERO_GRAD) and its velocity: a
+    # gradient 0 in exact arithmetic, each device's noise moving it
+    skip = {n for n in cpu["state"] if n.split("_dgc")[0] in STATIC_ZERO_GRAD}
+    upd, upd_name = update_error(start, card["state"], cpu["state"], skip)
+    differ = _hold_static_dgc_masks(card, cpu, failures)
+    shipped = [sum(int(mk.sum()) for mk in step.values())
+               for step in card["masks"]]
+    log(f"collective dgc {kw} batch {batch}, W=2, {steps} "
+        f"DGCMomentumOptimizer steps ({len(dgc)} dgc ops, sparsity "
+        f"{COLL_DGC_OPT['sparsity']} from step "
+        f"{COLL_DGC_OPT['rampup_begin_step']}), card vs CPU: losses card "
+        f"{card['losses']} CPU {cpu['losses']}, rel err "
+        f"{[f'{e:.2e}' for e in loss_err]}; worst persistable ||d|| / bound "
+        f"{worst:.3e} ({worst_name}); worst update / bound {upd:.3e} "
+        f"({upd_name}); elements shipped per step {shipped}; mask elements "
+        f"differing per step {differ}; card launches {card['launches']}")
+    if not all(e <= (1e-4 if i == 0 else 1e-3)
+               for i, e in enumerate(loss_err)):
+        failures.append(f"collective dgc: losses differ by {loss_err}")
+    if not worst <= 1.0:
+        failures.append(f"collective dgc: persistable {worst_name} off by "
+                        f"{worst:.3e} of its bound")
+    if not upd <= 1.0:
+        failures.append(f"collective dgc: update of {upd_name} off by "
+                        f"{upd:.3e} of its bound")
+    if not (shipped[0] == 0 and all(0 < s for s in shipped[1:])):
+        failures.append(f"collective dgc: elements shipped per step "
+                        f"{shipped}: none before the rampup, some after")
+
+
+def _hold_static_dgc_masks(card, cpu, failures):
+    """The static DGC masks of (b), card against CPU, step by step (the
+    rule of `_hold_dgc_masks` with the exact thresholds of the static dgc
+    op: the k-th largest |v| on each side).  Returns the mask elements
+    that differed per step."""
+    import torch
+
+    flipped, differ = {}, []
+    for t, (mc, mh) in enumerate(zip(card["masks"], cpu["masks"])):
+        differ.append(0)
+        s = _dgc_sparsity(t)
+        if s is None:
+            continue
+        for n, m_c in mc.items():
+            m_h = mh[n].reshape(-1)
+            m_c = m_c.reshape(-1)
+            ac = card["vs"][t][n].reshape(-1).abs()
+            ah = cpu["vs"][t][n].reshape(-1).abs()
+            k = min(max(int(round(ac.numel() * (1.0 - s))), 1), ac.numel())
+            tc = float(torch.kthvalue(ac, ac.numel() - k + 1).values)
+            th = float(torch.kthvalue(ah, ah.numel() - k + 1).values)
+            for side, mk, a, thr in (("card", m_c, ac, tc),
+                                     ("CPU", m_h, ah, th)):
+                if not torch.equal(mk, (a >= thr) & (a > 0)):
+                    failures.append(f"collective dgc step {t} {n}: the "
+                                    f"{side}'s mask is not 0 < |v| >= the "
+                                    f"k-th largest |v|")
+            diff = torch.nonzero(m_c != m_h).reshape(-1)
+            if not diff.numel():
+                continue
+            differ[-1] += diff.numel()
+            before = flipped.setdefault(n, set())
+            rest = torch.tensor([i for i in diff.tolist()
+                                 if i not in before], dtype=torch.long)
+            first = not any(_dgc_sparsity(u) is not None for u in range(t))
+            if first:
+                ok = bool(((ac[rest] - tc).abs() <= DGC_NEAR_RTOL * tc).all()
+                          and ((ah[rest] - th).abs()
+                               <= DGC_NEAR_RTOL * th).all())
+            else:
+                agree = torch.ones(ac.numel(), dtype=torch.bool)
+                agree[diff] = False
+                agree[list(before)] = False
+                vc = card["vs"][t][n].reshape(-1)
+                vh = cpu["vs"][t][n].reshape(-1)
+                noise = float((vc - vh)[agree].abs().max()) \
+                    if agree.any() else 0.0
+                lo, hi = min(tc, th) - noise, max(tc, th) + noise
+                ok = all(bool(((a >= lo) & (a <= hi)).all())
+                         for a in (ac[rest], ah[rest]))
+            log(f"collective dgc step {t} {n} [{ac.numel()}, k {k}]: masks "
+                f"differ in {diff.numel()} ({diff.numel() - rest.numel()} "
+                f"carried); thresholds card {tc:.6e} CPU {th:.6e}: "
+                f"{'explained' if ok else 'UNEXPLAINED'}")
+            if not ok:
+                failures.append(f"collective dgc step {t} {n}: "
+                                f"{rest.numel()} mask elements differ "
+                                f"beyond near-ties, carry-over and noise")
+            before.update(diff.tolist())
+    return differ
+
+
+def ctr_model(fields, vocab, dense, dim):
+    """static_zoo's Wide&Deep with its embedding `is_sparse` (the table
+    the DistributeTranspiler moves to the parameter servers): (main,
+    startup, loss name)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [None, fields], dtype="int64")
+        den = fluid.data("dense", [None, dense])
+        label = fluid.data("label", [None, 1])
+        emb = L.embedding(ids, size=(vocab, dim), is_sparse=True)
+        deep_in = L.concat([L.reshape(emb, shape=[-1, fields * dim]), den],
+                           axis=1)
+        deep = L.fc(L.fc(deep_in, 32, act="relu"), 16, act="relu")
+        logit = L.elementwise_add(L.fc(deep, 1), L.fc(den, 1))
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+        fluid.optimizer.Adagrad(0.05).minimize(loss)
+    return main, startup, loss.name
+
+
+def collective_ctr_run(failures):
+    """(c) A Downpour CTR loop: `ctr_model` at COLL_CTR widths,
+    transpiled onto two PSServers (localhost threads, adagrad shards of
+    dim 8, both seeded 0) through the transpiler's ShardedPSClient; the
+    dense step on the card.  COLL_CTR_STEPS steps over a pool of 4
+    batches of COLL_CTR_BATCH (ids uniform over the vocab; the label set
+    by the first id's parity and the dense features' sum): pull over
+    TCP, H2D, the step (fetching the lookup output's @GRAD), D2H, push
+    over TCP.  Every pull must equal bitwise the pull of an in-process
+    table (`SparseEmbedding` over two native shards seeded 0, pushed the
+    same grads), and the loss must fall (the mean of the last 4 steps
+    below the first 4's).  Logs pull, H2D, device, D2H and push ms per
+    step."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.transpiler import (DistributeTranspiler,
+                                             DistributeTranspilerConfig)
+
+    c = COLL_CTR
+    main, startup, loss = ctr_model(**c)
+    servers = [ps.PSServer(dim=c["dim"], optimizer="adagrad", lr=0.05,
+                           seed=0).start() for _ in range(2)]
+    try:
+        cfg = DistributeTranspilerConfig()
+        cfg.ps_lr, cfg.device = 0.05, "cpu"
+        t = DistributeTranspiler(cfg)
+        t.transpile(0, program=main, startup_program=startup,
+                    pservers=",".join(f"127.0.0.1:{s.port}"
+                                      for s in servers))
+        table = t.tables[0]
+        emb = main._ps_sparse_config[0]["emb_var"]
+        mirror = ps.SparseEmbedding(c["dim"], clients=[
+            ps._make_shard(c["dim"], optimizer="adagrad", lr=0.05, seed=0)
+            for _ in range(2)], device="cpu")
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.default_rng(0)
+        pool = []
+        for _ in range(4):
+            ids = rng.integers(0, c["vocab"], (COLL_CTR_BATCH, c["fields"]))
+            den = rng.normal(size=(COLL_CTR_BATCH, c["dense"])).astype(
+                np.float32)
+            label = (ids[:, :1] % 2 == 0) ^ (den.sum(1, keepdims=True) > 0)
+            pool.append((ids, torch.from_numpy(den),
+                         torch.from_numpy(label.astype(np.float32))))
+        dev = exe.device
+        ms = {k: [] for k in ("pull", "H2D", "device", "D2H", "push")}
+        losses, mismatched = [], 0
+        for i in range(COLL_CTR_STEPS):
+            ids, den, label = pool[i % 4]
+            t0 = time.perf_counter()
+            rows = table.pull(ids)
+            t1 = time.perf_counter()
+            mismatched += int(not torch.equal(rows, mirror.pull(ids)))
+            t2 = time.perf_counter()
+            feed = {emb: rows.to(dev), "dense": den.to(dev),
+                    "label": label.to(dev)}
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss, emb + "@GRAD"],
+                          scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            grad = out[1].cpu()
+            losses.append(float(out[0]))
+            t5 = time.perf_counter()
+            table.push(ids, grad)
+            t6 = time.perf_counter()
+            mirror.push(ids, grad)
+            for k, a, b in (("pull", t0, t1), ("H2D", t2, t3),
+                            ("device", t3, t4), ("D2H", t4, t5),
+                            ("push", t5, t6)):
+                ms[k].append((b - a) * 1e3)
+        t.client.close()
+    finally:
+        for s in servers:
+            s.stop()
+    # the first pass over the pool makes each id's row in its shard (a
+    # generator seeded per id); later steps find them
+    first = {k: sum(v[:4]) / 4 for k, v in ms.items()}
+    later = {k: sum(v[4:]) / len(v[4:]) for k, v in ms.items()}
+    log(f"collective ctr {c} batch {COLL_CTR_BATCH}, {COLL_CTR_STEPS} "
+        f"pull -> step -> push steps over 2 TCP parameter servers: ms per "
+        f"step (mean of steps 4-{COLL_CTR_STEPS - 1}, the rows there) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in later.items())
+        + "; steps 0-3 (rows made on first pull) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in first.items())
+        + f"; {COLL_CTR_BATCH * c['fields']} ids a step; losses "
+        f"{[round(x, 5) for x in losses]}; pulls unequal to the in-process "
+        f"table's: {mismatched}")
+    if mismatched:
+        failures.append(f"collective ctr: {mismatched} pulls over TCP "
+                        f"differ from the in-process table's")
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        failures.append(f"collective ctr: the loss did not fall: {losses}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"collective ctr: losses not finite: {losses}")
+
+
 def check_phase(failures):
     import torch
 
@@ -7817,7 +8409,7 @@ def compare_main(args):
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
 MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe",
-              "parallel")
+              "parallel", "collective")
 
 
 def main():
@@ -7864,7 +8456,8 @@ def main():
               ("resnet", resnet_phase), ("dgc", dgc_phase),
               ("path", path_phase), ("static", static_phase),
               ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
-              ("parallel", parallel_phase), ("checks", check_phase))
+              ("parallel", parallel_phase),
+              ("collective", collective_phase), ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -7901,8 +8494,9 @@ def main():
         # BERT steps (K4, K5), BERT eval forward (K1, K4) and beam search
         # (K1, K4, K6), the moe phase's MoE train steps (K1-K5), MoE
         # serving runs (K1, K4, K6) and ring runs (K1-K3), the parallel
-        # phase's timed tp = 2, pp = 2 and V = 2 steps (K1-K5), and the
-        # probe tool's runs (K4, K7 and K9 forward)
+        # phase's timed tp = 2, pp = 2 and V = 2 steps (K1-K5), the
+        # collective phase's timed data-parallel steps at W = 1 and 2
+        # (K1-K5), and the probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

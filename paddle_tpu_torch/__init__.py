@@ -30,9 +30,10 @@ from .flags import get_flags, set_flags  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401
-    Executor, Parameter, Program, Scope, Variable, append_backward,
-    data, default_main_program, default_startup_program, global_scope,
-    gradients, name_scope, program_guard, scope_guard,
+    BuildStrategy, CompiledProgram, ExecutionStrategy, Executor, Parameter,
+    Program, Scope, Variable, append_backward, data, default_main_program,
+    default_startup_program, global_scope, gradients, name_scope,
+    program_guard, scope_guard,
 )
 from .framework.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import (  # noqa: F401
@@ -41,6 +42,11 @@ from . import (  # noqa: F401
     regularizer, unique_name,
 )
 from .reader import DataFeeder, DataLoader, batch  # noqa: F401
+from . import (  # noqa: F401
+    communicator, compiler, distribute_lookup_table, parallel_executor,
+    transpiler,
+)
+from .parallel_executor import ParallelExecutor  # noqa: F401
 
 __all__ = [
     "core", "flags", "get_flags", "set_flags", "CPUPlace", "CUDAPlace",
@@ -48,6 +54,9 @@ __all__ = [
     "Program", "Variable", "Parameter", "default_main_program",
     "default_startup_program", "program_guard", "name_scope", "data",
     "Executor", "Scope", "global_scope", "scope_guard", "append_backward",
+    "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+    "ParallelExecutor", "compiler", "parallel_executor", "transpiler",
+    "communicator", "distribute_lookup_table",
     "gradients", "ParamAttr", "WeightNormParamAttr", "backward", "clip",
     "executor", "initializer", "layer_helper", "layers", "optimizer",
     "param_attr", "regularizer", "unique_name", "io", "reader",

@@ -10,15 +10,19 @@ experts over ep), `ring_attention` (sequence parallelism over sp),
 (the partition rules and the sharded train step: tp, sp, ep, ZeRO-1,
 FSDP, accumulation, clipping) and `pipeline` (GPipe, the interleaved
 schedule, the 3D GPT).  `inprocess` holds a mesh's ranks in one process
-(one thread each), which is how W > 1 runs on one card.  The modules
-keep the reference's other names (`build_rule_mesh`, `mesh_key`,
-`MeshLayout`, the dygraph `DataParallel`), which raise
-NotImplementedError naming their ROADMAP item; the parameter server and
-federated learning are ROADMAP queue 1 item 8.
+(one thread each), which is how W > 1 runs on one card.  The parameter
+server's data plane is `ps` (sharded host tables on the native shard,
+the Communicator, the TCP service and its wire format), with
+`federated` (FedAvg over ps's wire), `fleet_util` (global metrics as
+sums over a mesh axis) and `fs` (LocalFS, HDFSClient).  The modules keep
+the reference's other names (`build_rule_mesh`, `mesh_key`,
+`MeshLayout`, an explicit device list, the dygraph `DataParallel`),
+which raise NotImplementedError naming their ROADMAP item.
 """
 
 from . import (  # noqa: F401
-    collective, fleet, inprocess, mesh, pipeline, tensor_parallel,
+    collective, federated, fleet, fleet_util, fs, inprocess, mesh,
+    pipeline, ps, tensor_parallel,
 )
 from .collective import (
     all_gather, all_reduce, all_to_all, broadcast, pmax, pmean, pmin,
@@ -49,7 +53,8 @@ from .sharded import (
 from .strategies import DGCTrainStep, LocalSGDTrainStep, dgc_topk_mask
 
 __all__ = [
-    "collective", "mesh", "fleet", "inprocess", "pipeline",
+    "collective", "mesh", "fleet", "inprocess", "pipeline", "ps",
+    "federated", "fleet_util", "fs",
     "tensor_parallel", "local_meshes", "run_ranks", "run_local_step",
     "gpipe", "interleaved_gpipe", "build_gpt_pipeline",
     "build_gpt_pipeline_3d",

@@ -38,6 +38,7 @@ __all__ = [
     "all_to_all", "psum", "pmean", "pmax", "pmin",
     "eager_all_reduce", "eager_all_gather", "eager_broadcast",
     "eager_reduce_scatter", "sum_grad", "reduce_sum", "barrier",
+    "all_reduce_", "all_reduce_many_",
 ]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
@@ -87,6 +88,42 @@ def all_reduce_(x, op="sum", mesh=None, axis_name="dp"):
     if op == "mean":
         x.div_(ax.size)
     return x
+
+
+def all_reduce_many_(xs, op="sum", mesh=None, axis_name="dp"):
+    """In-place all_reduce of each tensor of `xs` (one dtype) over the
+    mesh axis, each reduced on its own: on a process group the
+    collectives are issued as one coalesced launch (NCCL's grouped
+    calls; a process group pays its per-call host cost once), over an
+    in-process group one exchange carries them all (each tensor summed in
+    rank order, as `all_reduce_` sums it).  Returns `xs`."""
+    if op not in _OPS:
+        raise ValueError(f"unknown reduce op {op}")
+    ax = _axis(mesh, axis_name)
+    if not ax.inproc:
+        if ax.local or len(xs) < 2:
+            return [all_reduce_(x, op, mesh, axis_name) for x in xs]
+        with dist._coalescing_manager(group=ax.group):
+            for x in xs:
+                dist.all_reduce(x, _OPS[op], group=ax.group)
+        if op == "mean":
+            for x in xs:
+                x.div_(ax.size)
+        return xs
+    red = _LOCAL_OPS[op]
+
+    def combine(per_rank):
+        # read-only results: every rank copies them into its own tensors
+        out = [red([p[i] for p in per_rank]) for i in range(len(xs))]
+        return [out] * len(per_rank)
+
+    ys = inprocess.collective(ax, [x.detach() for x in xs], combine)
+    with torch.no_grad():
+        for x, y in zip(xs, ys):
+            x.copy_(y)
+            if op == "mean":
+                x.div_(ax.size)
+    return xs
 
 
 def _stacked(fn):

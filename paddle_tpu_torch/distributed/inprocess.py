@@ -189,8 +189,9 @@ def collective(ax, x, fwd, bwd=None):
 
 
 def total(xs):
-    """The sum of the ranks' tensors in rank order."""
+    """The sum of the ranks' tensors in rank order, on the first rank's
+    device."""
     s = xs[0]
     for t in xs[1:]:
-        s = s + t
+        s = s + t.to(s.device)
     return s

@@ -14,9 +14,8 @@ Every axis is ported: dp (data parallel), sp (sequence parallel: ring
 attention), tp (tensor parallel: `tensor_parallel`), pp (pipeline
 stages: `pipeline`) and ep (expert parallel: MoE).  A mesh held in one
 process, one thread a rank, is `inprocess.local_meshes`.  An explicit
-device list and the rule meshes of the sharding analyzer
-(`build_rule_mesh`, `mesh_key`, `MeshLayout`) are ROADMAP queue 1 item
-8.
+device list is ROADMAP item 8.5; the rule meshes of the sharding
+analyzer (`build_rule_mesh`, `mesh_key`, `MeshLayout`) are item 8.2.
 """
 
 import numpy as np
@@ -29,7 +28,8 @@ __all__ = ["AXES", "Mesh", "build_mesh", "build_rule_mesh", "mesh_key",
            "MeshLayout", "default_mesh", "set_global_mesh",
            "get_global_mesh"]
 
-_ITEM8 = "ROADMAP queue 1 item 8"
+_ITEM8_2 = "ROADMAP item 8.2, the GSPMD tier"
+_ITEM8_5 = "ROADMAP item 8.5"
 _GLOBAL_MESH = None
 
 # canonical axis order (the reference's)
@@ -96,7 +96,7 @@ def build_mesh(dp=1, tp=1, pp=1, sp=1, ep=1, devices=None, device=None):
     if devices is not None:
         raise NotImplementedError(
             f"an explicit device list: one process drives one device in "
-            f"the port ({_ITEM8})")
+            f"the port ({_ITEM8_5})")
     init_parallel_env(device)
     world = dist.get_world_size()
     sizes = {"pp": pp, "dp": dp, "sp": sp, "tp": tp, "ep": ep}
@@ -134,17 +134,17 @@ def build_mesh(dp=1, tp=1, pp=1, sp=1, ep=1, devices=None, device=None):
 
 def build_rule_mesh(axes, devices=None):
     raise NotImplementedError(f"rule meshes of the sharding analyzer are "
-                              f"not ported ({_ITEM8})")
+                              f"not ported ({_ITEM8_2})")
 
 
 def mesh_key(mesh):
     raise NotImplementedError(f"mesh_key (device-identity cache keys) is "
-                              f"not ported ({_ITEM8})")
+                              f"not ported ({_ITEM8_2})")
 
 
 class MeshLayout:
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"MeshLayout is not ported ({_ITEM8})")
+        raise NotImplementedError(f"MeshLayout is not ported ({_ITEM8_2})")
 
 
 def set_global_mesh(mesh):

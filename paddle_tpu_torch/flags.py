@@ -127,3 +127,23 @@ declare_flag("graph_opt_disable", "",
 declare_flag("inference_fold", True,
              "Fold conv/fc+batch_norm and scale chains when loading "
              "inference models (Predictor).")
+
+# The static data-parallel step (framework/compiler.py CompiledProgram,
+# transpiler/collective.py sync_gradients): gradients are flattened per
+# dtype in reverse production order and all-reduced in fixed-capacity
+# buckets, one collective per bucket instead of one per gradient (the
+# PyTorch-DDP bucketing design).  The mean is elementwise, so the bucketed
+# sync equals the per-gradient one bitwise; 0 gives one all_reduce per
+# gradient.
+declare_flag("dp_bucket_bytes", 4 << 20,
+             "Capacity in bytes of one flattened dp gradient-sync "
+             "bucket (0 = one all_reduce per gradient).")
+
+# The matmul precision of a CompiledProgram's runs
+# (framework/compiler.py resolve_precision / apply_precision_policy):
+# "float32" and "highest" turn TF32 off for matmuls and cuDNN,
+# "tensorfloat32" turns it on; "" keeps torch's settings.  "bfloat16"
+# (a bf16 policy for every product) is ROADMAP item 10.
+declare_flag("conv_matmul_precision", "",
+             "Default matmul/conv precision for compiled steps "
+             "('', 'bfloat16', 'tensorfloat32', 'float32', 'highest').")

@@ -1,9 +1,8 @@
 """The static-graph core (port of paddle_tpu/framework): Program and its
-builders, append_backward, the Executor and its Scope.
-
-`CompiledProgram`, `BuildStrategy` and `ExecutionStrategy` (the
-reference's multi-device wrappers) raise NotImplementedError until the
-distributed tier of ROADMAP item 8.
+builders, append_backward, the Executor and its Scope, and
+`CompiledProgram` with `BuildStrategy` and `ExecutionStrategy` (the
+reference's multi-device wrappers: the data-parallel step; the GSPMD
+tier, `with_sharding_rules`, is ROADMAP item 8.2).
 """
 
 from .program import (
@@ -20,6 +19,7 @@ from .program import (
     data,
 )
 from .executor import Executor, Scope, global_scope, scope_guard
+from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from .backward import append_backward, gradients
 from .param_attr import ParamAttr
 from . import initializer, unique_name
@@ -45,8 +45,3 @@ def _not_ported(name, item):
 
     return type(name, (), {"__init__": __init__})
 
-
-CompiledProgram = _not_ported("CompiledProgram", "8, the distributed tier")
-BuildStrategy = _not_ported("BuildStrategy", "8, the distributed tier")
-ExecutionStrategy = _not_ported("ExecutionStrategy",
-                                "8, the distributed tier")

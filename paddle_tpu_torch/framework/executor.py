@@ -26,11 +26,23 @@ The train tier (the reference's `_train_tier_modes` /
 (`amp.rewrite_train_program`, then `passes.fuse_program`) before it
 plans the run.  Their "train" default fires only in train_from_dataset.
 
-Not ported here: the data-parallel, GSPMD, guard, telemetry, goodput and
-fault-injection branches (ROADMAP items 8 and 10), the structural
-graph-optimizer substitution (FLAGS_graph_opt, item 10), the
-control-flow ops and `train_from_dataset` (item 10).  They raise
-NotImplementedError, or are not there.
+The data-parallel branch (the reference's dp step): running a
+`CompiledProgram(...).with_data_parallel(...)` runs the same plan once per
+dp rank (`_run_dp`): each rank takes its shard of every feed (in one
+process, 1/W of the feed's leading dim; over a process group, the feed
+its process was given), runs the forward and backward sections with a
+generator of its own, all-reduces the gradients between each section
+and the update ops (`transpiler.collective.sync_gradients`, bucketed by
+FLAGS_dp_bucket_bytes), runs the updates, and averages the float
+persistables that ranks change differently (batch-norm running stats;
+`_rank_varying`).  Fetches of rank >= 1 come back concatenated over the
+ranks, rank-0 fetches averaged.
+
+Not ported here: the GSPMD branch (ROADMAP item 8.2), the guard,
+telemetry, goodput and fault-injection branches, the structural
+graph-optimizer substitution (FLAGS_graph_opt), the control-flow ops and
+`train_from_dataset` (item 10).  They raise NotImplementedError, or are
+not there.
 """
 
 import contextlib
@@ -253,6 +265,21 @@ def op_scope_names(program, fetch_names=(), train_loop=False):
     return list(zip(op_scopes(ops, sections), ops))
 
 
+def _rank_varying(ops, feeds):
+    """The names whose values may differ between dp ranks after one step:
+    what the ops compute from a feed (each rank's shard) or from random
+    bits (each rank's generator), passed on through every op that reads
+    them.  The gradients bound after a section are all-reduced, so what
+    the updates compute from them and from the replicated state agrees
+    on every rank."""
+    varying = set(feeds)
+    for op in ops:
+        if get_op(op.type).needs_rng or any(
+                n in varying for n in op.input_names()):
+            varying.update(op.output_names())
+    return varying
+
+
 class _RunPlan:
     """One (program, version)'s analysis, computed once per program
     mutation and kept on the Program (program._run_plan_cache), as in the
@@ -341,10 +368,12 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         program = program if program is not None else default_main_program()
+        compiled = None
         if hasattr(program, "_get_executable_program"):
-            raise NotImplementedError(
-                "running a CompiledProgram (data parallel, sharding rules) "
-                "is not ported to paddle_tpu_torch yet (ROADMAP item 8)")
+            compiled = program
+            program = compiled._get_executable_program()
+            if not compiled._is_data_parallel:
+                compiled = None
         feed = feed or {}
         fetch_list = fetch_list or []
         scope = scope if scope is not None else _global_scope
@@ -378,10 +407,8 @@ class Executor:
                 raise RuntimeError(
                     f"persistable variable '{n}' is uninitialized; run "
                     f"the startup program first")
-        for name, value in feed.items():
-            env[name] = self._feed_tensor(value, plan.feed_dtype(name))
         for n in fetch_names:
-            if n not in env and n not in plan.produced:
+            if n not in env and n not in feed and n not in plan.produced:
                 raise KeyError(
                     f"fetch variable '{n}' is neither fed, persistable nor "
                     f"produced by the program"
@@ -389,16 +416,103 @@ class Executor:
 
         ops = self._live_ops(program, fetch_names)
         sections = [] if program._is_test else list(program.backward_sections)
-        self._step(ops, sections, env, set(fetch_names) | set(
-            plan.persist_names))
+        keep = set(fetch_names) | set(plan.persist_names)
+        if compiled is not None:
+            from .compiler import apply_precision_policy, resolve_precision
+
+            run_dp = apply_precision_policy(self._run_dp,
+                                            resolve_precision(compiled))
+            env, fetches = run_dp(compiled, program, plan, env, feed,
+                                  fetch_names, ops, sections, keep)
+        else:
+            for name, value in feed.items():
+                env[name] = self._feed_tensor(value, plan.feed_dtype(name))
+            self._step(ops, sections, env, keep)
+            fetches = [env[n].detach() for n in fetch_names]
 
         for n in plan.persist_names:
             if n in env:
                 scope.set_var(n, env[n].detach())
-        fetches = [env[n].detach() for n in fetch_names]
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _rank_generator(self, rank, device):
+        """The generator of dp rank `rank` on `device`: rank 0's is the
+        executor's own (a one-rank run draws as a plain run does), the
+        others' are seeded from FLAGS_global_seed and the rank, made once."""
+        if rank == 0 and device == self.device:
+            return self._generator
+        gens = self.__dict__.setdefault("_rank_generators", {})
+        key = (rank, str(device))
+        if key not in gens:
+            seed = (int(flags.flag("global_seed"))
+                    + 0x9E3779B97F4A7C15 * rank) % (1 << 63)
+            gens[key] = torch.Generator(device=device).manual_seed(seed)
+        return gens[key]
+
+    def _run_dp(self, compiled, program, plan, state, feed, fetch_names,
+                ops, sections, keep):
+        """One data-parallel step (see the module docstring): returns
+        (rank 0's env, the merged fetches)."""
+        from ..distributed import collective as C
+        from ..distributed import inprocess
+        from ..transpiler import collective as coll
+
+        mode, meshes = compiled._dp_meshes(self.device)
+        parts = len(meshes) if mode == "threads" else 1
+        for n, value in feed.items():
+            shape = tuple(getattr(value, "shape", np.shape(value)))
+            if not shape or shape[0] % parts != 0:
+                raise ValueError(
+                    f"data-parallel feed '{n}' needs a leading batch dim "
+                    f"divisible by {parts} ranks, got {shape}")
+        feeds = {n: feed_tensor(v, plan.feed_dtype(n), meshes[0].device)
+                 for n, v in feed.items()}
+        varying = _rank_varying(ops, feeds)
+        params = {n for bs in sections for n in bs.param_names}
+
+        def rank_step(r, mesh):
+            env = {n: v.to(mesh.device) for n, v in state.items()}
+            for name, t in feeds.items():
+                blk = t.shape[0] // parts
+                shard = t[r * blk:(r + 1) * blk] if parts > 1 else t
+                env[name] = shard.to(mesh.device)
+            rank = mesh.rank if mode == "process" else r
+
+            def sync(grads):
+                return coll.sync_gradients(grads, "dp", mesh=mesh)
+
+            self._step(ops, sections, env, keep,
+                       generator=self._rank_generator(rank, mesh.device),
+                       sync=sync)
+            # the state ranks change differently (batch-norm running
+            # stats), averaged; the params and what the updates wrote
+            # from the synced grads agree already, and integer state is
+            # left alone
+            for n in plan.persist_names:
+                v = env.get(n)
+                if n in varying and n not in params and v is not None \
+                        and v.is_floating_point():
+                    env[n] = C.all_reduce(v.detach(), "dp", "mean", mesh)
+            fetches = []
+            for n in fetch_names:
+                v = env[n].detach()
+                if v.dim() == 0:
+                    v = C.all_reduce(v, "dp", "mean", mesh)
+                else:
+                    v = C.all_gather(v, "dp", axis=0, tiled=True, mesh=mesh)
+                fetches.append(v)
+            return env, fetches
+
+        if len(meshes) == 1:
+            return rank_step(0, meshes[0])
+        try:
+            return inprocess.run_ranks(meshes, rank_step)[0]
+        except BaseException:
+            # a failed rank breaks the ranks' barriers for good
+            compiled._dp_mesh_cache = None
+            raise
 
     def _folded_constants(self, program):
         """The program's optimize-time constants (`passes.const_fold`,
@@ -419,12 +533,16 @@ class Executor:
             program._folded_tensors = held
         return held[1]
 
-    def _step(self, ops, sections, env, keep=()):
+    def _step(self, ops, sections, env, keep=(), generator=None,
+              sync=None):
         """Run `ops` against `env`, realizing each BackwardSection with
         torch autograd (see the module docstring); `keep` names the
         values a recomputed chunk must hand on (fetches, persistables)
-        beside those later ops read."""
-        gen = self._generator
+        beside those later ops read.  `generator` (default: the
+        executor's) feeds the random ops; `sync`, {name: grad} -> {name:
+        grad}, runs on each section's gradients before they are bound
+        (the data-parallel all_reduce)."""
+        gen = self._generator if generator is None else generator
         pos = 0
         for bs in sections:
             params = {n: env[n].detach().requires_grad_(True)
@@ -448,8 +566,15 @@ class Executor:
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             else:
                 grads = [None] * len(leaves)
-            for (n, p), g in zip(params.items(), grads):
-                env[n + "@GRAD"] = torch.zeros_like(p) if g is None else g
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), grads)}
+            if sync is not None:
+                # in sorted order, as the reference's gradient dict is
+                # (jax returns a dict pytree with sorted keys), so the
+                # buckets' packing order is the reference's
+                grads = sync({n: grads[n] for n in sorted(grads)})
+            for n, g in grads.items():
+                env[n + "@GRAD"] = g
             pos = bs.pos
         with torch.no_grad():
             interpret(ops[pos:], env, gen)

@@ -59,6 +59,9 @@ LAUNCHES = collections.Counter()
 BUILD_LOG = {}
 
 _lock = threading.Lock()
+# ranks held in one process (distributed/inprocess.py) launch from
+# threads of their own: the counts are read-modify-writes
+_count_lock = threading.Lock()
 _libs = {}
 _sms = {}
 
@@ -104,9 +107,10 @@ def count_launch(name, dtype):
     """One launch of kernel `name`.  A float16 launch runs the kernel's
     float16 instantiation, a kernel of its own: it is also counted under
     `name:float16`."""
-    LAUNCHES[name] += 1
-    if dtype == torch.float16:
-        LAUNCHES[name + ":float16"] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if dtype == torch.float16:
+            LAUNCHES[name + ":float16"] += 1
 
 
 def nvcc():

@@ -10,7 +10,7 @@ build byte-identical `Program.to_json()`.
 
 All eight families are ported: mlp, lenet, resnet, bert, gpt, seq2seq,
 wide_deep and word2vec.  The default partition rules wait for the
-sharding tier (ROADMAP item 8).
+sharding tier (ROADMAP item 8.2).
 """
 
 import paddle_tpu_torch as fluid
@@ -33,12 +33,12 @@ class StaticModel:
     def sharding_rules(self):
         raise NotImplementedError(
             "the static zoo's default partition rules come with the "
-            "sharding tier (ROADMAP item 8)")
+            "sharding tier (ROADMAP item 8.2)")
 
     def partition_rules(self):
         raise NotImplementedError(
             "the static zoo's default partition rules come with the "
-            "sharding tier (ROADMAP item 8)")
+            "sharding tier (ROADMAP item 8.2)")
 
     def smoke_feed_shapes(self, batch=8):
         """Concrete feed shapes for one smoke batch."""

@@ -27,6 +27,7 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from ..framework.compiler import apply_precision_policy
 from ..nn.layers import buffer_dict, functional_call_with_state, param_dict
 from ..nn.parameter import default_rng, make_generator, rewound
 
@@ -222,22 +223,7 @@ def make_train_step(model, optimizer, loss_fn=None, donate=True,
                           buffers=new_buffers, step=state.step + 1,
                           rng=rng), loss
 
-    if precision is None:
-        return step
-
-    def step_with_precision(state, *batch):
-        tf32 = precision == "tensorfloat32"
-        old = (torch.backends.cuda.matmul.allow_tf32,
-               torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        try:
-            return step(state, *batch)
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = old
-
-    return step_with_precision
+    return apply_precision_policy(step, precision)
 
 
 def _pmean_over(axis_name, mesh, loss, grads):

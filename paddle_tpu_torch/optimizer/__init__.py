@@ -13,6 +13,10 @@ rate and the accumulators (velocity, moments, beta powers) as
 persistable vars filled by the startup program, under the reference's
 names.
 
+`DGCMomentumOptimizer` (optimizer.py:1041) emits the static DGC ops
+(ops/misc_ops.py) and `PipelineOptimizer` (:3413) runs a macro-batch as
+microbatches, an update each (`run_pipeline`).
+
 `functional` holds the functional optimizers the dygraph train step
 uses (`functional.SGD`, `Momentum`, `Adam`, `AdamW`, `global_norm_clip`).
 
@@ -253,16 +257,175 @@ class AdamW(Adam):
         self._extra_attrs = {"coeff": weight_decay}
 
 
+class DGCMomentumOptimizer(Optimizer):
+    """optimizer.py:1041 — DGC momentum with the reference constructor
+    (momentum, rampup_begin_step, rampup_step, sparsity warm-up list).
+
+    Emits per param: [dgc_clip_by_norm] -> dgc (U/V momentum correction
+    + error feedback + top-k sparsify, ops/misc_ops.py) -> dgc_momentum
+    (momentum before the rampup boundary, direct sparse update after),
+    plus one shared step counter incremented per apply_gradients.  Under
+    the data-parallel CompiledProgram the gradients are all-reduced
+    before the dgc ops, as in the reference."""
+
+    _u_velocity_acc_str = "_dgc_u_"
+    _v_velocity_acc_str = "_dgc_v_"
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step,
+                 rampup_step=1, sparsity=None, parameter_list=None,
+                 use_nesterov=False, local_grad_clip_norm=None,
+                 num_trainers=None, regularization=None, grad_clip=None,
+                 name=None):
+        assert rampup_begin_step >= 0, "rampup_begin_step must >= 0"
+        super().__init__(learning_rate, regularization=regularization,
+                         grad_clip=grad_clip, name=name)
+        self.type = "dgc_momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = list(sparsity) if sparsity is not None else [0.999]
+        self._parameter_list = parameter_list
+        if local_grad_clip_norm is not None:
+            # reference optimizer.py:1153-1156: the clip norm is scaled by
+            # num_trainers**-0.5, num_trainers a positive int
+            assert isinstance(num_trainers, int) and num_trainers > 0, \
+                "local_grad_clip_norm needs a positive int num_trainers"
+            self._clip_norm = local_grad_clip_norm * (num_trainers ** -0.5)
+        else:
+            self._clip_norm = None
+        self._num_trainers = num_trainers
+        self._global_step_var = None
+
+    def _get_global_step_var(self):
+        if self._global_step_var is None:
+            self._global_step_var = T.create_global_var(
+                [1], 0.0, "float32", persistable=True,
+                name=unique_name.generate(self._name + "_global_step"))
+        return self._global_step_var
+
+    def apply_gradients(self, params_grads):
+        ops = super().apply_gradients(params_grads)
+        T.increment(self._get_global_step_var(), 1.0, in_place=True)
+        return ops
+
+    def _is_use_dgc(self, param):
+        """optimizer.py:1169 — small (< 16384 elements) or non-float32
+        params skip sparsification and stay on dense momentum."""
+        numel = 1
+        for s in param.shape:
+            numel *= int(s)
+        return numel >= 16384 and str(param.dtype) in ("float32", "FP32")
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        vel = self._add_accumulator("velocity", p)
+        if not self._is_use_dgc(p):
+            return block.append_op(
+                "momentum",
+                inputs={"Param": p, "Grad": g, "Velocity": vel,
+                        "LearningRate": self._param_lr(p)},
+                outputs={"ParamOut": p, "VelocityOut": vel},
+                attrs={"mu": self._momentum,
+                       "use_nesterov": self._use_nesterov})
+        u = self._add_accumulator(self._u_velocity_acc_str, p)
+        v = self._add_accumulator(self._v_velocity_acc_str, p)
+        step = self._get_global_step_var()
+        if self._clip_norm is not None:
+            clipped = block.create_var(
+                name=unique_name.generate(p.name + "_dgc_clip"),
+                shape=list(p.shape), dtype=p.dtype)
+            block.append_op(
+                "dgc_clip_by_norm",
+                inputs={"X": g, "current_step": step},
+                outputs={"Out": clipped},
+                attrs={"max_norm": float(self._clip_norm),
+                       "rampup_begin_step": float(self._rampup_begin_step)})
+            g = clipped
+        sparse_g = block.create_var(
+            name=unique_name.generate(p.name + "_dgc_grad"),
+            shape=list(p.shape), dtype=p.dtype)
+        block.append_op(
+            "dgc",
+            inputs={"U": u, "V": v, "Grad": g, "current_step": step},
+            outputs={"UOut": u, "VOut": v, "GradOut": sparse_g},
+            attrs={"m": self._momentum,
+                   "rampup_begin_step": float(self._rampup_begin_step),
+                   "rampup_step": float(self._rampup_step),
+                   "sparsity": self._sparsity})
+        return block.append_op(
+            "dgc_momentum",
+            inputs={"Param": p, "Grad": sparse_g, "Velocity": vel,
+                    "LearningRate": self._param_lr(p),
+                    "current_step": step},
+            outputs={"ParamOut": p, "VelocityOut": vel},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": float(self._rampup_begin_step)})
+
+
+class PipelineOptimizer:
+    """Static-graph pipeline wrapper (optimizer.py:3413 parity).
+
+    The reference's v1 pipeline is ASYNC: microbatches flow through
+    program sections bound to places, and the optimizer updates per
+    microbatch (SectionWorker scope queues, device_worker.h:325).  As in
+    the JAX package, this wrapper keeps the reference API — cut_list /
+    place_list / concurrency_list are accepted and recorded — and gives
+    the reference's execution semantics through `run_pipeline`: the feed
+    batch splits into microbatches, each running the full (forward,
+    backward, update) program, so the parameters update per microbatch
+    as in the async reference.  Pipeline model parallelism over stages
+    is `distributed.pipeline` (GPipe and the interleaved schedule)."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30,
+                 start_cpu_core_id=0, sync_steps=1):
+        self._inner = optimizer
+        self.cut_list = cut_list or []
+        self.place_list = place_list or []
+        self.concurrency_list = concurrency_list or []
+        self.queue_size = queue_size
+        self.sync_steps = sync_steps
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        out = self._inner.minimize(loss, startup_program=startup_program,
+                                   parameter_list=parameter_list,
+                                   no_grad_set=no_grad_set)
+        loss.block.program._pipeline_cfg = {
+            "cut_list": self.cut_list,
+            "concurrency_list": self.concurrency_list,
+            "sync_steps": self.sync_steps,
+        }
+        return out
+
+    def run_pipeline(self, exe, program, feed, fetch_list,
+                     micro_batch_num=None):
+        """Run one macro-batch as `micro_batch_num` microbatches with a
+        parameter update per microbatch (the reference's async pipeline
+        semantics); returns the per-microbatch fetch lists."""
+        m = micro_batch_num or max(
+            1, max(self.concurrency_list) if self.concurrency_list else 2)
+        names = list(feed)
+        batch = feed[names[0]].shape[0]
+        if batch % m != 0:
+            raise ValueError(
+                f"macro batch {batch} not divisible into {m} microbatches")
+        step = batch // m
+        return [exe.run(program,
+                        feed={n: feed[n][i * step:(i + 1) * step]
+                              for n in names},
+                        fetch_list=fetch_list)
+                for i in range(m)]
+
+
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum
 AdamOptimizer = Adam
 AdagradOptimizer = Adagrad
 
 
-DGCMomentumOptimizer = _not_ported("DGCMomentumOptimizer",
-                                   "8, the static DGC optimizer")
-PipelineOptimizer = _not_ported("PipelineOptimizer",
-                                "8, the static pipeline optimizer")
 LarsMomentum = LarsMomentumOptimizer = _not_ported(
     "LarsMomentum", "10, the rest of the optimizer zoo")
 Adamax = AdamaxOptimizer = _not_ported("Adamax",

@@ -484,14 +484,18 @@ def _jax_runs(weights):
 
 
 def test_world_4_dp_2_ep_2_on_gloo_matches_the_jax_mesh(tmp_path):
-    from test_torch_moe import run_workers
+    from test_torch_moe import start_workers
     from test_torch_ring_attention import check_rank, jax_ring
 
     weights = _weights(_jax_model())
     wfile = tmp_path / "weights.pkl"
     wfile.write_bytes(pickle.dumps(weights))
-    ranks = run_workers(__file__, 4, tmp_path, args=(str(wfile),))
-    ref = _jax_runs(weights)
+    wait = start_workers(__file__, 4, tmp_path, args=(str(wfile),))
+    try:
+        ref = _jax_runs(weights)
+        rings = [jax_ring(case, 4) for case in _ring4()]
+    finally:
+        ranks = wait()
     for jl, jp in ref["sgd"]:                       # sharded, unsharded
         for res in ranks:
             tl, tp = res["runs"]["sgd"]
@@ -537,8 +541,7 @@ def test_world_4_dp_2_ep_2_on_gloo_matches_the_jax_mesh(tmp_path):
                                            atol=1e-5, rtol=1e-5,
                                            err_msg=f"{n} rank {res['coord']}")
 
-    for i, case in enumerate(_ring4()):
-        want = jax_ring(case, 4)
+    for i, (case, want) in enumerate(zip(_ring4(), rings)):
         for r, res in enumerate(ranks):
             check_rank(res["ring"][i], want, case, 4, r)
 

@@ -270,8 +270,11 @@ def _worker_main(out_dir):
     destroy_parallel_env()
 
 
-def run_workers(script, world, tmp_path, args=()):
-    """Launch `world` workers of `script` on gloo; their pickled results."""
+def start_workers(script, world, tmp_path, args=()):
+    """Launch `world` workers of `script` on gloo and return at once: the
+    returned callable waits for them (killing them 120 s after it is
+    called) and gives their pickled results.  A test computes its JAX
+    references between the two, while the workers run."""
     from paddle_tpu_torch.distributed import launch as tlaunch
 
     env = {"PYTHONPATH": os.pathsep.join(
@@ -282,14 +285,23 @@ def run_workers(script, world, tmp_path, args=()):
         ["127.0.0.1"], "127.0.0.1", world, script,
         [*args, str(tmp_path)], log_dir=str(tmp_path / "logs"),
         env_extra=env)
-    rc = tlaunch._wait(procs, logs, timeout=120)
-    log = "".join((tmp_path / "logs" / f"workerlog.{r}").read_text()
-                  for r in range(world))
-    assert rc == 0, f"workers exited {rc}:\n{log[-4000:]}"
-    ranks = [pickle.loads((tmp_path / f"rank{r}.pkl").read_bytes())
-             for r in range(world)]
-    assert not any(res["jax_imported"] for res in ranks)
-    return ranks
+
+    def wait():
+        rc = tlaunch._wait(procs, logs, timeout=120)
+        log = "".join((tmp_path / "logs" / f"workerlog.{r}").read_text()
+                      for r in range(world))
+        assert rc == 0, f"workers exited {rc}:\n{log[-4000:]}"
+        ranks = [pickle.loads((tmp_path / f"rank{r}.pkl").read_bytes())
+                 for r in range(world)]
+        assert not any(res["jax_imported"] for res in ranks)
+        return ranks
+
+    return wait
+
+
+def run_workers(script, world, tmp_path, args=()):
+    """Launch `world` workers of `script` on gloo; their pickled results."""
+    return start_workers(script, world, tmp_path, args)()
 
 
 def _jax_collectives():
@@ -378,8 +390,13 @@ def _jax_ep_moe(cf):
 def test_world_2_on_gloo_matches_the_jax_mesh(tmp_path):
     from test_torch_ring_attention import check_rank, jax_ring
 
-    ranks = run_workers(__file__, 2, tmp_path)
-    coll = _jax_collectives()
+    wait = start_workers(__file__, 2, tmp_path)
+    try:
+        coll = _jax_collectives()
+        ep = {cf: _jax_ep_moe(cf) for cf in EP_CFS}
+        rings = [jax_ring(case, 2) for case in RING2]
+    finally:
+        ranks = wait()
     for r, res in enumerate(ranks):
         for name, (y, g) in coll.items():
             got_y, got_g = res["collectives"][name]
@@ -389,7 +406,7 @@ def test_world_2_on_gloo_matches_the_jax_mesh(tmp_path):
     assert not ranks[0]["collectives"]["ppermute_one_way"][0].any()
 
     for cf in EP_CFS:
-        (sy, saux, sg), (dy, daux, dg, dys) = _jax_ep_moe(cf)
+        (sy, saux, sg), (dy, daux, dg, dys) = ep[cf]
         for r, res in enumerate(ranks):
             y, aux, g = res["moe"][f"shardmap_{cf}"]
             blk = slice(2 * r, 2 * r + 2)
@@ -429,8 +446,7 @@ def test_world_2_on_gloo_matches_the_jax_mesh(tmp_path):
                                            np.asarray(want), atol=TOL,
                                            rtol=TOL)
 
-    for i, case in enumerate(RING2):
-        ref = jax_ring(case, 2)
+    for i, (case, ref) in enumerate(zip(RING2, rings)):
         for r, res in enumerate(ranks):
             check_rank(res["ring"][i], ref, case, 2, r)
 

@@ -24,6 +24,7 @@ JAX's single-device losses and grads are the reference: atol = rtol =
 1e-5 (the reference's rule: rtol 1e-5 / 2e-4 for grads, atol 1e-6).
 """
 
+import functools
 import pickle
 import sys
 from pathlib import Path
@@ -253,20 +254,33 @@ def _hold_stage_grads(grads, want, rank, S, V, per, label):
                                        err_msg=f"{label} {n}")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_weights(layers):
+    """`_weights(_jax_model(layers))`, made once per module."""
+    return _weights(_jax_model(layers))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ref(layers):
+    """`_jax_loss_grads(_jax_model(layers))`, made once per module."""
+    return _jax_loss_grads(_jax_model(layers))
+
+
 def _launch(tmp_path, world, weights):
-    from test_torch_moe import run_workers
+    """Start the workers (see test_torch_moe.start_workers); the returned
+    callable waits for their results."""
+    from test_torch_moe import start_workers
 
     wfile = tmp_path / "weights.pkl"
     wfile.write_bytes(pickle.dumps(weights))
-    return run_workers(__file__, world, tmp_path, args=(str(world),
-                                                        str(wfile)))
+    return start_workers(__file__, world, tmp_path, args=(str(world),
+                                                          str(wfile)))
 
 
 def test_world_2_gpipe_interleaved_dropout_on_gloo(tmp_path):
     from paddle_tpu import nn as jnn
 
-    j4, j8 = _jax_model(4), _jax_model(8)
-    weights = {4: _weights(j4), 8: _weights(j8)}
+    weights = {4: _jax_weights(4), 8: _jax_weights(8)}
     for key, layers, kw in (("drop", 2, {}), ("train", 2,
                                               dict(vocab_size=64,
                                                    max_seq_len=8))):
@@ -276,8 +290,11 @@ def test_world_2_gpipe_interleaved_dropout_on_gloo(tmp_path):
 
         weights[key] = _weights(JGPT(JC(**dict(CFG, num_layers=layers,
                                                **kw))))
-    ranks = _launch(tmp_path, 2, weights)
-    ref4, ref8 = _jax_loss_grads(j4), _jax_loss_grads(j8)
+    wait = _launch(tmp_path, 2, weights)
+    try:
+        ref4, ref8 = _jax_ref(4), _jax_ref(8)
+    finally:
+        ranks = wait()
     for res in ranks:
         r = res["pp"]
         for key, ref, V, per in (("pp2", ref4, 1, 2), ("il22", ref4, 2, 1),
@@ -306,9 +323,25 @@ def test_world_4_gpipe_dp_and_pp_ep_on_gloo(tmp_path):
     import jax.numpy as jnp
     from paddle_tpu.distributed.moe import moe_ffn
 
-    j4 = _jax_model(4)
-    ranks = _launch(tmp_path, 4, {4: _weights(j4)})
-    ref = _jax_loss_grads(j4)
+    wait = _launch(tmp_path, 4, {4: _jax_weights(4)})
+    try:
+        ref = _jax_ref(4)
+        blocks = [{k: jnp.asarray(v) for k, v in b.items()}
+                  for b in _moe_blocks()]
+        x = jnp.asarray(np.random.default_rng(0).standard_normal(
+            (16, 8)).astype(np.float32))
+
+        def dense(bs):
+            h = x
+            for bp in bs:
+                y, _ = moe_ffn(bp, h, k=2, capacity_factor=8.0)
+                h = h + y
+            return h
+
+        want = np.asarray(dense(blocks))
+        g_ref = jax.grad(lambda bs: jnp.sum(dense(bs) ** 2))(blocks)
+    finally:
+        ranks = wait()
     for res in ranks:
         np.testing.assert_allclose(res["sched"]["gpipe_identity"],
                                    1.0 + 10.0)
@@ -319,20 +352,6 @@ def test_world_4_gpipe_dp_and_pp_ep_on_gloo(tmp_path):
             _hold_stage_grads(grads, ref[1], res[f"{key}_index"], S, 1, per,
                               key)
     # pp x ep against the dense serial stack (capacity 8: nothing drops)
-    blocks = [{k: jnp.asarray(v) for k, v in b.items()}
-              for b in _moe_blocks()]
-    x = jnp.asarray(np.random.default_rng(0).standard_normal(
-        (16, 8)).astype(np.float32))
-
-    def dense(bs):
-        h = x
-        for bp in bs:
-            y, _ = moe_ffn(bp, h, k=2, capacity_factor=8.0)
-            h = h + y
-        return h
-
-    want = np.asarray(dense(blocks))
-    g_ref = jax.grad(lambda bs: jnp.sum(dense(bs) ** 2))(blocks)
     for res in ranks:
         out, g, e = res["ppep"]
         np.testing.assert_allclose(out, want[e * 8:e * 8 + 8], atol=TOL,

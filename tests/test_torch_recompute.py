@@ -16,6 +16,8 @@ the backward.
 Tolerances as tests/test_torch_resnet.py: losses 1e-4, params within 5%
 of their update in norm, buffers 1e-4."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -75,14 +77,26 @@ def _run_port(model, remat, batches, lr=1e-3, loss_fn=_ce_t, opt=None):
     return losses, st
 
 
+@functools.lru_cache(maxsize=None)
+def _port_plain(kind):
+    """A fresh `_resnet(kind)`'s state and its plain (remat=False) run on
+    `_batches()`: (state_dict, losses, TrainState), made once per layout
+    for the remat runs to start from."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_FUSED_SUBSET", "")
+        a = _resnet(kind)
+        init = {n: t.clone() for n, t in a.state_dict().items()}
+        return (init, *_run_port(a, False, _batches()))
+
+
 @pytest.mark.parametrize("kind", ["nchw", "nhwc", "fused"])
 @pytest.mark.parametrize("remat", ["conv_outs", True])
 def test_remat_is_bitwise_the_plain_step(kind, remat, monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_FUSED_SUBSET", "")
     batches = _batches()
-    a, b = _resnet(kind), _resnet(kind)
-    b.load_state_dict(a.state_dict())
-    la, sa = _run_port(a, False, batches)
+    init, la, sa = _port_plain(kind)
+    b = _resnet(kind)
+    b.load_state_dict(init)
     lb, sb = _run_port(b, remat, batches)
     assert all(torch.equal(x, y) for x, y in zip(la, lb))
     for n in sa.params:
@@ -115,41 +129,54 @@ def test_conv_outs_keeps_dropout_masks_bitwise():
         assert torch.equal(sa.params[n], sb.params[n]), n
 
 
-@pytest.mark.parametrize("kind", ["nchw", "nhwc"])
-@pytest.mark.parametrize("remat", ["conv_outs", True])
-def test_remat_matches_the_reference_plain_step(kind, remat):
-    fmt = "NCHW" if kind == "nchw" else "NHWC"
+# 64x64 keeps the stage-4 maps at 2x2 (over 1x1 maps a batch of 4 gives
+# 4-point batch variances, and f32 noise moves the third loss by ~5e-4;
+# tests/test_torch_resnet.py)
+REF_BATCHES = dict(n=3, side=64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_plain(kind):
+    """The reference's plain step on its [1, 1, 1, 1] ResNet in `kind`'s
+    layout over `_batches(**REF_BATCHES)`, made once per layout: (params
+    and buffers at the start, losses, params and buffers at the end), as
+    numpy."""
     jnn.seed(4)
     jm = JR.ResNet(JR.BottleneckBlock, [1, 1, 1, 1], num_classes=10,
-                   data_format=fmt)
-    tm = _resnet(kind)
-    interop.load_jax_param_dict(tm, {n: np.asarray(v) for n, v in
-                                     jnn.param_dict(jm).items()})
-    interop.load_jax_buffer_dict(tm, {n: np.asarray(b)
-                                      for n, b in jm.named_buffers()})
-    # 64x64 keeps the stage-4 maps at 2x2 (over 1x1 maps a batch of 4
-    # gives 4-point batch variances, and f32 noise moves the third loss
-    # by ~5e-4; tests/test_torch_resnet.py)
-    batches = _batches(3, side=64)
+                   data_format="NCHW" if kind == "nchw" else "NHWC")
+    params = {n: np.asarray(v) for n, v in jnn.param_dict(jm).items()}
+    bufs = {n: np.asarray(b) for n, b in jm.named_buffers()}
     jo = jopt.Momentum(1e-3, 0.9)
     jst = jtrain.init_train_state(jm, jo)
     start = {n: np.asarray(p) for n, p in jst.params.items()}
     jstep = jtrain.make_train_step(jm, jo, loss_fn=_ce_j, jit=True)
     jl = []
-    for x, y in batches:
+    for x, y in _batches(**REF_BATCHES):
         jst, l = jstep(jst, x, y)
         jl.append(float(l))
-    tl, tst = _run_port(tm, remat, batches)
+    return (params, bufs, start, jl,
+            {n: np.asarray(v) for n, v in jst.params.items()},
+            {n: np.asarray(b) for n, b in jst.buffers.items()})
+
+
+@pytest.mark.parametrize("kind", ["nchw", "nhwc"])
+@pytest.mark.parametrize("remat", ["conv_outs", True])
+def test_remat_matches_the_reference_plain_step(kind, remat):
+    params, bufs, start, jl, jparams, jbufs = _jax_plain(kind)
+    tm = _resnet(kind)
+    interop.load_jax_param_dict(tm, params)
+    interop.load_jax_buffer_dict(tm, bufs)
+    tl, tst = _run_port(tm, remat, _batches(**REF_BATCHES))
     np.testing.assert_allclose([float(l) for l in tl], jl, rtol=1e-4,
                                atol=1e-4)
     for n, p in tst.params.items():
-        want = np.asarray(jst.params[n])
+        want = jparams[n]
         moved = float(np.linalg.norm(want - start[n]))
         off = float(np.linalg.norm(p.detach().numpy() - want))
         assert off <= 5e-2 * moved + 1e-6, (n, off, moved)
     for n, b in tst.buffers.items():
-        np.testing.assert_allclose(b.numpy(), np.asarray(jst.buffers[n]),
-                                   rtol=1e-4, atol=1e-4, err_msg=n)
+        np.testing.assert_allclose(b.numpy(), jbufs[n], rtol=1e-4,
+                                   atol=1e-4, err_msg=n)
 
 
 def _saved_plain(model, x, y):

@@ -193,8 +193,20 @@ def test_optimizer_names_follow_the_reference():
     ("Lamb", "10"), ("Ftrl", "10"), ("ModelAverage", "10"),
 ])
 def test_unported_optimizers_raise_naming_their_item(name, item):
+    if name in ITEM_8_OPTIMIZERS:
+        # ported with item 8's static DGC and pipeline optimizers: the
+        # names construct as the reference's do
+        cls = getattr(topt, name)
+        assert cls.__name__ == getattr(jfluid.optimizer, name).__name__
+        opt = (cls(0.1, 0.9, rampup_begin_step=1)
+               if name == "DGCMomentumOptimizer" else cls(topt.SGD(0.1)))
+        assert callable(opt.minimize)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         getattr(topt, name)(0.1)
+
+
+ITEM_8_OPTIMIZERS = ("DGCMomentumOptimizer", "PipelineOptimizer")
 
 
 def _clip_decay_program(pkg, clip, decay, param_decay, opt):
@@ -356,10 +368,18 @@ def test_partition_rules_raise_naming_item_8(name):
 
 
 def test_compiled_program_and_control_flow_raise_naming_their_items():
-    for cls in (fluid.framework.CompiledProgram,
-                fluid.framework.BuildStrategy):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            cls(fluid.Program())
+    # CompiledProgram and BuildStrategy are ported (item 8's data-parallel
+    # step); the GSPMD tier and a bf16 precision policy raise naming theirs
+    prog = fluid.framework.CompiledProgram(
+        fluid.Program(), build_strategy=fluid.framework.BuildStrategy())
+    assert prog.with_data_parallel(places=2)._is_data_parallel
+    assert fluid.CompiledProgram is fluid.framework.CompiledProgram
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8.2"):
+        prog.with_sharding_rules([], mesh=None)
+    from paddle_tpu_torch.framework import compiler as tcompiler
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        tcompiler.apply_precision_policy(lambda: None, "bfloat16")
     main = fluid.Program()
     main.global_block().create_var(name="w")
     main.global_block().append_op("while_loop", inputs={},
@@ -451,18 +471,21 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
 def test_no_port_module_names_item_6_or_item_5():
     """Items 6 (the conv path's rest, the recompute) and 5 (beam search)
     are done: no message of the port names them.  GPT MoE, and with it
-    item 5's MoE decode, came with item 8's first part; what item 8
-    still leaves out raises naming it: the rule meshes of the sharding
-    analyzer and an explicit device list."""
-    items = re.compile(r"item [56]\b")
+    item 5's MoE decode, came with item 8's first part.  Item 8's third
+    part is done too: the static data-parallel step (8.1), the static
+    DGC and pipeline optimizers (8.3) and the parameter server (8.4);
+    no message names them.  What item 8 still leaves out raises naming
+    it: the rule meshes of the sharding analyzer (8.2) and an explicit
+    device list (8.5)."""
+    items = re.compile(r"item [56]\b|item 8\.[134]\b")
     for path in [REPO / "chip_smoke.py",
                  *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
         assert not items.search(path.read_text()), path
     from paddle_tpu_torch.distributed import mesh as tmesh
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8.2"):
         tmesh.mesh_key(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8.5"):
         tmesh.build_mesh(tp=2, devices=[0, 1])
 
 

@@ -427,15 +427,21 @@ def _jax_3d(weights, dp, tp, pp):
 
 
 def test_world_8_on_gloo_matches_the_jax_mesh(tmp_path):
-    from test_torch_moe import run_workers
+    from test_torch_moe import start_workers
 
     weights = weights_of(jax_model())
     wfile = tmp_path / "weights.pkl"
     wfile.write_bytes(pickle.dumps(weights))
-    ranks = run_workers(__file__, 8, tmp_path, args=(str(wfile),))
+    wait = start_workers(__file__, 8, tmp_path, args=(str(wfile),))
+    try:
+        sharded = _jax_sharded(weights)
+        loss_ref, grads_ref = jax_grads(jax_model(), *batch(3, n=8))
+        loss_3d = _jax_3d(weights, 2, 2, 2)
+    finally:
+        ranks = wait()
 
     # dp 2 x tp 2 x sp 2: the JAX sharded and unsharded steps
-    for jl, jp in _jax_sharded(weights):
+    for jl, jp in sharded:
         for res in ranks:
             tl, tp, specs = res["sharded"]
             np.testing.assert_allclose(tl, jl, atol=TOL, rtol=TOL)
@@ -453,9 +459,7 @@ def test_world_8_on_gloo_matches_the_jax_mesh(tmp_path):
                                                               by_tp[1])
 
     # dp 2 x tp 2 x pp 2 and tp 4 x pp 2: loss and grads
-    loss_ref, grads_ref = jax_grads(jax_model(), *batch(3, n=8))
-    np.testing.assert_allclose(_jax_3d(weights, 2, 2, 2), loss_ref,
-                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(loss_3d, loss_ref, atol=TOL, rtol=TOL)
     for key, coord_key, axes in (("3d", "coord3d", (2, 2, 2)),
                                  ("tp4", "coord_tp4", (1, 4, 2))):
         for res in ranks:

@@ -336,18 +336,29 @@ def _hold_params(got, want, specs, coord, label):
 def test_world_4_zero1_fsdp_clip_reshard_on_gloo(tmp_path):
     from paddle_tpu.optimizer import functional as jopt
 
-    from test_torch_moe import run_workers
+    from test_torch_moe import start_workers
 
     weights = {"mlp": {s: _np_params(_jax_mlp(s)) for s in (77, 41, 31)},
                "gpt": _np_params(_jax_gpt()),
                "moe": _np_params(_jax_gpt(num_experts=4, moe_top_k=2))}
     wfile = tmp_path / "weights.pkl"
     wfile.write_bytes(pickle.dumps(weights))
-    ranks = run_workers(__file__, 4, tmp_path, args=(str(wfile),))
-
-    want = {"zero1": _jax_mlp_losses(77, 0, 8, jopt.Adam(0.01)),
-            "zero1_accum": _jax_mlp_losses(41, 6, 16, jopt.SGD(0.05)),
-            "fsdp": _jax_mlp_losses(31, 1, 8, jopt.Adam(0.01))}
+    wait = start_workers(__file__, 4, tmp_path, args=(str(wfile),))
+    clip_cases = (("clip_tp", {}, {"dp": 2, "tp": 2}, "coord22"),
+                  ("clip_ep", dict(num_experts=4, moe_top_k=2),
+                   {"dp": 2, "ep": 2}, "coord_ep"))
+    try:
+        want = {"zero1": _jax_mlp_losses(77, 0, 8, jopt.Adam(0.01)),
+                "zero1_accum": _jax_mlp_losses(41, 6, 16, jopt.SGD(0.05)),
+                "fsdp": _jax_mlp_losses(31, 1, 8, jopt.Adam(0.01))}
+        batches = [gpt_batch(20 + i) for i in range(2)]
+        clip_refs = {key: (_jax_gpt_run(2, batches, jopt.SGD(
+            0.1, grad_clip=jopt.global_norm_clip(CLIP)), **kw),
+            _jax_gpt_run(2, batches, jopt.SGD(0.1), **kw))
+            for key, kw, _, _ in clip_cases}
+        sp4 = _jax_gpt_run(1, [gpt_batch(40, seq=32)], jopt.SGD(0.1))
+    finally:
+        ranks = wait()
     for res in ranks:
         mlp = res["mlp"]
         for name, losses in want.items():
@@ -374,15 +385,9 @@ def test_world_4_zero1_fsdp_clip_reshard_on_gloo(tmp_path):
         assert ok4 and ok1 and split > 0 and n_split > 0
 
     # clipping over tp and over ep against the unsharded JAX step
-    batches = [gpt_batch(20 + i) for i in range(2)]
-    for key, kw, sizes, ckey in (
-            ("clip_tp", {}, {"dp": 2, "tp": 2}, "coord22"),
-            ("clip_ep", dict(num_experts=4, moe_top_k=2),
-             {"dp": 2, "ep": 2}, "coord_ep")):
-        jl, jp = _jax_gpt_run(2, batches, jopt.SGD(
-            0.1, grad_clip=jopt.global_norm_clip(CLIP)), **kw)
+    for key, kw, sizes, ckey in clip_cases:
+        (jl, jp), (jl0, _) = clip_refs[key]
         # the clip engages: an unclipped step moves further
-        jl0, _ = _jax_gpt_run(2, batches, jopt.SGD(0.1), **kw)
         assert abs(jl0[1] - jl[1]) > 1e-4
         for res in ranks:
             losses, params, specs = res[key]
@@ -390,7 +395,7 @@ def test_world_4_zero1_fsdp_clip_reshard_on_gloo(tmp_path):
             _hold_params(params, jp, specs, _Coord(sizes, res[ckey]), key)
 
     # sp = 4 alone
-    jl, jp = _jax_gpt_run(1, [gpt_batch(40, seq=32)], jopt.SGD(0.1))
+    jl, jp = sp4
     for res in ranks:
         np.testing.assert_allclose(res["sp4"][0], jl[0], atol=TOL, rtol=TOL)
         for n, v in jp.items():
