@@ -360,6 +360,33 @@ Phases (any failure makes the script exit non-zero without a result):
    the card: 20 pull -> step -> push steps, every pull bitwise an
    in-process table's, the loss falling; pull, H2D, device, D2H and push
    ms per step.
+7g. The GSPMD runtime tier and the static analysis tier (`spmd_phase`).
+   (a) The static GPT of phase 7 (`build_gpt(512, 768, 12, 32768)`,
+   batch 8 of `static_feed`, Adam(1e-3), FLAGS_amp and
+   FLAGS_graph_opt_fuse on) under its default Megatron rules with
+   `with_sharding_rules(..., execute=True)` as four ranks in this
+   process {dp=2, mp=2}, and as {dp=1, mp=2}, against the plain
+   Executor.run and `with_data_parallel(places=2)` from the same
+   startup and feeds: 3 losses within 3e-2 and first updates within 0.1
+   in norm of the plain run's (the key bias left out); each rank's
+   fc_0-fc_5 and embedding blocks and their Adam moments of the plan's
+   shapes; the executed all-reduces and bytes equal to the plan's
+   `collective_table()`; K1-K3 on 6 heads a rank; each timed step
+   launching exactly what the plan's fused ops imply (ranks x K1-K3 per
+   fused attention, ranks x K4/K5 per fused LayerNorm); host and device
+   ms, tokens/s, peak memory, each rank's state bytes against the
+   plan's, and the collectives and bytes a step.  (b) The reference's
+   five pillars (bench.py's tp_runtime_smoke) on zoo BERT in f32,
+   {dp=2, mp=2}, 3 steps, card and CPU: losses allclose to the dp-only
+   run and to the CPU's (rtol 2e-3, atol 2e-5), executed collectives
+   equal to the plan's, each sharded leaf's blocks 1/mp of it, each
+   rank's resident state within 25% of the plan's per-shard figure and
+   below the dp run's, and the TP checkpoint restored bitwise onto a
+   {dp=4} run.  (c) FLAGS_static_check=error over the eight zoo models
+   under their default rules on their AMP + fused substitutes, one
+   step each on the card, none raising; `python -m
+   paddle_tpu_torch.tools.program_lint --all-models --sharding-rules
+   default` exiting 0.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -7757,6 +7784,452 @@ def collective_dp_run(failures):
     return dict(launches)
 
 
+# phase 7g: the GSPMD tier on the static GPT of phase 7 ((a)), zoo BERT
+# in f32 ((b), the reference's five pillars) and the lint ((c))
+SPMD_TP = {"dp": 2, "mp": 2}
+SPMD_STEPS = 3            # steps of each run held against the plain run
+SPMD_TIMED = 3            # timed steps of each GSPMD run
+SPMD_RTOL, SPMD_ATOL = 2e-3, 2e-5   # bench.py:1856's yardstick (pillar 1)
+SPMD_MEM_RTOL = 0.25                # pillar 4
+SPMD_BERT_LR = 1e-3                 # the zoo BERT's Adam
+# an AMP first update is held off the elements whose plain-run grad lies
+# within this many times the two runs' difference of 0: its grad known to
+# STATIC_UPDATE_RTOL / 2 (AMP_NEAR of tests/test_torch_fuse.py)
+SPMD_NEAR = 2 / STATIC_UPDATE_RTOL
+SPMD_SHARDED = ("fc_0.w_0", "fc_1.w_0", "fc_2.w_0", "fc_3.w_0", "fc_4.w_0",
+                "fc_5.w_0", "embedding_0.w_0", "fc_0.b_0", "fc_4.b_0")
+
+
+def spmd_phase(failures):
+    """Phase 7g (see the module docstring): (a) the static GPT under its
+    default rules on four in-process ranks, (b) the five pillars on zoo
+    BERT, (c) the lint over the zoo.  Returns the launches of (a)'s timed
+    GSPMD steps."""
+    launches = spmd_gpt_run(failures)
+    spmd_bert_pillars(failures)
+    spmd_lint(failures)
+    return launches
+
+
+def _spmd_plan(exe):
+    """The ShardingPlan the executor lowered last."""
+    return list(exe._spmd_plans.values())[-1][1]
+
+
+def _record_heads(fn):
+    """A K1-K3 launcher that keeps the head count of each launch (the
+    ranks launch from threads of their own; list appends are atomic)."""
+    heads = []
+
+    def wrapped(q, *args):
+        heads.append(q.shape[1])
+        return fn(q, *args)
+
+    return wrapped, heads
+
+
+def _rank_state(scope):
+    """{rank: bytes of the blocks it holds} over a GSPMD scope."""
+    state = {}
+    for v in scope.vars.values():
+        for r, t in v.shards.items():
+            state[r] = state.get(r, 0) + t.numel() * t.element_size()
+    return state
+
+
+def spmd_gpt_run(failures, gpt=STATIC_GPT, batch=COLL_BATCH, device=None):
+    """(a) of phase 7g.  `device` None runs on the card (the phase); the
+    CPU serves a rehearsal at small `gpt` widths."""
+    import collections
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.analysis import sharding as sh
+    from paddle_tpu_torch.framework.executor import Executor
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import static_zoo
+    from paddle_tpu_torch.transpiler import collective as coll
+
+    card = device is None
+    m = static_zoo.build_gpt(**gpt)
+    exe = fluid.Executor(device)
+    scope = fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    start = dict(scope.vars)
+    start_np = interop.scope_to_numpy(scope)
+    feeds = [static_feed(m, gpt["vocab"], batch=batch, seed=i)
+             for i in range(SPMD_STEPS + SPMD_TIMED)]
+    tokens = batch * gpt["t"]
+    rules = m.partition_rules()
+    launches = collections.Counter()
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    params = m.main.backward_sections[0].param_names
+    grad_names = [n + "@GRAD" for n in params]
+
+    def run(label, program, timed=False):
+        sc = fluid.Scope()
+        sc.vars.update({n: v.clone() for n, v in start.items()})
+        losses, first, grads = [], None, None
+        for i in range(SPMD_STEPS):
+            out = exe.run(program, feed=feeds[i], fetch_list=[
+                m.loss_name, *(grad_names if i == 0 else ())],
+                scope=sc, return_numpy=False)
+            losses.append(float(out[0].float().mean()))
+            if i == 0:
+                first = interop.scope_to_numpy(sc)
+                # a data-parallel fetch of rank >= 1 comes back
+                # concatenated over the dp ranks, which hold the same
+                # synced grad: the first block is it
+                grads = {n: g.float().cpu().numpy()[:start_np[n].shape[0]]
+                         for n, g in zip(params, out[1:])}
+        res = dict(losses=losses, first=first, grads=grads, scope=sc)
+        if not timed:
+            return res
+        plan = _spmd_plan(exe)
+        world = math.prod(plan.mesh_axes.values())
+        fused = collections.Counter(
+            op.type for op in plan.program.global_block().ops)
+        want = {k: fused["fused_attention"] * world for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")}
+        want.update({k: fused["fused_layer_norm"] * world
+                     for k in ("layer_norm_fwd", "layer_norm_bwd")})
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        backend.reset_launches()
+        step_ms, timed_losses = [], []
+        for i in range(SPMD_STEPS, SPMD_STEPS + SPMD_TIMED):
+            before = dict(backend.LAUNCHES)
+            sync()
+            t0 = time.perf_counter()
+            out = exe.run(program, feed=feeds[i], fetch_list=[m.loss_name],
+                          scope=sc, return_numpy=False)[0]
+            timed_losses.append(float(out.float().mean()))
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            made = {n: c - before.get(n, 0)
+                    for n, c in backend.LAUNCHES.items()}
+            made = {n: c for n, c in made.items() if c}
+            if card and made != want:
+                failures.append(f"{label} step {i} launches {made} != "
+                                f"{want} (the plan's fused ops x {world} "
+                                f"ranks)")
+        launches.update(backend.LAUNCHES)
+        host_ms = sum(step_ms) / len(step_ms)
+        model = coll.last_sync_stats()["model"]
+        peak = torch.cuda.max_memory_allocated() if card else 0
+        device_ms = float("nan")
+        if card:
+            feed = feeds[-1]
+
+            def step(_):
+                return exe.run(program, feed=feed, fetch_list=[m.loss_name],
+                               scope=sc, return_numpy=False)[0]
+
+            device_ms = profile_train_step(step, None, (), host_ms,
+                                           label=label, steps=2)["device"]
+            # K1-K3 on a rank's heads: the launches of one step
+            fwd, heads_f = _record_heads(fa._launch_fwd)
+            dq, heads_q = _record_heads(fa._launch_bwd_dq)
+            dkv, heads_k = _record_heads(fa._launch_bwd_dkv)
+            saved = fa._launch_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv
+            fa._launch_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv = \
+                fwd, dq, dkv
+            try:
+                step(None)
+            finally:
+                fa._launch_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv = saved
+            local = gpt["heads"] // plan.mesh_axes.get("mp", 1)
+            heads = sorted(set(heads_f + heads_q + heads_k))
+            log(f"{label}: K1/K2/K3 launches of one step on "
+                f"{len(heads_f)}/{len(heads_q)}/{len(heads_k)} head blocks "
+                f"of {heads} heads (a rank's: {local})")
+            if heads != [local] or len(heads_f) != want[
+                    "flash_attention_fwd"]:
+                failures.append(f"{label}: K1-K3 ran on {heads} heads, "
+                                f"not a rank's {local}")
+        state = _rank_state(sc)
+        log(f"{label}: step ms {[round(t, 3) for t in step_ms]}, mean "
+            f"{host_ms:.3f} ms (host clock, fetch included), device "
+            f"{device_ms:.3f} ms, {tokens / host_ms * 1e3:.0f} tokens/s, "
+            f"peak memory {peak / 2 ** 30:.3f} GiB; each rank's state "
+            f"{sorted(set(state.values()))} bytes against the plan's "
+            f"{plan.memory['state_bytes']} (replicated "
+            f"{sum(t.numel() * t.element_size() for t in start.values())}); "
+            f"executed a step: {model['psums']} all-reduces over "
+            f"{model['axes']}, {model['total_bytes']} bytes "
+            f"({[r['var'] for r in model['records']]}); losses "
+            f"{losses + timed_losses}")
+        if not all(np.isfinite(timed_losses)):
+            failures.append(f"{label}: timed losses not finite: "
+                            f"{timed_losses}")
+        res.update(plan=plan, host_ms=host_ms, model=model,
+                   device=device_ms, peak=peak, state=state)
+        return res
+
+    def hold(label, got, plain):
+        """Losses within STATIC_AMP_LOSS_RTOL; the first update within
+        STATIC_UPDATE_RTOL in norm: the optimizer state over every
+        element (`update_error`), each param over the elements whose
+        plain-run grad lies beyond SPMD_NEAR times the two runs'
+        difference of 0 (bf16 grads take near-zero elements to either
+        sign, and Adam's first update is lr times that sign), no more
+        than ADAM_NEAR_SHARE of them near zero."""
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(got["losses"], plain["losses"])]
+        worst, worst_name = update_error(
+            start_np, got["first"], plain["first"],
+            STATIC_ZERO_GRAD + tuple(params))
+        near_n = total = 0
+        for n in params:
+            if n in STATIC_ZERO_GRAD:
+                continue
+            g_got = np.asarray(got["grads"][n], np.float64)
+            g_plain = np.asarray(plain["grads"][n], np.float64)
+            diff = np.abs(g_got - g_plain)
+            near = (diff > 0) & (np.abs(g_plain) <= SPMD_NEAR * diff)
+            near_n += int(near.sum())
+            total += near.size
+            keep = ~near.ravel()
+            r, _ = update_error(
+                {n: start_np[n].ravel()[keep]},
+                {n: got["first"][n].ravel()[keep]},
+                {n: plain["first"][n].ravel()[keep]})
+            if r > worst:
+                worst, worst_name = r, n
+        log(f"{label} vs the plain run: losses {got['losses']} vs "
+            f"{plain['losses']} (rel err {max(errs):.3e}); worst first "
+            f"update ||d - d_plain|| / (0.1 ||d_plain||) {worst:.3e} "
+            f"({worst_name}), {near_n} of {total} param elements with a "
+            f"near-zero grad left out")
+        if near_n > ADAM_NEAR_SHARE * total:
+            failures.append(f"{label}: {near_n} of {total} param elements "
+                            f"with a near-zero grad")
+        if not max(errs) <= STATIC_AMP_LOSS_RTOL:
+            failures.append(f"{label}: losses off the plain run's by "
+                            f"{max(errs):.3e} > {STATIC_AMP_LOSS_RTOL}")
+        if not worst <= 1.0:
+            failures.append(f"{label}: first update of {worst_name} off "
+                            f"the plain run's by {worst:.3e} of its bound")
+        if not all(np.isfinite(got["losses"])):
+            failures.append(f"{label}: losses not finite: {got['losses']}")
+
+    def shards(label, got):
+        plan, sc = got["plan"], got["scope"]
+        rows = {r["var"]: r for r in plan.per_var_table()}
+        coords = {a: (0, s) for a, s in plan.mesh_axes.items()}
+        bad = []
+        for name in SPMD_SHARDED:
+            for n in (name, f"{name}_adam_0_moment1",
+                      f"{name}_adam_0_moment2"):
+                v = sc.find_var(n)
+                spec = sh.ShardSpec(rows[n]["partition_spec"] or None)
+                want = tuple(sh.local_slice(
+                    torch.empty(v.shape, device="meta"), spec,
+                    coords).shape)
+                for r, t in v.shards.items():
+                    if tuple(t.shape) != want \
+                            or rows[n]["spec"] != rows[name]["spec"]:
+                        bad.append((n, r, tuple(t.shape), want))
+        table = plan.collective_table().get(("all_reduce", ("mp",)), {})
+        model = got["model"]
+        log(f"{label}: {len(SPMD_SHARDED)} sharded params and their "
+            f"moments of the plan's shapes: {not bad}; executed "
+            f"{model['psums']} all-reduces / {model['total_bytes']} bytes, "
+            f"planned {table.get('count')} / {table.get('bytes')}")
+        if bad:
+            failures.append(f"{label}: blocks off the plan's shapes: "
+                            f"{bad[:4]}")
+        if model["psums"] != table.get("count") \
+                or model["total_bytes"] != table.get("bytes") \
+                or model["axes"] != ["mp"]:
+            failures.append(f"{label}: executed {model['psums']} / "
+                            f"{model['total_bytes']} over {model['axes']} "
+                            f"!= the plan's {table}")
+        if set(got["state"].values()) != {plan.memory["state_bytes"]}:
+            failures.append(f"{label}: rank state bytes {got['state']} != "
+                            f"the plan's {plan.memory['state_bytes']}")
+
+    with tier_flags(amp="on", fuse="on"):
+        plain = run("spmd plain static gpt", m.main)
+        dp2 = run("spmd dp W=2", fluid.CompiledProgram(
+            m.main).with_data_parallel(loss_name=m.loss_name, places=2))
+        hold("spmd dp W=2", dp2, plain)
+        del dp2
+        sub = Executor._resolve_train_optimized(m.main, [m.loss_name],
+                                                True, True)
+        for label, mesh in (("spmd {dp=2, mp=2}", SPMD_TP),
+                            ("spmd {dp=1, mp=2}", {"dp": 1, "mp": 2})):
+            r = sh.PartitionRules.from_dict(dict(rules.to_dict(),
+                                                 mesh=mesh))
+            got = run(label, fluid.CompiledProgram(m.main)
+                      .with_sharding_rules(r, execute=True), timed=True)
+            hold(label, got, plain)
+            shards(label, got)
+            if got["plan"].program is not sub:
+                failures.append(f"{label}: the plan is not the AMP + fused "
+                                f"substitute's")
+            del got
+    del start
+    if card:
+        torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def spmd_bert_pillars(failures, device=None):
+    """(b) of phase 7g: bench.py's five pillars (tp_runtime_smoke) on zoo
+    BERT in f32 under {dp=2, mp=2}, card and CPU."""
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import checkpoint, interop
+    from paddle_tpu_torch.analysis import sharding as sh
+    from paddle_tpu_torch.models import static_zoo
+    from paddle_tpu_torch.transpiler import collective as coll
+
+    m = static_zoo.build("bert")
+    rules = m.partition_rules()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    sc = fluid.Scope()
+    cpu.run(m.startup, scope=sc)
+    start = interop.scope_to_numpy(sc)
+    feeds = [m.smoke_feed(8, seed=i) for i in range(SPMD_STEPS + 1)]
+    card = fluid.Executor(device)
+    dev = "cuda" if device is None else device
+
+    def run(exe, d, program):
+        scope = interop.scope_from_numpy(start, fluid.Scope(), d)
+        losses = [float(np.mean(exe.run(program, feed=f,
+                                        fetch_list=[m.loss_name],
+                                        scope=scope)[0]))
+                  for f in feeds[:SPMD_STEPS]]
+        return losses, scope, coll.last_sync_stats().get("model")
+
+    def tp():
+        return fluid.CompiledProgram(m.main).with_sharding_rules(
+            rules, execute=True)
+
+    tp_card = run(card, dev, tp())
+    plan = _spmd_plan(card)
+    tp_cpu = run(cpu, "cpu", tp())
+    dp_card = run(card, dev, fluid.CompiledProgram(m.main).with_data_parallel(
+        loss_name=m.loss_name, places=2))
+    checks = {}
+    checks["1 losses"] = bool(np.allclose(tp_card[0], dp_card[0],
+                                          rtol=SPMD_RTOL, atol=SPMD_ATOL)
+                              and np.allclose(tp_card[0], tp_cpu[0],
+                                              rtol=SPMD_RTOL, atol=SPMD_ATOL))
+    got_np = interop.scope_to_numpy(tp_card[1])
+    cpu_np = interop.scope_to_numpy(tp_cpu[1])
+    # the f32 static card-vs-CPU rule for Adam (an element whose grad
+    # lies at 0 may take either sign of lr a step): atol 2 lr steps + 1e-5
+    atol = 2 * SPMD_BERT_LR * SPMD_STEPS + 1e-5
+    worst = max(float(np.max(np.abs(got_np[n] - w) - 1e-5 * np.abs(w)))
+                for n, w in cpu_np.items())
+    checks["1 params card vs CPU"] = worst <= atol
+    table = plan.collective_table()[("all_reduce", ("mp",))]
+    model = tp_card[2]
+    checks["2 collectives"] = (model["psums"] == table["count"]
+                               and model["total_bytes"] == table["bytes"]
+                               and tp_cpu[2]["psums"] == table["count"])
+    placed = []
+    for row in plan.per_var_table():
+        if "mp" not in row["partition_spec"]:
+            continue
+        v = tp_card[1].find_var(row["var"])
+        placed.append(all(t.numel() * t.element_size() * 2
+                          == row["full_bytes"] for t in v.shards.values()))
+    checks["3 placement"] = bool(placed) and all(placed)
+    resident = _rank_state(tp_card[1])
+    dp_state = sum(t.numel() * t.element_size()
+                   for t in dp_card[1].vars.values())
+    est = plan.memory["state_bytes"]
+    checks["4 memory"] = all(
+        abs(b - est) <= SPMD_MEM_RTOL * est and b < dp_state
+        for b in resident.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        state = dict(tp_card[1].vars)
+        checkpoint.save_checkpoint(tmp, state, SPMD_STEPS)
+        topo = checkpoint.load_topology(tmp)
+        template = interop.scope_from_numpy(start, fluid.Scope(), dev)
+        restored, _ = checkpoint.restore_resharded(tmp, dict(template.vars))
+        bitwise = all(torch.equal(restored[n], v.full())
+                      for n, v in state.items())
+        dp4 = fluid.Scope()
+        dp4.vars.update(restored)
+        a = card.run(fluid.CompiledProgram(m.main).with_sharding_rules(
+            sh.PartitionRules([(".*", [])], {"dp": 4}), execute=True),
+            feed=feeds[-1], fetch_list=[m.loss_name], scope=dp4)[0]
+        b = card.run(tp(), feed=feeds[-1], fetch_list=[m.loss_name],
+                     scope=tp_card[1])[0]
+    checks["5 checkpoint"] = (bitwise and topo.get("mesh") == SPMD_TP
+                              and bool(np.allclose(np.mean(a), np.mean(b),
+                                                   rtol=SPMD_RTOL,
+                                                   atol=SPMD_ATOL)))
+    log(f"spmd bert pillars: losses tp card {tp_card[0]}, tp CPU "
+        f"{tp_cpu[0]}, dp card {dp_card[0]}; params card vs CPU worst "
+        f"excess {worst:.3e} (atol {atol:.3e}); executed "
+        f"{model['psums']} all-reduces / {model['total_bytes']} bytes, "
+        f"planned {table['count']} / {table['bytes']}; {len(placed)} "
+        f"sharded leaves; rank state bytes {sorted(set(resident.values()))}"
+        f" against the plan's {est} and the dp run's {dp_state}; "
+        f"checkpoint mesh {topo.get('mesh')}, restored bitwise {bitwise}, "
+        f"next loss on {{dp=4}} {float(np.mean(a)):.6f} vs "
+        f"{float(np.mean(b)):.6f}; checks {checks}")
+    for k, ok in checks.items():
+        if not ok:
+            failures.append(f"spmd bert pillar {k} failed")
+
+
+def spmd_lint(failures, device=None):
+    """(c) of phase 7g: FLAGS_static_check=error over the zoo's AMP +
+    fused substitutes under their default rules, one step each; the lint
+    CLI over the zoo."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.analysis import ProgramLintError
+    from paddle_tpu_torch.models import static_zoo
+
+    seen = {}
+    with tier_flags(amp="on", fuse="on", static_check="error"):
+        for name in sorted(static_zoo.BUILDERS):
+            m = static_zoo.build(name)
+            exe = fluid.Executor(device)
+            scope = fluid.Scope()
+            exe.run(m.startup, scope=scope)
+            prog = fluid.CompiledProgram(m.main).with_sharding_rules(
+                m.partition_rules())
+            try:
+                out = exe.run(prog, feed=m.smoke_feed(8),
+                              fetch_list=m.fetches, scope=scope)
+                seen[name] = bool(np.all(np.isfinite(out[0])))
+            except ProgramLintError as e:
+                failures.append(f"spmd lint: {name} raised {e}")
+                seen[name] = False
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.program_lint",
+         "--all-models", "--sharding-rules", "default"],
+        capture_output=True, text=True, timeout=300)
+    log(f"spmd lint: FLAGS_static_check=error over the zoo's AMP + fused "
+        f"substitutes, one step each, finite: {seen}; program_lint "
+        f"--all-models --sharding-rules default: rc {cli.returncode} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if cli.returncode != 0:
+        failures.append(f"spmd lint: the CLI exited {cli.returncode}: "
+                        f"{cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    if not all(seen.values()):
+        failures.append(f"spmd lint: non-finite or failed steps {seen}")
+
+
 def sync_times(label, grads, meshes, reps=5):
     """The gradient sync alone (`sync_gradients` on `grads`, one step's
     shapes, every rank of `meshes` at once), bucketed and per gradient:
@@ -8409,7 +8882,7 @@ def compare_main(args):
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
 MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe",
-              "parallel", "collective")
+              "parallel", "collective", "spmd")
 
 
 def main():
@@ -8457,7 +8930,8 @@ def main():
               ("path", path_phase), ("static", static_phase),
               ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
               ("parallel", parallel_phase),
-              ("collective", collective_phase), ("checks", check_phase))
+              ("collective", collective_phase), ("spmd", spmd_phase),
+              ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -8496,7 +8970,9 @@ def main():
         # serving runs (K1, K4, K6) and ring runs (K1-K3), the parallel
         # phase's timed tp = 2, pp = 2 and V = 2 steps (K1-K5), the
         # collective phase's timed data-parallel steps at W = 1 and 2
-        # (K1-K5), and the probe tool's runs (K4, K7 and K9 forward)
+        # (K1-K5), the spmd phase's timed GSPMD steps at {dp=2, mp=2} and
+        # {dp=1, mp=2} (K1-K5), and the probe tool's runs (K4, K7 and K9
+        # forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

@@ -28,7 +28,10 @@ A sharded state (`distributed.sharded`) is saved whole: with `mesh` and
 `state_specs`, `save_checkpoint` gathers every split leaf over the axes
 that split it and rank 0 writes the global arrays; `restore_resharded`
 places them on any mesh, replicated or cut by `state_specs` to each
-rank's blocks, bit for bit.
+rank's blocks, bit for bit.  The GSPMD tier's scope values
+(`framework.spmd.ShardedValue`, a rule mesh's blocks) are written whole
+with the rule mesh's axes in `_TOPOLOGY.json`, so a {dp: 2, mp: 2}
+checkpoint restores bitwise onto a {dp: 4} run.
 
 Not here: the orbax writer (JAX only; `writer="orbax"`, and loading a
 step that holds only an orbax checkpoint, raise), and the monitor
@@ -67,7 +70,7 @@ _verify_memo = {}
 
 def _is_leaf(x):
     return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float,
-                          bool, torch.Generator))
+                          bool, torch.Generator)) or _sharded(x)
 
 
 def _children(node):
@@ -113,16 +116,48 @@ def _rebuild(node, prefix, leaf_fn):
         for f in dataclasses.fields(node)})
 
 
+def _sharded(v):
+    from .framework.spmd import ShardedValue
+
+    return isinstance(v, ShardedValue)
+
+
 def _leaf_array(v):
     if isinstance(v, torch.Generator):
         return v.get_state().numpy()
+    if _sharded(v):
+        # a rule mesh's sharded leaf (the GSPMD tier's scope value): the
+        # global array from the blocks this process holds
+        v = v.full()
     if isinstance(v, torch.Tensor):
         return to_numpy_exact(v)
     return np.asarray(v)
 
 
+def _mesh_axes(mesh, state):
+    """The rule mesh's ordered {axis: size} for `_TOPOLOGY.json`: from a
+    rule mesh given to `save_checkpoint`, else from the state's sharded
+    leaves; None for a canonical mesh or an unsharded state."""
+    from .distributed.mesh import AXES
+
+    if mesh is not None:
+        first = mesh[0] if isinstance(mesh, (list, tuple)) else mesh
+        if tuple(getattr(first, "names", AXES)) != AXES:
+            return dict(first.shape)
+    for _, v in flatten_with_path(state):
+        if _sharded(v):
+            coords = next(iter(v.coords.values()))
+            return {a: size for a, (_, size) in coords.items()}
+    return None
+
+
 def _restore_leaf(tmpl, a):
     """The stored array `a` in the place of template leaf `tmpl`."""
+    if _sharded(tmpl):
+        # whole, where the template's blocks live: the GSPMD tier cuts
+        # it to each rank's blocks at its next run
+        return from_numpy_exact(a).to(
+            next(iter(tmpl.shards.values())).device)
     if isinstance(tmpl, torch.Generator):
         if a.dtype != np.uint8:
             # a PRNG key of the reference: no torch counterpart
@@ -284,13 +319,20 @@ def save_checkpoint(directory, state, step, sparse_tables=None,
     extras: {name: array} beside the state (read with `load_extras`).
     topology: a dict merged over the writer's shape in `_TOPOLOGY.json`.
     writer: None or "npz"; "orbax" raises.
-    mesh, state_specs: a sharded state (`ShardedTrainStep.state_specs`):
-    every rank calls; the split leaves are gathered, rank 0 writes, and
-    every rank returns once the step is complete."""
+    mesh, state_specs: a sharded state (`ShardedTrainStep.state_specs`,
+    or a rule mesh's {key: dims}): every rank calls; the split leaves are
+    gathered, rank 0 writes, and every rank returns once the step is
+    complete.  A rule mesh's axes, or those of the state's
+    `ShardedValue` leaves (the GSPMD tier's scope values, written
+    whole), go to `_TOPOLOGY.json` under "mesh"."""
     if writer not in (None, "npz"):
         if writer == "orbax":
             raise _no_orbax("save_checkpoint(writer='orbax')")
         raise ValueError(f"unknown checkpoint writer {writer!r}")
+    axes = _mesh_axes(mesh, state)
+    if axes:
+        topology = dict(topology or {})
+        topology.setdefault("mesh", axes)
     if mesh is None:
         return _write_checkpoint(directory, state, step, sparse_tables,
                                  extras, topology)

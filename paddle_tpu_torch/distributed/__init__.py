@@ -3,7 +3,9 @@
 The reference's mesh axes are `torch.distributed` process groups here
 (NCCL on the card, gloo on the CPU), one process per rank: `env` (the
 trainer env and the rendezvous), `launch` (the worker launcher), `mesh`
-(the pp, dp, sp, tp and ep axes), `collective`, `data_parallel`,
+(the pp, dp, sp, tp and ep axes; a partition-rule set's axes:
+`build_rule_mesh`, `mesh_key`, `mesh_layout`), `collective`,
+`data_parallel`,
 `strategies` (DGC on kernel K10, LocalSGD), `fleet`, `moe` (mixture of
 experts over ep), `ring_attention` (sequence parallelism over sp),
 `tensor_parallel` (Megatron tp and sp for the GPT's layers), `sharded`
@@ -14,10 +16,10 @@ schedule, the 3D GPT).  `inprocess` holds a mesh's ranks in one process
 server's data plane is `ps` (sharded host tables on the native shard,
 the Communicator, the TCP service and its wire format), with
 `federated` (FedAvg over ps's wire), `fleet_util` (global metrics as
-sums over a mesh axis) and `fs` (LocalFS, HDFSClient).  The modules keep
-the reference's other names (`build_rule_mesh`, `mesh_key`,
-`MeshLayout`, an explicit device list, the dygraph `DataParallel`),
-which raise NotImplementedError naming their ROADMAP item.
+sums over a mesh axis) and `fs` (LocalFS, HDFSClient).  A mesh takes an
+explicit device list (`devices=[...]`, one device a rank).  The modules
+keep the reference's other names (the dygraph `DataParallel`), which
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from . import (  # noqa: F401
@@ -34,7 +36,8 @@ from .env import (
     init_parallel_env,
 )
 from .mesh import (
-    Mesh, build_mesh, default_mesh, get_global_mesh, set_global_mesh,
+    Mesh, build_mesh, build_rule_mesh, default_mesh, get_global_mesh,
+    mesh_key, mesh_layout, set_global_mesh,
 )
 from .moe import (
     init_moe_params, moe_ffn, moe_ffn_shardmap, shard_moe_params,
@@ -60,8 +63,8 @@ __all__ = [
     "build_gpt_pipeline_3d",
     "all_reduce", "all_gather", "reduce_scatter", "broadcast", "ppermute",
     "all_to_all", "psum", "pmean", "pmax", "pmin",
-    "Mesh", "build_mesh", "default_mesh", "get_global_mesh",
-    "set_global_mesh",
+    "Mesh", "build_mesh", "build_rule_mesh", "default_mesh",
+    "get_global_mesh", "mesh_key", "mesh_layout", "set_global_mesh",
     "ParallelEnv", "init_parallel_env", "destroy_parallel_env", "get_rank",
     "get_world_size",
     "DataParallelTrainStep", "scale_loss",

@@ -5,7 +5,8 @@ Two forms, as in the reference:
   `ppermute`, `all_to_all`, ...) take this rank's tensor, as the
   reference's take a shard inside shard_map, and return a new tensor;
   the input is left as it was.  `axis_name` picks the mesh axis whose
-  process group they run on: "pp", "dp", "sp", "tp" or "ep";
+  process group they run on: "pp", "dp", "sp", "tp" or "ep", or an axis
+  of a rule mesh (`mesh.build_rule_mesh`, "mp" say);
 - the `eager_*` forms take a global array, as the reference's take one
   sharded over an axis: rank r works on the r-th 1/size block of dim 0,
   and a result sharded over the axis comes back as the global array
@@ -62,9 +63,10 @@ class _Axis:
 def _mesh(mesh, axis_name):
     from .mesh import default_mesh
 
-    if axis_name not in _AXES:
+    names = getattr(mesh, "names", _AXES)
+    if axis_name not in names:
         raise ValueError(f"unknown mesh axis {axis_name!r}; axes are "
-                         f"{_AXES}")
+                         f"{names}")
     return mesh or default_mesh()
 
 

@@ -78,35 +78,71 @@ class LocalWorld:
 
 
 def local_meshes(dp=1, tp=1, pp=1, sp=1, ep=1, device=None,
-                 timeout=600.0):
-    """One `mesh.Mesh` per rank of a dp x tp x pp x sp x ep mesh held in
-    this process: rank r has the coordinate `np.unravel_index(r, (pp,
-    dp, sp, tp, ep))`, as in `build_mesh`, and each axis line of the
-    grid is one `LocalGroup`.  Every rank's tensors live on `device`,
-    the card by default (raises without one, as `build_mesh`)."""
+                 timeout=600.0, axes=None, devices=None):
+    """One `mesh.Mesh` per rank of a mesh held in this process: over the
+    canonical axes, a dp x tp x pp x sp x ep mesh whose rank r has the
+    coordinate `np.unravel_index(r, (pp, dp, sp, tp, ep))`, as in
+    `build_mesh`; with `axes` ({name: size}, a partition-rule set's
+    mesh), a rule mesh over those axes in their order, as in
+    `build_rule_mesh`.  Each axis line of the grid is one `LocalGroup`.
+    A rule mesh's ranks also carry `model_group`, the ranks that share
+    this rank's dp coordinate (the GSPMD tier's joint backward).  Every
+    rank's tensors live on `device`, the card by default (raises without
+    one, as `build_mesh`), or on `devices[r]` when a device list (one
+    device per rank, in rank order) is given."""
     import numpy as np
 
     from ..core.place import resolve_device
-    from .mesh import AXES, Mesh
+    from .mesh import AXES, Mesh, _rule_axes
 
-    sizes = {"pp": pp, "dp": dp, "sp": sp, "tp": tp, "ep": ep}
-    shape = tuple(int(sizes[a]) for a in AXES)
+    if axes is not None:
+        sizes = _rule_axes(axes)
+        names = tuple(sizes)
+    else:
+        sizes = {"pp": pp, "dp": dp, "sp": sp, "tp": tp, "ep": ep}
+        names = AXES
+    shape = tuple(int(sizes[a]) for a in names)
     world = int(np.prod(shape))
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if len(devs) < world:
+            raise ValueError(f"mesh needs {world} devices, only "
+                             f"{len(devs)} available")
+    else:
+        devs = [resolve_device(device)] * world
     lw = LocalWorld(world, timeout)
     grid = np.arange(world).reshape(shape)
-    axes = [dict() for _ in range(world)]
-    for i, name in enumerate(AXES):
+    per_rank = [dict() for _ in range(world)]
+    for i, name in enumerate(names):
         for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
             ranks = [int(r) for r in line]
             group = LocalGroup(len(ranks), lw) if len(ranks) > 1 else None
             for pos, r in enumerate(ranks):
-                axes[r][name] = (group, shape[i], pos, ranks)
-    dev = resolve_device(device)
+                per_rank[r][name] = (group, shape[i], pos, ranks)
+    model = {}
+    if axes is not None:
+        # the ranks of one data coordinate: the model axes' sub-grid
+        di = names.index("dp") if "dp" in names else None
+        for r in range(world):
+            key = (None if di is None
+                   else int(np.unravel_index(r, shape)[di]))
+            model.setdefault(key, []).append(r)
+        groups = {k: LocalGroup(len(v), lw) if len(v) > 1 else None
+                  for k, v in model.items()}
     meshes = []
     for r in range(world):
-        g, n, idx, _ = axes[r]["dp"]
-        m = Mesh(g, n, idx, dev, axes[r])
+        if "dp" in per_rank[r]:
+            g, n, idx, _ = per_rank[r]["dp"]
+        else:
+            g, n, idx = None, 1, 0
+        m = Mesh(g, n, idx, devs[r], per_rank[r],
+                 names=names if axes is not None else None)
         m.world_rank, m.world = r, lw
+        if axes is not None:
+            for k, ranks in model.items():
+                if r in ranks:
+                    m.model_group = (groups[k], len(ranks), ranks.index(r),
+                                     ranks)
         meshes.append(m)
     return meshes
 

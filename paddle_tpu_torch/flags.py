@@ -147,3 +147,29 @@ declare_flag("dp_bucket_bytes", 4 << 20,
 declare_flag("conv_matmul_precision", "",
              "Default matmul/conv precision for compiled steps "
              "('', 'bfloat16', 'tensorfloat32', 'float32', 'highest').")
+
+# The static Program verifier (analysis/verifier.py): lint every program
+# before the Executor runs its first op — shape/dtype inference,
+# use-before-def, dead code, aliasing hazards, distributed
+# misconfigurations, the sharding (PT3xx) and numerics (PT4xx) passes —
+# with results cached per (program, _version), so the steady state pays
+# one flag read.  "off" (the default) skips the verifier; "warn" emits a
+# ProgramLintWarning once per program version; "error" raises
+# ProgramLintError before any op when a PT1xx/PT3xx/PT4xx error is found.
+declare_flag("static_check", "off",
+             "Static program verification before the run: "
+             "off | warn | error.")
+
+# The sharding analyzer (analysis/sharding.py): a parameter the partition
+# rules leave replicated above this many bytes lints as PT302 (the giant
+# embedding the rule set forgot to shard).  0 disables the check.
+declare_flag("replicated_param_bytes", 64 << 20,
+             "PT302 threshold: lint a replicated parameter larger "
+             "than this many bytes (0 = off).")
+
+# The numerics analyzer (analysis/numerics.py): an accumulating
+# reduction (sum/mean/cumsum family) running in bf16/fp16 over at least
+# this many elements per output lints as PT404.  0 disables the check.
+declare_flag("numerics_reduce_elems", 65536,
+             "PT404 threshold: lint a low-precision accumulating "
+             "reduction over this many elements per output (0 = off).")

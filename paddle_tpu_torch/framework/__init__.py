@@ -1,8 +1,8 @@
 """The static-graph core (port of paddle_tpu/framework): Program and its
 builders, append_backward, the Executor and its Scope, and
 `CompiledProgram` with `BuildStrategy` and `ExecutionStrategy` (the
-reference's multi-device wrappers: the data-parallel step; the GSPMD
-tier, `with_sharding_rules`, is ROADMAP item 8.2).
+reference's multi-device wrappers: the data-parallel step and the GSPMD
+tier, `with_sharding_rules`, run by `spmd.py`).
 """
 
 from .program import (

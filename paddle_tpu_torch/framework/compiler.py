@@ -22,6 +22,10 @@ The ranks (`places` of `with_data_parallel`):
 Fetch semantics mirror ParallelExecutor: a fetched tensor of rank >= 1
 comes back concatenated over the dp ranks, a rank-0 one averaged, so a
 [1]-shaped loss fetched over W ranks comes back as shape [W].
+
+`with_sharding_rules(rules)` attaches partition rules for the static
+analyzer; with `execute=True` the Executor runs the lowered plan on the
+rule mesh (`framework/spmd.py`), its dp axis as above.
 """
 
 import contextlib
@@ -143,6 +147,9 @@ class CompiledProgram:
         self._telemetry_label = None
         self._dp_mesh_cache = None   # (key, mode, meshes) — see _dp_meshes
         self._is_spmd = False
+        self._spmd_rules = None
+        self._spmd_places = None
+        self._spmd_mesh_cache = None  # (key, mode, meshes) — _spmd_meshes
 
     def with_precision(self, precision):
         """Pin the matmul/conv precision this program runs with
@@ -160,10 +167,111 @@ class CompiledProgram:
 
     def with_sharding_rules(self, rules, mesh=None, data_axis="dp",
                             execute=False, places=None):
-        raise NotImplementedError(
-            "CompiledProgram.with_sharding_rules (the sharding analyzer "
-            "and the GSPMD tier) is not ported to paddle_tpu_torch yet "
-            "(ROADMAP item 8.2)")
+        """Attach a partition-rule set for the static sharding analyzer:
+        under ``FLAGS_static_check`` the verifier lints the program
+        against these rules (PT301-PT306) before any op runs.
+
+        ``rules`` is an ``analysis.sharding.PartitionRules``, a
+        ``{"mesh": ..., "rules": ...}`` dict (the rule-file format), or
+        a plain ``[(regex, dims), ...]`` list with ``mesh`` given
+        separately.  Attachment is analysis metadata, not a graph
+        mutation: the program version does not bump, and the lint
+        cache keys on the rule fingerprint.
+
+        ``execute=True`` is the GSPMD runtime tier
+        (`framework/spmd.py`): the executor lowers these rules
+        (`analysis.sharding.lower`) and runs the plan, each rank of the
+        rule mesh holding only its shards.  ``places`` pins the rule
+        mesh's devices, one a rank in rank order (ranks held in this
+        process, as ``with_data_parallel(places=[...])``); without it
+        the ranks are the processes of the initialised process group
+        when its size is the mesh's, else ranks held in this process on
+        the executor's device.  Re-attaching a different rule set
+        re-lowers (the plan and state caches key on the rule
+        fingerprint and the mesh's device identity)."""
+        from ..analysis import sharding as _sh
+
+        if isinstance(rules, dict):
+            rules = _sh.PartitionRules.from_dict(rules)
+        elif not isinstance(rules, _sh.PartitionRules):
+            if mesh is None:
+                raise ValueError(
+                    "with_sharding_rules(list_of_rules) needs mesh=")
+            rules = _sh.PartitionRules(rules, mesh,
+                                       data_axis=data_axis)
+        _sh.attach(self._program, rules)
+        if execute:
+            self._is_spmd = True
+            self._spmd_rules = rules
+            if places is not None:
+                self._spmd_places = places
+            self._spmd_mesh_cache = None
+        return self
+
+    # -- the GSPMD runtime tier -------------------------------------------
+    def _spmd_meshes(self, device=None):
+        """("process", [mesh]) when the ranks are the processes of the
+        initialised process group (its size is the rule mesh's), else
+        ("threads", meshes): the rule mesh's ranks held in this process
+        (`inprocess.local_meshes(axes=...)`) on the `places` devices or
+        on `device` (None: the card).  Memoized per (rule fingerprint,
+        device, world)."""
+        import math
+
+        import torch.distributed as dist
+
+        from ..distributed import inprocess
+        from ..distributed.mesh import build_rule_mesh
+
+        rules = self._spmd_rules
+        if rules is None:
+            raise ValueError(
+                "no executable rules: with_sharding_rules(..., "
+                "execute=True) first")
+        axes = rules.mesh.to_dict() or {"dp": 1}
+        places = self._spmd_places
+        need = math.prod(axes.values())
+        group = places is None and dist.is_available() \
+            and dist.is_initialized() and dist.get_world_size() == need
+        key = (rules.fingerprint(), str(device),
+               dist.get_world_size() if group else None)
+        cached = self._spmd_mesh_cache
+        if cached is not None and cached[0] == key:
+            return cached[1], cached[2]
+        if group:
+            mode, meshes = "process", [build_rule_mesh(axes)]
+        else:
+            devices = None
+            if isinstance(places, (list, tuple)) and places:
+                devices = list(places)
+            mode = "threads"
+            meshes = inprocess.local_meshes(axes=axes, device=device,
+                                            devices=devices)
+        self._spmd_mesh_cache = (key, mode, meshes)
+        return mode, meshes
+
+    def _spmd_mesh(self, device=None):
+        """The rule mesh: this process's `Mesh` over a process group, or
+        the list of the ranks held in this process."""
+        mode, meshes = self._spmd_meshes(device)
+        return meshes[0] if mode == "process" else meshes
+
+    def _spmd_layout(self, device=None):
+        """Shared MeshLayout of the rule mesh, keyed on (mesh, rule
+        fingerprint) in the distributed.mesh cache."""
+        from ..distributed.mesh import mesh_layout
+
+        rules = self._spmd_rules
+        return mesh_layout(self._spmd_mesh(device),
+                           data_axis=rules.data_axis,
+                           fingerprint=rules.fingerprint())
+
+    def _spmd_key(self, device=None):
+        """Cache key of the spmd tier: the mesh's device identity and the
+        rule fingerprint — re-attaching rules or retargeting the mesh
+        re-lowers instead of serving a stale layout."""
+        layout = self._spmd_layout(device)
+        return (layout.key, layout.fingerprint)
 
     # -- reference API ---------------------------------------------------
     def with_data_parallel(self, loss_name=None, build_strategy=None,

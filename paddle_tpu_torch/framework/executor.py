@@ -38,11 +38,25 @@ persistables that ranks change differently (batch-norm running stats;
 `_rank_varying`).  Fetches of rank >= 1 come back concatenated over the
 ranks, rank-0 fetches averaged.
 
-Not ported here: the GSPMD branch (ROADMAP item 8.2), the guard,
-telemetry, goodput and fault-injection branches, the structural
-graph-optimizer substitution (FLAGS_graph_opt), the control-flow ops and
-`train_from_dataset` (item 10).  They raise NotImplementedError, or are
-not there.
+The GSPMD branch: running a `CompiledProgram(...).with_sharding_rules(
+rules, execute=True)` lowers the rules over the program it runs
+(`analysis.sharding.lower`, memoized per program version, rule
+fingerprint, mesh and feed shapes) and runs the plan on the rule mesh
+(`_run_spmd`, `framework/spmd.py`): each rank holds its shards of the
+state, runs every op on its local tensors with the collectives the plan
+implies, and the dp axis runs the data-parallel step above.
+
+Static verification: with FLAGS_static_check "warn" or "error", `run`
+lints the program it is about to run (the AMP + fused substitute when
+the train tier is on) with `analysis.cached_check` before any op: "warn"
+emits one `ProgramLintWarning` per program version, "error" raises
+`ProgramLintError`.
+
+Not ported here: the guard, telemetry, goodput and fault-injection
+branches (the lint's monitor and flight-recorder records among them),
+the structural graph-optimizer substitution (FLAGS_graph_opt), the
+control-flow ops and `train_from_dataset` (ROADMAP item 10).  They raise
+NotImplementedError, or are not there.
 """
 
 import contextlib
@@ -367,12 +381,16 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
+        from .spmd import ShardedValue
+
         program = program if program is not None else default_main_program()
         compiled = None
+        spmd = False
         if hasattr(program, "_get_executable_program"):
             compiled = program
             program = compiled._get_executable_program()
-            if not compiled._is_data_parallel:
+            spmd = compiled._is_spmd
+            if not (compiled._is_data_parallel or spmd):
                 compiled = None
         feed = feed or {}
         fetch_list = fetch_list or []
@@ -385,8 +403,19 @@ class Executor:
         # in train_from_dataset, so a bare run costs two flag reads
         do_amp, do_fuse = self._train_tier_modes(program, False)
         if do_amp or do_fuse:
-            program = self._resolve_train_optimized(
+            tier = self._resolve_train_optimized(
                 program, fetch_names, do_amp, do_fuse)
+            # mirror the CURRENT rule attachment: a re-attached or
+            # removed rule set must not keep linting (or running) a
+            # cached substitute against stale rules
+            rules = getattr(program, "_sharding_rules", None)
+            if getattr(tier, "_sharding_rules", None) is not rules:
+                tier._sharding_rules = rules
+            program = tier
+        check_mode = flags.flag("static_check")
+        if check_mode and check_mode != "off":
+            self._static_check(program, fetch_names, feed, check_mode,
+                               self._dp_ndev(compiled, spmd))
         plan = self._get_plan(program)
 
         env = {}
@@ -396,6 +425,8 @@ class Executor:
             val = scope.find_var(n)
             if val is None:
                 val = folded.get(n)
+            if isinstance(val, ShardedValue) and not spmd:
+                val = val.full()
             if val is None:
                 missing.append(n)
             else:
@@ -420,8 +451,9 @@ class Executor:
         if compiled is not None:
             from .compiler import apply_precision_policy, resolve_precision
 
-            run_dp = apply_precision_policy(self._run_dp,
-                                            resolve_precision(compiled))
+            run_dp = apply_precision_policy(
+                self._run_spmd if spmd else self._run_dp,
+                resolve_precision(compiled))
             env, fetches = run_dp(compiled, program, plan, env, feed,
                                   fetch_names, ops, sections, keep)
         else:
@@ -432,7 +464,9 @@ class Executor:
 
         for n in plan.persist_names:
             if n in env:
-                scope.set_var(n, env[n].detach())
+                v = env[n]
+                scope.set_var(n, v if isinstance(v, ShardedValue)
+                              else v.detach())
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
@@ -450,6 +484,192 @@ class Executor:
                     + 0x9E3779B97F4A7C15 * rank) % (1 << 63)
             gens[key] = torch.Generator(device=device).manual_seed(seed)
         return gens[key]
+
+    def _spmd_generator(self, world_rank, dp_index, device):
+        """The generator of spmd rank `world_rank`: seeded from
+        FLAGS_global_seed and the rank's dp coordinate, so the ranks of
+        one data shard draw alike (a replicated random op stays
+        replicated), one object a rank (the ranks run at once)."""
+        gens = self.__dict__.setdefault("_spmd_generators", {})
+        key = (world_rank, dp_index, str(device))
+        if key not in gens:
+            seed = (int(flags.flag("global_seed"))
+                    + 0x9E3779B97F4A7C15 * (dp_index + 1)) % (1 << 63)
+            gens[key] = torch.Generator(device=device).manual_seed(seed)
+        return gens[key]
+
+    def _dp_ndev(self, compiled, spmd):
+        """The data-parallel width the verifier's PT107 checks feeds
+        against: the rule mesh's dp axis, the dp tier's rank count, or
+        None for a plain run."""
+        import torch.distributed as dist
+
+        if compiled is None:
+            return None
+        if spmd:
+            return int(compiled._spmd_rules.mesh.size("dp"))
+        mode, meshes = compiled._dp_meshes(self.device)
+        return dist.get_world_size() if mode == "process" else len(meshes)
+
+    @staticmethod
+    def _static_check(program, fetch_names, feed, mode, dp_ndev=None):
+        """Run the static verifier before any op (the reference's
+        build-time InferShape parity point).  A fresh analysis emits ONE
+        ProgramLintWarning (warn mode, or error mode with warnings only);
+        a cache hit re-raises in error mode but never re-reports, so a
+        training loop lints each program version once."""
+        from .. import analysis
+
+        key = "prog%x:v%d" % (id(program), program._version)
+        result, fresh = analysis.cached_check(
+            program, fetch_names=fetch_names,
+            feed_names=list(feed or ()), dp_ndev=dp_ndev,
+            program_key=key)
+        if fresh and result.diagnostics and (mode != "error" or result.ok):
+            analysis.warn_result(result, stacklevel=4)
+        if mode == "error" and not result.ok:
+            raise analysis.ProgramLintError(result)
+
+    def _get_spmd_plan(self, program, rules, fetch_names, feed_shapes,
+                       mesh_key):
+        """The memoized ShardingPlan of the GSPMD tier: one
+        `analysis.sharding.lower` per (program, version, rule
+        fingerprint, mesh, feed shapes, fetches); entries hold the
+        program, so a recycled id() cannot serve a stale plan."""
+        from ..analysis import sharding as _sh
+
+        shapes = {n: tuple(s) for n, s in feed_shapes.items()}
+        key = (id(program), program._version, rules.fingerprint(),
+               mesh_key, tuple(sorted(shapes.items())), tuple(fetch_names))
+        plans = self.__dict__.setdefault("_spmd_plans", {})
+        ent = plans.get(key)
+        if ent is not None and ent[0] is program:
+            return ent[1]
+        splan = _sh.lower(program, rules, fetch_names=fetch_names,
+                          feed_names=sorted(shapes), feed_shapes=shapes)
+        if len(plans) >= 8:
+            plans.clear()
+        plans[key] = (program, splan)
+        return splan
+
+    def _run_spmd(self, compiled, program, plan, state, feed, fetch_names,
+                  ops, sections, keep):
+        """One step of the GSPMD tier (the module docstring and
+        `framework/spmd.py`): returns ({persistable: ShardedValue}, the
+        merged fetches)."""
+        from ..distributed import collective as C
+        from ..distributed import inprocess
+        from ..distributed.mesh import mesh_key
+        from ..transpiler import collective as coll
+        from . import spmd as S
+
+        rules = compiled._spmd_rules
+        mode, meshes = compiled._spmd_meshes(self.device)
+        first = meshes[0]
+        if "dp" not in first.names or rules.data_axis != "dp":
+            raise ValueError(
+                "executable sharding rules need a 'dp' data axis on the "
+                "mesh (size 1 is fine); got axes "
+                f"{tuple(first.names)} with data axis "
+                f"{rules.data_axis!r}")
+        dp = first.axis_size("dp")
+        parts = dp if mode == "threads" else 1
+        for n, value in feed.items():
+            shape = tuple(getattr(value, "shape", np.shape(value)))
+            if not shape or shape[0] % parts != 0:
+                raise ValueError(
+                    f"data-parallel feed '{n}' needs a leading batch dim "
+                    f"divisible by {parts} ranks, got {shape}")
+        feeds = {n: feed_tensor(v, plan.feed_dtype(n), first.device)
+                 for n, v in feed.items()}
+        # the plan prices the GLOBAL batch: a process holds its dp shard
+        scale = dp if mode == "process" else 1
+        shapes = {n: (t.shape[0] * scale,) + tuple(t.shape[1:])
+                  for n, t in feeds.items()}
+        splan = self._get_spmd_plan(program, rules, fetch_names, shapes,
+                                    mesh_key(meshes))
+        index_of = {id(op): i
+                    for i, op in enumerate(program.global_block().ops)}
+        varying = _rank_varying(ops, feeds)
+        params = {n for bs in sections for n in bs.param_names}
+
+        def rank_step(r, mesh):
+            rt = S.RankRuntime(splan, mesh, index_of)
+            me = mesh.world_index()
+            env = {}
+            for n, v in state.items():
+                want = S._body(splan, splan.state_specs.get(n))
+                if isinstance(v, S.ShardedValue) and v.spec == want \
+                        and v.coords.get(me) == mesh.coords():
+                    env[n] = v.local(me)
+                else:
+                    env[n] = S.shard_state(S.whole(v), splan, n,
+                                           mesh)
+                rt.layout[n] = want
+            di = mesh.axis_index("dp")
+            for name, t in feeds.items():
+                blk = t.shape[0] // parts
+                shard = t[di * blk:(di + 1) * blk] if parts > 1 else t
+                env[name] = shard.to(mesh.device)
+
+            def sync(grads):
+                for n in grads:
+                    rt.layout[n + "@GRAD"] = rt.spec_of(n)
+                return coll.sync_gradients(grads, "dp", mesh=mesh)
+
+            grad_fn = None
+            group = getattr(mesh, "model_group", None)
+            if group is not None and group[0] is not None:
+                def grad_fn(loss, leaves):
+                    return group[0].exchange(
+                        group[2], (loss, leaves),
+                        lambda xs: inprocess.joint_grad(
+                            [x[0] for x in xs], [x[1] for x in xs]))
+
+            self._step(ops, sections, env, keep,
+                       generator=self._spmd_generator(me, di, mesh.device),
+                       sync=sync, runner=rt.run_op, grad_fn=grad_fn,
+                       loss_fn=rt.loss_value)
+            for n in plan.persist_names:
+                v = env.get(n)
+                if n in varying and n not in params and v is not None \
+                        and v.is_floating_point():
+                    env[n] = C.all_reduce(v.detach(), "dp", "mean", mesh)
+            fetches = []
+            for n in fetch_names:
+                v = rt.fetch(n, env[n].detach())
+                if v.dim() == 0:
+                    v = C.all_reduce(v, "dp", "mean", mesh)
+                else:
+                    v = C.all_gather(v, "dp", axis=0, tiled=True, mesh=mesh)
+                fetches.append(v)
+            return env, fetches, rt
+
+        if mode == "process":
+            results = [rank_step(0, first)]
+        else:
+            try:
+                results = inprocess.run_ranks(meshes, rank_step)
+            except BaseException:
+                # a failed rank breaks the ranks' barriers for good
+                compiled._spmd_mesh_cache = None
+                raise
+        out = {}
+        for n in plan.persist_names:
+            if n not in results[0][0]:
+                continue
+            spec = S._body(splan, splan.state_specs.get(n))
+            vs = splan.shapes.get(n)
+            shape = (tuple(vs.shape) if vs is not None and vs.shape
+                     is not None else tuple(results[0][0][n].shape))
+            out[n] = S.ShardedValue(
+                {m.world_index(): res[0][n].detach()
+                 for m, res in zip(meshes, results)},
+                spec, {m.world_index(): m.coords() for m in meshes}, shape)
+        rt0 = results[0][2]
+        coll.note_model_sync(rt0.records)
+        coll._LAST_SYNC["fetch"] = list(rt0.fetch_records)
+        return out, results[0][1]
 
     def _run_dp(self, compiled, program, plan, state, feed, fetch_names,
                 ops, sections, keep):
@@ -534,15 +754,24 @@ class Executor:
         return held[1]
 
     def _step(self, ops, sections, env, keep=(), generator=None,
-              sync=None):
+              sync=None, runner=None, grad_fn=None, loss_fn=None):
         """Run `ops` against `env`, realizing each BackwardSection with
         torch autograd (see the module docstring); `keep` names the
         values a recomputed chunk must hand on (fetches, persistables)
         beside those later ops read.  `generator` (default: the
         executor's) feeds the random ops; `sync`, {name: grad} -> {name:
         grad}, runs on each section's gradients before they are bound
-        (the data-parallel all_reduce)."""
+        (the data-parallel all_reduce).  The GSPMD tier passes `runner`
+        (in place of `run_op`; no chunk is recomputed under it),
+        `grad_fn(loss, leaves)` (in place of `torch.autograd.grad`) and
+        `loss_fn(name, value)` (the section's loss as the ranks take it)."""
         gen = self._generator if generator is None else generator
+        if runner is None:
+            run_ops = interpret
+        else:
+            def run_ops(chunk, env_, gen_):
+                for op in chunk:
+                    runner(op, env_, gen_)
         pos = 0
         for bs in sections:
             params = {n: env[n].detach().requires_grad_(True)
@@ -553,17 +782,21 @@ class Executor:
                 for chunk, remat in _checkpoint_chunks(
                         ops[pos:bs.pos], bs.checkpoint_names):
                     start += len(chunk)
-                    if not remat:
-                        interpret(chunk, env, gen)
+                    if not remat or runner is not None:
+                        run_ops(chunk, env, gen)
                         continue
                     needed = set(keep) | {bs.loss_name}
                     for op in ops[start:]:
                         needed.update(op.input_names())
                     _run_recomputed(chunk, env, gen, needed)
-                loss = env[bs.loss_name].sum()
+                loss = env[bs.loss_name]
+                if loss_fn is not None:
+                    loss = loss_fn(bs.loss_name, loss)
+                loss = loss.sum()
             leaves = list(params.values())
             if loss.requires_grad and leaves:
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = (grad_fn or (lambda l, x: torch.autograd.grad(
+                    l, x, allow_unused=True)))(loss, leaves)
             else:
                 grads = [None] * len(leaves)
             grads = {n: torch.zeros_like(p) if g is None else g
@@ -577,7 +810,7 @@ class Executor:
                 env[n + "@GRAD"] = g
             pos = bs.pos
         with torch.no_grad():
-            interpret(ops[pos:], env, gen)
+            run_ops(ops[pos:], env, gen)
 
     @staticmethod
     def _train_tier_modes(program, train_loop):

@@ -109,12 +109,16 @@ def scope_from_numpy(np_dict, scope, device=None):
 
 def scope_to_numpy(scope):
     """{name: np.ndarray} of every value in the static-graph `scope`
-    (bfloat16 widened to float32, which is exact)."""
+    (bfloat16 widened to float32, which is exact; a sharded value of the
+    GSPMD tier assembled from its blocks)."""
+    from .framework.spmd import whole
+
     out = {}
     for n, v in scope.vars.items():
         if v is None:
             continue
-        v = v.detach()
+        # a GSPMD tier's sharded value: the global array of its blocks
+        v = whole(v).detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
         out[n] = v.cpu().numpy()

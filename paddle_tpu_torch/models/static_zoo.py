@@ -9,8 +9,10 @@ unique_name guard and programs), so a port builder and the reference's
 build byte-identical `Program.to_json()`.
 
 All eight families are ported: mlp, lenet, resnet, bert, gpt, seq2seq,
-wide_deep and word2vec.  The default partition rules wait for the
-sharding tier (ROADMAP item 8.2).
+wide_deep and word2vec, with their default partition rules
+(`DEFAULT_SHARDING_RULES`, the reference's): the transformers carry the
+Megatron layout over a {dp, mp} mesh, the rest data parallelism over
+{dp: 2}.
 """
 
 import paddle_tpu_torch as fluid
@@ -31,14 +33,18 @@ class StaticModel:
 
     @property
     def sharding_rules(self):
-        raise NotImplementedError(
-            "the static zoo's default partition rules come with the "
-            "sharding tier (ROADMAP item 8.2)")
+        """This family's default partition-rule document (the
+        ``--sharding-rules`` file format): ``{"mesh", "rules",
+        "data_axis"}``.  Every default set is PT3xx-clean on its own
+        mesh."""
+        return DEFAULT_SHARDING_RULES.get(
+            self.name, DEFAULT_SHARDING_RULES["_default"])
 
     def partition_rules(self):
-        raise NotImplementedError(
-            "the static zoo's default partition rules come with the "
-            "sharding tier (ROADMAP item 8.2)")
+        """The default rules as a live analyzer object."""
+        from ..analysis.sharding import PartitionRules
+
+        return PartitionRules.from_dict(self.sharding_rules)
 
     def smoke_feed_shapes(self, batch=8):
         """Concrete feed shapes for one smoke batch."""
@@ -295,6 +301,61 @@ def build_word2vec(window=4, vocab=120, d=16):
                        [("context", (None, window), "int64"),
                         ("center", (None, 1), "int64")],
                        [loss.name], loss_name=loss.name)
+
+
+# ---------------------------------------------------------------------------
+# default partition-rule sets: one document per family, in the rule-file
+# format tools/program_lint.py --sharding-rules reads.  Ordered (regex,
+# dims) pairs, first match wins; the final '.*' catch-all makes
+# replication explicit (no PT301).  The transformer families carry the
+# Megatron tensor-parallel layout over a 2-D {dp, mp} mesh: qkv/ffn-up
+# column-sharded, attn-out/ffn-down row-sharded (the row shard's pending
+# psum resolves at the bias add: one all-reduce per block), embedding
+# vocab-sharded (masked-lookup psum).  Every set lints PT3xx-clean on its
+# own mesh.
+# ---------------------------------------------------------------------------
+
+_TRANSFORMER_TP_RULES = [
+    # attention q/k/v projections: column parallel
+    [r"fc_0\.w_0$", [None, "mp"]],
+    [r"fc_1\.w_0$", [None, "mp"]],
+    [r"fc_2\.w_0$", [None, "mp"]],
+    # attention output projection: row parallel (psum at the bias add)
+    [r"fc_3\.w_0$", ["mp", None]],
+    # ffn up: column parallel; ffn down: row parallel
+    [r"fc_4\.w_0$", [None, "mp"]],
+    [r"fc_5\.w_0$", ["mp", None]],
+    # token embedding: vocab-sharded (masked-lookup psum)
+    [r"embedding_0\.w_0$", ["mp", None]],
+    # column-parallel biases shard with their weight's output dim (the
+    # bias adds onto the still-sharded activation); row-parallel biases
+    # (fc_3/fc_5) stay replicated: they add after the psum
+    [r"fc_0\.b_0$", ["mp"]],
+    [r"fc_1\.b_0$", ["mp"]],
+    [r"fc_2\.b_0$", ["mp"]],
+    [r"fc_4\.b_0$", ["mp"]],
+    # everything else (row-parallel biases, norms, heads, optimizer
+    # scalars): replicated, explicitly
+    [r".*", []],
+]
+
+DEFAULT_SHARDING_RULES = {
+    "_default": {
+        "mesh": {"dp": 2},
+        "data_axis": "dp",
+        "rules": [[r".*", []]],
+    },
+    "bert": {
+        "mesh": {"dp": 2, "mp": 2},
+        "data_axis": "dp",
+        "rules": list(_TRANSFORMER_TP_RULES),
+    },
+    "gpt": {
+        "mesh": {"dp": 2, "mp": 2},
+        "data_axis": "dp",
+        "rules": list(_TRANSFORMER_TP_RULES),
+    },
+}
 
 
 BUILDERS = {

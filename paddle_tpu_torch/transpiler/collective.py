@@ -235,10 +235,24 @@ def sync_gradients(grads, axis_name, bucket_bytes=None, order=None,
 
 
 def note_model_sync(records, key=None):
-    """The reference records the GSPMD tier's model-parallel collectives
-    for its telemetry here; the port has neither yet."""
-    raise NotImplementedError(
-        f"note_model_sync is not ported to paddle_tpu_torch yet ({_ITEM10})")
+    """Record the model-parallel collectives of the most recent GSPMD
+    step into ``last_sync_stats()["model"]``: ``psums`` (how many),
+    ``total_bytes``, ``axes`` and the ``records`` themselves.  The port's
+    runtime tier passes the collectives a rank EXECUTED
+    (`framework/spmd.py` counts each one as it runs it), so the stats can
+    be held against the plan's `collective_table()`.  The reference's
+    telemetry record of them (``key``) is ROADMAP item 10; ``key`` is
+    accepted and unused."""
+    records = [dict(r) for r in records]
+    axes = sorted({a for r in records for a in r.get("axes", ())})
+    _LAST_SYNC["model"] = {
+        "psums": len(records),
+        "total_bytes": int(sum(int(r.get("bytes", 0))
+                               for r in records)),
+        "axes": axes,
+        "records": records,
+    }
+    return dict(_LAST_SYNC["model"])
 
 
 def emit_skew_probe(ts_sec, ts_usec, axis_name="dp", gather=True):

@@ -48,6 +48,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.optimizer import functional as topt
 from paddle_tpu_torch.resilience import all_finite
+from torch_threads import torch_threads  # noqa: F401
 
 SMALL = dict(vocab_size=256, hidden_size=128, num_heads=2, max_seq_len=64)
 

@@ -16,6 +16,7 @@ from paddle_tpu.models.gpt import GPT as JGPT, GPTConfig as JGPTConfig
 from paddle_tpu_torch.interop import load_jax_param_dict
 from paddle_tpu_torch.models import generate as G
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from torch_threads import torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=61, hidden_size=32, num_layers=2, num_heads=2,
            max_seq_len=40)

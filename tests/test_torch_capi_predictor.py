@@ -26,6 +26,7 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import inference as tinf
 from paddle_tpu_torch import native
 from paddle_tpu_torch.models import static_zoo as tzoo
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,

@@ -42,6 +42,7 @@ from paddle_tpu_torch.models import train as ttrain
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.nn.parameter import make_generator
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 SMALL = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
              max_seq_len=64)

@@ -32,6 +32,7 @@ import torch
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import interop
 from paddle_tpu_torch.transpiler import collective as tcoll
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-5
 STEPS = 5

@@ -65,6 +65,7 @@ from paddle_tpu_torch.interop import (
     load_jax_buffer_dict, load_jax_param_dict,
 )
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 LR, MOMENTUM, STEPS = 0.05, 0.9, 3
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -556,11 +557,14 @@ def test_batch_must_divide_and_unported_axes_raise(mesh1):
         with pytest.raises(ValueError, match="mesh needs"):
             build_mesh(**kw)
     from paddle_tpu_torch.distributed import data_parallel, mesh
-    for fn in (lambda: mesh.build_rule_mesh({"dp": 1}),
-               lambda: mesh.mesh_key(mesh1), lambda: mesh.MeshLayout(mesh1),
-               lambda: build_mesh(devices=[0])):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+    # item 8's rest is ported: a rule mesh over the one-rank group, the
+    # mesh's device-identity key and layout, an explicit device list
+    rule = mesh.build_rule_mesh({"dp": 1})
+    assert rule.names == ("dp",) and rule.shape == {"dp": 1}
+    assert mesh.mesh_key(mesh1)[2] == 1
+    assert mesh.MeshLayout(mesh1).data_rows == 1
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        build_mesh(dp=2, devices=["cpu"])
     # on the one-rank tp and pp axes they are the identity too
     x = torch.arange(4.0)
     assert torch.equal(tcoll.ppermute(x, "tp", [(0, 0)], mesh1), x)

@@ -33,6 +33,7 @@ from paddle_tpu.kernels.flash_attention import flash_decode as j_decode
 
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import flash_attention as TFA
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 H100_SMS = 132

@@ -46,6 +46,7 @@ from paddle_tpu.kernels.flash_attention import (
     _bwd_core as j_bwd_core, flash_attention_with_lse as j_flash_lse)
 
 from paddle_tpu_torch.kernels import flash_attention as TFA
+from torch_threads import torch_threads  # noqa: F401
 
 # float16: the bf16 bound scaled to float16's mantissa (2^-10 against
 # 2^-7 relative)

@@ -59,6 +59,7 @@ from paddle_tpu_torch import passes as tpasses
 from paddle_tpu_torch.framework import executor as texecutor
 from paddle_tpu_torch.models import static_zoo as tzoo
 from paddle_tpu_torch.ops import registry as treg
+from torch_threads import torch_threads  # noqa: F401
 
 FAMILIES = sorted(jzoo.BUILDERS)
 MODES = ("fuse", "amp", "amp_fuse")

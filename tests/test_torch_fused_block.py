@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import fused_bottleneck as TK
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _block(n=2, h=6, w=5, cin=16, cm=8, cout=16, device="cpu"):

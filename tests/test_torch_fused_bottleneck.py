@@ -31,6 +31,7 @@ from paddle_tpu.kernels import fused_bottleneck as JK
 
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import fused_bottleneck as TK
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 

@@ -32,6 +32,7 @@ from paddle_tpu.kernels import fused_bottleneck as JK
 
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import fused_bottleneck as TK
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DOWN_NAMES = "x w1 w2 w3 w4 a1 b1 a2 b2 a3 b3 a4 b4".split()

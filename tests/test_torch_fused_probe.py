@@ -40,6 +40,7 @@ from paddle_tpu.kernels import fused_bottleneck as JK
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import fused_probe as FP
 from paddle_tpu_torch.tools import fused_probe as TOOL
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}

@@ -29,6 +29,7 @@ from paddle_tpu.models.gpt import GPT as JGPT, GPTConfig as JGPTConfig
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.interop import load_jax_param_dict, params_from_numpy
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SMALL = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
@@ -153,18 +154,21 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_options_raise():
     """GPT MoE builds (tests/test_torch_gpt_moe.py holds it to the
-    reference); what item 8 still leaves out raises naming it: the rule
-    meshes of the sharding analyzer (tensor parallelism and ZeRO-1 are
-    ported: tests/test_torch_tensor_parallel.py,
-    tests/test_torch_zero_fsdp.py)."""
+    reference); item 8 is ported whole: the rule meshes of the sharding
+    analyzer are made (in this process here; tests/test_torch_spmd_runtime.py
+    runs them), and a device list shorter than the mesh raises the
+    reference's ValueError (tensor parallelism and ZeRO-1:
+    tests/test_torch_tensor_parallel.py, tests/test_torch_zero_fsdp.py)."""
+    from paddle_tpu_torch.distributed import inprocess
     from paddle_tpu_torch.distributed import mesh as tmesh
 
     m = GPT(GPTConfig(num_experts=4, **SMALL), device="cpu")
     assert m.blocks[0].moe.w1.shape == (4, 128, 512)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.build_rule_mesh({"dp": 1, "mp": 2})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.MeshLayout(None)
+    ranks = inprocess.local_meshes(axes={"dp": 1, "mp": 2}, device="cpu")
+    assert [r.shape for r in ranks] == [{"dp": 1, "mp": 2}] * 2
+    assert tmesh.MeshLayout(ranks).data_rows == 1
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        tmesh.build_rule_mesh({"dp": 1, "mp": 2}, devices=["cpu"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -40,6 +40,7 @@ from paddle_tpu_torch.models import generate as TG
 from paddle_tpu_torch.models import train as ttrain
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
            max_seq_len=24, num_experts=4, moe_top_k=2)
@@ -295,9 +296,10 @@ def test_moe_decode_routes_drop_free():
 
 def test_sharded_step_at_one_rank_and_what_raises():
     """dp = ep = 1 on a one-rank gloo group: the sharded step is
-    make_train_step, also with zero1 and accum_steps=2 (bitwise); what
-    item 8 leaves raises naming it (an explicit device list), and tp or
-    pp beyond the world's ranks is a ValueError."""
+    make_train_step, also with zero1 and accum_steps=2 (bitwise); an
+    explicit device list binds the rank to its device, one shorter than
+    the mesh raises, and tp or pp beyond the world's ranks is a
+    ValueError."""
     from paddle_tpu_torch.distributed import sharded as tsh
     from paddle_tpu_torch.distributed.env import destroy_parallel_env
     from paddle_tpu_torch.distributed.mesh import build_mesh
@@ -333,8 +335,10 @@ def test_sharded_step_at_one_rank_and_what_raises():
             assert torch.equal(l1, l2), kw
             for n, v in rst.params.items():
                 assert torch.equal(st.params[n], v), (kw, n)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build_mesh(dp=1, devices=[0])
+        assert build_mesh(dp=1, devices=["cpu"]).device == \
+            torch.device("cpu")
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            build_mesh(dp=1, tp=2, devices=["cpu"])
         for kw in ({"tp": 2}, {"pp": 2}):
             with pytest.raises(ValueError, match="mesh needs"):
                 build_mesh(**kw)

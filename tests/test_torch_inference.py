@@ -39,6 +39,7 @@ from paddle_tpu_torch import inference as tinf
 from paddle_tpu_torch import interop
 from paddle_tpu_torch import passes as tpasses
 from paddle_tpu_torch.models import static_zoo as tzoo
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = list(tzoo.BUILDERS)

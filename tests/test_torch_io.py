@@ -34,6 +34,7 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import interop
 from paddle_tpu_torch.distributed import fleet as tfleet
 from paddle_tpu_torch.models import static_zoo as tzoo
+from torch_threads import torch_threads  # noqa: F401
 
 FAMILIES = list(tzoo.BUILDERS)
 BATCH = 4

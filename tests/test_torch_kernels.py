@@ -51,6 +51,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops import nn_ops as t_ops
 from test_torch_flash_decode import _decode_split_model
 from test_torch_flash_rounding import _dq_tile_model
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]

@@ -29,6 +29,7 @@ from paddle_tpu.kernels.layer_norm import fused_layer_norm as j_ln
 
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import layer_norm as TLN
+from torch_threads import torch_threads  # noqa: F401
 
 H100_SMS = 132
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}

@@ -41,6 +41,7 @@ from paddle_tpu_torch.models import wide_deep as TW
 from paddle_tpu_torch.models import word2vec as TV
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _t(a):

@@ -31,6 +31,7 @@ import torch
 
 from paddle_tpu_torch.distributed import collective as tcoll
 from paddle_tpu_torch.distributed import moe as tmoe
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent

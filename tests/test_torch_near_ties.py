@@ -11,6 +11,7 @@ import torch
 
 from paddle_tpu_torch.kernels import fused_bottleneck as TK
 from paddle_tpu_torch.tools import near_ties as NT
+from torch_threads import torch_threads  # noqa: F401
 
 CASES = {"k7_id": (False, False), "k7_proj": (True, False),
          "k8": (True, True)}

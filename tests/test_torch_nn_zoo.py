@@ -17,6 +17,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.interop import load_jax_param_dict
 from paddle_tpu_torch.nn import functional as F
+from torch_threads import torch_threads  # noqa: F401
 
 RNG = np.random.default_rng(0)
 X = RNG.standard_normal((3, 4, 5, 6)).astype(np.float32) * 3.0

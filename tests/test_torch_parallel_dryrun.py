@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.entry import _factor_mesh, dryrun_multichip
+from torch_threads import torch_threads  # noqa: F401
 
 
 def test_factor_mesh_is_the_references():

@@ -35,6 +35,7 @@ import torch
 
 from paddle_tpu_torch.distributed import inprocess, pipeline as tpipe
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-5
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=4, num_heads=4,

@@ -39,6 +39,7 @@ from paddle_tpu_torch.distributed import federated as tfed
 from paddle_tpu_torch.distributed import fleet_util as tfu
 from paddle_tpu_torch.distributed import fs as tfs
 from paddle_tpu_torch.distributed import ps as tps
+from torch_threads import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

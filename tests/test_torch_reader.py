@@ -24,6 +24,7 @@ from paddle_tpu_torch import native as tnative
 from paddle_tpu_torch import reader as treader
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.reader.shm import ProducerDeadError, ShmBatchLoader
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _samples(n=23, seed=0):

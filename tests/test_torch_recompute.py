@@ -41,6 +41,7 @@ from paddle_tpu_torch.models import train as ttrain
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _ce_t(m, x, y):

@@ -56,6 +56,7 @@ from paddle_tpu_torch.nn import functional as TF_
 from paddle_tpu_torch.nn import functional_call_with_state
 from paddle_tpu_torch.ops import nn_ops as tops
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 LR = 0.01
 

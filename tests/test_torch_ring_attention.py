@@ -25,6 +25,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: F401
 
 # the package exports the function under the module's name
 tring = importlib.import_module("paddle_tpu_torch.distributed.ring_attention")

@@ -33,6 +33,7 @@ from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
                                       QueueFullError, ServingClosedError,
                                       default_prompt_buckets)
 from paddle_tpu_torch.serving.stats import DecodeStats, exact_percentile
+from torch_threads import torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=2,
            max_seq_len=48)

@@ -27,6 +27,7 @@ from paddle_tpu_torch.analysis import facts as tfacts
 from paddle_tpu_torch.analysis import shape_rules as tsr
 from paddle_tpu_torch.models import static_zoo as tzoo
 from paddle_tpu_torch.ops import registry as treg
+from torch_threads import torch_threads  # noqa: F401
 
 FAMILIES = sorted(jzoo.BUILDERS)
 COMMON_TYPES = set(treg._OPS) & set(jreg._OPS)

@@ -24,6 +24,7 @@ import torch
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import interop
 from paddle_tpu_torch.ops import registry as treg
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-6
 DGC_ATTRS = {"m": 0.9, "rampup_begin_step": 2.0, "rampup_step": 4.0,

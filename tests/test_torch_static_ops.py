@@ -29,6 +29,7 @@ import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
 from paddle_tpu.ops import registry as jreg
 
 from paddle_tpu_torch.ops import registry as treg
+from torch_threads import torch_threads  # noqa: F401
 
 NEW_OPS = (
     "elementwise_add", "scale", "matmul", "mul", "reduce_mean", "mean",

@@ -36,6 +36,7 @@ import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
 from paddle_tpu.ops import registry as jreg
 
 from paddle_tpu_torch.ops import registry as treg
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": 1e-6, "bfloat16": 3e-2}
 CPU = torch.device("cpu")

@@ -49,6 +49,7 @@ from paddle_tpu_torch import layers as L
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.framework import program as tprogram
 from paddle_tpu_torch.models import static_zoo as tzoo
+from torch_threads import torch_threads  # noqa: F401
 
 FAMILIES = ("mlp", "lenet", "resnet", "bert", "gpt", "seq2seq",
             "wide_deep", "word2vec")
@@ -362,20 +363,28 @@ def test_unported_layer_names_raise_naming_their_items():
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_partition_rules_raise_naming_item_8(name):
+    # the default partition rules came with the sharding tier: each
+    # family's are the reference's, document and fingerprint
     assert set(tzoo.BUILDERS) == set(jzoo.BUILDERS) == set(FAMILIES)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tzoo.build(name).partition_rules()
+    tm, jm = tzoo.build(name), jzoo.build(name)
+    assert tm.sharding_rules == jm.sharding_rules
+    assert tm.partition_rules().to_dict() == jm.partition_rules().to_dict()
+    assert tm.partition_rules().fingerprint() \
+        == jm.partition_rules().fingerprint()
 
 
 def test_compiled_program_and_control_flow_raise_naming_their_items():
     # CompiledProgram and BuildStrategy are ported (item 8's data-parallel
-    # step); the GSPMD tier and a bf16 precision policy raise naming theirs
+    # step and GSPMD tier); a bf16 precision policy raises naming its item
     prog = fluid.framework.CompiledProgram(
         fluid.Program(), build_strategy=fluid.framework.BuildStrategy())
     assert prog.with_data_parallel(places=2)._is_data_parallel
     assert fluid.CompiledProgram is fluid.framework.CompiledProgram
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8.2"):
-        prog.with_sharding_rules([], mesh=None)
+    # item 8's rest is done: no message of the port names 8.2 or 8.5
+    items = re.compile(r"item 8\.[25]\b")
+    for path in [REPO / "chip_smoke.py",
+                 *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
+        assert not items.search(path.read_text()), path
     from paddle_tpu_torch.framework import compiler as tcompiler
 
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
@@ -471,22 +480,24 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
 def test_no_port_module_names_item_6_or_item_5():
     """Items 6 (the conv path's rest, the recompute) and 5 (beam search)
     are done: no message of the port names them.  GPT MoE, and with it
-    item 5's MoE decode, came with item 8's first part.  Item 8's third
-    part is done too: the static data-parallel step (8.1), the static
-    DGC and pipeline optimizers (8.3) and the parameter server (8.4);
-    no message names them.  What item 8 still leaves out raises naming
-    it: the rule meshes of the sharding analyzer (8.2) and an explicit
-    device list (8.5)."""
-    items = re.compile(r"item [56]\b|item 8\.[134]\b")
+    item 5's MoE decode, came with item 8's first part.  Item 8 is done
+    too: the static data-parallel step (8.1), the GSPMD tier with the
+    rule meshes of the sharding analyzer (8.2), the static DGC and
+    pipeline optimizers (8.3), the parameter server (8.4) and an
+    explicit device list (8.5); no message names them, the rule meshes'
+    keys are made and a device list shorter than its mesh raises the
+    reference's ValueError."""
+    items = re.compile(r"item [56]\b|item 8\.[12345]\b")
     for path in [REPO / "chip_smoke.py",
                  *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
         assert not items.search(path.read_text()), path
+    from paddle_tpu_torch.distributed import inprocess
     from paddle_tpu_torch.distributed import mesh as tmesh
 
-    with pytest.raises(NotImplementedError, match="item 8.2"):
-        tmesh.mesh_key(None)
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        tmesh.build_mesh(tp=2, devices=[0, 1])
+    ranks = inprocess.local_meshes(axes={"dp": 1, "mp": 2}, device="cpu")
+    assert tmesh.mesh_key(ranks)[:2] == (("dp", "mp"), (1, 2))
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        tmesh.build_mesh(tp=2, devices=["cpu"])
 
 
 def test_no_port_module_names_item_4_and_the_tier_imports_no_jax():

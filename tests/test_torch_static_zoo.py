@@ -46,6 +46,7 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import interop
 from paddle_tpu_torch.models import static_zoo as tzoo
 from paddle_tpu_torch.ops import nn_ops
+from torch_threads import torch_threads  # noqa: F401
 
 STEPS = 3
 BATCH = 4

@@ -40,6 +40,7 @@ from paddle_tpu_torch.interop import load_jax_param_dict
 from paddle_tpu_torch.models import train as ttrain
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-5
 SGD_LR = 0.1

@@ -24,6 +24,7 @@ from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.distributed import strategies as tstrategies
 from paddle_tpu_torch.kernels import backend
 from paddle_tpu_torch.kernels import topk_threshold as T
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _values(n, seed, kind="normal"):

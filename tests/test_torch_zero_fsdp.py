@@ -39,6 +39,7 @@ import torch
 from paddle_tpu_torch.distributed import sharded as tsh
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.optimizer import functional as topt
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-5
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
