@@ -387,6 +387,27 @@ Phases (any failure makes the script exit non-zero without a result):
    step each on the card, none raising; `python -m
    paddle_tpu_torch.tools.program_lint --all-models --sharding-rules
    default` exiting 0.
+7h. The hardened serving tier (`serving_phase`): (a) `ServingRuntime`
+   over the saved fused bf16 static GPT of phase 7b, buckets 1/2/4/8, 64
+   requests of 1-3 rows from 4 client threads: each result bitwise
+   equal to `Predictor.run` at the bucket it rode (read from its
+   trace) and within `compare_scaled` of an unbatched run (the largest
+   difference printed); p50/p99, batches per bucket, host and device ms
+   per batch; requests == sum of outcomes, one `serving.bucket_compile`
+   per bucket, K1 and K4 launched.  (b) The hardened `DecodeEngine` on
+   GPT-2 small bf16 (8 slots, max_len 1024, buckets 128/256/512) over
+   phase 6's 16 requests against `generate()` (the engine check's
+   near-tie rule at bf16's 2^-6), tokens/s and host ms per dispatch,
+   the dispatch thread's cost (`_dispatch_costs`); a transient at
+   `decode.step` retried with the tokens unchanged, a per-token budget
+   expired by a slowed step, a stall giving `stalled`, a broken engine
+   and a flight dump naming the request, a threshold-1 breaker failing
+   fast; requests == sum of outcomes each time, K6 launched.  (c) A
+   `ModelRegistry` -> two `ReplicaServer`s -> `FleetRouter` fleet on the
+   card: the second replica imports the first's `.pt2` cache with 0
+   warm-ups, 32 requests with v2 rolled out mid-stream and 0 dropped,
+   one replica killed and its traffic failed over, the fleet ledger's
+   requests == sum of outcomes.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -438,7 +459,8 @@ and CompiledPredictor runs, the zoo phase's timed BERT steps, its
 unmasked eval forward and its timed beam search, the moe phase's MoE
 train steps, MoE serving runs and ring runs, the parallel phase's timed
 tp = 2, pp = 2 and V = 2 steps, the collective phase's timed W = 1 and
-W = 2 data-parallel steps, and the probe tool's runs, K10's over
+W = 2 data-parallel steps, the serving phase's runtime, engines and
+fleet, and the probe tool's runs, K10's over
 the DGC run with K10, P1's and P2's over the probe tool's), the card
 line and {"ok": true, "device": {...}}.
 """
@@ -8591,6 +8613,707 @@ def collective_ctr_run(failures):
         failures.append(f"collective ctr: losses not finite: {losses}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the hardened serving tier
+# ---------------------------------------------------------------------------
+
+# ServingRuntime part: buckets, requests, rows per request, client threads
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 4
+# the fleet: its buckets and requests
+FLEET_BUCKETS = (1, 2)
+FLEET_REQUESTS = 32
+# the engine check's near-tie rule in bf16: the logits are bf16, one ulp
+# 2^-8 relative at the top logit, and the engine's 8-slot products round
+# otherwise than generate()'s one-row ones, so a first difference where
+# generate()'s top-2 logits lie within 4 ulps (2^-6, compare_scaled's
+# frac) is a near-tie
+ENGINE_BF16_TIE = 2.0 ** -6
+
+
+def serving_phase(failures):
+    """Phase 9, `serving`: the hardened serving tier on the card.
+
+    a. `ServingRuntime` over the saved, fused bf16 static GPT
+       (STATIC_GPT, as `io_serve` saves it), buckets SERVE_BUCKETS, with
+       telemetry and request tracing on: SERVE_REQUESTS requests of 1-3
+       rows from SERVE_CLIENTS client threads.  Each result is held
+       bitwise against `Predictor.run` of its rows zero-padded to the
+       bucket it rode (read from its trace), and with `compare_scaled`
+       against an unbatched `Predictor.run`; the largest unbatched
+       difference is printed.  p50/p99 latency, batches per bucket, host
+       and device ms per batch at buckets 1 and 8; requests == sum of
+       outcomes, `serving.bucket_compile` == the bucket count, K1 and K4
+       launched.
+    b. The hardened `DecodeEngine` on GPT-2 small bf16 (8 slots, max_len
+       1024, buckets 128/256/512): the path phase's 16 requests,
+       token-exact against `generate()` (the engine check's near-tie
+       rule), its tokens/s and host ms per step and the cost of a
+       dispatch thread; a transient armed at `decode.step` retried with
+       the tokens unchanged; a per-token budget that a slowed step
+       expires; a stalled step past `watchdog_stall_s` giving `stalled`
+       outcomes, a broken engine and a flight dump on disk naming the
+       stalled request; a threshold-1 breaker opened by a failed
+       dispatch and failing fast.  requests == sum of outcomes in every
+       run; K6 launched.
+    c. The fleet: a `ModelRegistry` publishes the same fused bf16 GPT
+       with the greedy next-token `argmax` appended (its [rows, 512] ids
+       cross HTTP as JSON; the logits would be 64 MiB of JSON a row) as
+       v1 and v2; two in-process `ReplicaServer`s on the card behind a
+       `FleetRouter`.  The first replica warms v1 and writes its
+       per-bucket `.pt2` cache; the second imports it with 0 bucket
+       warm-ups.  FLEET_REQUESTS requests from 2 clients; v2 is rolled
+       out mid-stream with 0 dropped; one replica is killed and its
+       traffic fails over; requests == sum of outcomes in the fleet
+       ledger, requests/s through the router.
+
+    Returns the launches of the driven runs (the reference runs that
+    check them are not counted)."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import flags, monitor
+    from paddle_tpu_torch.kernels import backend
+
+    launches = {}
+    old_dir = flags.flag("flight_recorder_dir")
+    with tempfile.TemporaryDirectory() as tmp:
+        flags.set_flags({"flight_recorder_dir": tmp + "/flight"})
+        try:
+            dirs = _serving_gpt_dirs(tmp)
+            for part in (serving_runtime_part, serving_engine_part,
+                         serving_fleet_part):
+                backend.reset_launches()
+                t0 = time.perf_counter()
+                _add(launches, part(failures, tmp, dirs))
+                log(f"serving {part.__name__}: "
+                    f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            flags.set_flags({"flight_recorder_dir": old_dir,
+                             "request_tracing": False})
+            monitor.disable()
+            monitor.reset()
+            monitor.flight_recorder.get().clear()
+    log(f"serving launches (runtime, engine, fleet): {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serving_gpt_dirs(tmp):
+    """The static GPT (STATIC_GPT) fused and AMP-rewritten to bf16 as
+    `io_serve` saves it: {"logits": its directory, "argmax": the same
+    program with the next-token argmax appended, saved with a second set
+    of weights too ("argmax_v2")}."""
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, passes
+    from paddle_tpu_torch.models import static_zoo
+
+    m = static_zoo.build_gpt(**STATIC_GPT)
+    dirs = {}
+    for seed, names in ((0, ("logits", "argmax")), (1, ("argmax_v2",))):
+        scope = fluid.Scope()
+        with tier_flags(global_seed=seed):
+            exe = fluid.Executor()      # its generator: FLAGS_global_seed
+            exe.run(m.startup, scope=scope)
+        test = m.main.clone(for_test=True)
+        logits = [op for op in test.global_block().ops
+                  if op.type == "softmax_with_cross_entropy"][0].inputs[
+            "Logits"][0]
+        prog = test._prune([logits])
+        with tier_flags(amp="off", fuse="off", amp_dtype="bfloat16"):
+            amp.rewrite_program(prog)
+        fused, _ = passes.fuse_program(prog, fetch_names=[logits])
+        for name in names:
+            fetch = logits
+            if name != "logits":
+                with fluid.program_guard(fused, fluid.Program()):
+                    fetch = fluid.layers.argmax(
+                        fused.global_block().var(logits), axis=-1)
+            dirs[name] = os.path.join(tmp, f"serve_{name}")
+            with fluid.scope_guard(scope):
+                fluid.io.save_inference_model(dirs[name], ["ids"], [fetch],
+                                              exe, main_program=fused)
+    return dirs
+
+
+def _trace_buckets(label):
+    """{trace_id: the bucket the request rode} from the runtime's
+    retained request traces (their batch_join annotation)."""
+    from paddle_tpu_torch.monitor import tracing
+
+    out = {}
+    for tree in tracing.get().retained_trees(label):
+        for s in tree["spans"]:
+            for _ts, text in s.get("annotations") or ():
+                m = re.match(r"batch_join bucket=(\d+)", text)
+                if m:
+                    out[tree["trace_id"]] = int(m.group(1))
+    return out
+
+
+def _batch_profile(rt, bucket, feed):
+    """Host ms (wall, the host copy included) and device ms (kernels and
+    copies, torch.profiler) of one dispatch of `feed` padded to
+    `bucket`, as the runtime's batcher makes it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    d = rt.dispatcher
+    prepared, _ = d.prepare(feed)
+    merged, _ = d.merge([prepared], bucket)
+    d.dispatch(merged, bucket)                        # warm
+    t0 = time.perf_counter()
+    d.dispatch(merged, bucket)
+    host = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        d.dispatch(merged, bucket)
+    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device = sum(us for us, _ in rows) / 1e3
+    copy = sum(us for us, k in rows if "Memcpy" in k) / 1e3
+    return host, device, copy
+
+
+def serving_runtime_part(failures, tmp, dirs):
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch import flags, monitor
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.monitor import tracing
+    from paddle_tpu_torch.serving import ServingRuntime
+
+    flags.set_flags({"request_tracing": True, "trace_sample": 1.0})
+    monitor.reset()
+    monitor.enable()
+    pred = Predictor(dirs["logits"])
+    label = "serve_gpt"
+    rng = np.random.default_rng(23)
+    vocab, t = STATIC_GPT["vocab"], STATIC_GPT["t"]
+    feeds = [{"ids": rng.integers(0, vocab, (int(r), t)).astype(np.int64)}
+             for r in rng.integers(1, 4, SERVE_REQUESTS)]
+    tids = [f"{i + 1:032x}" for i in range(SERVE_REQUESTS)]
+    results = [None] * SERVE_REQUESTS
+    errors = []
+    t0 = time.perf_counter()
+    rt = ServingRuntime(pred, buckets=list(SERVE_BUCKETS),
+                        max_batch_size=SERVE_BUCKETS[-1],
+                        batch_window_s=0.002, label=label)
+    warm_s = time.perf_counter() - t0
+
+    def client(k):
+        for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+            try:
+                results[i] = rt.run(feeds[i], timeout=300,
+                                    traceparent=f"00-{tids[i]}-"
+                                                f"{i + 1:016x}-01")
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    rt.close()
+    made = dict(backend.LAUNCHES)
+    s = rt.summary()
+    counters = monitor.snapshot()["counters"]
+    lat = s.get("latency") or {}
+    log(f"serving runtime: fused bf16 static GPT {STATIC_GPT}, buckets "
+        f"{list(SERVE_BUCKETS)} warmed in {warm_s:.2f} s "
+        f"({rt.prewarmed} buckets); {SERVE_REQUESTS} requests "
+        f"({sum(len(f['ids']) for f in feeds)} rows) from {SERVE_CLIENTS} "
+        f"clients in {wall:.3f} s ({SERVE_REQUESTS / wall:.1f} req/s); "
+        f"latency p50 {lat.get('p50_ms')} ms p99 {lat.get('p99_ms')} ms; "
+        f"batches {s['batches']} per bucket {s['buckets']}, padded rows "
+        f"{s['padded_rows']}; outcomes {s['outcomes']}; launches {made}; "
+        f"{card_line()}")
+    if errors:
+        failures.append(f"serving runtime: {errors[:3]}")
+    if s["requests"] != sum(s["outcomes"].values()) \
+            or s["outcomes"]["completed"] != SERVE_REQUESTS:
+        failures.append(f"serving runtime ledger: requests {s['requests']}"
+                        f", outcomes {s['outcomes']}")
+    if counters.get("serving.bucket_compile") != len(SERVE_BUCKETS):
+        failures.append(f"serving.bucket_compile "
+                        f"{counters.get('serving.bucket_compile')} != "
+                        f"{len(SERVE_BUCKETS)}")
+    for name in ("flash_attention_fwd", "layer_norm_fwd"):
+        if made.get(name, 0) < 1:
+            failures.append(f"serving runtime: {name} never launched")
+    buckets = _trace_buckets(label)
+    worst, same = 0.0, 0
+    for i, (feed, got) in enumerate(zip(feeds, results)):
+        if got is None:
+            continue
+        rows = len(feed["ids"])
+        bucket = buckets.get(tids[i])
+        if bucket is None:
+            failures.append(f"serving runtime: request {i} has no "
+                            "batch_join in its trace")
+            continue
+        pad = np.zeros((bucket - rows, t), np.int64)
+        ref = pred.run({"ids": np.concatenate([feed["ids"], pad])})[0][:rows]
+        if np.array_equal(got[0], ref):
+            same += 1
+        else:
+            failures.append(f"serving runtime: request {i} ({rows} rows, "
+                            f"bucket {bucket}) differs from Predictor.run "
+                            "at the same bucket")
+        alone = pred.run(feed)[0]
+        # held on the card: the logits are 64 MiB a row
+        err, _, _ = compare_scaled(f"serving runtime request {i} vs "
+                                   "unbatched",
+                                   torch.from_numpy(got[0]).cuda(),
+                                   torch.from_numpy(alone).cuda(), failures)
+        worst = max(worst, err)
+        results[i] = None
+    log(f"serving runtime: {same} of {SERVE_REQUESTS} results bitwise equal "
+        f"to Predictor.run of their rows at their bucket; largest "
+        f"batched-vs-unbatched difference {worst:.6e} (compare_scaled)")
+    for bucket in (1, SERVE_BUCKETS[-1]):
+        host, device, copy = _batch_profile(rt, bucket, feeds[0])
+        log(f"serving runtime batch at bucket {bucket}: host {host:.3f} ms "
+            f"(wall, the logits' copy to the host included), device "
+            f"{device:.3f} ms (of which copies {copy:.3f} ms)")
+    tracing.get().reset()
+    flags.set_flags({"request_tracing": False})
+    monitor.disable()
+    del pred, rt
+    return made
+
+
+def _engine_cfg(**kw):
+    from paddle_tpu_torch.serving import DecodeConfig
+
+    kw.setdefault("slots", 8)
+    kw.setdefault("max_len", 1024)
+    kw.setdefault("buckets", (128, 256, 512))
+    return DecodeConfig(**kw)
+
+
+def _ledger_ok(name, s, failures):
+    if s["requests"] != sum(s["outcomes"].values()) or s["pending"]:
+        failures.append(f"{name}: requests {s['requests']} != sum of "
+                        f"outcomes {s['outcomes']}")
+
+
+def serving_engine_part(failures, tmp, dirs):
+    import json as _json
+    import os
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import make_generator
+    from paddle_tpu_torch.resilience import RetryPolicy, faultinject
+    from paddle_tpu_torch.serving import (DecodeEngine, DeadlineExceeded,
+                                          EngineBrokenError, WatchdogStall)
+
+    cfg = GPTConfig(dtype="bfloat16")
+    model = GPT(cfg, device="cuda", generator=make_generator(0)).eval()
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, size=(4, 256), dtype=np.int32)
+    lens = rng.integers(100, 513, size=16)
+    news = rng.integers(16, 97, size=16)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(n), dtype=np.int32),
+             int(m)) for n, m in zip(lens, news)]
+    made = {}
+
+    # 1. normal traffic with this PR's defaults
+    backend.reset_launches()
+    eng = DecodeEngine(model, config=_engine_cfg(label="hard"))
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, m) for p, m in reqs]
+        base = [f.result(timeout=600) for f in futs]
+        serve_s = time.perf_counter() - t0
+    finally:
+        eng.close()
+    _add(made, dict(backend.LAUNCHES))
+    s = eng.summary()
+    dec = s["decode"]
+    _ledger_ok("hardened engine", s, failures)
+    step_ms = serve_s * 1e3 / max(1, dec["decode_steps"]
+                                  + dec["prefill_steps"])
+    n_thr = 200
+    t0 = time.perf_counter()
+    for _ in range(n_thr):
+        th = threading.Thread(target=lambda: None)
+        th.start()
+        th.join()
+    thread_ms = (time.perf_counter() - t0) * 1e3 / n_thr
+    log(f"hardened engine: {len(reqs)} requests in {serve_s:.3f} s; "
+        f"tokens/s {dec.get('tokens_per_s')}; {dec['decode_steps']} decode "
+        f"+ {dec['prefill_steps']} prefill dispatches, {step_ms:.3f} ms "
+        f"host per dispatch; a dispatch thread costs {thread_ms:.4f} ms "
+        f"({thread_ms / step_ms:.2%} of a dispatch); ttft p50 "
+        f"{dec.get('ttft', {}).get('p50_ms')} ms; inter-token p50 "
+        f"{dec.get('token_latency', {}).get('p50_ms')} ms; launches "
+        f"{dict(backend.LAUNCHES)}; {card_line()}")
+    if backend.LAUNCHES.get("flash_decode", 0) < 1:
+        failures.append("hardened engine: flash_decode never launched")
+    params = G.build_decode_params(model)
+    exact, margins = 0, []
+    for (p, m), tokens in zip(reqs, base):
+        ref = G.generate(params, p[None], m).cpu().numpy()[0]
+        if np.array_equal(tokens, ref):
+            exact += 1
+            continue
+        step = int(np.argmax(tokens != ref))
+        margin = _teacher_margin(params, p, ref, step, "cuda")
+        margins.append(margin)
+        if margin > ENGINE_BF16_TIE:
+            failures.append(f"hardened engine/generate disagree at step "
+                            f"{step} with margin {margin:.3e} > "
+                            f"{ENGINE_BF16_TIE:.3e}")
+    _dispatch_costs(model)
+    log(f"hardened engine vs generate() (bf16): {exact} of {len(reqs)} "
+        f"token-exact" + (
+            f"; the others first differ where generate()'s top-2 logits "
+            f"lie within {max(margins):.3e} relative of each other "
+            f"(near-tie limit {ENGINE_BF16_TIE:.3e}; "
+            f"{sum(m == 0.0 for m in margins)} exact ties)"
+            if margins else ""))
+
+    # 2. a transient at decode.step, retried: the same tokens
+    backend.reset_launches()
+    eng = DecodeEngine(model, config=_engine_cfg(
+        label="hard_retry", retry_policy=RetryPolicy(
+            max_retries=2, base_delay=0.001, seed=0)))
+    faultinject.arm(transient_at_step=-1, transient_times=1)
+    try:
+        futs = [eng.submit(p, m) for p, m in reqs[:4]]
+        got = [f.result(timeout=600) for f in futs]
+    finally:
+        faultinject.disarm()
+        eng.close()
+    _add(made, dict(backend.LAUNCHES))
+    s = eng.summary()
+    _ledger_ok("engine transient", s, failures)
+    same = all(np.array_equal(a, b) for a, b in zip(got, base[:4]))
+    log(f"engine transient at decode.step: retries "
+        f"{s['dispatch_retries']}, outcomes {s['outcomes']}, tokens equal "
+        f"to the unfaulted run {same}")
+    if s["dispatch_retries"] != 1 or not same:
+        failures.append(f"engine transient: retries {s['dispatch_retries']}"
+                        f", tokens same {same}")
+
+    # 3. a per-token budget that a slowed step expires
+    backend.reset_launches()
+    eng = DecodeEngine(model, config=_engine_cfg(label="hard_budget"))
+    faultinject.arm(stall_points={"decode.step": (3, 0.3)})
+    try:
+        tight = eng.submit(reqs[0][0], 32, token_budget_s=0.1)
+        loose = eng.submit(reqs[1][0], 8)
+        err = tight.exception(timeout=600)
+        loose.result(timeout=600)
+    finally:
+        faultinject.disarm()
+        eng.close()
+    _add(made, dict(backend.LAUNCHES))
+    s = eng.summary()
+    _ledger_ok("engine budget", s, failures)
+    log(f"engine per-token budget 0.1 s, a 0.3 s step at dispatch 3: "
+        f"{type(err).__name__}: {err}; outcomes {s['outcomes']}")
+    if not isinstance(err, DeadlineExceeded) \
+            or s["outcomes"]["expired"] != 1:
+        failures.append(f"engine budget: {err!r}, outcomes {s['outcomes']}")
+
+    # 4. a stalled step: stalled, broken, a flight dump naming it
+    backend.reset_launches()
+    monitor.flight_recorder.get().clear()
+    hang = threading.Event()
+    eng = DecodeEngine(model, config=_engine_cfg(
+        label="hard_stall", watchdog_stall_s=0.5, watchdog_poll_s=0.05,
+        retry_policy=None))
+    faultinject.arm(stall_points={"decode.step": (2, hang)})
+    try:
+        futs = [eng.submit(p, m) for p, m in reqs[:3]]
+        errs = [f.exception(timeout=600) for f in futs]
+        try:
+            eng.submit(reqs[3][0], 4)
+            refused = False
+        except EngineBrokenError:
+            refused = True
+    finally:
+        hang.set()
+        faultinject.disarm()
+        eng.close()
+    _add(made, dict(backend.LAUNCHES))
+    s = eng.summary()
+    _ledger_ok("engine stall", s, failures)
+    path = monitor.flight_recorder.get().last_dump
+    stall_ev = []
+    if path and os.path.exists(path):
+        with open(path) as f:
+            stall_ev = [r for r in map(_json.loads, f)
+                        if r.get("event") == "serving_stall"]
+    named = stall_ev[0] if stall_ev else {}
+    size = os.path.getsize(path) if path and os.path.exists(path) else 0
+    log(f"engine stall past 0.5 s at dispatch 2: outcomes {s['outcomes']}, "
+        f"watchdog stalls {s['watchdog_stalls']}, new work refused "
+        f"{refused}; flight dump {path} ({size} bytes) names op "
+        f"{named.get('op')} rid {named.get('rid')} request_ids "
+        f"{named.get('request_ids')}")
+    if not (s["outcomes"]["stalled"] >= 1 and refused and stall_ev
+            and any(isinstance(e, WatchdogStall) for e in errs)
+            and (named.get("rid") or named.get("request_ids"))):
+        failures.append(f"engine stall: outcomes {s['outcomes']}, refused "
+                        f"{refused}, dump {path}, event {named}")
+
+    # 5. a failed dispatch opens a threshold-1 breaker: fail fast
+    backend.reset_launches()
+    eng = DecodeEngine(model, config=_engine_cfg(
+        label="hard_breaker", retry_policy=None, breaker_threshold=1,
+        prewarm=False))
+    faultinject.arm(transient_at_step=-1, transient_times=1)
+    try:
+        futs = [eng.submit(p, m) for p, m in reqs[:2]]
+        errs = [f.exception(timeout=600) for f in futs]
+    finally:
+        faultinject.disarm()
+    fast = not eng.breaker.allow()
+    try:
+        eng.submit(reqs[2][0], 4)
+        refused = False
+    except EngineBrokenError:
+        refused = True
+    eng.close()
+    s = eng.summary()
+    _ledger_ok("engine breaker", s, failures)
+    log(f"engine breaker (threshold 1): state {s['breaker']['state']}, "
+        f"fails fast {fast}, refuses new work {refused}, outcomes "
+        f"{s['outcomes']}")
+    if s["breaker"]["state"] != "open" or not fast or not refused \
+            or s["outcomes"]["failed"] != 1:
+        failures.append(f"engine breaker: {s['breaker']['state']}, "
+                        f"outcomes {s['outcomes']}")
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return made
+
+
+def _dispatch_costs(model, steps=48):
+    """Host ms per decode step of the engine's 8-slot step (cache 1024,
+    320 positions filled, the host copy of its tokens included) as the
+    engine could dispatch it: on the calling thread; on a fresh thread
+    per step; on one long-lived worker thread; the caller waiting for
+    each either blocked or polling every 2 ms (the reference's waiter)
+    or 20 ms.  Returns {mode: ms per step}."""
+    import queue
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.models import generate as G
+    from paddle_tpu_torch.serving import decode as D
+
+    params = G.build_decode_params(model)
+    dev = G.params_device(params)
+    state = D._fresh_state(params.cfg, 8, 1024, dev)
+    temps, gens = [0.0] * 8, [None] * 8
+    kill = np.zeros(8, bool)
+
+    def one():
+        with torch.inference_mode():
+            nxt, was, still = D._decode_step_impl(
+                state, params, temps, gens,
+                kill=torch.from_numpy(kill).to(dev))
+            torch.stack([nxt, was.to(torch.int32),
+                         still.to(torch.int32)]).cpu()
+
+    jobs = queue.SimpleQueue()
+
+    def worker():
+        while True:
+            fn, done = jobs.get()
+            if fn is None:
+                return
+            fn()
+            done.set()
+
+    wt = threading.Thread(target=worker, daemon=True)
+    wt.start()
+
+    def run(mode):
+        where, poll = mode.split(" ")[0].split("/")
+        done = threading.Event()
+        if where == "caller":
+            one()
+            return
+        if where == "thread":
+            def body():
+                one()
+                done.set()
+
+            threading.Thread(target=body, daemon=True).start()
+        else:
+            jobs.put((one, done))
+        timeout = None if poll == "block" else float(poll) / 1e3
+        while not done.wait(timeout=timeout):
+            pass
+
+    out = {}
+    for mode in ("caller/block", "thread/2", "thread/block", "worker/2",
+                 "worker/block", "worker/20", "caller/block again"):
+        with torch.inference_mode():
+            state["pos"].fill_(320)
+            state["active"].fill_(True)
+            state["stop"].fill_(1023)
+        for _ in range(4):
+            run(mode)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run(mode)
+        out[mode] = (time.perf_counter() - t0) * 1e3 / steps
+    jobs.put((None, None))
+    wt.join()
+    log("engine dispatch cost, host ms per 8-slot decode step (cache 1024, "
+        "the token copy included; modes: where the step runs / how the "
+        "caller waits): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        + f"; {card_line()}")
+    return out
+
+
+def serving_fleet_part(failures, tmp, dirs):
+    import os
+    import threading
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.kernels import backend
+    from paddle_tpu_torch.serving import (FleetRouter, ModelRegistry,
+                                          ReplicaServer)
+
+    monitor.reset()
+    monitor.enable()
+    reg = ModelRegistry(os.path.join(tmp, "registry"))
+    v1, v2 = reg.publish(dirs["argmax"]), reg.publish(dirs["argmax_v2"])
+    reg.set_current(v1)
+    kw = {"max_batch_size": FLEET_BUCKETS[-1],
+          "buckets": list(FLEET_BUCKETS), "batch_window_s": 0.002}
+    t0 = time.perf_counter()
+    warm = ReplicaServer(reg, name="r0", config_kw=dict(kw))
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = ReplicaServer(reg, name="r1", config_kw=dict(kw))
+    cold_s = time.perf_counter() - t0
+    reps = [warm, cold]
+    kind = warm.host.device_kind
+    log(f"fleet: v{v1} warmed on r0 in {warm_s:.2f} s "
+        f"({warm.host.bucket_compiles} bucket warm-ups, "
+        f"{warm.host.aot_exported} .pt2 written to "
+        f"{os.path.relpath(reg.aot_dir(v1, kind), reg.root)}); r1 "
+        f"imported {cold.host.aot_imported} in {cold_s:.2f} s with "
+        f"{cold.host.bucket_compiles} bucket warm-ups")
+    if cold.host.bucket_compiles != 0 or cold.host.aot_imported \
+            != len(FLEET_BUCKETS):
+        failures.append(f"fleet: the cold replica warmed "
+                        f"{cold.host.bucket_compiles} buckets, imported "
+                        f"{cold.host.aot_imported}")
+    router = FleetRouter([(s.host.name, "127.0.0.1", s.port) for s in reps],
+                         label="fleet_smoke", auto_poll=False,
+                         request_timeout_s=120.0)
+    rng = np.random.default_rng(29)
+    vocab, t = STATIC_GPT["vocab"], STATIC_GPT["t"]
+    feeds = [{"ids": rng.integers(0, vocab, (1, t)).astype(np.int64)}
+             for _ in range(FLEET_REQUESTS)]
+    outs = [None] * FLEET_REQUESTS
+    errors = []
+    sent = [0]
+    lock = threading.Lock()
+    # the last quarter waits for the kill, so that it meets a dead replica
+    killed = threading.Event()
+
+    def client(k):
+        for i in range(k, FLEET_REQUESTS, 2):
+            if i >= 3 * FLEET_REQUESTS // 4:
+                killed.wait()
+            try:
+                outs[i] = router.run(feeds[i])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            with lock:
+                sent[0] += 1
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    while sent[0] < FLEET_REQUESTS // 4:
+        time.sleep(0.005)
+    t_roll = time.perf_counter()
+    router.roll(v2)                        # hot swap mid-stream
+    roll_s = time.perf_counter() - t_roll
+    during = sent[0] - FLEET_REQUESTS // 4
+    warm.kill()                            # its traffic fails over
+    killed.set()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    made = dict(backend.LAUNCHES)
+    router.poll_once()
+    ledger = router.fleet_ledger()
+    router.close()
+    for s in reps:
+        s.close()
+    r = ledger["router"]
+    log(f"fleet: {FLEET_REQUESTS} requests through the router in "
+        f"{wall:.3f} s ({FLEET_REQUESTS / wall:.2f} req/s); v{v2} rolled "
+        f"out in {roll_s:.2f} s with about {during} requests served during "
+        f"it; r0 killed: failovers {ledger['failovers']}, "
+        f"router outcomes {r['outcomes']}, attempts {ledger['attempts']}, "
+        f"merged ledger requests {ledger['merged']['requests']} resolved "
+        f"{ledger['merged']['resolved']} unaccounted "
+        f"{ledger['merged']['unaccounted']}; launches {made}; "
+        f"{card_line()}")
+    if errors:
+        failures.append(f"fleet: {errors[:3]}")
+    dropped = r["requests"] - r["outcomes"].get("completed", 0)
+    if dropped or r["requests"] != sum(r["outcomes"].values()) \
+            or ledger["failovers"] < 1 \
+            or ledger["merged"]["unaccounted"] != 0:
+        failures.append(f"fleet: dropped {dropped}, ledger {r}, failovers "
+                        f"{ledger['failovers']}")
+    # each answer is a version's greedy next tokens
+    preds = {v: Predictor(reg.version_dir(v)) for v in (v1, v2)}
+    agree = 0
+    for feed, out in zip(feeds, outs):
+        if out is None:
+            continue
+        got = np.asarray(out[0], np.int64)
+        if any(np.mean(got == p.run(feed)[0]) >= 0.99
+               for p in preds.values()):
+            agree += 1
+    log(f"fleet: {agree} of {FLEET_REQUESTS} answers equal a version's "
+        f"Predictor.run (>= 99% of the {t} next-token ids)")
+    if agree != FLEET_REQUESTS:
+        failures.append(f"fleet: {FLEET_REQUESTS - agree} answers match no "
+                        "version")
+    for name in ("flash_attention_fwd", "layer_norm_fwd"):
+        if made.get(name, 0) < 1:
+            failures.append(f"fleet: {name} never launched")
+    monitor.disable()
+    return made
+
+
 def check_phase(failures):
     import torch
 
@@ -8882,7 +9605,7 @@ def compare_main(args):
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
 MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe",
-              "parallel", "collective", "spmd")
+              "parallel", "collective", "spmd", "serving")
 
 
 def main():
@@ -8931,7 +9654,7 @@ def main():
               ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
               ("parallel", parallel_phase),
               ("collective", collective_phase), ("spmd", spmd_phase),
-              ("checks", check_phase))
+              ("serving", serving_phase), ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -8971,7 +9694,8 @@ def main():
         # phase's timed tp = 2, pp = 2 and V = 2 steps (K1-K5), the
         # collective phase's timed data-parallel steps at W = 1 and 2
         # (K1-K5), the spmd phase's timed GSPMD steps at {dp=2, mp=2} and
-        # {dp=1, mp=2} (K1-K5), and the probe tool's runs (K4, K7 and K9
+        # {dp=1, mp=2} (K1-K5), the serving phase's runtime, engines and
+        # fleet (K1, K4, K6), and the probe tool's runs (K4, K7 and K9
         # forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \

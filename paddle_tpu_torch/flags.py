@@ -7,6 +7,7 @@ without the ``FLAGS_`` prefix, and unknown names raise KeyError.
 """
 
 import os
+import tempfile
 
 _REGISTRY = {}
 
@@ -77,9 +78,84 @@ declare_flag("decode_max_len", 2048,
              "Decode engine KV-cache depth per slot (prompt + generated "
              "tokens must fit).")
 declare_flag("decode_token_budget_s", 0.0,
-             "Default per-token deadline budget for decode requests "
-             "(0 = none).  The port does not enforce budgets yet: a "
-             "non-zero value makes DecodeConfig raise.")
+             "Default per-TOKEN deadline budget for decode requests: "
+             "each token (including the first, i.e. TTFT) must arrive "
+             "within this many seconds of the previous one or the "
+             "request is shed/expired into the outcome ledger "
+             "(0 = no budget unless the request carries one).")
+
+# The hardened serving runtime (serving/runtime.py ServingConfig).
+declare_flag("serving_deadline_s", 0.0,
+             "Default per-request deadline budget in seconds "
+             "(0 = no deadline unless the request carries one).")
+declare_flag("serving_watchdog_stall_s", 30.0,
+             "Hang watchdog: a serving dispatch in flight longer than "
+             "this triggers a flight-recorder dump and escalates per "
+             "watchdog_policy.")
+
+# Always-on flight recorder (monitor/flight_recorder.py): a bounded
+# ring of recent step records and recovery events that writes a
+# post-mortem JSONL + chrome trace on crash, unhandled exception,
+# exhausted retries or a serving stall.  0 disables all of it.  The dumps
+# land in the reference's directory name under the process's temp dir
+# (/tmp/paddle_tpu_flight unless TMPDIR says otherwise).
+declare_flag("flight_recorder", True,
+             "Keep the always-on post-mortem ring buffer recording.")
+declare_flag("flight_recorder_steps", 256,
+             "How many recent step records the flight recorder keeps.")
+declare_flag("flight_recorder_dir",
+             os.path.join(tempfile.gettempdir(), "paddle_tpu_flight"),
+             "Directory flight-recorder post-mortem dumps land in.")
+
+# Request-scoped tracing (monitor/tracing.py): per-request span trees
+# through the serving tier with exact tail-latency attribution.  Off by
+# default and gate-free when off.
+declare_flag("request_tracing", False,
+             "Record a span tree (queue / dispatch / retry / stall / "
+             "prefill / decode) for every serving request; attribution "
+             "tables and SLO accounting derive exactly from the spans.")
+declare_flag("trace_sample", 1.0,
+             "Head-sampling rate for retaining FULL span trees of "
+             "non-violating requests (0.0..1.0).  SLO violators are "
+             "always retained regardless; per-request attribution "
+             "component rows are always recorded.")
+declare_flag("serving_slo_ms", 0.0,
+             "End-to-end latency SLO per request in milliseconds: a "
+             "completed request slower than this counts as an SLO "
+             "violation (slo_violations counter + burn-rate gauge on "
+             "/metrics, violator trees always retained).  0 = no SLO.")
+declare_flag("trace_buffer", 512,
+             "Capacity of the retained full-span-tree ring per serving "
+             "label (violators + head-sampled); oldest trees fall out "
+             "and are counted in trees_dropped.")
+
+# Live Prometheus exporter (monitor/exporter.py).  0 = off.
+declare_flag("metrics_port", 0,
+             "Serve /metrics and /healthz on this port (0 = off).")
+declare_flag("metrics_host", "127.0.0.1",
+             "Bind address for the metrics exporter.  Loopback by "
+             "default; set 0.0.0.0 deliberately to let a fleet-level "
+             "Prometheus reach it.")
+
+# Telemetry JSONL rotation (monitor/jsonl_writer.py).
+declare_flag("telemetry_max_mb", 512,
+             "Rotate the telemetry JSONL when the active segment "
+             "passes this many MiB (0 = never rotate).")
+declare_flag("telemetry_keep", 3,
+             "How many rotated telemetry JSONL segments to keep "
+             "(beyond the active one).")
+
+# Fleet serving tier (serving/fleet.py router + replicas).
+declare_flag("fleet_health_poll_s", 0.5,
+             "FleetRouter health-poll interval in seconds (0 = no "
+             "background polling; call poll_once() manually).")
+declare_flag("fleet_failover_attempts", 2,
+             "How many ADDITIONAL replicas a request may fail over to "
+             "after its first attempt fails with a transient/"
+             "preemption-classified error.  Deadline and fatal "
+             "failures never fail over.")
+declare_flag("fleet_request_timeout_s", 30.0,
+             "Socket timeout for one router->replica request hop.")
 
 # Max pooling (ops/nn_ops.py pool2d).
 declare_flag("maxpool_mask_bwd", False,

@@ -26,10 +26,19 @@ tensors in place (`_prefill_impl` and `_decode_step_impl` mutate
 baseline: admit a cohort, decode until every member finishes, only then
 admit again.
 
-Not ported yet (ROADMAP queue 1 item 9): the circuit breaker, retry, hang
-watchdog, request tracing, flight recorder, fault injection and the
-per-token deadline sweep.  A failed dispatch resolves its requests as
-"failed" and marks the engine broken, as the reference does.
+The hardening is the reference's: per-TOKEN deadline budgets (the first
+token included, so TTFT counts queue wait) swept from the engine loop
+and the watchdog's poll, a kill mask that retires an expired
+slot-resident request at the next step, every prefill and decode step
+dispatched under the hang watchdog, jittered retry and the circuit
+breaker, fault points (`decode.step`), flight-recorder events, and a
+span tree per request with FLAGS_request_tracing on.  Each dispatch runs
+on the engine's dispatch worker thread (`watchdog.DispatchWorker`),
+which enters `torch.inference_mode` and the card's device itself (both
+are per thread) and copies the results to the host before it returns.
+A stalled or failed call may still be writing the cache in place, so
+the engine marks itself broken and drains every open request, as the
+reference's does.
 """
 
 import threading
@@ -43,11 +52,38 @@ from .. import flags
 from ..kernels.attention import decode_attention
 from ..models import generate as G
 from ..nn import functional as F
+from ..resilience import faultinject
+from ..resilience.breaker import CircuitBreaker
+from ..resilience.retry import RetryPolicy, call_with_retry
+from ..resilience.taxonomy import DeadlineExceeded
 from .runtime import QueueFullError, ServingClosedError, ServingFuture
 from .stats import DecodeStats
+from .watchdog import (WAIT_POLL_S, DispatchWorker, HangWatchdog,
+                       WatchdogStall)
 
 __all__ = ["DecodeEngine", "DecodeConfig", "EngineBrokenError",
-           "default_prompt_buckets", "QueueFullError", "ServingClosedError"]
+           "default_prompt_buckets", "QueueFullError",
+           "ServingClosedError", "WatchdogStall", "DeadlineExceeded"]
+
+_DEFAULT_RETRY = object()
+
+
+def _fr():
+    from ..monitor import flight_recorder
+
+    return flight_recorder
+
+
+def _mon():
+    from .. import monitor
+
+    return monitor
+
+
+def _tracing():
+    from ..monitor import tracing
+
+    return tracing
 
 
 def default_prompt_buckets(max_len):
@@ -65,8 +101,10 @@ class DecodeConfig:
 
     def __init__(self, slots=None, max_len=None, buckets=None,
                  max_queue_depth=None, default_token_budget_s=None,
-                 continuous=True, prewarm=True, label="decode",
-                 clock=time.monotonic):
+                 retry_policy=_DEFAULT_RETRY, breaker_threshold=5,
+                 breaker_cooldown_s=5.0, watchdog_stall_s=None,
+                 watchdog_poll_s=None, continuous=True, prewarm=True,
+                 label="decode", clock=time.monotonic):
         self.slots = int(slots if slots is not None
                          else flags.flag("decode_slots"))
         self.max_len = int(max_len if max_len is not None
@@ -86,10 +124,17 @@ class DecodeConfig:
         if default_token_budget_s is None:
             default_token_budget_s = \
                 flags.flag("decode_token_budget_s") or None
-        if default_token_budget_s is not None:
-            raise NotImplementedError(
-                "per-token deadline budgets are not ported yet (ROADMAP "
-                "queue 1 item 9)")
+        self.default_token_budget_s = default_token_budget_s
+        if retry_policy is _DEFAULT_RETRY:
+            retry_policy = RetryPolicy(max_retries=2, base_delay=0.02,
+                                       max_delay=0.5, seed=0)
+        self.retry_policy = retry_policy          # None disables retry
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        self.watchdog_stall_s = float(
+            watchdog_stall_s if watchdog_stall_s is not None
+            else flags.flag("serving_watchdog_stall_s"))
+        self.watchdog_poll_s = watchdog_poll_s
         self.continuous = bool(continuous)
         self.prewarm = bool(prewarm)
         self.label = label
@@ -98,27 +143,48 @@ class DecodeConfig:
 
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "temperature", "seed",
-                 "rid", "future", "tokens", "enqueue_t", "last_token_t",
-                 "bucket")
+                 "token_budget_s", "rid", "future", "tokens", "enqueue_t",
+                 "last_token_t", "bucket", "kill", "trace", "qspan",
+                 "dspan")
 
-    def __init__(self, prompt, max_new, eos_id, temperature, seed, rid,
-                 bucket):
+    def __init__(self, prompt, max_new, eos_id, temperature, seed,
+                 token_budget_s, rid, bucket):
         self.prompt = prompt              # np.int32 [len]
         self.max_new = max_new
         self.eos_id = eos_id              # int or None
         self.temperature = temperature
         self.seed = seed
+        self.token_budget_s = token_budget_s
         self.rid = rid
         self.bucket = bucket
         self.future = ServingFuture()
         self.tokens = []
         self.enqueue_t = None
-        self.last_token_t = None
+        self.last_token_t = None          # engine clock of newest token
+        self.kill = False                 # expired while slot-resident
+        # request-scoped trace context (monitor/tracing.py); None when
+        # FLAGS_request_tracing is off
+        self.trace = None
+        self.qspan = None                 # queue-wait span
+        self.dspan = None                 # slot-resident decode span
+
+    def next_deadline(self):
+        """Per-token budget: the NEXT token (the first included — TTFT
+        counts queue wait) must land within budget of the previous."""
+        if self.token_budget_s is None:
+            return None
+        anchor = self.last_token_t if self.last_token_t is not None \
+            else self.enqueue_t
+        return anchor + self.token_budget_s
+
+    def expired(self, now):
+        d = self.next_deadline()
+        return d is not None and now >= d
 
 
 class EngineBrokenError(RuntimeError):
-    """The engine lost its device state (a failed step) and cannot
-    continue; submit() fails fast."""
+    """The engine lost its device state (a wedged or failed step) and
+    cannot continue; submit() fails fast."""
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +217,17 @@ def _pick(logits, temps, generators):
     return nxt
 
 
-def _decode_step_impl(state, params, temps, generators):
+def _decode_step_impl(state, params, temps, generators, kill=None):
     """One full-width decode step over every slot; returns (tokens,
-    was_active, still_active) and advances `state` in place."""
+    was_active, still_active) and advances `state` in place.  `kill`
+    (bool [slots]) retires host-killed (budget-expired) slots: they
+    flow through the math like inactive ones and leave inactive."""
     cfg = params.cfg
     max_len = state["k"].shape[3]
     scale = 1.0 / (cfg.hidden_size // cfg.num_heads) ** 0.5
     active = state["active"]
+    if kill is not None:
+        active = active & ~kill
     pos, tok = state["pos"], state["token"]
     x = params.emb["wte.weight"][tok.long()][:, None, :] \
         + params.emb["wpe.weight"][pos.long()][:, None, :]
@@ -229,6 +299,16 @@ class DecodeEngine:
                 f"max_seq_len {params.cfg.max_seq_len}")
         self.device = G.params_device(params)
         self.stats = DecodeStats(cfg.label, slots=cfg.slots)
+        self.breaker = CircuitBreaker(
+            failure_threshold=cfg.breaker_threshold,
+            cooldown_s=cfg.breaker_cooldown_s, clock=cfg.clock,
+            name=cfg.label)
+        self.stats.attach_breaker(self.breaker)
+        self.watchdog = HangWatchdog(
+            cfg.watchdog_stall_s, poll_s=cfg.watchdog_poll_s,
+            clock=cfg.clock, stats=self.stats, label=cfg.label,
+            pre_dump=self.emit_telemetry, on_poll=self.sweep_expired)
+        self._worker = DispatchWorker(cfg.label)
         self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
         self._queue = deque()
@@ -275,6 +355,7 @@ class DecodeEngine:
                 target=self._loop, name=f"{self.config.label}-engine",
                 daemon=True)
             self._loop_thread.start()
+        self.watchdog.start()
 
     def close(self):
         with self._cond:
@@ -290,6 +371,9 @@ class DecodeEngine:
             self._slot_req = [None] * self.config.slots
         for req in leftovers:
             self._resolve_error(req, err, "cancelled")
+        self.watchdog.stop()
+        self._worker.abandon()
+        self.emit_telemetry()
 
     def __enter__(self):
         return self
@@ -299,10 +383,13 @@ class DecodeEngine:
 
     # -- submission -----------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens, eos_id=None,
-               temperature=0.0, token_budget_s=None, seed=None):
+               temperature=0.0, token_budget_s=None, seed=None,
+               traceparent=None):
         """Enqueue one generation request; returns a ServingFuture that
         resolves to the np.int32 token array (length max_new_tokens, or
-        shorter if eos_id fires)."""
+        shorter if eos_id fires).  `token_budget_s` bounds the wait for
+        each token (the first included); `traceparent` optionally joins
+        an external W3C trace when FLAGS_request_tracing is on."""
         cfg = self.config
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -320,51 +407,111 @@ class DecodeEngine:
                 f"prompt length {prompt.size} exceeds the largest "
                 f"prefill bucket {cfg.buckets[-1]}")
         G.check_token_ids(prompt, self.params.emb["wte.weight"].shape[0])
-        if token_budget_s is not None:
-            raise NotImplementedError(
-                "per-token deadline budgets are not ported yet (ROADMAP "
-                "queue 1 item 9)")
+        if token_budget_s is None:
+            token_budget_s = cfg.default_token_budget_s
         with self._lock:
             if self._closed:
                 raise ServingClosedError("decode engine is closed")
             if self._broken:
                 raise EngineBrokenError(
-                    "decode engine lost its device state (failed step); "
-                    "build a fresh engine")
+                    "decode engine lost its device state (stalled or "
+                    "failed step); build a fresh engine")
+            # started after the closed/broken gates (those raise without
+            # a ledger outcome, so no tree must exist for them) but
+            # before the queue-full gate (rejected IS a ledger outcome)
+            trace = _tracing().get().start_request(
+                f"decode.request/{cfg.label}", label=cfg.label,
+                traceparent=traceparent,
+                attrs={"prompt_len": int(prompt.size),
+                       "max_new": max_new})
             if len(self._queue) >= cfg.max_queue_depth:
                 self.stats.note_outcome("rejected")
+                if trace is not None:
+                    trace.annotate(trace.root, "rejected: queue full",
+                                   depth=len(self._queue))
+                    trace.finish("rejected")
                 raise QueueFullError(
                     f"decode queue at depth {cfg.max_queue_depth}")
             self._rid += 1
             rid = self._rid
             req = _DecodeRequest(prompt, max_new, eos_id,
                                  float(temperature),
-                                 seed if seed is not None else rid, rid,
-                                 bucket)
+                                 seed if seed is not None else rid,
+                                 token_budget_s, rid, bucket)
             req.enqueue_t = cfg.clock()
+            if trace is not None:
+                trace.rid = rid
+                req.trace = trace
+                req.qspan = trace.child("queue", "queue")
             self._queue.append(req)
             self._live.add(req)
             self.stats.note_admitted(len(self._queue))
             self._cond.notify_all()
         return req.future
 
+    # -- budget sweep (watchdog poll + loop tick) ----------------------
+    def sweep_expired(self):
+        """Shed queued requests and expire slot-resident ones whose
+        per-token budget has passed — runs on the watchdog thread too,
+        so budget expiry keeps resolving even while the engine thread
+        is wedged inside a stalled step."""
+        now = self.config.clock()
+        shed, expired = [], []
+        with self._lock:
+            keep = deque()
+            for req in self._queue:
+                (shed.append if req.expired(now) else keep.append)(req)
+            self._queue = keep
+            # slot-resident: mark for the next step's kill mask
+            for req in self._slot_req:
+                if req is not None and not req.kill \
+                        and not req.future.done() and req.expired(now):
+                    req.kill = True
+                    expired.append(req)
+            depth = len(self._queue)
+        for req in shed:
+            self._resolve_error(
+                req, DeadlineExceeded(
+                    f"first token budget "
+                    f"({req.token_budget_s * 1e3:.1f}ms/token) expired "
+                    f"in queue", budget_s=req.token_budget_s),
+                "shed")
+        for req in expired:
+            self._resolve_error(
+                req, DeadlineExceeded(
+                    f"per-token budget "
+                    f"({req.token_budget_s * 1e3:.1f}ms/token) expired "
+                    f"after {len(req.tokens)} tokens",
+                    budget_s=req.token_budget_s),
+                "expired")
+        if shed or expired:
+            self.stats.note_queue_depth(depth)
+        return len(shed) + len(expired)
+
     # -- resolution -----------------------------------------------------
     def _resolve_ok(self, req, now):
         if req.future._set_result(np.asarray(req.tokens, np.int32)):
             self.stats.note_outcome("completed",
                                     latency_s=now - req.enqueue_t)
+            if req.trace is not None:
+                req.trace.finish("completed")
         with self._lock:
             self._live.discard(req)
 
     def _resolve_error(self, req, exc, outcome):
         if req.future._set_exception(exc):
             self.stats.note_outcome(outcome)
+            if req.trace is not None:
+                req.trace.finish(outcome)
         with self._lock:
             self._live.discard(req)
 
     def _mark_broken(self, why):
-        """The device state rode a failed call: drain every unresolved
-        request, queued and slot-resident, as cancelled."""
+        """The device state rode a doomed call: drain EVERY unresolved
+        request — queued AND slot-resident — as cancelled, so no future
+        (and no trace) stays open behind a dead engine.  Requests the
+        failing dispatch already resolved (stalled/failed) are skipped
+        by the idempotent resolve."""
         with self._lock:
             self._broken = True
             queued = list(self._queue)
@@ -374,18 +521,84 @@ class DecodeEngine:
         err = EngineBrokenError(f"decode engine broken: {why}")
         for req in queued + resident:
             self._resolve_error(req, err, "cancelled")
+        _fr().note_event("decode_engine_broken", severe=True,
+                         label=self.config.label, reason=why)
 
-    def _dispatch(self, call, requests):
-        """Run one device call; on an exception resolve the riding
-        requests as failed, mark the engine broken and return None."""
-        try:
+    # -- guarded dispatch ----------------------------------------------
+    def _dispatch(self, call, meta, requests):
+        """Run one device call (prefill or decode step) on the dispatch
+        worker under watchdog + retry + breaker, enforcing per-token
+        budgets of the carried requests while it is in flight.  Returns
+        the call's value, or None when the dispatch stalled or failed
+        (requests resolved, engine marked broken — the in-place state
+        rode the doomed call, and an abandoned call may still write
+        it)."""
+        cfg = self.config
+        token, stalled = self.watchdog.track(meta)
+        device = self.device
+
+        def _call():
+            if faultinject.is_armed():
+                faultinject.check_transient()
+                faultinject.stall_point("decode.step")
+            # grad mode and the current device are per thread: set both
+            # here, on the thread that launches
             with torch.inference_mode():
+                if device.type == "cuda":
+                    with torch.cuda.device(device):
+                        return call()
                 return call()
-        except Exception as e:  # noqa: BLE001 - engine boundary
+
+        def runner():
+            if cfg.retry_policy is None:
+                return _call()
+            return call_with_retry(
+                _call, cfg.retry_policy,
+                on_retry=lambda *a: self.stats.note_retry())
+
+        done, box = self._worker.submit(runner)
+        try:
+            while not done.wait(timeout=WAIT_POLL_S):
+                self.sweep_expired()
+                # requests riding THIS dispatch may not be queue- or
+                # slot-resident yet (a prefill's request is in limbo
+                # between the two) — enforce their budgets directly
+                now = cfg.clock()
+                for req in requests:
+                    if not req.future.done() and req.expired(now):
+                        req.kill = True
+                        self._resolve_error(
+                            req, DeadlineExceeded(
+                                "per-token budget expired in flight",
+                                budget_s=req.token_budget_s),
+                            "expired")
+                if stalled.is_set():
+                    stall = WatchdogStall(
+                        f"decode {meta.get('op')} step in flight > "
+                        f"{cfg.watchdog_stall_s}s")
+                    self.breaker.note_failure(stall)
+                    for req in requests:
+                        self._resolve_error(req, stall, "stalled")
+                    self._worker.abandon()
+                    self._mark_broken("watchdog_stall")
+                    return None
+        finally:
+            self.watchdog.untrack(token)
+        if "error" in box:
+            e = box["error"]
+            self.breaker.note_failure(e)
+            _fr().note_event(
+                "decode_dispatch_failed", label=cfg.label,
+                error=f"{type(e).__name__}: {e}"[:200],
+                **{k: v for k, v in meta.items()
+                   if k not in ("request_ids", "trace_ids")})
             for req in requests:
                 self._resolve_error(req, e, "failed")
-            self._mark_broken(f"dispatch_failed: {type(e).__name__}: {e}")
+            self._mark_broken("dispatch_failed")
+            self.emit_telemetry()
             return None
+        self.breaker.note_success()
+        return box["out"]
 
     # -- scheduling -----------------------------------------------------
     def _free_slots_locked(self):
@@ -405,31 +618,47 @@ class DecodeEngine:
         picks = []
         while free and self._queue:
             req = self._queue.popleft()
-            if req.future.done():
+            if req.future.done():          # shed while queued
                 continue
             picks.append((free.pop(0), req))
         self.stats.note_queue_depth(len(self._queue))
         return picks
 
     def step(self):
-        """One engine iteration: refill free slots via prefill, then run
-        one full-width decode step.  Returns the number of device
-        dispatches made (0 = idle)."""
+        """One engine iteration: sweep budgets, refill free slots via
+        prefill, then run one full-width decode step.  Returns the
+        number of device dispatches made (0 = idle)."""
+        self.sweep_expired()
         with self._lock:
             if self._broken:
                 return 0
             picks = self._admit_locked()
         dispatched = 0
         for idx, (slot, req) in enumerate(picks):
+            if not self.breaker.allow():
+                # breaker open: requeue the whole remainder and let
+                # budgets shed; the cooldown probe reopens admission.
+                # A requeued request keeps its SAME trace (its queue
+                # span never ended); the detour is an annotation.
+                with self._lock:
+                    for _, r in reversed(picks[idx:]):
+                        if r.trace is not None:
+                            r.trace.annotate(r.trace.root,
+                                             "breaker_requeue")
+                        self._queue.appendleft(r)
+                break
             if not self._prefill(slot, req):
                 err = EngineBrokenError("decode engine broke mid-admission")
                 for _, r in picks[idx + 1:]:
                     self._resolve_error(r, err, "cancelled")
-                return dispatched + 1
+                return dispatched + 1      # engine broken
             dispatched += 1
         with self._lock:
             slot_reqs = list(self._slot_req)
-        if any(r is not None and not r.future.done() for r in slot_reqs):
+        want_step = any(
+            r is not None and (r.kill or not r.future.done())
+            for r in slot_reqs)
+        if want_step and self.breaker.allow():
             self._decode_once(slot_reqs)
             dispatched += 1
         return dispatched
@@ -443,6 +672,15 @@ class DecodeEngine:
         gen = None
         if req.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(req.seed)
+        meta = {"op": "prefill", "bucket": req.bucket, "slot": slot,
+                "rid": req.rid}
+        pspan = None
+        if req.trace is not None:
+            meta["trace_id"] = req.trace.trace_id
+            req.trace.end(req.qspan)
+            pspan = req.trace.child(f"prefill/b{req.bucket}", "prefill",
+                                    attrs={"bucket": req.bucket,
+                                           "slot": slot})
 
         def call():
             s = self._state
@@ -458,33 +696,61 @@ class DecodeEngine:
             s["active"][slot] = active
             return first, active
 
-        out = self._dispatch(call, [req])
+        out = self._dispatch(call, meta, [req])
         if out is None:
             return False
         first, active = out
         now = cfg.clock()
         req.last_token_t = now
+        if req.trace is not None:
+            req.trace.annotate(pspan, "first_token")
+            req.trace.end(pspan)
+        if req.future.done():              # expired mid-prefill
+            self.stats.note_prefill(ttft_s=None, now=now)
+            req.kill = True
+            with self._lock:
+                self._slot_req[slot] = req if active else None
+                self._temps[slot] = req.temperature
+                self._gens[slot] = gen
+            return True
         self.stats.note_prefill(ttft_s=now - req.enqueue_t, now=now)
         req.tokens.append(first)
-        with self._lock:
-            if active:
+        if not active:                     # max_new == 1 or instant eos
+            self._resolve_ok(req, now)
+            with self._lock:
+                self._slot_req[slot] = None
+        else:
+            if req.trace is not None:
+                # slot-resident decode: one span from slot entry to the
+                # last token, per-token progress as annotations
+                req.dspan = req.trace.child("decode", "decode",
+                                            attrs={"slot": slot})
+            with self._lock:
                 self._slot_req[slot] = req
                 self._temps[slot] = req.temperature
                 self._gens[slot] = gen
-            else:                           # max_new == 1 or instant eos
-                self._slot_req[slot] = None
-        if not active:
-            self._resolve_ok(req, now)
         return True
 
     def _decode_once(self, slot_reqs):
         cfg = self.config
         temps = [self._temps[i] if r is not None else 0.0
                  for i, r in enumerate(slot_reqs)]
+        kill = np.array([r is not None and r.kill for r in slot_reqs],
+                        bool)
+        meta = {"op": "decode", "active": int(sum(
+            r is not None and not r.kill for r in slot_reqs)),
+            "request_ids": [r.rid for r in slot_reqs if r is not None]}
+        tids = [r.trace.trace_id for r in slot_reqs
+                if r is not None and r.trace is not None]
+        if tids:
+            # a wedged decode step's stall dump names every resident
+            # request's trace
+            meta["trace_ids"] = tids
 
         def call():
-            nxt, was, still = _decode_step_impl(self._state, self.params,
-                                                temps, self._gens)
+            nxt, was, still = _decode_step_impl(
+                self._state, self.params, temps, self._gens,
+                kill=torch.from_numpy(kill).to(self.device))
             # one device -> host copy for the three per-slot vectors
             host = torch.stack([nxt, was.to(torch.int32),
                                 still.to(torch.int32)]).cpu().numpy()
@@ -492,7 +758,7 @@ class DecodeEngine:
 
         waiting = [r for r in slot_reqs
                    if r is not None and not r.future.done()]
-        out = self._dispatch(call, waiting)
+        out = self._dispatch(call, meta, waiting)
         if out is None:
             return False
         tokens, was_active, still = out
@@ -502,6 +768,7 @@ class DecodeEngine:
             if req is None:
                 continue
             if not was_active[i]:
+                # killed (budget-expired) or raced to done: release
                 with self._lock:
                     if self._slot_req[i] is req:
                         self._slot_req[i] = None
@@ -512,13 +779,20 @@ class DecodeEngine:
                     self.stats.note_token_latency(now - req.last_token_t)
                 req.last_token_t = now
                 emitted += 1
+                if req.trace is not None:
+                    req.trace.annotate(req.dspan, "token",
+                                       n=len(req.tokens))
                 if not still[i]:
+                    if req.trace is not None:
+                        req.trace.end(req.dspan)
                     self._resolve_ok(req, now)
             if not still[i]:
                 with self._lock:
                     if self._slot_req[i] is req:
                         self._slot_req[i] = None
         self.stats.note_decode_step(int(was_active.sum()), emitted, now=now)
+        if self.stats.decode_steps % 64 == 0:
+            self.emit_telemetry()
         return True
 
     def _loop(self):
@@ -532,8 +806,11 @@ class DecodeEngine:
             try:
                 did = self.step()
             except Exception as e:  # noqa: BLE001 - keep no future open
-                self._mark_broken(
-                    f"engine_loop_error: {type(e).__name__}: {e}")
+                _fr().note_event(
+                    "decode_engine_error", severe=True,
+                    label=self.config.label,
+                    error=f"{type(e).__name__}: {e}"[:200])
+                self._mark_broken("engine_loop_error")
                 return
             if self._broken:
                 return
@@ -541,5 +818,18 @@ class DecodeEngine:
                 time.sleep(0.001)
 
     # -- observability --------------------------------------------------
+    def emit_telemetry(self):
+        """Push the freshest kind="serving" decode record onto the
+        telemetry JSONL stream (no-op while telemetry is off).  With
+        request tracing on, the record carries the label's
+        attribution/SLO summary."""
+        rec = self.stats.to_record()
+        store = _tracing().get()
+        if store.enabled:
+            s = store.summary(self.config.label)
+            if s is not None:
+                rec["tracing"] = s
+        return _mon().record_serving(rec)
+
     def summary(self):
         return self.stats.summary()

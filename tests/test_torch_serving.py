@@ -257,10 +257,12 @@ def test_submit_validation_matches_reference(pair):
         assert str(mine.value) == str(ref.value)
     with pytest.raises(ValueError, match=r"\[0, 97\)"):
         ours.submit([1, 200], 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ours.submit([1, 2], 2, token_budget_s=0.5)
+    budgeted = ours.submit([1, 2], 2, token_budget_s=0.5)
+    assert not budgeted.done()
     ours.close()
     theirs.close()
+    with pytest.raises(ServingClosedError):
+        budgeted.result(timeout=1)
     with pytest.raises(ServingClosedError):
         ours.submit([1, 2], 2)
     with pytest.raises(ValueError):

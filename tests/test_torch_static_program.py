@@ -477,6 +477,38 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_no_port_module_names_item_9():
+    """Item 9 is done: the serving runtime, bucketing, the watchdog, the
+    breaker, retry, fault injection, the decode engine's per-token
+    deadlines, request tracing, the flight recorder, the serving
+    counters and the fleet tier are ported, and no message of the port
+    or of chip_smoke.py names the item."""
+    for path in [REPO / "chip_smoke.py",
+                 *sorted((REPO / "paddle_tpu_torch").rglob("*.py"))]:
+        assert not re.search(r"item 9\b", path.read_text()), path
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.serving", "paddle_tpu_torch.monitor",
+    "paddle_tpu_torch.resilience"])
+def test_serving_tier_imports_neither_jax_nor_triton(module):
+    """The serving tier's packages import neither jax, paddle_tpu nor
+    triton, also after a runtime, a decode engine and a router are
+    built."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "import paddle_tpu_torch.serving as s, paddle_tpu_torch.monitor\n"
+        "s.FleetRouter([], label='imp', auto_poll=False)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_no_port_module_names_item_6_or_item_5():
     """Items 6 (the conv path's rest, the recompute) and 5 (beam search)
     are done: no message of the port names them.  GPT MoE, and with it
