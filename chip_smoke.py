@@ -408,6 +408,29 @@ Phases (any failure makes the script exit non-zero without a result):
    warm-ups, 32 requests with v2 rolled out mid-stream and 0 dropped,
    one replica killed and its traffic failed over, the fleet ledger's
    requests == sum of outcomes.
+7i. The static graph's control flow and its dataset train loop
+   (`dataset_phase`): (a) the static GPT at STATIC_GPT's widths with a
+   per-token float loss mask and Adam on noam_decay(768, 4)
+   (`dataset_gpt`), fed from MultiSlot files the port's data generator
+   writes (2 x 48 lines) through an InMemoryDataset (batch 8, 2 reader
+   threads, local_shuffle under a seed), 12 steps of
+   `Executor.train_from_dataset` under the default flags (the train tier
+   rewrites it with AMP and fusion) with prefetch on and off: both loss
+   sequences bitwise equal to `Executor.run` with the tier flags on over
+   the same batches, the learning rate the schedule's closed form within
+   1e-6, exactly STATIC_AMP_LAUNCHES a step; host and device ms a step,
+   samples/s, the device's idle share and host syncs a step.  (b)
+   checkpoint= every 4 steps and a preemption at step 6, then
+   auto_resume: every persistable bitwise equal to the uninterrupted
+   run; a NaN mask on step 3 under `skip_step` commits nothing; under
+   `rollback` the restore and the replayed cursor give the uninterrupted
+   losses and state.  (c) The programs of the reference's control-flow
+   tests (`cf_cases`) on the card and on the CPU within 1e-5, a
+   StaticRNN and a bounded while_loop at [8, 768] x 16 trips with grads
+   within `compare_scaled`; host syncs and ms per trip.  (d)
+   `infer_from_dataset` on the test clone of the AMP + fused substitute:
+   K1 and K4 only, the last loss within `compare_scaled` of
+   `Executor.run`.
 8. Checks in float32: the train geometry at full width and depth 2
    (batch 2, seq 256) takes 3 AdamW steps on the card (kernels) and on
    the CPU (plain versions) from the same weights; the loss streams, the
@@ -460,7 +483,8 @@ unmasked eval forward and its timed beam search, the moe phase's MoE
 train steps, MoE serving runs and ring runs, the parallel phase's timed
 tp = 2, pp = 2 and V = 2 steps, the collective phase's timed W = 1 and
 W = 2 data-parallel steps, the serving phase's runtime, engines and
-fleet, and the probe tool's runs, K10's over
+fleet, the dataset phase's train_from_dataset and infer_from_dataset
+loops, and the probe tool's runs, K10's over
 the DGC run with K10, P1's and P2's over the probe tool's), the card
 line and {"ok": true, "device": {...}}.
 """
@@ -9314,6 +9338,716 @@ def serving_fleet_part(failures, tmp, dirs):
     return made
 
 
+# ---------------------------------------------------------------------------
+# phase 7i: the static graph's control flow and its dataset train loop
+# ---------------------------------------------------------------------------
+
+# (a) the static GPT (STATIC_GPT) with a per-token float loss mask, Adam on
+# noam_decay(d, DATASET_WARMUP), fed from MultiSlot files the port's
+# data generator writes: DATASET_FILES files of DATASET_LINES lines, an
+# InMemoryDataset at DATASET_BATCH rows, 2 reader threads
+DATASET_FILES = 2
+DATASET_LINES = 48
+DATASET_BATCH = 8
+DATASET_WARMUP = 4
+DATASET_PRINT = 4
+# (b) the checkpoint interval, the step a preemption is requested at, the
+# step whose mask the fault plan taints (skip_step) and the rollback run's
+# interval and NaN step
+DATASET_CKPT_EVERY = 4
+DATASET_PREEMPT_AT = 6
+DATASET_NAN_AT = 3
+DATASET_ROLLBACK = (4, 5)
+# (c) the GPT-width recurrences: [batch, width] states, trips
+CF_WIDE = dict(batch=8, width=768, trips=16)
+CF_TOL = 1e-5
+
+
+def cf_cases(fluid):
+    """The programs of the reference's tests/test_control_flow.py, built
+    with the package `fluid` (the port, or in the tests the reference):
+    [(name, main, startup, feed, fetch names)].  Shared by the
+    `dataset` phase (card against CPU) and tests/test_torch_control_flow.py
+    (port against reference)."""
+    L = fluid.layers
+    r = np.random.default_rng(0)
+    cases = []
+
+    def prog(name, build, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetch = build()
+        cases.append((name, main, startup, feed,
+                      [v.name for v in fetch]))
+
+    x24 = np.ones((2, 4), np.float32)
+
+    def cond_sel():
+        x = fluid.data("x", [None, 4])
+        flag = fluid.data("flag", [1], dtype="float32")
+        pred = L.greater_than(L.reduce_sum(flag),
+                              L.fill_constant([1], "float32", 0.0))
+        return [L.cond(pred, lambda: L.scale(x, scale=2.0),
+                       lambda: L.scale(x, scale=-1.0))]
+
+    for f in (1.0, -1.0):
+        prog(f"cond_selects_branch[{f:+g}]", cond_sel,
+             {"x": x24, "flag": np.array([f], np.float32)})
+
+    def cond_multi():
+        x = fluid.data("x", [None, 4])
+        pred = L.greater_than(L.reduce_sum(x),
+                              L.fill_constant([1], "float32", 1e9))
+        return L.cond(pred,
+                      lambda: [L.scale(x, scale=1.0), L.scale(x, scale=2.0)],
+                      lambda: [L.scale(x, scale=3.0), L.scale(x, scale=4.0)])
+
+    prog("cond_multiple_outputs", cond_multi, {"x": x24})
+
+    def while_counts():
+        i = L.fill_constant([1], "float32", 0.0)
+        acc = L.fill_constant([1], "float32", 0.0)
+        ten = L.fill_constant([1], "float32", 10.0)
+        i_out, acc_out = L.while_loop(lambda i, acc: L.less_than(i, ten),
+                                      lambda i, acc: [i + 1.0, acc + i],
+                                      [i, acc])
+        return [acc_out, i_out]
+
+    prog("while_loop_counts", while_counts, {})
+
+    def while_tensor():
+        x = fluid.data("x", [2, 2])
+        i = L.fill_constant([1], "float32", 0.0)
+        three = L.fill_constant([1], "float32", 3.0)
+        _, xo = L.while_loop(lambda i, x: L.less_than(i, three),
+                             lambda i, x: [i + 1.0, L.scale(x, scale=2.0)],
+                             [i, x])
+        return [xo]
+
+    prog("while_loop_with_tensor_state", while_tensor,
+         {"x": np.ones((2, 2), np.float32)})
+
+    seq, batch, dim = 5, 3, 4
+
+    def static_rnn():
+        x = fluid.data("x", [seq, batch, dim])
+        h0 = fluid.data("h0", [batch, dim])
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            prev = rnn.memory(init=h0)
+            h = L.tanh(L.elementwise_add(x_t, prev))
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        return [rnn()]
+
+    prog("static_rnn", static_rnn,
+         {"x": r.normal(size=(seq, batch, dim)).astype(np.float32),
+          "h0": np.zeros((batch, dim), np.float32)})
+
+    def tensor_array():
+        x = fluid.data("x", [None, 4])
+        arr = L.create_array("float32")
+        L.array_write(x, L.fill_constant([1], "int64", 0), arr)
+        i1 = L.fill_constant([1], "int64", 1)
+        L.array_write(L.scale(x, scale=3.0), i1, arr)
+        return [L.array_length(arr), L.array_read(arr, i1)]
+
+    prog("tensor_array_roundtrip", tensor_array, {"x": x24})
+
+    def grad_while():
+        w = L.create_parameter([1], "float32", name="w",
+                               default_initializer=fluid.initializer
+                               .Constant(1.0))
+        i = L.fill_constant([1], "float32", 0.0)
+        three = L.fill_constant([1], "float32", 3.0)
+        _, wo = L.while_loop(lambda i, v: L.less_than(i, three),
+                             lambda i, v: [i + 1.0, L.scale(v, scale=2.0)],
+                             [i, w], maximum_trip_count=8)
+        loss = L.reduce_sum(wo)
+        fluid.optimizer.SGD(learning_rate=1.0).minimize(loss)
+        return [loss]
+
+    prog("grad_through_while_loop", grad_while, {})
+
+    def switch():
+        step = fluid.data("step", [1], dtype="float32")
+        lr = L.fill_constant([1], "float32", 0.0)
+        b1 = L.fill_constant([1], "float32", 10.0)
+        b2 = L.fill_constant([1], "float32", 20.0)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(step, b1)):
+                L.assign(L.fill_constant([1], "float32", 1.0), lr)
+            with sw.case(L.less_than(step, b2)):
+                L.assign(L.fill_constant([1], "float32", 0.1), lr)
+            with sw.default():
+                L.assign(L.fill_constant([1], "float32", 0.01), lr)
+        return [lr]
+
+    for s in (5.0, 15.0, 25.0):
+        prog(f"switch_selects_case[{s:g}]", switch,
+             {"step": np.array([s], np.float32)})
+    return cases
+
+
+def cf_wide(fluid, kind, batch, width, trips):
+    """A GPT-width recurrence with grads: `kind` "rnn" (a StaticRNN over
+    `trips` steps of x [trips, batch, width], h <- tanh(x_t + h W)) or
+    "while" (a while_loop with maximum_trip_count=trips, h <- tanh(h W +
+    b) while i < trips), loss mean(out), one SGD step.  Returns (main,
+    startup, feed, fetch names: the loss and W's gradient)."""
+    L = fluid.layers
+    r = np.random.default_rng(1)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        w = L.create_parameter(
+            [width, width], "float32", name="w",
+            default_initializer=fluid.initializer.Normal(
+                0.0, 1.0 / math.sqrt(width)))
+        if kind == "rnn":
+            x = fluid.data("x", [trips, batch, width])
+            h0 = fluid.data("h0", [batch, width])
+            rnn = L.StaticRNN()
+            with rnn.step():
+                x_t = rnn.step_input(x)
+                prev = rnn.memory(init=h0)
+                h = L.tanh(L.elementwise_add(x_t, L.matmul(prev, w)))
+                rnn.update_memory(prev, h)
+                rnn.step_output(h)
+            out = rnn()
+            feed = {"x": r.normal(size=(trips, batch, width))
+                    .astype(np.float32)}
+        else:
+            h0 = fluid.data("h0", [batch, width])
+            b = L.create_parameter([width], "float32", name="b",
+                                   default_initializer=fluid.initializer
+                                   .Constant(0.1))
+            i = L.fill_constant([1], "float32", 0.0)
+            n = L.fill_constant([1], "float32", float(trips))
+            _, out = L.while_loop(
+                lambda i, h: L.less_than(i, n),
+                lambda i, h: [i + 1.0, L.tanh(L.elementwise_add(
+                    L.matmul(h, w), b))],
+                [i, h0], maximum_trip_count=trips)
+            feed = {}
+        loss = L.mean(out)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    feed["h0"] = r.normal(size=(batch, width)).astype(np.float32)
+    return main, startup, feed, [loss.name, "w@GRAD"]
+
+
+def dataset_gpt(gpt=None, warmup=DATASET_WARMUP):
+    """The static GPT of phase 7 (`static_zoo.build_gpt` at STATIC_GPT's
+    widths) with a per-token float loss mask (`mask` [b, t, 1]; ones in
+    the data, so the loss equals the unmasked one) and Adam on
+    `layers.noam_decay(d, warmup)`.  Returns (main, startup, loss, lr)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import static_zoo
+
+    gpt = gpt or STATIC_GPT
+    t, d, vocab = gpt["t"], gpt["d"], gpt["vocab"]
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.data("ids", [None, t], dtype="int64")
+        targets = fluid.data("targets", [None, t, 1], dtype="int64")
+        mask = fluid.data("mask", [None, t, 1])
+        x = L.embedding(ids, size=(vocab, d))
+        x = static_zoo._transformer_layer(x, d, gpt["heads"], t)
+        logits = L.fc(x, vocab, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, targets) * mask)
+        lr = L.noam_decay(d, warmup_steps=warmup)
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss, lr
+
+
+def write_gpt_multislot(tmp, gpt, files=DATASET_FILES, lines=DATASET_LINES,
+                        seed=0):
+    """MultiSlot files of the static GPT's rows, written by the port's
+    `MultiSlotDataGenerator`: per line the slots `ids` and `targets` (t
+    int64 ids each, uniform over the vocab from a numpy generator seeded
+    with `seed`) and `mask` (t floats, 1.0).  Returns the paths."""
+    import os
+
+    from paddle_tpu_torch.incubate.data_generator import \
+        MultiSlotDataGenerator
+
+    t, vocab = gpt["t"], gpt["vocab"]
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, vocab, (files, lines, 2, t))
+
+    class Rows(MultiSlotDataGenerator):
+        def __init__(self, part):
+            super().__init__()
+            self.part = part
+
+        def generate_sample(self, line):
+            def samples():
+                for ids, tg in self.part:
+                    yield [("ids", [int(v) for v in ids]),
+                           ("targets", [int(v) for v in tg]),
+                           ("mask", [1.0] * t)]
+            return samples
+
+    paths = []
+    for f in range(files):
+        path = os.path.join(tmp, f"part-{f:05d}")
+        with open(path, "w") as out:
+            Rows(rows[f]).run_from_memory(out)
+        paths.append(path)
+    return paths
+
+
+def gpt_dataset(paths, gpt, batch=DATASET_BATCH, seed=0):
+    """An InMemoryDataset over `paths` (2 reader threads, batch `batch`),
+    loaded and `local_shuffle`d under `seed`."""
+    from paddle_tpu_torch.datasets.multislot import InMemoryDataset
+
+    t = gpt["t"]
+    ds = InMemoryDataset()
+    ds.set_filelist(paths)
+    ds.set_batch_size(batch)
+    ds.set_thread(2)
+    ds.set_use_var([("ids", "int64", t), ("targets", "int64", t),
+                    ("mask", "float", t)])
+    ds.load_into_memory()
+    ds.local_shuffle(seed=seed)
+    return ds
+
+
+def gpt_feeds(ds, t):
+    """The dataset's batches as the GPT's feeds: `targets` and `mask`
+    reshaped to the [b, t, 1] the program declares (a MultiSlot batch is
+    [b, t]; neither executor reshapes a feed)."""
+    for b in ds:
+        yield {"ids": b["ids"],
+               "targets": b["targets"].reshape(-1, t, 1),
+               "mask": b["mask"].reshape(-1, t, 1)}
+
+
+class _RunSpy:
+    """Wraps `exe.run` for the loop's duration: keeps each step's fetches
+    (device tensors, no host read) and the kernel launches each step
+    made."""
+
+    def __init__(self, exe):
+        self.exe, self.outs, self.launches = exe, [], []
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import backend
+
+        inner = self.exe.run
+
+        def run(*a, **kw):
+            before = dict(backend.LAUNCHES)
+            out = inner(*a, **kw)
+            self.outs.append(out)
+            self.launches.append(_made(before))
+            return out
+
+        self.exe.run = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.exe.run
+        return False
+
+
+def _scope_copy(scope):
+    return {n: v.detach().clone() for n, v in scope.vars.items()
+            if v is not None}
+
+
+def _scope_set(scope, state):
+    scope.vars.clear()
+    scope.vars.update({n: v.clone() for n, v in state.items()})
+
+
+def _state_equal(label, got, want, failures):
+    import torch
+
+    bad = [n for n in want if n not in got or not torch.equal(
+        got[n].cpu(), want[n].cpu())]
+    log(f"{label}: {len(want) - len(bad)} of {len(want)} persistables "
+        f"bitwise equal")
+    if bad:
+        failures.append(f"{label}: persistables differ: {bad[:8]}")
+
+
+def noam_lr(d, warmup, step):
+    return d ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
+
+
+def dataset_phase(failures):
+    """Phase 7i, `dataset`: control flow and the dataset train loop on
+    the card.
+
+    a. The static GPT (`dataset_gpt`: STATIC_GPT's widths, one layer,
+       a per-token float mask, Adam on noam_decay(768, 4)) through
+       `Executor.train_from_dataset` with the default flags (the train
+       tier rewrites it with AMP and fusion), fed by an InMemoryDataset
+       over MultiSlot files the port's data generator writes
+       (`write_gpt_multislot`: 2 files of 48 lines), batch 8, 12 steps,
+       print_period 4, with prefetch on and off: both loss sequences
+       bitwise equal to `Executor.run` with FLAGS_amp and
+       FLAGS_graph_opt_fuse "on" over the same batches, the learning rate
+       per step the schedule's closed form within 1e-6 relative, each
+       step exactly STATIC_AMP_LAUNCHES; host ms, device ms, samples/s,
+       the device's idle share and host syncs per step.
+    b. Fault tolerance on the same loop: checkpoint= every 4 steps, a
+       preemption requested at step 6 (force-saved, the loop stops), a
+       rerun with auto_resume=True ending bitwise equal to the
+       uninterrupted run; a NaN mask on step 3 under `skip_step`
+       committing nothing (the next loss the run without that batch
+       gives); under `rollback` the restore and the replay of the
+       cursor giving the uninterrupted losses and state.
+    c. The programs of the reference's control-flow tests (`cf_cases`)
+       on the card and on the CPU, within CF_TOL; a StaticRNN and a
+       while_loop(maximum_trip_count=16) at [8, 768] with grads
+       (`cf_wide`) within `compare_scaled`; syncs and ms per trip.
+    d. `infer_from_dataset` on the test clone of the AMP + fused
+       substitute: K1 and K4 launched, no backward kernel, the last
+       batch's loss within `compare_scaled` of `Executor.run` on the
+       clone.
+
+    Returns the launches of the driven loops (a, b and d; the Executor.run
+    runs they are held against are not counted)."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state = dataset_loop_part(failures, tmp, launches)
+        log(f"dataset loop part: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dataset_fault_part(failures, tmp, state, launches)
+        log(f"dataset fault part: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    control_flow_part(failures)
+    log(f"dataset control-flow part: {time.perf_counter() - t0:.1f} s")
+    log(f"dataset launches (loops a, b, d): {launches}")
+    return launches
+
+
+def dataset_loop_part(failures, tmp, launches, gpt=None):
+    """Part a, then d.  Returns what part b reuses."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import backend
+
+    gpt = gpt or STATIC_GPT
+    t, d = gpt["t"], gpt["d"]
+    paths = write_gpt_multislot(tmp, gpt)
+    ds = gpt_dataset(paths, gpt)
+    batches = list(gpt_feeds(ds, t))
+    steps = len(batches)
+    main, startup, loss, lr = dataset_gpt(gpt)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _scope_copy(scope)
+    gen0 = exe._generator.get_state()
+    log(f"dataset: {len(paths)} MultiSlot files x {DATASET_LINES} lines "
+        f"(ids, targets: {t} int64; mask: {t} float) -> InMemoryDataset, "
+        f"batch {DATASET_BATCH}, {steps} steps; gpt {gpt}, Adam on "
+        f"noam_decay({d}, {DATASET_WARMUP})")
+
+    def fresh():
+        _scope_set(scope, init)
+        exe._generator.set_state(gen0)
+
+    def loop(prefetch, record=False):
+        fresh()
+        with _RunSpy(exe) as spy:
+            backend.reset_host_syncs()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.train_from_dataset(
+                main, gpt_feeds(ds, t), scope=scope,
+                fetch_list=[loss, lr], print_period=DATASET_PRINT,
+                prefetch=prefetch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        syncs = dict(backend.HOST_SYNCS)
+        return dict(out=out, ms=ms, syncs=syncs, spy=spy)
+
+    loop(True)                             # warm-up: substitute, kernels
+    runs = {}
+    for prefetch in (True, False):
+        r = loop(prefetch)
+        runs[prefetch] = r
+        losses = [float(o[0].float().cpu()) for o in r["spy"].outs]
+        r["losses"] = torch.stack([o[0].float().reshape(())
+                                   for o in r["spy"].outs]).cpu()
+        r["lrs"] = [float(o[1].reshape(-1)[0].cpu()) for o in r["spy"].outs]
+        host = r["ms"] / steps
+        log(f"dataset train_from_dataset prefetch {prefetch}: {steps} "
+            f"steps {r['ms']:.3f} ms, host {host:.3f} ms/step, "
+            f"{steps * DATASET_BATCH / r['ms'] * 1e3:.1f} samples/s, host "
+            f"syncs {r['syncs']} ({sum(r['syncs'].values()) / steps:.3f} "
+            f"a step); losses {losses}")
+        for i, made in enumerate(r["spy"].launches):
+            if made != STATIC_AMP_LAUNCHES:
+                failures.append(f"dataset prefetch {prefetch} step {i} "
+                                f"launches {made} != {STATIC_AMP_LAUNCHES}")
+        _add(launches, {n: sum(m.get(n, 0) for m in r["spy"].launches)
+                        for n in STATIC_AMP_LAUNCHES})
+        for i, got in enumerate(r["lrs"]):
+            want = noam_lr(d, DATASET_WARMUP, i + 1)
+            if not abs(got - want) <= 1e-6 * want:
+                failures.append(f"dataset step {i}: lr {got} != noam "
+                                f"{want}")
+        last = r["out"][0] if r["out"] is not None else None
+        if last is None or float(np.asarray(last).reshape(-1)[0]) \
+                != losses[-1]:
+            failures.append(f"dataset prefetch {prefetch}: returned "
+                            f"{last}, last loss {losses[-1]}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"dataset losses not finite: {losses}")
+    # device time per step and idle share: one profiled loop each
+    for prefetch in (True, False):
+        r = runs[prefetch]
+        # one profiled "step" below is the whole loop of `steps` steps
+        prof = profile_train_step(lambda *_: loop(prefetch), None, (),
+                                  r["ms"], label=f"dataset {steps}-step "
+                                  f"loop, prefetch {prefetch},")
+        dev = prof["device"] / steps
+        host = r["ms"] / steps
+        r["device_ms"] = dev
+        log(f"dataset prefetch {prefetch}: host {host:.3f} ms/step, "
+            f"device {dev:.3f} ms/step, idle share {1 - dev / host:.1%}")
+    log(f"dataset lr per step {runs[True]['lrs']}")
+    # the same program through Executor.run with the tier flags on, its
+    # fetches left on the card as the loop leaves them
+    fresh()
+    ref = []
+    with tier_flags(amp="on", fuse="on"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            ref.append(exe.run(main, feed=b, fetch_list=[loss],
+                               scope=scope, return_numpy=False)[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    log(f"dataset Executor.run loop (tier on, numpy feeds, fetches kept "
+        f"on the card): {steps} steps {ms:.3f} ms, host "
+        f"{ms / steps:.3f} ms/step")
+    ref = torch.stack([v.float().reshape(()) for v in ref]).cpu()
+    final = _scope_copy(scope)
+    for prefetch in (True, False):
+        same = torch.equal(runs[prefetch]["losses"], ref)
+        log(f"dataset prefetch {prefetch} losses bitwise equal to "
+            f"Executor.run (tier on): {same}")
+        if not same:
+            failures.append(
+                f"dataset prefetch {prefetch} losses "
+                f"{runs[prefetch]['losses'].tolist()} != Executor.run "
+                f"{ref.tolist()}")
+    # d: infer_from_dataset on the test clone of the substitute
+    sub = exe._resolve_train_optimized(main, [loss.name, lr.name], True,
+                                       True)
+    test = sub.clone(for_test=True)
+    with _RunSpy(exe) as spy:
+        got = exe.infer_from_dataset(test, batches, scope=scope,
+                                     fetch_list=[loss.name],
+                                     print_period=10 ** 6)
+    want = exe.run(test, feed=batches[-1], fetch_list=[loss.name],
+                   scope=scope)
+    made = {}
+    for m in spy.launches:
+        _add(made, m)
+    _add(launches, made)
+    log(f"dataset infer_from_dataset ({len(batches)} batches, test clone "
+        f"of the AMP + fused substitute): launches {made}, last loss "
+        f"{float(np.asarray(got[0]))} vs Executor.run "
+        f"{float(np.asarray(want[0]))}")
+    if set(made) != {"flash_attention_fwd", "layer_norm_fwd"}:
+        failures.append(f"dataset infer launches {made}: want K1 and K4 "
+                        f"only")
+    compare_scaled("dataset infer loss", torch.as_tensor(got[0]),
+                   torch.as_tensor(want[0]), failures)
+    return dict(exe=exe, scope=scope, main=main, startup=startup, loss=loss,
+                lr=lr, init=init, gen0=gen0, batches=batches, ref=ref,
+                final=final, gpt=gpt)
+
+
+def dataset_fault_part(failures, tmp, st, launches):
+    """Part b on part a's program, batches and uninterrupted run."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import faultinject
+
+    exe, scope, main = st["exe"], st["scope"], st["main"]
+    loss, batches, ref = st["loss"], st["batches"], st["ref"]
+
+    def fresh():
+        _scope_set(scope, st["init"])
+        exe._generator.set_state(st["gen0"])
+
+    def loop(data, **kw):
+        with _RunSpy(exe) as spy:
+            exe.train_from_dataset(main, data, scope=scope,
+                                   fetch_list=[loss], print_period=10 ** 6,
+                                   **kw)
+        for m in spy.launches:
+            _add(launches, m)
+        return spy
+
+    # preemption at step DATASET_PREEMPT_AT, then auto_resume
+    ck = {"directory": os.path.join(tmp, "ckpt"),
+          "save_interval_steps": DATASET_CKPT_EVERY, "max_to_keep": 2}
+
+    def preempting():
+        for i, b in enumerate(batches):
+            if i == DATASET_PREEMPT_AT:
+                resilience.request_preemption()
+            yield b
+
+    fresh()
+    t0 = time.perf_counter()
+    # prefetch off: the producer thread would run ahead of the step the
+    # request belongs to
+    loop(preempting(), checkpoint=ck, prefetch=False)
+    mgr = CheckpointManager(**ck)
+    saved = mgr.latest_step()
+    log(f"dataset preempt: stopped at step {saved} "
+        f"({(time.perf_counter() - t0) * 1e3:.0f} ms, interval saves every "
+        f"{DATASET_CKPT_EVERY}), flag cleared "
+        f"{not resilience.preemption_requested()}")
+    if saved != DATASET_PREEMPT_AT or resilience.preemption_requested():
+        failures.append(f"dataset preempt: latest step {saved} != "
+                        f"{DATASET_PREEMPT_AT} or the flag is still up")
+    resilience.clear_preemption()
+    at_preempt = _scope_copy(scope)
+    fresh()                                 # a relaunch: startup state
+    t0 = time.perf_counter()
+    loop(batches, checkpoint=ck, auto_resume=True)
+    log(f"dataset auto_resume from step {saved}: "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    _state_equal("dataset preempt -> auto_resume vs uninterrupted",
+                 _scope_copy(scope), st["final"], failures)
+
+    # skip_step: a NaN mask on step DATASET_NAN_AT commits nothing
+    k = DATASET_NAN_AT
+    fresh()
+    with resilience.anomaly_guard(policy="skip_step"):
+        with faultinject.plan_scope(nan_at_steps=[k], nan_feed="mask"):
+            spy = loop(batches[:k + 2], prefetch=False)
+    got = [float(o[0].float().reshape(()).cpu()) for o in spy.outs]
+    skipped = _scope_copy(scope)
+    fresh()
+    with tier_flags(amp="on", fuse="on"):
+        want = [float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
+                for b in batches[:k] + batches[k + 1:k + 2]]
+    log(f"dataset skip_step: losses {got} (NaN on step {k}), without "
+        f"batch {k}: {want}")
+    if not (got[:k] == want[:k] and math.isnan(got[k])
+            and got[k + 1] == want[k]):
+        failures.append(f"dataset skip_step losses {got} vs {want}")
+    _state_equal("dataset skip_step vs the run without the batch",
+                 skipped, _scope_copy(scope), failures)
+
+    # rollback: restore the newest checkpoint, replay the cursor
+    every, nan_at = DATASET_ROLLBACK
+    fresh()
+    rmgr = CheckpointManager(os.path.join(tmp, "rollback"),
+                             save_interval_steps=every, max_to_keep=2)
+    with resilience.anomaly_guard(policy="rollback", manager=rmgr):
+        with faultinject.plan_scope(nan_at_steps=[nan_at],
+                                    nan_feed="mask"):
+            t0 = time.perf_counter()
+            spy = loop(batches[:DATASET_PREEMPT_AT], checkpoint=rmgr)
+    got = torch.stack([o[0].float().reshape(()) for o in spy.outs]).cpu()
+    # the uninterrupted losses up to the NaN step (whose run raised
+    # RollbackPerformed and returned nothing), then the replay from the
+    # checkpoint at `every` on
+    want = torch.cat([ref[:nan_at], ref[every:DATASET_PREEMPT_AT]])
+    log(f"dataset rollback (saves every {every}, NaN on dispatch "
+        f"{nan_at}): {len(spy.outs)} dispatches in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms, losses {got.tolist()}")
+    if not torch.equal(got, want):
+        failures.append(f"dataset rollback losses {got.tolist()} != "
+                        f"{want.tolist()}")
+    _state_equal("dataset rollback vs uninterrupted (step "
+                 f"{DATASET_PREEMPT_AT})", _scope_copy(scope),
+                 at_preempt, failures)
+
+
+def control_flow_part(failures):
+    """Part c."""
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import interop
+    from paddle_tpu_torch.kernels import backend
+
+    def run(main, startup, feed, fetch, device, state=None):
+        exe = fluid.Executor(device)
+        scope = fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+        else:
+            interop.scope_from_numpy(state, scope, device)
+        backend.reset_host_syncs()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return out, dict(backend.HOST_SYNCS), interop.scope_to_numpy(scope)
+
+    for name, main, startup, feed, fetch in cf_cases(fluid):
+        cpu = fluid.Executor(fluid.CPUPlace())
+        sc = fluid.Scope()
+        cpu.run(startup, scope=sc)
+        state = interop.scope_to_numpy(sc)
+        want, _, _ = run(main, startup, feed, fetch, "cpu", state)
+        got, syncs, _ = run(main, startup, feed, fetch, "cuda", state)
+        err = max(float(np.abs(np.asarray(g, np.float64)
+                               - np.asarray(w, np.float64)).max())
+                  for g, w in zip(got, want))
+        ok = all(np.allclose(np.asarray(g), np.asarray(w), rtol=CF_TOL,
+                             atol=CF_TOL) for g, w in zip(got, want))
+        log(f"control flow {name}: card vs CPU max |err| {err:.3e}, host "
+            f"syncs {syncs}")
+        if not ok:
+            failures.append(f"control flow {name}: card {got} vs CPU {want}")
+    for kind in ("rnn", "while"):
+        main, startup, feed, fetch = cf_wide(fluid, kind, **CF_WIDE)
+        cpu = fluid.Executor(fluid.CPUPlace())
+        sc = fluid.Scope()
+        cpu.run(startup, scope=sc)
+        state = interop.scope_to_numpy(sc)
+        want, _, want_state = run(main, startup, feed, fetch, "cpu", state)
+        got, syncs, got_state = run(main, startup, feed, fetch, "cuda",
+                                    state)
+        trips = CF_WIDE["trips"]
+        for n, g, w in zip(fetch, got, want):
+            compare_scaled(f"control flow {kind} [{CF_WIDE['batch']}, "
+                           f"{CF_WIDE['width']}] {n}", torch.as_tensor(g),
+                           torch.as_tensor(w), failures)
+        compare_scaled(f"control flow {kind} updated w",
+                       torch.as_tensor(got_state["w"]),
+                       torch.as_tensor(want_state["w"]), failures)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        interop.scope_from_numpy(state, scope, "cuda")
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        backend.reset_host_syncs()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        ms = (time.perf_counter() - t0) * 1e3
+        n_syncs = sum(v for k, v in backend.HOST_SYNCS.items()
+                      if k != "fetch")
+        log(f"control flow {kind} [{CF_WIDE['batch']}, {CF_WIDE['width']}] "
+            f"x {trips} trips with grads: {ms:.3f} ms a step, "
+            f"{ms / trips:.3f} ms a trip; host syncs {syncs} "
+            f"({n_syncs / trips:.3f} a trip, the fetch aside)")
+
+
 def check_phase(failures):
     import torch
 
@@ -9605,7 +10339,7 @@ def compare_main(args):
 # the phases whose timed runs are the main paths: their launch counts go
 # into the kernels line
 MAIN_PATHS = ("train", "resnet", "path", "static", "io", "zoo", "moe",
-              "parallel", "collective", "spmd", "serving")
+              "parallel", "collective", "spmd", "serving", "dataset")
 
 
 def main():
@@ -9654,7 +10388,8 @@ def main():
               ("io", io_phase), ("zoo", zoo_phase), ("moe", moe_phase),
               ("parallel", parallel_phase),
               ("collective", collective_phase), ("spmd", spmd_phase),
-              ("serving", serving_phase), ("checks", check_phase))
+              ("serving", serving_phase), ("dataset", dataset_phase),
+              ("checks", check_phase))
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -9695,8 +10430,9 @@ def main():
         # collective phase's timed data-parallel steps at W = 1 and 2
         # (K1-K5), the spmd phase's timed GSPMD steps at {dp=2, mp=2} and
         # {dp=1, mp=2} (K1-K5), the serving phase's runtime, engines and
-        # fleet (K1, K4, K6), and the probe tool's runs (K4, K7 and K9
-        # forward)
+        # fleet (K1, K4, K6), the dataset phase's train_from_dataset
+        # loops (K1-K5) and infer_from_dataset loop (K1, K4), and the
+        # probe tool's runs (K4, K7 and K9 forward)
         row["launches"] = sum(results[p].get(key, 0)
                               for p in MAIN_PATHS) \
             + results["probes"]["tool"].get(key, 0)

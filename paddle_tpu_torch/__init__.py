@@ -46,6 +46,7 @@ from . import (  # noqa: F401
     communicator, compiler, distribute_lookup_table, parallel_executor,
     transpiler,
 )
+from . import dataset, incubate, resilience  # noqa: F401
 from .parallel_executor import ParallelExecutor  # noqa: F401
 
 __all__ = [
@@ -61,5 +62,5 @@ __all__ = [
     "executor", "initializer", "layer_helper", "layers", "optimizer",
     "param_attr", "regularizer", "unique_name", "io", "reader",
     "inference", "checkpoint", "data_feeder", "DataLoader", "DataFeeder",
-    "batch",
+    "batch", "dataset", "incubate", "resilience",
 ]

@@ -33,9 +33,13 @@ rank's blocks, bit for bit.  The GSPMD tier's scope values
 with the rule mesh's axes in `_TOPOLOGY.json`, so a {dp: 2, mp: 2}
 checkpoint restores bitwise onto a {dp: 4} run.
 
+Saves and restores bump the monitor counters
+`resilience.checkpoint_saves` / `resilience.checkpoint_restores` (and the
+`last_save_s` / `last_restore_s` gauges) while the monitor is enabled.
+
 Not here: the orbax writer (JAX only; `writer="orbax"`, and loading a
-step that holds only an orbax checkpoint, raise), and the monitor
-counters, the goodput ledger and the fault-injection points (item 10).
+step that holds only an orbax checkpoint, raise), the goodput ledger and
+the fault-injection points (item 10).
 """
 
 import dataclasses
@@ -64,6 +68,12 @@ _TOPOLOGY = "_TOPOLOGY.json"
 # verification memo: abs step path -> (manifest mtime_ns, payload stat
 # signature, ok); a training loop calls latest_step via _gc on every save
 _verify_memo = {}
+
+
+def _mon():
+    from . import monitor
+
+    return monitor
 
 
 # -- the reference's pytree paths over torch states --------------------------
@@ -395,6 +405,11 @@ def _write_checkpoint(directory, state, step, sparse_tables, extras,
     _verify_memo[path] = ((os.stat(os.path.join(path, _MANIFEST))
                            .st_mtime_ns, _payload_stat_sig(path)), True)
     save_checkpoint.last_seconds = time.perf_counter() - t0
+    mon = _mon()
+    if mon.is_enabled():
+        mon.counter("resilience.checkpoint_saves").add(1)
+        mon.gauge("resilience.last_save_s").set(
+            round(save_checkpoint.last_seconds, 4))
     return path
 
 
@@ -424,6 +439,11 @@ def load_checkpoint(directory, template_state, step=None,
                 table.load_state_dict({"ids": data[f"{name}.ids"],
                                        "values": data[f"{name}.values"]})
     load_checkpoint.last_seconds = time.perf_counter() - t0
+    mon = _mon()
+    if mon.is_enabled():
+        mon.counter("resilience.checkpoint_restores").add(1)
+        mon.gauge("resilience.last_restore_s").set(
+            round(load_checkpoint.last_seconds, 4))
     return state, step
 
 

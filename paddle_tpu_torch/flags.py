@@ -171,16 +171,21 @@ declare_flag("use_pallas_dgc_topk", False,
              "torch.topk (approximate: keeps >= k elements).")
 
 # Static-graph executor (framework/executor.py).
+declare_flag("eager_executor", False,
+             "The reference's op-by-op debug interpreter.  The port's "
+             "Executor always runs op by op, so the flag changes nothing "
+             "here: every program runs as the reference runs it with the "
+             "flag on (tensor arrays, value-dependent shapes).")
+declare_flag("executor_log_ops", False, "Log each op executed.")
 declare_flag("global_seed", 0,
              "Seed of the Executor's generator, which the random init ops "
              "(uniform_random) and dropout draw from.")
 
 # AMP and the fusion tier (amp/, passes/, Executor._train_tier_modes).
 # "train" (the default of the two tier flags) fires only in the dataset
-# train loop, train_from_dataset, which is not ported yet (ROADMAP item
-# 10): until it is, a bare Executor.run with the defaults runs the
-# program as built.  "on" covers every Executor.run of a train program;
-# "off" never applies the tier.
+# train loop, Executor.train_from_dataset: a bare Executor.run with the
+# defaults runs the program as built.  "on" covers every Executor.run of
+# a train program; "off" never applies the tier.
 declare_flag("amp_dtype", "bfloat16", "Low-precision dtype used by AMP.")
 declare_flag("graph_opt_fuse", "train",
              "Fusion pass tier: off | train (dataset train loop only) "
@@ -249,3 +254,16 @@ declare_flag("replicated_param_bytes", 64 << 20,
 declare_flag("numerics_reduce_elems", 65536,
              "PT404 threshold: lint a low-precision accumulating "
              "reduction over this many elements per output (0 = off).")
+
+# The dataset train loop's monitor records (Executor.train_from_dataset).
+# Neither is ported (ROADMAP item 10): the loop raises when FLAGS_goodput
+# is on, and when a data-parallel program runs under the monitor with
+# FLAGS_fleet_skew on, rather than run without the record.
+declare_flag("fleet_skew", True,
+             "Emit the per-step straggler/skew probe alongside the dp "
+             "gradient sync (dp programs only).")
+declare_flag("goodput", False,
+             "Keep the wall-clock goodput/badput attribution ledger "
+             "during training runs (kind=\"goodput\" record, /metrics "
+             "goodput gauges + per-category badput counters, chrome "
+             "badput tracks).")

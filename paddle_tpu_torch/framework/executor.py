@@ -52,11 +52,32 @@ the train tier is on) with `analysis.cached_check` before any op: "warn"
 emits one `ProgramLintWarning` per program version, "error" raises
 `ProgramLintError`.
 
-Not ported here: the guard, telemetry, goodput and fault-injection
-branches (the lint's monitor and flight-recorder records among them),
-the structural graph-optimizer substitution (FLAGS_graph_opt), the
-control-flow ops and `train_from_dataset` (ROADMAP item 10).  They raise
-NotImplementedError, or are not there.
+Control flow (`cond`, `switch`, `while_loop`, `while_block`,
+`static_rnn` and the tensor arrays) runs eagerly through the runners of
+`_CONTROL_FLOW_OPS`: a predicate, loop condition or array index is read
+on the host once (counted in `kernels.backend.HOST_SYNCS`) and the
+chosen sub-block runs against a copy of the outer env.  A bounded loop
+stops at the first false condition; a backward section that reaches an
+unbounded loop raises, as the reference cannot differentiate one.
+
+The anomaly guard (`resilience.enable_anomaly_guard`): each section's
+summed loss and gradients join one all-finite flag, read on the host
+once before the update ops; when it is down the step runs no update op
+and writes nothing back, and `_apply_guard_policy` skips, raises or rolls
+back.  With a fault plan armed (`resilience.faultinject`) each run's feed
+may be NaN-tainted and a transient error injected inside the retried
+region (`resilience.enable_retry`).
+
+`train_from_dataset` / `infer_from_dataset`: the reference's dataset
+loop over any iterable of feed dicts (see its docstring): prefetch,
+print_period fetches, the Downpour sparse loop, checkpoint cadence,
+preemption, auto-resume and the guard's rollback replay.
+
+Not ported here: telemetry and goodput (the lint's monitor and
+flight-recorder records among them), the elastic loop, the fleet-skew
+record and the structural graph-optimizer substitution
+(FLAGS_graph_opt), ROADMAP item 10.  They raise NotImplementedError, or
+are not there.
 """
 
 import contextlib
@@ -69,16 +90,21 @@ from .. import flags
 from ..core.dtype import to_torch_dtype
 from ..core.place import resolve_device
 from ..interop import from_numpy_exact
+from ..kernels.backend import count_host_sync
 from ..ops.registry import get_op
 from .program import Variable, default_main_program
 
-# the reference's control-flow runners (conditional blocks, while loops,
-# static rnn, tensor arrays) and the ops whose output IS a side effect
-_CONTROL_FLOW_OPS = frozenset((
-    "cond", "switch", "while_loop", "while_block", "static_rnn",
-    "create_array", "array_write", "array_read", "array_length",
-    "lod_tensor_to_array", "array_to_lod_tensor"))
-_SIDE_EFFECT_OPS = frozenset(("print",))
+# the single definition shared with the verifier's PT201 lint and the
+# DCE pass (analysis/facts.py): an op type there survives _live_ops too
+from ..analysis.facts import SIDE_EFFECT_TYPES as _SIDE_EFFECT_OPS  # noqa
+
+
+def _materialize(fetches):
+    """Copy device fetches to host numpy arrays: the one sync point of
+    the dispatch path (the reference's `_materialize`); each call counts
+    one host sync of kind "fetch"."""
+    count_host_sync("fetch")
+    return [_to_numpy(f) for f in fetches]
 
 
 class Scope:
@@ -190,11 +216,12 @@ def run_op(op, env, generator):
     their outputs there); ops that draw random bits get `generator`, a
     torch.Generator on that device, as `attrs["_generator"]`.  (The
     reference's `run_op` wraps `_run_op` in a JAX named scope; the port
-    has one function.)"""
-    if op.type in _CONTROL_FLOW_OPS:
-        raise NotImplementedError(
-            f"control-flow op '{op.type}' is not ported to paddle_tpu_torch "
-            f"yet (ROADMAP item 10)")
+    has one function.)  A control-flow op runs through its runner in
+    `_CONTROL_FLOW_OPS`."""
+    runner = _CONTROL_FLOW_OPS.get(op.type)
+    if runner is not None:
+        runner(op, env, generator)
+        return
     opdef = get_op(op.type)
     ins = {}
     for slot, names in op.inputs.items():
@@ -205,6 +232,9 @@ def run_op(op, env, generator):
     attrs["_device"] = generator.device
     if opdef.needs_rng:
         attrs["_generator"] = generator
+    if flags.flag("executor_log_ops"):
+        print(f"[paddle_tpu_torch.executor] {op.type} {list(op.inputs)} -> "
+              f"{list(op.outputs)}")
     try:
         outs = opdef.fn(ins, attrs)
     except Exception as e:
@@ -240,6 +270,271 @@ def interpret(ops, env, generator):
     """Run `ops` in order against `env`."""
     for op in ops:
         run_op(op, env, generator)
+
+
+# -- control flow (the reference's executor.py:272-565) ----------------------
+#
+# The reference lowers each control-flow op onto lax.cond / lax.while_loop
+# / lax.scan at trace time.  The port runs them eagerly: a predicate, a
+# loop condition or an array index is read on the host, once, with
+# `.item()` on a 0-dim tensor (one device sync each, counted in
+# kernels.backend.HOST_SYNCS), and the chosen sub-block is interpreted
+# against a copy of the outer env.  Autograd flows through the trips the
+# run took.
+
+
+def _branch_env(env):
+    # tensor arrays are Python lists: a sub-block must not mutate the
+    # outer list (the reference traces both branches of a cond)
+    return {k: (list(v) if isinstance(v, list) else v)
+            for k, v in env.items()}
+
+
+def _run_block(ops, env, generator, bound, out_names):
+    """Interpret a sub-block against a copy of the outer env with `bound`
+    ({inner name: value}) over it; the named results."""
+    benv = _branch_env(env)
+    benv.update(bound)
+    interpret(ops, benv, generator)
+    return tuple(benv[n] for n in out_names)
+
+
+def _host_item(value, kind):
+    """The one element of a predicate or index tensor, read on the
+    host: one device sync, counted under `kind`."""
+    count_host_sync(kind)
+    return value.reshape(()).item()
+
+
+def _as_dtype(value, like):
+    """A loop body's output in its carry's dtype (the reference casts
+    each body output to the init value's dtype)."""
+    if isinstance(value, torch.Tensor) and isinstance(like, torch.Tensor) \
+            and value.dtype != like.dtype:
+        return value.to(like.dtype)
+    return value
+
+
+def _check_differentiable_loop(op, values):
+    """A backward section may not reach an unbounded loop: the reference
+    differentiates a loop only through its bounded scan lowering, so the
+    port refuses the same programs."""
+    if torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad
+            for v in values):
+        raise ValueError(
+            f"gradients cannot flow through the unbounded '{op.type}' op: "
+            f"set maximum_trip_count (layers.while_loop) or max_iters "
+            f"(layers.While) to bound it, as the reference requires")
+
+
+def _captured_values(op, env):
+    return [env[n] for n in op.inputs.get("Captured", ()) if n in env]
+
+
+def _run_cond(op, env, generator):
+    """conditional_block pair: the taken branch alone runs."""
+    program = op.block.program
+    a = op.attrs
+    if _host_item(env[op.inputs["Pred"][0]], "cond"):
+        blk, names = a["true_block"], a["true_outs"]
+    else:
+        blk, names = a["false_block"], a["false_outs"]
+    outs = _run_block(program.blocks[blk].ops, env, generator, {}, names)
+    for n, v in zip(op.outputs["Out"], outs):
+        env[n] = v
+
+
+def _run_switch(op, env, generator):
+    """Switch: the first true case wins, else the default, else the
+    written variables keep their values (one predicate read per case
+    tried)."""
+    program = op.block.program
+    a = op.attrs
+    out_names = a["out_names"]
+    for n in out_names:
+        if n not in env:
+            raise KeyError(
+                f"Switch writes '{n}' but it has no value before the "
+                f"switch (cases only run conditionally)")
+    result = tuple(env[n] for n in out_names)
+    blk = a.get("default_block")
+    for pred, case_blk in zip(a["case_preds"], a["case_blocks"]):
+        if _host_item(env[pred], "switch"):
+            blk = case_blk
+            break
+    if blk is not None:
+        result = _run_block(program.blocks[blk].ops, env, generator, {},
+                            out_names)
+    for n, v in zip(op.outputs["Out"], result):
+        env[n] = v
+
+
+def _run_while(op, env, generator):
+    """while_op.cc: one condition read per trip.  With `max_iters` (the
+    layer's maximum_trip_count) the loop runs at most that many trips
+    and stops at the first false condition; the reference runs exactly
+    max_iters trips and freezes the carry once the condition is false,
+    which gives the same values and gradients wherever the body stays
+    finite past the end (ROADMAP section 3)."""
+    program = op.block.program
+    a = op.attrs
+    carry = [env[n] for n in op.inputs["LoopVars"]]
+    init = list(carry)
+    max_iters = a.get("max_iters")
+    if not max_iters:
+        _check_differentiable_loop(op, carry + _captured_values(op, env))
+    c_ops = program.blocks[a["cond_block"]].ops
+    b_ops = program.blocks[a["body_block"]].ops
+    trips = 0
+    while not max_iters or trips < int(max_iters):
+        (c,) = _run_block(c_ops, env, generator,
+                          dict(zip(a["cond_inner"], carry)),
+                          [a["cond_out"]])
+        if not _host_item(c, "while"):
+            break
+        outs = _run_block(b_ops, env, generator,
+                          dict(zip(a["body_inner"], carry)),
+                          a["body_outs"])
+        carry = [_as_dtype(o, i) for o, i in zip(outs, init)]
+        trips += 1
+    for n, v in zip(op.outputs["Out"], carry):
+        env[n] = v
+
+
+def _run_while_block(op, env, generator):
+    """Block-style While (layers.While): the loop state is every outer
+    variable the body assigns plus the condition variable; the loop ends
+    when the body's assign to the condition goes false (read on the
+    host before each trip).  `max_iters` bounds it as `_run_while`."""
+    program = op.block.program
+    a = op.attrs
+    body = program.blocks[a["body_block"]]
+    cond_name = a["cond_name"]
+    written = set()
+    for o in body.ops:
+        written.update(o.output_names())
+    carry_names = sorted({cond_name} | {n for n in written if n in env})
+    carry = {n: env[n] for n in carry_names}
+    init = dict(carry)
+    max_iters = a.get("max_iters")
+    if not max_iters:
+        _check_differentiable_loop(
+            op, list(carry.values()) + _captured_values(op, env))
+    trips = 0
+    while (not max_iters or trips < int(max_iters)) \
+            and _host_item(carry[cond_name], "while"):
+        local = _branch_env(env)
+        local.update(carry)
+        interpret(body.ops, local, generator)
+        carry = {n: _as_dtype(local[n], init[n]) for n in carry_names}
+        trips += 1
+    env.update(carry)
+
+
+def _run_static_rnn(op, env, generator):
+    """StaticRNN: the step block once per step of the leading (time)
+    axis, the memories carried, the step outputs stacked.  The step
+    count is a shape, so no host read."""
+    program = op.block.program
+    a = op.attrs
+    ops = program.blocks[a["block"]].ops
+    xs = [env[n] for n in op.inputs["StepInputs"]]
+    init = [env[n] for n in op.inputs["InitMemories"]]
+    mems = list(init)
+    n_mem = len(a["memory_update"])
+    names = list(a["memory_update"]) + list(a["step_outs"])
+    steps = []
+    for t in range(xs[0].shape[0]):
+        bound = dict(zip(a["memory_inner"], mems))
+        bound.update(zip(a["input_inner"], [x[t] for x in xs]))
+        outs = _run_block(ops, env, generator, bound, names)
+        mems = [_as_dtype(o, i) for o, i in zip(outs[:n_mem], init)]
+        steps.append(outs[n_mem:])
+    for j, n in enumerate(op.outputs["Out"]):
+        env[n] = torch.stack([s[j] for s in steps])
+
+
+def _rank_table(env, name):
+    """A rank table ([B, 2] int32: row order, length) on the host."""
+    count_host_sync("rank_table")
+    table = env[name].detach().cpu().numpy()
+    return table[:, 0].astype(np.int64), table[:, 1]
+
+
+def _run_array_op(op, env, generator):
+    """LoDTensorArray ops over Python lists of tensors; each index is
+    read on the host."""
+    t = op.type
+    if t == "create_array":
+        env[op.outputs["Out"][0]] = []
+        return
+    if t == "array_write":
+        arr = env[op.inputs["Array"][0]]
+        i = int(_host_item(env[op.inputs["I"][0]], "array_index"))
+        x = env[op.inputs["X"][0]]
+        if i == len(arr):
+            arr.append(x)
+        elif i < len(arr):
+            arr[i] = x
+        else:
+            raise IndexError(f"array_write index {i} > length {len(arr)}")
+        return
+    if t == "array_read":
+        arr = env[op.inputs["Array"][0]]
+        i = int(_host_item(env[op.inputs["I"][0]], "array_index"))
+        env[op.outputs["Out"][0]] = arr[i]
+        return
+    if t == "array_length":
+        arr = env[op.inputs["Array"][0]]
+        env[op.outputs["Out"][0]] = torch.tensor(
+            len(arr), dtype=torch.int32, device=generator.device)
+        return
+    if t == "lod_tensor_to_array":
+        # control_flow.py:1132 parity: split [B, T, ...] into per-step
+        # slices over the rank table's still-active prefix
+        x = env[op.inputs["X"][0]]
+        order, lengths = _rank_table(env, op.inputs["RankTable"][0])
+        max_len = int(lengths[0]) if len(lengths) else 0
+        idx = torch.from_numpy(order).to(x.device)
+        env[op.outputs["Out"][0]] = [
+            x[idx[:int((lengths > s).sum())], s] for s in range(max_len)]
+        return
+    if t == "array_to_lod_tensor":
+        # control_flow.py:1174 parity: the inverse, restoring the row
+        # order and right-padding the short rows with zeros
+        arr = env[op.inputs["X"][0]]
+        order, lengths = _rank_table(env, op.inputs["RankTable"][0])
+        b, max_len = len(order), len(arr)
+        feat = tuple(arr[0].shape[1:]) if arr else ()
+        dtype = arr[0].dtype if arr else torch.float32
+        out = torch.zeros((b, max_len) + feat, dtype=dtype,
+                          device=generator.device)
+        idx = torch.from_numpy(order).to(out.device)
+        for s, rows in enumerate(arr):
+            active = rows.shape[0]
+            out = out.index_put(
+                (idx[:active], torch.full((active,), s, dtype=torch.long,
+                                          device=out.device)),
+                rows.to(dtype))
+        env[op.outputs["Out"][0]] = out
+        return
+    raise NotImplementedError(f"array op '{t}'")
+
+
+_CONTROL_FLOW_OPS = {
+    "cond": _run_cond,
+    "switch": _run_switch,
+    "while_loop": _run_while,
+    "while_block": _run_while_block,
+    "static_rnn": _run_static_rnn,
+    "create_array": _run_array_op,
+    "array_write": _run_array_op,
+    "array_read": _run_array_op,
+    "array_length": _run_array_op,
+    "lod_tensor_to_array": _run_array_op,
+    "array_to_lod_tensor": _run_array_op,
+}
 
 
 def op_scopes(ops, sections):
@@ -380,7 +675,8 @@ class Executor:
         return feed_tensor(value, dtype, self.device)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, _train_loop=False):
+        from .. import resilience as res
         from .spmd import ShardedValue
 
         program = program if program is not None else default_main_program()
@@ -400,8 +696,9 @@ class Executor:
         # the train tier (AMP rewrite, then the fusion passes) on a
         # private clone, cached on the program; with FLAGS_amp and
         # FLAGS_graph_opt_fuse at their "train" defaults it fires only
-        # in train_from_dataset, so a bare run costs two flag reads
-        do_amp, do_fuse = self._train_tier_modes(program, False)
+        # in train_from_dataset (`_train_loop`), so a bare run costs two
+        # flag reads
+        do_amp, do_fuse = self._train_tier_modes(program, _train_loop)
         if do_amp or do_fuse:
             tier = self._resolve_train_optimized(
                 program, fetch_names, do_amp, do_fuse)
@@ -448,6 +745,18 @@ class Executor:
         ops = self._live_ops(program, fetch_names)
         sections = [] if program._is_test else list(program.backward_sections)
         keep = set(fetch_names) | set(plan.persist_names)
+        guard = res.active_guard()
+        guard_on = guard is not None and bool(sections)
+        if guard_on and compiled is not None:
+            raise NotImplementedError(
+                "the anomaly guard over a data-parallel or GSPMD run is not "
+                "ported to paddle_tpu_torch yet (ROADMAP item 10)")
+        if res.faultinject.is_armed():
+            # may hand back a NaN-tainted COPY of the feed dict (the
+            # caller's arrays are never touched, so a rollback replay of
+            # the same batch sees clean data)
+            feed = res.faultinject.on_step_feed(feed)
+        ok = None
         if compiled is not None:
             from .compiler import apply_precision_policy, resolve_precision
 
@@ -459,17 +768,107 @@ class Executor:
         else:
             for name, value in feed.items():
                 env[name] = self._feed_tensor(value, plan.feed_dtype(name))
-            self._step(ops, sections, env, keep)
-            fetches = [env[n].detach() for n in fetch_names]
+            retry = res.active_retry()
+            state = env
 
-        for n in plan.persist_names:
-            if n in env:
-                v = env[n]
-                scope.set_var(n, v if isinstance(v, ShardedValue)
-                              else v.detach())
+            def attempt():
+                # an injected transient error fires before any op, inside
+                # the retried region; each attempt runs on its own copy
+                # of the step's inputs
+                if res.faultinject.is_armed():
+                    res.faultinject.check_transient()
+                e = dict(state)
+                return e, self._step(ops, sections, e, keep,
+                                     guard=guard_on)
+
+            if retry is not None:
+                env, ok = res.call_with_retry(attempt, retry)
+            else:
+                env, ok = attempt()
+            fetches = [env[n].detach() for n in fetch_names]
+        if guard_on:
+            if ok:
+                guard.note_ok()
+            else:
+                # the step ran no update op and commits nothing
+                self._apply_guard_policy(res, guard, plan, scope)
+
+        if ok is not False:
+            for n in plan.persist_names:
+                if n in env:
+                    v = env[n]
+                    scope.set_var(n, v if isinstance(v, ShardedValue)
+                                  else v.detach())
         if return_numpy:
-            return [_to_numpy(f) for f in fetches]
+            return _materialize(fetches)
         return fetches
+
+    def _generator_extras(self):
+        """The executor generator's state for a checkpoint's extras (the
+        reference saves its PRNG root key as `executor_rng_key`)."""
+        return {"executor_generator_state":
+                self._generator.get_state().numpy()}
+
+    def _restore_generator(self, extras):
+        """Resume the generator's stream from a checkpoint's extras, so a
+        replay of a program with dropout draws what the uninterrupted run
+        drew.  A reference checkpoint's `executor_rng_key` does not cross
+        (ROADMAP section 3): the generator is left as it is."""
+        state = extras.get("executor_generator_state")
+        if state is not None:
+            self._generator.set_state(torch.from_numpy(
+                np.ascontiguousarray(state, dtype=np.uint8)))
+
+    def _apply_guard_policy(self, res, guard, plan, scope):
+        """Host side of the anomaly guard after a step whose finite flag
+        was down (the step ran no update op and wrote nothing back): the
+        reference's policies.  skip_step returns; raise raises
+        AnomalyError; rollback restores the newest complete checkpoint
+        into the scope and raises RollbackPerformed so the training loop
+        rewinds its data cursor."""
+        from .. import monitor as mon
+        from ..monitor import flight_recorder
+
+        if mon.is_enabled():
+            mon.counter("resilience.anomaly_steps").add(1)
+        fr = flight_recorder.get()
+        if fr.enabled:
+            fr.note_event("anomaly", policy=guard.policy)
+        guard.note_anomaly()         # escalates past max_consecutive
+        guard.last_skipped = False
+        if guard.policy == "raise":
+            raise res.AnomalyError(
+                "anomaly guard: non-finite loss/gradients in guarded "
+                "step (policy=raise)")
+        if guard.policy == "skip_step":
+            guard.last_skipped = True
+            if mon.is_enabled():
+                mon.counter("resilience.skipped_steps").add(1)
+            return
+        guard.note_rollback()        # escalates past max_rollbacks
+        template = {}
+        for n in plan.persist_names:
+            v = scope.find_var(n)
+            if v is not None:
+                template[n] = v
+        try:
+            state, ck_step = guard.manager.restore_latest(template)
+        except FileNotFoundError as e:
+            raise res.AnomalyError(
+                "rollback policy hit an anomaly before any complete "
+                "checkpoint existed; save one up front (train_from_"
+                "dataset does this automatically) or use "
+                "policy='skip_step'") from e
+        for n, v in state.items():
+            scope.set_var(n, v)
+        loader = getattr(guard.manager, "load_extras", None)
+        self._restore_generator(loader(ck_step) if loader is not None
+                                else {})
+        if mon.is_enabled():
+            mon.counter("resilience.rollbacks").add(1)
+        if fr.enabled:
+            fr.note_event("rollback", checkpoint_step=ck_step)
+        raise res.RollbackPerformed(ck_step)
 
     def _rank_generator(self, rank, device):
         """The generator of dp rank `rank` on `device`: rank 0's is the
@@ -754,7 +1153,8 @@ class Executor:
         return held[1]
 
     def _step(self, ops, sections, env, keep=(), generator=None,
-              sync=None, runner=None, grad_fn=None, loss_fn=None):
+              sync=None, runner=None, grad_fn=None, loss_fn=None,
+              guard=False):
         """Run `ops` against `env`, realizing each BackwardSection with
         torch autograd (see the module docstring); `keep` names the
         values a recomputed chunk must hand on (fetches, persistables)
@@ -764,7 +1164,12 @@ class Executor:
         (the data-parallel all_reduce).  The GSPMD tier passes `runner`
         (in place of `run_op`; no chunk is recomputed under it),
         `grad_fn(loss, leaves)` (in place of `torch.autograd.grad`) and
-        `loss_fn(name, value)` (the section's loss as the ranks take it)."""
+        `loss_fn(name, value)` (the section's loss as the ranks take it).
+
+        With `guard` (an active anomaly guard), each section's summed
+        loss and raw gradients join one all-finite flag, read on the host
+        once before the update ops: when it is down no update op runs
+        and `_step` returns False (True otherwise; None unguarded)."""
         gen = self._generator if generator is None else generator
         if runner is None:
             run_ops = interpret
@@ -773,6 +1178,7 @@ class Executor:
                 for op in chunk:
                     runner(op, env_, gen_)
         pos = 0
+        finite = []
         for bs in sections:
             params = {n: env[n].detach().requires_grad_(True)
                       for n in bs.param_names if n in env}
@@ -801,6 +1207,11 @@ class Executor:
                 grads = [None] * len(leaves)
             grads = {n: torch.zeros_like(p) if g is None else g
                      for (n, p), g in zip(params.items(), grads)}
+            if guard:
+                from ..resilience.guard import all_finite
+
+                finite.append(all_finite([loss.detach()]
+                                         + list(grads.values())))
             if sync is not None:
                 # in sorted order, as the reference's gradient dict is
                 # (jax returns a dict pytree with sorted keys), so the
@@ -809,18 +1220,21 @@ class Executor:
             for n, g in grads.items():
                 env[n + "@GRAD"] = g
             pos = bs.pos
+        if guard and finite and not _host_item(
+                torch.stack(finite).all(), "guard"):
+            return False
         with torch.no_grad():
             run_ops(ops[pos:], env, gen)
+        return True if guard else None
 
     @staticmethod
     def _train_tier_modes(program, train_loop):
         """(do_amp, do_fuse) for one dispatch: the tier applies only to
         train programs (backward sections, not a test clone); "train"
         mode further requires the dataset train loop
-        (train_from_dataset, ROADMAP item 10: `train_loop` is False on
-        every path the port has), "on" covers every Executor.run.  AMP
-        is skipped for programs the user already rewrote
-        (amp_enabled)."""
+        (train_from_dataset passes `train_loop` True), "on" covers every
+        Executor.run.  AMP is skipped for programs the user already
+        rewrote (amp_enabled)."""
         if program._is_test or not program.backward_sections:
             return False, False
         amp_mode = flags.flag("amp")
@@ -894,12 +1308,370 @@ class Executor:
                 needed |= set(ops[i].input_names())
         return [op for i, op in enumerate(ops) if keep[i]]
 
-    def train_from_dataset(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Executor.train_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP item 10; its readers are paddle_tpu_torch.reader)")
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           sparse_config=None, _sparse_push=True,
+                           prefetch=None, checkpoint=None,
+                           auto_resume=False, elastic=None):
+        """Dataset-driven training loop (the reference's
+        executor.py:1755; Fluid's executor.py:1187 train_from_dataset ->
+        MultiTrainer / HogwildWorker::TrainFiles).
 
-    def infer_from_dataset(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Executor.infer_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP item 10; its readers are paddle_tpu_torch.reader)")
+        `dataset`: any iterable of feed dicts ({name: array}): a
+        QueueDataset / InMemoryDataset over MultiSlot files
+        (`datasets.multislot`), a list, a generator.  Keys the program
+        does not declare are dropped.  Each batch runs through
+        `Executor.run` with the train tier on (FLAGS_amp /
+        FLAGS_graph_opt_fuse at their "train" defaults rewrite the
+        program with AMP and fusion, as in the reference) and fetches
+        kept on the device: they reach the host only at `print_period`
+        boundaries (with `debug` or `fetch_info`) and for the last
+        batch.  Returns the last batch's fetches as numpy (None when
+        `fetch_list` is empty or no batch ran).
+
+        sparse_config (or the program's `_ps_sparse_config`, which the
+        DistributeTranspiler attaches): the Downpour pull -> step -> push
+        loop: {"table": SparseEmbedding or Communicator, "ids_var": the
+        feed with ids, "emb_var": the data var fed with the pulled rows}
+        or a list of them; `emb_var@GRAD` is fetched and pushed after
+        each step (the program lists emb_var in append_backward's
+        parameter_list).
+
+        prefetch: a producer thread keeps prepared batches in flight
+        (dataset iteration and sparse pulls overlap the step), and on
+        the dense single-device path `reader.device_prefetch(size=2)`
+        copies batch N+1 to the device while step N runs.  None: on for
+        dense programs and for async / half_async communicators, off for
+        synchronous pushes (whose pull -> step -> push order is strict).
+
+        checkpoint: a CheckpointManager, a directory or a kwargs dict for
+        one.  The loop saves the persistables every save_interval_steps
+        with the executor generator's state in the extras, force-saves
+        at the next step boundary when a preemption was requested
+        (resilience.PreemptionHandler / request_preemption) and exits;
+        under an anomaly guard with policy ``rollback`` it keeps the
+        prepared batches since the last save (host arrays, never device
+        tensors) and replays them after the guard's restore.
+
+        auto_resume: restore the newest complete checkpoint first and
+        skip the batches it consumed, so a relaunch of the same command
+        continues the run.
+
+        elastic=, FLAGS_goodput and the fleet-skew record of a
+        data-parallel program under the monitor raise
+        NotImplementedError (ROADMAP item 10)."""
+        from .. import monitor as mon
+        from .. import resilience as res
+        from ..monitor import exporter as _exporter
+        from ..monitor import flight_recorder
+
+        if elastic is not None:
+            raise NotImplementedError(
+                "train_from_dataset(elastic=...) is not ported to "
+                "paddle_tpu_torch yet (ROADMAP item 10: "
+                "resilience/elastic.py)")
+        if flags.flag("goodput"):
+            raise NotImplementedError(
+                "the goodput ledger (FLAGS_goodput) is not ported to "
+                "paddle_tpu_torch yet (ROADMAP item 10: monitor/goodput.py)")
+        program = program if program is not None else default_main_program()
+        real_prog = program
+        if hasattr(real_prog, "_get_executable_program"):
+            real_prog = real_prog._get_executable_program()
+        if mon.is_enabled() and flags.flag("fleet_skew") and getattr(
+                program, "_is_data_parallel", False):
+            raise NotImplementedError(
+                "the fleet-skew record of a data-parallel train_from_"
+                "dataset is not ported to paddle_tpu_torch yet (ROADMAP "
+                "item 10: monitor/fleet.py); set FLAGS_fleet_skew=False")
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        fetch_list = list(fetch_list or [])
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in fetch_list]
+        fetch_info = list(fetch_info or fetch_names)
+        blk = real_prog.global_block()
+
+        _exporter.ensure_started()
+        fr = flight_recorder.get()
+        mgr = checkpoint
+        if mgr is not None and not hasattr(mgr, "restore_latest"):
+            from ..checkpoint import CheckpointManager
+
+            if isinstance(mgr, str):
+                mgr = CheckpointManager(mgr)
+            elif isinstance(mgr, dict):
+                mgr = CheckpointManager(**mgr)
+            else:
+                raise TypeError(
+                    f"checkpoint= wants a CheckpointManager, path, or "
+                    f"kwargs dict, got {type(checkpoint).__name__}")
+        ckpt_scope = scope if scope is not None else _global_scope
+        persist_names = sorted(v.name for v in real_prog.list_vars()
+                               if v.persistable)
+
+        def _ckpt_state():
+            return {n: ckpt_scope.find_var(n) for n in persist_names
+                    if ckpt_scope.find_var(n) is not None}
+
+        guard = res.active_guard()
+        # an eval drain (infer_from_dataset, a test clone) is never
+        # guarded: adopting the guard's manager for it would save EVAL
+        # vars into the TRAINING store
+        is_train_prog = (not real_prog._is_test
+                         and bool(real_prog.backward_sections))
+        keep_replay = (guard is not None and guard.policy == "rollback"
+                       and is_train_prog)
+        if keep_replay:
+            if mgr is None:
+                mgr = guard.manager
+            elif mgr is not guard.manager:
+                raise ValueError(
+                    "checkpoint= and the rollback guard's manager are "
+                    "different CheckpointManagers; pass the same one so "
+                    "rollback steps line up with the loop's saves")
+
+        if auto_resume and mgr is None:
+            raise ValueError(
+                "auto_resume=True needs a checkpoint store (pass "
+                "checkpoint=...); silently retraining from step 0 "
+                "would re-consume data")
+        start_step = 0
+        if mgr is not None and auto_resume:
+            template = _ckpt_state()
+            if template:
+                try:
+                    restored, start_step = mgr.restore_latest(template)
+                except FileNotFoundError:
+                    start_step = 0      # cold start: nothing to resume
+                else:
+                    for n, v in restored.items():
+                        ckpt_scope.set_var(n, v)
+                    # resume the generator's stream, not just the params
+                    self._restore_generator(mgr.load_extras(start_step))
+                    if mon.is_enabled():
+                        mon.counter("resilience.auto_resume").add(1)
+                        mon.counter("resilience.batches_skipped").add(
+                            start_step)
+        if start_step:
+            import itertools
+
+            # skip the consumed RAW batches (before prepare: no wasted
+            # sparse pulls)
+            dataset = itertools.islice(iter(dataset), start_step, None)
+
+        sp = sparse_config
+        if sp is None:
+            sp = getattr(program, "_ps_sparse_config", None) \
+                or getattr(real_prog, "_ps_sparse_config", None)
+        entries = list(sp) if isinstance(sp, (list, tuple)) \
+            else ([sp] if sp else [])
+        entries = [dict(e) for e in entries
+                   if e and e.get("table") is not None]
+        if keep_replay and entries and _sparse_push:
+            raise ValueError(
+                "anomaly-guard rollback cannot be combined with sparse "
+                "gradient push: pushed rows can't be unwound by a "
+                "checkpoint restore (use policy='skip_step' or drop the "
+                "sparse tables)")
+        for e in entries:
+            # a Communicator wraps a table: pull reads through, push goes
+            # through the communicator's mode
+            e["_pull"] = getattr(e["table"], "table", e["table"])
+            e["_grad"] = e["emb_var"] + "@GRAD"
+
+        if prefetch is None:
+            prefetch = (not _sparse_push
+                        or all(getattr(e["table"], "mode", None)
+                               in ("async", "half_async") for e in entries))
+
+        def prepare(batch):
+            feed = {k: v for k, v in batch.items()
+                    if blk._find_var_recursive(k) is not None}
+            fl = list(fetch_names)
+            batch_ids = {}
+            for e in entries:
+                ids = np.asarray(batch[e["ids_var"]])
+                batch_ids[e["emb_var"]] = ids
+                feed[e["emb_var"]] = e["_pull"].pull(ids)
+                if _sparse_push:
+                    fl.append(e["_grad"])
+            return feed, fl, batch_ids
+
+        producer = stop = None
+        if prefetch:
+            import queue as _queue
+            import threading as _threading
+
+            q = _queue.Queue(maxsize=2)
+            stop = _threading.Event()
+            _END, _ERR = object(), object()
+
+            def _offer(item):
+                # a bounded put that gives up once the consumer is gone,
+                # so a raising loop cannot strand this thread
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except _queue.Full:
+                        continue
+                return False
+
+            def produce():
+                try:
+                    for b in dataset:
+                        if not _offer(prepare(b)):
+                            return
+                    _offer(_END)
+                except BaseException as exc:   # propagate to consumer
+                    _offer((_ERR, exc))
+
+            producer = _threading.Thread(target=produce, daemon=True)
+            producer.start()
+
+            def _host_batches():
+                try:
+                    while True:
+                        item = q.get()
+                        if item is _END:
+                            return
+                        if isinstance(item, tuple) and item[0] is _ERR:
+                            raise item[1]
+                        yield item
+                finally:
+                    stop.set()        # unblock and retire the producer
+
+            def prepared_batches():
+                gen = _host_batches()
+                if not entries and not keep_replay and \
+                        not getattr(program, "_is_data_parallel", False):
+                    # the dense single-device path: the device double
+                    # buffer on top of the producer thread.  The sparse
+                    # path keeps host batches (its ids are pushed from
+                    # the host), the data-parallel path lets each rank
+                    # take its shard, and the rollback replay buffer must
+                    # not pin a save interval of batches on the card.
+                    from .. import reader as _reader
+
+                    gen = _reader.device_prefetch(gen, size=2,
+                                                  device=self.device)
+                return gen
+        else:
+            def prepared_batches():
+                for b in dataset:
+                    yield prepare(b)
+
+        if keep_replay and mgr.latest_step() is None:
+            # rollback needs a restore point covering the whole loop
+            initial = _ckpt_state()
+            if initial:
+                mgr.save(initial, start_step, force=True,
+                         extras=self._generator_extras())
+        last = None
+        step_i = start_step
+        replay = []          # [(step_no, feed, fl)] since the last save
+        batches = prepared_batches()
+        try:
+            for feed, fl, batch_ids in batches:
+                if res.preemption_requested():
+                    # preemption-safe exit at this STEP BOUNDARY
+                    if mon.is_enabled():
+                        mon.counter("resilience.preempt_requested").add(1)
+                    if fr.enabled:
+                        fr.note_event("preemption", step=step_i,
+                                      checkpointed=mgr is not None)
+                    if mgr is None:
+                        import warnings
+
+                        warnings.warn(
+                            "preemption requested but this train_from_"
+                            "dataset has no checkpoint= store; stopping "
+                            "WITHOUT saving.  Pass checkpoint=<dir|"
+                            "CheckpointManager> (with auto_resume=True to "
+                            "continue on relaunch) to make this exit "
+                            "durable.  The flag stays set for an enclosing "
+                            "checkpointed loop — call resilience.clear_"
+                            "preemption() if none exists.",
+                            RuntimeWarning, stacklevel=2)
+                    else:
+                        if mgr.latest_step() != step_i:
+                            # a boundary already durable is not rewritten
+                            mgr.save(_ckpt_state(), step_i, force=True,
+                                     extras=self._generator_extras())
+                        if mon.is_enabled():
+                            mon.counter(
+                                "resilience.preempt_checkpoint").add(1)
+                        # handled: a later loop in this process trains
+                        res.clear_preemption()
+                    break
+                if keep_replay:
+                    # a RollbackPerformed restored checkpoint step S:
+                    # re-run the buffered batches S+1.. in order, the
+                    # failing one included
+                    pending = [(step_i + 1, feed, fl)]
+                    while pending:
+                        sno, f, flx = pending.pop(0)
+                        try:
+                            out = self.run(program, feed=f, fetch_list=flx,
+                                           scope=scope, return_numpy=False,
+                                           _train_loop=True)
+                        except res.RollbackPerformed as rb:
+                            redo = [it for it in replay if it[0] > rb.step]
+                            replay = [it for it in replay
+                                      if it[0] <= rb.step]
+                            pending = redo + [(sno, f, flx)] + pending
+                            continue
+                        replay.append((sno, f, flx))
+                else:
+                    out = self.run(program, feed=feed, fetch_list=fl,
+                                   scope=scope, return_numpy=False,
+                                   _train_loop=True)
+                if entries and _sparse_push:
+                    n = len(entries)
+                    if guard is not None and guard.last_skipped:
+                        # a skipped step commits NOTHING, its sparse half
+                        # included
+                        out = out[:-n]
+                    else:
+                        grads = _materialize(out[-n:])
+                        for e, g in zip(entries, grads):
+                            e["table"].push(batch_ids[e["emb_var"]], g)
+                        out = out[:-n]
+                last = out
+                step_i += 1
+                if mgr is not None and mgr.should_save(step_i):
+                    # interval-gated before the state dict is built
+                    saved = mgr.save(_ckpt_state(), step_i,
+                                     extras=self._generator_extras())
+                    if saved is not None:
+                        replay = [it for it in replay if it[0] > step_i]
+                if (debug or fetch_info) and fetch_names \
+                        and step_i % print_period == 0:
+                    vals = _materialize(out)
+                    msg = ", ".join(
+                        f"{info}={v.mean():.6f}"
+                        for info, v in zip(fetch_info, vals))
+                    print(f"[train_from_dataset] step {step_i}: {msg}")
+        finally:
+            # the producer stops whether the loop ended, broke or raised
+            if stop is not None:
+                stop.set()
+                producer.join(timeout=5)
+        if not fetch_names or last is None:
+            return None
+        return _materialize(last)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           prefetch=None):
+        """executor.py:2342 parity: the same drain loop, read-only on the
+        sparse tables (rows are pulled to feed the program, gradients are
+        neither fetched nor pushed, so prefetch is on by default)."""
+        return self.train_from_dataset(
+            program=program, dataset=dataset, scope=scope, thread=thread,
+            debug=debug, fetch_list=fetch_list, fetch_info=fetch_info,
+            print_period=print_period, _sparse_push=False,
+            prefetch=prefetch)

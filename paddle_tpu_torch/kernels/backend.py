@@ -20,7 +20,11 @@ flags, so an edited source is rebuilt.
 Every kernel wrapper adds one to its entry in `LAUNCHES` where it
 launches its kernel, and nowhere else (`count_launch`; a float16 launch
 also under `<name>:float16`); a run reads the counts to show that its
-path went through the kernels.
+path went through the kernels.  Beside them, `HOST_SYNCS` counts the
+host reads of device values the static Executor makes by design (a
+control-flow predicate or array index, the guard's finite flag, a fetch
+the dataset loop materializes; `count_host_sync`), so a run can report
+them per loop trip and per step.
 
 Inside `traced_kernels()` the forward wrappers an inference Program
 reaches (K1, K4) call their launcher through a `torch.library` custom op
@@ -54,6 +58,7 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "flash_decode",
            "fused_stem_tail", "layer_norm_bwd", "topk_threshold")
 
 LAUNCHES = collections.Counter()
+HOST_SYNCS = collections.Counter()
 # compiler output (ptxas register / shared-memory / spill report) per
 # library built by this process
 BUILD_LOG = {}
@@ -111,6 +116,17 @@ def count_launch(name, dtype):
         LAUNCHES[name] += 1
         if dtype == torch.float16:
             LAUNCHES[name + ":float16"] += 1
+
+
+def reset_host_syncs():
+    HOST_SYNCS.clear()
+
+
+def count_host_sync(kind, n=1):
+    """`n` host reads of device values of kind `kind` ("cond", "while",
+    "array_index", "guard", "fetch", ...)."""
+    with _count_lock:
+        HOST_SYNCS[kind] += n
 
 
 def nvcc():

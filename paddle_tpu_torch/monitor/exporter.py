@@ -15,8 +15,8 @@ A stdlib ``http.server`` daemon thread — no new dependencies — serving:
   200 otherwise, body JSON either way.
 
 The reference's peak-memory, fleet-skew and elastic-topology blocks and
-its anomaly-guard health check read modules of ROADMAP item 10, and are
-left out until those are ported.
+its elastic health check read modules of ROADMAP item 10, and are left
+out until those are ported.
 
 Off by default (``FLAGS_metrics_port=0``): the serving hot paths carry
 no exporter code at all — ``ensure_started`` is called from
@@ -288,10 +288,11 @@ def parse_prometheus(text):
 
 def health():
     """(ok, checks) — the /healthz verdict.  Unhealthy when any live
-    serving breaker is OPEN or a watchdog-flagged dispatch is still
-    wedged in flight.  (The reference also checks its anomaly guard's
-    streak and elastic transitions: ROADMAP item 10.)"""
-    checks = {"breaker_open": False, "watchdog_wedged": False}
+    serving breaker is OPEN, a watchdog-flagged dispatch is still wedged
+    in flight, or the anomaly guard is mid-anomaly-streak.  (The
+    reference also checks elastic transitions: ROADMAP item 10.)"""
+    checks = {"breaker_open": False, "watchdog_wedged": False,
+              "anomaly_streak": 0}
     try:
         from ..serving import stats as serving_stats
 
@@ -303,7 +304,17 @@ def health():
                 checks["watchdog_wedged"] = True
     except Exception:
         pass
-    ok = not (checks["breaker_open"] or checks["watchdog_wedged"])
+    try:
+        from .. import resilience
+
+        guard = resilience.active_guard()
+        if guard is not None:
+            checks["anomaly_streak"] = int(
+                getattr(guard, "consecutive", 0) or 0)
+    except Exception:
+        pass
+    ok = not (checks["breaker_open"] or checks["watchdog_wedged"]
+              or checks["anomaly_streak"] > 0)
     return ok, checks
 
 
@@ -314,6 +325,8 @@ def _health_reason(checks):
         return "breaker_open"
     if checks.get("watchdog_wedged"):
         return "watchdog_wedged"
+    if checks.get("anomaly_streak"):
+        return "anomaly_streak"
     return None
 
 

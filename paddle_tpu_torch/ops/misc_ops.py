@@ -1,7 +1,8 @@
 """The static DGC ops (port of paddle_tpu/ops/misc_ops.py:582-660):
 `dgc_clip_by_norm`, `dgc` and `dgc_momentum`, the three ops
-`optimizer.DGCMomentumOptimizer` emits.  The rest of the reference's
-misc_ops corpus is ROADMAP item 10.
+`optimizer.DGCMomentumOptimizer` emits, and `print` (:717, the op of
+`layers.Print`).  The rest of the reference's misc_ops corpus is ROADMAP
+item 10.
 
 `dgc` takes the reference's exact threshold: the k-th largest |v|,
 `kthvalue` of the flattened |v| at n - k + 1 (the reference's
@@ -12,6 +13,7 @@ as the reference's static op does not use it either.
 
 import torch
 
+from ..kernels.backend import count_host_sync
 from .registry import register_op
 
 
@@ -93,3 +95,18 @@ def dgc_momentum(ins, attrs):
     before = step < rampup
     return {"ParamOut": torch.where(before, p_mom, p_sgd),
             "VelocityOut": torch.where(before, v_new, vel)}
+
+
+@register_op("print")
+def print_op(ins, attrs):
+    """operators/print_op.cc — a runtime tensor peek, identity on the
+    data path.  The reference prints with jax.debug.print; the port
+    prints the value from the host (one host read)."""
+    x = ins["In"]
+    msg = attrs.get("message") or "print"
+    count_host_sync("print")
+    v = x.detach()
+    if v.dtype == torch.bfloat16:
+        v = v.float()
+    print(f"[{msg}] shape={tuple(x.shape)} value={v.cpu().numpy()}")
+    return {"Out": x}

@@ -19,12 +19,11 @@ therefore:
      Downpour worker pushes),
   4. drops the weight's optimizer ops and startup initializer (the PS
      shard owns both init and update — adagrad-in-push),
-  5. attaches `_ps_sparse_config` to the trainer program, which the
-     reference's Executor.train_from_dataset reads to run the
-     pull -> step -> push loop.  That loop is ROADMAP item 10 in the
-     port (train_from_dataset raises until then); a caller drives it by
-     hand: `table.pull(ids)` fed as the lookup output, the step fetching
-     its `@GRAD`, `table.push(ids, grad)`.
+  5. attaches `_ps_sparse_config` to the trainer program, which
+     Executor.train_from_dataset reads to run the pull -> step -> push
+     loop (`table.pull(ids)` fed as the lookup output, the step
+     fetching its `@GRAD`, `table.push(ids, grad)`); a caller may also
+     drive it by hand.
 
 get_pserver_program(endpoint) returns the serving handle for that
 endpoint (the ListenAndServ analogue).

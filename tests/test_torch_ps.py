@@ -260,8 +260,31 @@ def test_transpiler_rewrite_equals_the_references():
                      for e in jmain._ps_sparse_config]
     assert isinstance(tt.tables[0], tps.SparseEmbedding)
     assert tt.tables[0].device == CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        fluid.Executor(fluid.CPUPlace()).train_from_dataset(tmain, None)
+    # the transpiled program trains by itself through the dataset loop:
+    # its _ps_sparse_config drives pull -> step -> push as the by-hand
+    # loop does, over a second transpile's table of the same seeds
+    tt2, tmain2, _, loss = _transpile(fluid, ttr)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(tstart, scope=scope)
+    start = interop.scope_to_numpy(scope)
+    names = ["FLAGS_amp", "FLAGS_graph_opt_fuse"]
+    old = fluid.get_flags(names)
+    fluid.set_flags({n: "off" for n in names})
+    try:
+        out = exe.train_from_dataset(tmain, _ctr_batches(6), scope=scope,
+                                     fetch_list=[loss],
+                                     print_period=10 ** 6)
+    finally:
+        fluid.set_flags(old)
+    hand = _downpour(fluid, exe, interop.scope_from_numpy(
+        start, fluid.Scope(), "cpu"), tmain2, loss, tt2.tables[0], 6)
+    np.testing.assert_allclose(float(out[0]), hand[-1], rtol=1e-5,
+                               atol=1e-5)
+    ids = np.arange(200)
+    np.testing.assert_allclose(tt.tables[0].pull(ids).numpy(),
+                               tt2.tables[0].pull(ids).numpy(), rtol=1e-5,
+                               atol=1e-5)
     with pytest.raises(ValueError, match="unknown pserver"):
         tt.get_pserver_program("127.0.0.1:1")
 

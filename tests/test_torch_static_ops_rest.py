@@ -568,13 +568,19 @@ FUSION_TIER_OPS = {"fused_attention", "fused_bias_act", "fused_layer_norm",
 # the static DGC ops (ops/misc_ops.py), held by tests/test_torch_static_dgc.py
 DGC_OPS = {"dgc_clip_by_norm", "dgc", "dgc_momentum"}
 
+# the ops of the control-flow layers and the learning-rate schedules,
+# held by tests/test_torch_control_flow.py and test_torch_lr_scheduler.py
+CONTROL_FLOW_LAYER_OPS = {"print", "lod_rank_table", "max_sequence_len",
+                          "shrink_memory", "piecewise_decay_lr",
+                          "linear_warmup_lr"}
+
 
 def test_new_ops_are_registered_with_the_reference_flags():
     # every op the port registers is held here, by the earlier file, by
-    # the fusion tier's or by the static DGC's
-    assert set(treg._OPS) - EARLIER_OPS - FUSION_TIER_OPS - DGC_OPS == \
-        set(NEW_OPS)
-    for name in NEW_OPS:
+    # the fusion tier's, the static DGC's or the control-flow slice's
+    assert set(treg._OPS) - EARLIER_OPS - FUSION_TIER_OPS - DGC_OPS \
+        - CONTROL_FLOW_LAYER_OPS == set(NEW_OPS)
+    for name in NEW_OPS + tuple(sorted(CONTROL_FLOW_LAYER_OPS)):
         mine, ref = treg.get_op(name), jreg.get_op(name)
         assert (mine.needs_rng, mine.stateful) == (ref.needs_rng,
                                                    ref.stateful), name

@@ -346,12 +346,14 @@ def test_unported_layer_names_raise_naming_their_items():
     missing = sorted(n for n in dir(jfluid.layers)
                      if not n.startswith("_") and n not in ported
                      and callable(getattr(jfluid.layers, n)))
-    # control flow, rnn, extended, sequence, detection, distributions
-    # and the learning-rate schedules: every name of the reference's nn,
-    # tensor, loss and metric_op resolves
-    assert len(missing) == 195
+    # rnn, extended, sequence, detection and distributions: every name
+    # of the reference's nn, tensor, loss, metric_op, control_flow and
+    # learning_rate_scheduler resolves (the 27 names of the last two
+    # came with the control-flow slice)
+    assert len(missing) == 168
     for mod in (jfluid.layers.nn, jfluid.layers.tensor, jfluid.layers.loss,
-                jfluid.layers.metric_op):
+                jfluid.layers.metric_op, jfluid.layers.control_flow,
+                jfluid.layers.learning_rate_scheduler):
         assert set(mod.__all__) <= ported, set(mod.__all__) - ported
     for n in missing:
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
@@ -389,15 +391,30 @@ def test_compiled_program_and_control_flow_raise_naming_their_items():
 
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         tcompiler.apply_precision_policy(lambda: None, "bfloat16")
-    main = fluid.Program()
-    main.global_block().create_var(name="w")
-    main.global_block().append_op("while_loop", inputs={},
-                                  outputs={"Out": ["w"]})
+    # the control-flow ops and the dataset loop run (the control-flow
+    # slice of item 10); the elastic loop still raises naming its item
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", [None, 2])
+        i = L.fill_constant([1], "float32", 0.0)
+        three = L.fill_constant([1], "float32", 3.0)
+        _, w = L.while_loop(lambda i, v: L.less_than(i, three),
+                            lambda i, v: [i + 1.0, L.scale(v, scale=2.0)],
+                            [i, x])
+        loss = L.mean(L.fc(w, 1))
+        fluid.optimizer.SGD(0.01).minimize(loss)
     exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.ones((2, 2), np.float32)}
+    (out,) = exe.run(main.clone(for_test=True), feed=feed, fetch_list=[w],
+                     scope=scope)
+    assert np.array_equal(out, np.full((2, 2), 8.0, np.float32))
+    last = exe.train_from_dataset(main, [feed] * 3, scope=scope,
+                                  fetch_list=[loss], print_period=10 ** 6)
+    assert np.isfinite(last[0]).all()
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        exe.run(main, fetch_list=["w"], scope=fluid.Scope())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        exe.train_from_dataset(main, None)
+        exe.train_from_dataset(main, [feed], scope=scope, elastic=object())
 
 
 def test_callsite_names_the_caller_not_the_port():
@@ -468,6 +485,18 @@ def test_no_port_module_names_item_3_and_none_imports_jax():
         "dim=0, regularizer=fluid.regularizer.L1Decay(0.1)))\n"
         "    fluid.optimizer.Adagrad(0.1, grad_clip=fluid.clip."
         "GradientClipByGlobalNorm(1.0)).minimize(fluid.layers.mean(h))\n"
+        "import paddle_tpu_torch.layers.control_flow\n"
+        "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
+        "import paddle_tpu_torch.datasets, paddle_tpu_torch.dataset\n"
+        "import paddle_tpu_torch.datasets.multislot\n"
+        "import paddle_tpu_torch.incubate.data_generator\n"
+        "import paddle_tpu_torch.resilience, paddle_tpu_torch.trainer_factory\n"
+        "import paddle_tpu_torch.data_feed_desc\n"
+        "with fluid.program_guard(fluid.Program(), fluid.Program()):\n"
+        "    i = fluid.layers.fill_constant([1], 'int64', 0)\n"
+        "    fluid.layers.cond(fluid.layers.less_than(i, i), lambda: i,\n"
+        "                      lambda: i)\n"
+        "    fluid.optimizer.Adam(fluid.layers.noam_decay(8, 2))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
         "print(bad)\n"
